@@ -15,7 +15,13 @@ non-zero exit code and no result line:
              compiler's register report.
 3. kernel  — on rmat(17, 16) with self-loops, for F in {128, 16} and both
              weight views (forward and transpose), holds the kernel
-             against its plain PyTorch version and times both.
+             against its plain PyTorch version and times both, beside the
+             card's bound for the same work and the library call
+             (torch.sparse.mm on a CSR tensor of the same graph and
+             weights), which is timed here and used nowhere in the port.
+             Then F = 7 (the kernel's scalar instantiation), and the
+             graph without self-loops, which has rows of degree 0, behind
+             an allocator dirtied with NaN: both against the plain version.
 4. small   — the port's Model trained 5 steps on the GPU and on the CPU
              (plain version) at rmat11 (ELL forced) and rmat13; the
              trajectories must agree.
@@ -54,16 +60,22 @@ SCALE, EDGE_FACTOR = 17, 16
 FEAT, HIDDEN, CLASSES = 128, 128, 16
 EPOCHS = 5
 BUCKETS = 5              # widths 4, 8, 16, 32, 64 at rmat17
+# One SpMM is one kernel launch over all buckets.
 SPMMS_PER_STEP = 3       # two forward, one adjoint (layer 1's input is constant)
 SPMMS_PER_EVAL = 2
-# Kernel vs plain: the kernel adds split rows' pieces with atomics, in an
-# order that changes from run to run, and sums each row in another order
-# than the plain version's reduction; both are float32.
+# Kernel vs plain: the kernel adds split rows' pieces (degree > 64) with
+# atomics, in an order that changes from run to run, and sums each row in
+# another order than the plain version's reduction; both are float32.
+# Rows that are not split are stored, not added, and repeat bit for bit.
 KERNEL_RTOL = KERNEL_ATOL = 1e-4
+# The card's published peaks (H100 SXM data sheet, at the 700 W limit).
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOP_PER_S = 67e12
 # Small-model trajectories, GPU vs CPU: the same float32 reordering,
 # compounded over 5 Adam steps.
 TRAJ_RTOL, TRAJ_ATOL = 1e-4, 1e-5
-TIMED_CALLS = 20
+TIMED_CALLS = 20         # back-to-back calls between one pair of events
+TIMED_BATCHES = 7
 TIMED_EPOCHS = 40
 PROFILED_EPOCHS = 10
 
@@ -95,53 +107,132 @@ def phase_build() -> None:
             print(f"[build] {line.strip()}")
 
 
-def _median_ms(fn) -> float:
+def _batch_ms(fn, calls: int = TIMED_CALLS,
+              batches: int = TIMED_BATCHES) -> float:
+    """Device time of one call: ``calls`` back-to-back calls between one
+    pair of events, divided by the count; the median of ``batches``. One
+    event pair per call would read the host's enqueue for a kernel this
+    short. The inputs stay as the last call left them in L2."""
     for _ in range(3):
         fn()
     times = []
-    for _ in range(TIMED_CALLS):
+    for _ in range(batches):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(calls):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / calls)
     return statistics.median(times)
 
 
-def phase_kernel(g) -> list[dict]:
+def _bound(dg, f: int) -> tuple[float, str, int]:
+    """The least time the card could take for one SpMM at width ``f``,
+    in ms, what bounds it, and the bytes: x read once, the slot ids and
+    weights, row ids and split flags read once, the output written once,
+    over the memory rate; against 2 FLOP per slot and feature over the
+    float32 rate. Slots count the ELL layout's padding: it is the input."""
+    slots = sum(b.nbr.numel() for b in dg.ell)
+    rows = sum(b.rows for b in dg.ell)
+    nbytes = 2 * dg.nv * f * 4 + slots * 8 + rows * 4 + dg.nv
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_ops = 2 * slots * f / F32_FLOP_PER_S * 1e3
+    return max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops else "operations", nbytes
+
+
+def _compare(dg, w, x, what: str, dirty: bool = False) -> float:
+    """Max |kernel - plain| on one input; raises beyond the tolerance.
+    With ``dirty``, the allocator's free block of the output's size is
+    filled with NaN first, so a row the kernel does not write shows."""
+    if dirty:
+        junk = torch.full((dg.nv, x.shape[1]), float("nan"), device="cuda")
+        del junk
+    out_k = K1.ell_spmm(dg, w, x)
+    out_p = K1.ell_spmm_plain(dg, w, x)
+    torch.cuda.synchronize()
+    err = float((out_k - out_p).abs().max())
+    if not torch.allclose(out_k, out_p, rtol=KERNEL_RTOL, atol=KERNEL_ATOL):
+        raise RuntimeError(f"kernel disagrees with plain at {what}: "
+                           f"max |diff| {err}")
+    again = K1.ell_spmm(dg, w, x)
+    unsplit = dg.is_split == 0
+    if not torch.equal(again[unsplit], out_k[unsplit]):
+        raise RuntimeError(f"unsplit rows did not repeat bit for bit at {what}")
+    return err
+
+
+def phase_kernel(g) -> tuple[list[dict], float]:
     gp = prepare_graph(g, "gcn")
     dg = to_device_graph(gp, device="cuda")
-    wp = pack_edge_values(dg, torch.from_numpy(
-        aggregation_weights(gp, "gcn")).cuda())
+    raw = torch.from_numpy(aggregation_weights(gp, "gcn")).cuda()
+    wp = pack_edge_values(dg, raw)
     slots = sum(b.nbr.numel() for b in dg.ell)
     print(f"[kernel] rmat{SCALE} nv={dg.nv} ne={dg.ne} slots={slots} "
-          f"buckets={[(b.width, b.rows) for b in dg.ell]}")
+          f"buckets={[(b.width, b.rows) for b in dg.ell]} "
+          f"split_rows={int(dg.is_split.sum())} zero_rows={dg.zero_rows.numel()}")
     if len(dg.ell) != BUCKETS:
         raise RuntimeError(f"expected {BUCKETS} buckets, got {len(dg.ell)}")
+    # the library call's operands: the same graph and weights as one CSR
+    # tensor per view (the graph is symmetric, so the transpose has the
+    # same structure and the permuted weights)
+    csr = {view: torch.sparse_csr_tensor(dg.row_ptr, dg.col_idx, vals,
+                                         size=(dg.nv, dg.nv))
+           for view, vals in (("fwd", raw), ("t", raw[dg.trans_perm.long()]))}
     gen = torch.Generator(device="cuda").manual_seed(0)
     cases = []
     for f in (FEAT, CLASSES):
         x = torch.randn(dg.nv, f, device="cuda", generator=gen)
+        bound_ms, bound_by, nbytes = _bound(dg, f)
         for view in ("fwd", "t"):
             w = getattr(wp, view)
-            out_k = K1.ell_spmm(dg, w, x)
-            out_p = K1.ell_spmm_plain(dg, w, x)
-            torch.cuda.synchronize()
-            err = float((out_k - out_p).abs().max())
-            if not torch.allclose(out_k, out_p, rtol=KERNEL_RTOL,
-                                  atol=KERNEL_ATOL):
-                raise RuntimeError(f"kernel disagrees with plain at F={f} "
-                                   f"view={view}: max |diff| {err}")
-            ms = _median_ms(lambda: K1.ell_spmm(dg, w, x))
-            plain_ms = _median_ms(lambda: K1.ell_spmm_plain(dg, w, x))
-            case = {"F": f, "view": view, "max_abs_err": err, "ms": ms,
-                    "plain_ms": plain_ms,
+            err = _compare(dg, w, x, f"F={f} view={view}")
+            if not w.launch_table.vec_ok:
+                raise RuntimeError("the main path's buckets must take the "
+                                   "kernel's vector instantiation")
+            out_l = torch.sparse.mm(csr[view], x)
+            if not torch.allclose(out_l, K1.ell_spmm_plain(dg, w, x),
+                                  rtol=KERNEL_RTOL, atol=KERNEL_ATOL):
+                raise RuntimeError(f"torch.sparse.mm disagrees with plain at "
+                                   f"F={f} view={view}")
+            ms = _batch_ms(lambda: K1.ell_spmm(dg, w, x))
+            plain_ms = _batch_ms(lambda: K1.ell_spmm_plain(dg, w, x),
+                                 calls=5, batches=3)
+            library_ms = _batch_ms(lambda: torch.sparse.mm(csr[view], x))
+            case = {"F": f, "view": view, "tile": K1._tile_floats(dg.nv, f),
+                    "max_abs_err": err, "ms": ms,
+                    "plain_ms": plain_ms, "library_ms": library_ms,
+                    "bound_ms": bound_ms, "bound_by": bound_by,
+                    "bound_bytes": nbytes, "share_of_bound": bound_ms / ms,
                     "edges_per_s": dg.ne / (ms * 1e-3)}
             print(f"[kernel] {json.dumps(case)}")
             cases.append(case)
-    return cases
+    # F = 7 takes the kernel's scalar instantiation (F % 4 != 0)
+    x7 = torch.randn(dg.nv, 7, device="cuda", generator=gen)
+    err7 = _compare(dg, wp.fwd, x7, "F=7 (scalar)", dirty=True)
+    print(f"[kernel] F=7 scalar instantiation: max_abs_err {err7}, "
+          f"{_batch_ms(lambda: K1.ell_spmm(dg, wp.fwd, x7)):.4f} ms")
+    # no self-loops (the SAGE preparation): rows of degree 0 have no
+    # virtual row, so only the wrapper's zeroing covers them
+    gs = prepare_graph(g, "sage")
+    dgs = to_device_graph(gs, device="cuda")
+    empty = int((dgs.deg == 0).sum())
+    if empty == 0:
+        raise RuntimeError("the graph without self-loops has no row of "
+                           "degree 0: the case checks nothing")
+    wps = pack_edge_values(dgs, torch.from_numpy(
+        aggregation_weights(gs, "sage")).cuda())
+    errs = []
+    for f in (CLASSES, 7):
+        xs = torch.randn(dgs.nv, f, device="cuda", generator=gen)
+        for view in ("fwd", "t"):
+            errs.append(_compare(dgs, getattr(wps, view), xs,
+                                 f"no self-loops F={f} view={view}", dirty=True))
+    print(f"[kernel] no self-loops: {empty} rows of degree 0, "
+          f"{dgs.zero_rows.numel()} zeroed rows, dirtied allocator, "
+          f"F in (16, 7) x (fwd, t): max_abs_err {max(errs)}")
+    return cases, max(err7, *errs)
 
 
 def _dataset(g, feat: int, classes: int, seed: int = 0) -> GnnDataset:
@@ -197,12 +288,12 @@ def phase_main(g) -> int:
         raise RuntimeError(f"non-finite loss: {losses}")
     if not losses[-1] < losses[0]:
         raise RuntimeError(f"loss did not decrease: {losses}")
-    if train_launches != EPOCHS * SPMMS_PER_STEP * BUCKETS:
+    if train_launches != EPOCHS * SPMMS_PER_STEP:
         raise RuntimeError(f"{train_launches} kernel launches in training, "
-                           f"expected {EPOCHS * SPMMS_PER_STEP * BUCKETS}")
-    if eval_launches != SPMMS_PER_EVAL * BUCKETS:
+                           f"expected {EPOCHS * SPMMS_PER_STEP}")
+    if eval_launches != SPMMS_PER_EVAL:
         raise RuntimeError(f"{eval_launches} kernel launches in evaluate, "
-                           f"expected {SPMMS_PER_EVAL * BUCKETS}")
+                           f"expected {SPMMS_PER_EVAL}")
     if not 0.0 <= acc <= 1.0:
         raise RuntimeError(f"test accuracy {acc} outside [0, 1]")
     with torch.no_grad():
@@ -224,7 +315,8 @@ def _epoch_median_ms(model, plain: bool) -> float:
     sends CUDA tensors to the plain version instead of the kernel."""
     cuda_route = K1._ell_spmm_cuda
     if plain:
-        K1._ell_spmm_cuda = K1.ell_spmm_plain
+        K1._ell_spmm_cuda = lambda table, x: K1.ell_spmm_plain(
+            table.graph, table.w_slots, x)
     try:
         log = model.train(TIMED_EPOCHS, verbose=False)
     finally:
@@ -290,7 +382,7 @@ def main() -> None:
     g = rmat(SCALE, EDGE_FACTOR, seed=0)
     print(f"[graph] rmat({SCALE}, {EDGE_FACTOR}) generated in "
           f"{time.perf_counter() - t0:.2f} s")
-    cases = phase_kernel(g)
+    cases, other_err = phase_kernel(g)
     phase_small()
     model, launches = phase_main(g)
     phase_profile(model, phase_epochs(model))
@@ -301,9 +393,12 @@ def main() -> None:
         "source": "graphaibench_tpu_torch/csrc/ell_spmm.cu",
         "replaces": "graphaibench_tpu/ops/pallas_spmm.py:43",
         "launches": launches,
-        "max_abs_err": max(c["max_abs_err"] for c in cases),
+        "max_abs_err": max(other_err, *(c["max_abs_err"] for c in cases)),
         "ms": head["ms"],
         "plain_ms": head["plain_ms"],
+        "bound_ms": head["bound_ms"],
+        "bound_by": head["bound_by"],
+        "library_ms": head["library_ms"],
         "cases": cases,
     }]}))
     print(json.dumps({"ok": True, "device": {

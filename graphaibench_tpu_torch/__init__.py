@@ -4,15 +4,17 @@ The JAX package ``graphaibench_tpu`` is the reference; this package keeps
 its module paths and names so each counterpart is easy to find, and runs
 on an NVIDIA Hopper GPU (sm_90a). It imports ``torch`` and never ``jax``.
 
-The jax-free host layer (CSR graphs, I/O, transforms, generators and the
-native C++ packers) is imported from ``graphaibench_tpu.graph`` and
-``graphaibench_tpu.native`` rather than copied. ``graphaibench_tpu.ops``
-and ``graphaibench_tpu.nn`` import jax, so the pieces of them the port
-needs (``ops/rng.py``, the host ELL packing, ``ModelConfig``) are
-mirrored here instead.
+It imports nothing of ``graphaibench_tpu`` either: the host layer it
+needs (CSR graphs, I/O, transforms, generators, the native C++ packers,
+``ops/rng.py``, the host ELL packing, ``ModelConfig``) is its own copy
+under the same names, and the tests hold every copy equal to the JAX
+package's, bit for bit.
 
 Subpackages
 -----------
+native  C++ host kernels (CSR build, stable key sort, ELL packing), built
+      with g++ at first use; numpy routes without a toolchain
+graph CSR container, transforms, generators, dataset readers
 ops   device graph (degree-bucketed ELL), the ELL SpMM kernel (CUDA C++
       in ``csrc/``) with its plain PyTorch version, SpMM autograd, math
 nn    GCN layers, losses, the reference's Adam, the training Model
@@ -21,6 +23,6 @@ cli   ``python -m graphaibench_tpu_torch.cli train gcn <dataset> ...``
 
 __version__ = "0.1.0"
 
-from graphaibench_tpu.graph.csr import CSRGraph  # noqa: F401
-from graphaibench_tpu.graph.generators import rmat  # noqa: F401
-from graphaibench_tpu.graph.io import GnnDataset  # noqa: F401
+from graphaibench_tpu_torch.graph.csr import CSRGraph  # noqa: F401
+from graphaibench_tpu_torch.graph.generators import rmat  # noqa: F401
+from graphaibench_tpu_torch.graph.io import GnnDataset  # noqa: F401

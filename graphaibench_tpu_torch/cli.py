@@ -7,6 +7,9 @@ inductive] [--device=cuda|cpu]`` takes the argv of
 plus ``--device`` (default ``cuda``). It runs full-batch, single-device
 training only; the routes not ported yet exit with code 2 and name their
 ROADMAP item.
+
+Dataset resolution: an existing directory (or compressed-graph prefix) is
+used directly; otherwise ``$DATASET_PATH/<name>`` (configs.h:5).
 """
 
 from __future__ import annotations
@@ -15,11 +18,20 @@ import glob
 import os
 import sys
 
-from graphaibench_tpu.cli import resolve_dataset
-
 USAGE = ("usage: train gcn <dataset> [epochs=10] [threads=0] [loss=softmax] "
          "[hidden=16] [score_drop=0] [feat_drop=0] [lr=0.02] [layers=2] "
          "[subg_size=0] [val_interval=50] [inductive=0] [--device=cuda|cpu]")
+
+
+def resolve_dataset(name: str) -> str:
+    if os.path.isdir(name):
+        return name
+    if os.path.exists(name + ".meta.json"):  # compressed-graph prefix
+        return name
+    root = os.environ.get("DATASET_PATH")
+    if root and os.path.isdir(os.path.join(root, name)):
+        return os.path.join(root, name)
+    raise SystemExit(f"dataset '{name}' not found (set DATASET_PATH)")
 
 
 def _refuse(msg: str) -> int:
@@ -79,8 +91,10 @@ def cmd_train(argv: list[str]) -> int:
     if os.path.exists(path + ".meta.json"):
         return _refuse("train does not accept compressed-graph prefixes; "
                        "decompress first")
-    from graphaibench_tpu.graph.io import load_gnn_dataset, load_gnn_dataset_csgr
-
+    from graphaibench_tpu_torch.graph.io import (
+        load_gnn_dataset,
+        load_gnn_dataset_csgr,
+    )
     from graphaibench_tpu_torch.nn import Model, make_config
 
     is_sigmoid = loss == "sigmoid"

@@ -1,8 +1,8 @@
 """GNN layers: GCN with the l2norm/dense head, and the reference init.
 
 Counterpart of ``graphaibench_tpu/nn/layers.py``. ``ModelConfig`` and
-``make_config`` are mirrored (``graphaibench_tpu.nn`` imports jax) with
-every field and default, so the two configs compare equal. Forward
+``make_config`` are the port's own copies (it imports nothing of the JAX
+package) with every field and default, so the two configs compare equal. Forward
 semantics follow the reference, including the y>z order optimization
 that chooses GEMM-then-SpMM or SpMM-then-GEMM (gcn_layer.cpp:19-25);
 gradients come from autograd. Parameters live in an ``nn.Module`` whose

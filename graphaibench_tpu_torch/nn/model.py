@@ -19,9 +19,9 @@ import time
 import numpy as np
 import torch
 
-from graphaibench_tpu.graph import transforms as T
-from graphaibench_tpu.graph.csr import CSRGraph
-from graphaibench_tpu.graph.io import GnnDataset
+from graphaibench_tpu_torch.graph import transforms as T
+from graphaibench_tpu_torch.graph.csr import CSRGraph
+from graphaibench_tpu_torch.graph.io import GnnDataset
 from graphaibench_tpu_torch.nn.layers import ModelConfig, apply_model, init_params
 from graphaibench_tpu_torch.nn.losses import masked_sigmoid_loss, masked_softmax_loss
 from graphaibench_tpu_torch.nn.optim import Adam

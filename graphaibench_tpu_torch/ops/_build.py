@@ -4,7 +4,8 @@ The sources in ``graphaibench_tpu_torch/csrc`` are compiled with ``nvcc``
 for sm_90a into one shared library with a plain C interface, at first
 use, into ``build/torch_kernels/`` of the checkout, keyed by a hash of the
 sources and flags. The library is loaded with ``ctypes``; pointers and the
-stream travel as ``c_void_p``, sizes as ``c_int64``.
+stream travel as ``c_void_p``, sizes as ``c_int64``, and a kernel's
+per-bucket arrays as ctypes arrays of those.
 
 There is no fallback here: without a CUDA device or without ``nvcc``,
 ``load_library`` raises. Only the wrappers decide to take a kernel's plain
@@ -86,10 +87,12 @@ def load_library() -> ctypes.CDLL:
             "torch.cuda.is_available() is False")
     lib = ctypes.CDLL(str(build()))
     vp = ctypes.c_void_p
-    lib.gab_ell_spmm_bucket.argtypes = [vp, vp, vp, vp, vp, ctypes.c_int64,
-                                        ctypes.c_int, ctypes.c_int64,
-                                        ctypes.c_int, vp]
-    lib.gab_ell_spmm_bucket.restype = ctypes.c_int
+    vpp = ctypes.POINTER(vp)
+    lib.gab_ell_spmm.argtypes = [
+        vpp, vpp, vpp, ctypes.POINTER(ctypes.c_int64),
+        ctypes.POINTER(ctypes.c_int32), ctypes.c_int, vp, vp, vp,
+        ctypes.c_int64, ctypes.c_int, ctypes.c_int, vp]
+    lib.gab_ell_spmm.restype = ctypes.c_int
     lib.gab_cuda_error_string.argtypes = [ctypes.c_int]
     lib.gab_cuda_error_string.restype = ctypes.c_char_p
     _LIB = lib

@@ -8,19 +8,22 @@ on an explicit ``device``.
     SpMM strategies and per-edge ops.
   * Degree-bucketed ELL — rows grouped by pow2 degree up to width 64,
     heavier rows split into 64-wide virtual rows that target the same
-    output row (consumers accumulate with atomics / index_add, never a
-    plain store). Pad slots have nbr 0 and edge_id ne, the sentinel that
+    output row (consumers add the pieces of such a row, never store
+    them). Pad slots have nbr 0 and edge_id ne, the sentinel that
     gathers a zero weight. Slot arrays are flat (R*W,), row r's slots at
     [r*W, (r+1)*W), as the reference stores them.
+  * Beside the ELL layout, two arrays derived from the degrees tell the
+    SpMM kernel how to write a row: ``is_split`` (the row has several
+    virtual rows, so its pieces are added) and ``zero_rows`` (the rows a
+    kernel does not store to: degree 0, which has no virtual row, and
+    split rows, whose adds need a zero to start from).
 
 The transpose permutation (host-built once) turns the SpMM adjoint into
 the same bucket pass on transpose-permuted weights.
 
-The host ELL packing is ``graphaibench_tpu.native.ell_pack`` (jax-free,
-one native pass). Its numpy fallback for hosts without ``g++`` lives in
-``graphaibench_tpu/ops/device_graph.py``, a jax module, so it is mirrored
-here (``_virtual_rows``, ``_pack_buckets``) and tested bit-equal against
-the native packer.
+The host ELL packing is ``native.ell_pack`` (one native pass), with the
+numpy route (``_virtual_rows``, ``_pack_buckets``) for hosts without
+``g++``, tested bit-equal against the native packer.
 
 Index arrays are int32, as in the reference; the kernel widens to 64 bits
 for addresses.
@@ -33,9 +36,9 @@ import dataclasses
 import numpy as np
 import torch
 
-from graphaibench_tpu import native
-from graphaibench_tpu.graph import transforms as T
-from graphaibench_tpu.graph.csr import CSRGraph
+from graphaibench_tpu_torch import native
+from graphaibench_tpu_torch.graph import transforms as T
+from graphaibench_tpu_torch.graph.csr import CSRGraph
 
 
 @dataclasses.dataclass(frozen=True)
@@ -64,12 +67,23 @@ class DeviceGraph:
     # edge k of G^T is edge trans_perm[k] of G
     trans_perm: torch.Tensor            # (E,) int32
     ell: tuple                          # tuple[EllBucket, ...] (empty if ne == 0)
+    is_split: torch.Tensor              # (N,) uint8 — 1 where deg > ELL_SPLIT
+    zero_rows: torch.Tensor             # (K,) int64 — ids with deg 0 or deg > ELL_SPLIT
     nv: int
     ne: int
 
     @property
     def has_ell_layout(self) -> bool:
         return bool(self.ell)
+
+
+class SlotWeights(tuple):
+    """The per-bucket slot weights of one weight view: a tuple, indexed
+    and zipped like any other, of a class of its own so that
+    ``ops/ell_spmm.py`` can keep on it the launch table it builds (and the
+    validation it does) at the view's first SpMM."""
+
+    launch_table = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -81,8 +95,8 @@ class PackedEdgeW:
     array for the COO/dense strategies and the weight gradient."""
 
     raw: torch.Tensor
-    fwd: tuple
-    t: tuple
+    fwd: SlotWeights
+    t: SlotWeights
 
 
 def pack_edge_values(g: DeviceGraph, w: torch.Tensor) -> PackedEdgeW:
@@ -90,8 +104,9 @@ def pack_edge_values(g: DeviceGraph, w: torch.Tensor) -> PackedEdgeW:
     zero = w.new_zeros(1)
     w_pad = torch.cat([w, zero])
     wt_pad = torch.cat([w[g.trans_perm], zero])
-    return PackedEdgeW(raw=w, fwd=tuple(w_pad[b.edge_id] for b in g.ell),
-                       t=tuple(wt_pad[b.edge_id] for b in g.ell))
+    return PackedEdgeW(raw=w,
+                       fwd=SlotWeights(w_pad[b.edge_id] for b in g.ell),
+                       t=SlotWeights(wt_pad[b.edge_id] for b in g.ell))
 
 
 # Width grid and heavy-row split of the reference layout
@@ -191,13 +206,18 @@ def to_device_graph(g: CSRGraph, *, device) -> DeviceGraph:
     if g.ne >= 2**31:
         raise ValueError("edge count must fit int32")
     src, dst = g.coo()
+    deg = g.degrees()
+    split = deg > ELL_SPLIT
     return DeviceGraph(
         row_ptr=_to(g.row_ptr, device),
         col_idx=_to(dst, device),
         edge_src=_to(src, device),
-        deg=_to(g.degrees(), device),
+        deg=_to(deg, device),
         trans_perm=_to(T.transpose_edge_permutation(g), device),
         ell=tuple(build_ell_buckets(g, device=device)),
+        is_split=torch.from_numpy(split.astype(np.uint8)).to(device),
+        zero_rows=torch.from_numpy(
+            np.flatnonzero(split | (deg == 0)).astype(np.int64)).to(device),
         nv=g.nv,
         ne=g.ne,
     )

@@ -10,21 +10,107 @@ bucket's ``nbr``):
 
 ``ell_spmm`` takes the plain version for tensors on the CPU and launches
 the kernel for tensors on a CUDA device, or raises; it never moves work
-between devices. ``LAUNCHES`` counts kernel launches (one per bucket), so
-a run can show that its SpMMs went through the kernel.
+between devices. One SpMM is one kernel launch over all buckets, and
+``LAUNCHES`` counts those launches, so a run can show that its SpMMs went
+through the kernel.
+
+The kernel stores a row that has one virtual row and adds (atomics) the
+pieces of a row that is split, so the wrapper hands it an uninitialised
+output in which only ``g.zero_rows`` (degree 0, and split rows) are zero.
+Unsplit rows are therefore bit-reproducible; split rows are summed in an
+order that changes from run to run.
 """
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from graphaibench_tpu_torch.ops import _build
-from graphaibench_tpu_torch.ops.device_graph import DeviceGraph
+from graphaibench_tpu_torch.ops.device_graph import DeviceGraph, SlotWeights
 
 LAUNCHES = 0
 
+MAX_BUCKETS = 8                       # kMaxBuckets of csrc/ell_spmm.cu
+_VEC_WIDTHS = frozenset((4, 8, 16, 32, 64))
+# Bytes of x that one feature tile may span. The kernel gathers all rows
+# of one tile before the next tile's, so a tile of x within this budget
+# stays in the 50 MB L2 beside the output tile and the streamed ids.
+_L2_TILE_BYTES = 24 << 20
 
-def _check(g: DeviceGraph, w_slots, x: torch.Tensor) -> None:
+
+def _tile_floats(nv: int, f: int) -> int:
+    """Feature columns per tile of the vector instantiation: the widest
+    of 128, 64, 32 (a lane holds one float4, a group at most 32 lanes;
+    32 floats are one 128-byte line) whose slice of x fits the budget,
+    and never wider than F."""
+    for tile in (128, 64, 32):
+        if nv * min(tile, f) * 4 <= _L2_TILE_BYTES:
+            break
+    return min(tile, f)
+
+
+class _LaunchTable:
+    """What one (graph, weight view) pair hands the kernel at every call:
+    the per-bucket pointer, row-count and width arrays in launch order
+    (widest bucket first), validated once when the table is built. It
+    keeps the graph and the weights alive, since it holds their
+    addresses."""
+
+    def __init__(self, g: DeviceGraph, w_slots):
+        if len(w_slots) != len(g.ell):
+            raise ValueError(f"{len(w_slots)} slot-weight arrays for "
+                             f"{len(g.ell)} buckets")
+        if len(g.ell) > MAX_BUCKETS:
+            raise ValueError(f"{len(g.ell)} buckets, the kernel's table "
+                             f"holds {MAX_BUCKETS}")
+        self.graph, self.w_slots = g, w_slots
+        self.device = g.is_split.device
+        if g.is_split.dtype != torch.uint8 or g.is_split.shape != (g.nv,):
+            raise ValueError("is_split must be uint8 of shape (nv,)")
+        if g.zero_rows.device != self.device:
+            raise ValueError("graph, weights and x must be on one device")
+        for b, w in zip(g.ell, w_slots):
+            if w.dtype != torch.float32 or tuple(w.shape) != tuple(b.nbr.shape):
+                raise ValueError(
+                    f"bucket of width {b.width}: slot weights must be float32 of "
+                    f"shape {tuple(b.nbr.shape)}, got {w.dtype} {tuple(w.shape)}")
+            if not (self.device == w.device == b.nbr.device
+                    == b.row_ids.device):
+                raise ValueError("graph, weights and x must be on one device")
+            if not w.is_contiguous():
+                raise ValueError("slot weights must be contiguous")
+            if b.row_ids.dtype != torch.int32 or b.nbr.dtype != torch.int32:
+                raise ValueError("bucket ids must be int32")
+        order = sorted(range(len(g.ell)), key=lambda i: -g.ell[i].width)
+        buckets = [g.ell[i] for i in order]
+        weights = [w_slots[i] for i in order]
+        n = len(order)
+        self.n = n
+        self.row_ids = (ctypes.c_void_p * n)(*(b.row_ids.data_ptr() for b in buckets))
+        self.nbr = (ctypes.c_void_p * n)(*(b.nbr.data_ptr() for b in buckets))
+        self.w = (ctypes.c_void_p * n)(*(w.data_ptr() for w in weights))
+        self.rows = (ctypes.c_int64 * n)(*(b.rows for b in buckets))
+        self.widths = (ctypes.c_int32 * n)(*(b.width for b in buckets))
+        # what the vector instantiation needs of the graph and weights
+        self.vec_ok = all(
+            b.width in _VEC_WIDTHS and b.nbr.data_ptr() % 16 == 0
+            and w.data_ptr() % 16 == 0 for b, w in zip(buckets, weights))
+
+
+def _launch_table(g: DeviceGraph, w_slots) -> _LaunchTable:
+    """The pair's table: built (and the pair validated) at its first SpMM
+    and kept on a ``SlotWeights``; a plain tuple gets a new one per call."""
+    table = getattr(w_slots, "launch_table", None)
+    if table is None or table.graph is not g:
+        table = _LaunchTable(g, w_slots)
+        if isinstance(w_slots, SlotWeights):
+            w_slots.launch_table = table
+    return table
+
+
+def _check_x(g: DeviceGraph, x: torch.Tensor) -> None:
     if x.dtype != torch.float32 or x.dim() != 2:
         raise ValueError(f"x must be a 2-D float32 tensor, got {x.dtype} "
                          f"{tuple(x.shape)}")
@@ -32,21 +118,6 @@ def _check(g: DeviceGraph, w_slots, x: torch.Tensor) -> None:
         raise ValueError(f"x has {x.shape[0]} rows, the graph {g.nv}")
     if not x.is_contiguous():
         raise ValueError("x must be contiguous")
-    if len(w_slots) != len(g.ell):
-        raise ValueError(f"{len(w_slots)} slot-weight arrays for "
-                         f"{len(g.ell)} buckets")
-    for b, w in zip(g.ell, w_slots):
-        if w.dtype != torch.float32 or tuple(w.shape) != tuple(b.nbr.shape):
-            raise ValueError(
-                f"bucket of width {b.width}: slot weights must be float32 of "
-                f"shape {tuple(b.nbr.shape)}, got {w.dtype} {tuple(w.shape)}")
-        if x.device != w.device or x.device != b.nbr.device or \
-                x.device != b.row_ids.device:
-            raise ValueError("graph, weights and x must be on one device")
-        if not w.is_contiguous():
-            raise ValueError("slot weights must be contiguous")
-        if b.row_ids.dtype != torch.int32 or b.nbr.dtype != torch.int32:
-            raise ValueError("bucket ids must be int32")
 
 
 def ell_spmm_plain(g: DeviceGraph, w_slots, x: torch.Tensor) -> torch.Tensor:
@@ -60,33 +131,47 @@ def ell_spmm_plain(g: DeviceGraph, w_slots, x: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def _ell_spmm_cuda(g: DeviceGraph, w_slots, x: torch.Tensor) -> torch.Tensor:
+def _ell_spmm_cuda(table: _LaunchTable, x: torch.Tensor) -> torch.Tensor:
     global LAUNCHES
-    lib = _build.load_library()
-    out = torch.zeros((g.nv, x.shape[1]), dtype=x.dtype, device=x.device)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
+    g = table.graph
     f = x.shape[1]
-    for b, w in zip(g.ell, w_slots):
-        rc = lib.gab_ell_spmm_bucket(
-            b.row_ids.data_ptr(), b.nbr.data_ptr(), w.data_ptr(),
-            x.data_ptr(), out.data_ptr(), b.rows, b.width, f,
-            x.device.index, stream)
-        if rc != 0:
-            msg = lib.gab_cuda_error_string(rc).decode()
-            raise RuntimeError(
-                f"ell_spmm kernel launch failed (bucket width {b.width}, "
-                f"{b.rows} rows, F={f}): CUDA error {rc}: {msg}")
-        LAUNCHES += 1
+    if table.n == 0 or f == 0:
+        return x.new_zeros((g.nv, f))
+    lib = _build.load_library()
+    out = torch.empty((g.nv, f), dtype=x.dtype, device=x.device)
+    if g.zero_rows.numel():
+        out.index_fill_(0, g.zero_rows, 0.0)
+    # float4 loads need F % 4 == 0 and 16-byte alignment (a contiguous
+    # view with a storage offset is legal input); the scalar instantiation
+    # of the kernel takes the rest
+    vec = (table.vec_ok and f % 4 == 0 and x.data_ptr() % 16 == 0
+           and out.data_ptr() % 16 == 0)
+    tile_f4 = _tile_floats(g.nv, f) // 4 if vec else 0
+    rc = lib.gab_ell_spmm(
+        table.row_ids, table.nbr, table.w, table.rows, table.widths, table.n,
+        g.is_split.data_ptr(), x.data_ptr(), out.data_ptr(), f, tile_f4,
+        x.device.index, torch.cuda.current_stream(x.device).cuda_stream)
+    if rc != 0:
+        msg = lib.gab_cuda_error_string(rc).decode()
+        raise RuntimeError(
+            f"ell_spmm kernel launch failed ({table.n} buckets, widths "
+            f"{list(table.widths)}, F={f}, tile_f4={tile_f4}): CUDA error "
+            f"{rc}: {msg}")
+    LAUNCHES += 1
     return out
 
 
 def ell_spmm(g: DeviceGraph, w_slots, x: torch.Tensor) -> torch.Tensor:
     """ELL SpMM over every bucket of ``g``: the kernel on a CUDA device,
-    the plain version on the CPU. ``w_slots`` is a tuple of per-bucket
-    slot weights (``PackedEdgeW.fwd`` or ``.t``)."""
-    _check(g, w_slots, x)
+    the plain version on the CPU. ``w_slots`` holds the per-bucket slot
+    weights (``PackedEdgeW.fwd`` or ``.t``, or any tuple aligned with
+    ``g.ell``)."""
+    _check_x(g, x)
+    table = _launch_table(g, w_slots)
+    if x.device != table.device:
+        raise ValueError("graph, weights and x must be on one device")
     if x.device.type == "cpu":
         return ell_spmm_plain(g, w_slots, x)
     if x.device.type != "cuda":
         raise ValueError(f"ell_spmm runs on cpu or cuda, not {x.device}")
-    return _ell_spmm_cuda(g, w_slots, x)
+    return _ell_spmm_cuda(table, x)

@@ -1,9 +1,7 @@
 """Deterministic RNG reproducing the reference's weight initialization.
 
-Mirror of ``graphaibench_tpu/ops/rng.py`` (pure numpy). It is mirrored,
-not imported, because importing any ``graphaibench_tpu.ops`` module runs
-``graphaibench_tpu/ops/__init__.py``, which imports jax. A test holds the
-two bit-equal.
+The port's own copy of ``graphaibench_tpu/ops/rng.py`` (pure numpy): the
+port imports nothing of the JAX package. A test holds the two bit-equal.
 
 The reference initializes Glorot weights with
 ``std::default_random_engine(seed)`` + ``std::uniform_real_distribution

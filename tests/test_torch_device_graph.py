@@ -1,6 +1,7 @@
 """The port's device graph against the JAX package's: the same ELL
 buckets, CSR/COO arrays and transpose permutation, the same packed edge
-values, and the mirrored numpy packing equal to the native packer."""
+values, the numpy packing equal to the native packer, and the arrays
+derived for the kernel's store-or-add rule equal to their definition."""
 
 import numpy as np
 import pytest
@@ -14,10 +15,23 @@ from graphaibench_tpu_torch.ops import device_graph as tdgm
 
 torch.set_num_threads(2)
 
+def hubs_graph():
+    """Symmetric stars: vertex 0 has degree exactly 64 (one virtual row,
+    the widest unsplit), vertex 100 degree 65 (split: 64 + 1), vertex 200
+    degree 199 (split: 64 + 64 + 64 + 7); their leaves have degree 1 and
+    vertices 65..99 and 166..199 are isolated."""
+    src = np.concatenate([np.zeros(64), np.full(65, 100), np.full(199, 200)])
+    dst = np.concatenate([np.arange(1, 65), np.arange(101, 166),
+                          np.arange(201, 400)])
+    return from_edges(np.concatenate([src, dst]), np.concatenate([dst, src]),
+                      400)
+
+
 GRAPHS = {
     "rmat10": lambda: rmat(10, 8, seed=0),
     "uniform200": lambda: uniform_random(200, 600, seed=3),
     "isolated": lambda: from_edges([0, 1, 2, 5, 5, 5], [1, 0, 5, 2, 6, 7], 9),
+    "hubs": hubs_graph,
 }
 
 
@@ -94,3 +108,50 @@ def test_rmat10_splits_heavy_rows():
     assert len(torch.unique(wide.row_ids)) < wide.rows or any(
         len(set(b.row_ids.tolist()) & set(wide.row_ids.tolist()))
         for b in tdg.ell[:-1])
+
+
+def test_split_flags_and_zero_rows_follow_the_degrees(graph):
+    """``is_split`` and ``zero_rows`` by their definition, and by what the
+    kernel needs of them: every row is written by exactly one store, or
+    is zeroed first and then only added to (or never touched)."""
+    tdg = tdgm.to_device_graph(graph, device="cpu")
+    deg = graph.degrees()
+    assert tdg.is_split.dtype == torch.uint8
+    assert tdg.zero_rows.dtype == torch.int64
+    np.testing.assert_array_equal(tdg.is_split.numpy(),
+                                  (deg > tdgm.ELL_SPLIT).astype(np.uint8))
+    np.testing.assert_array_equal(
+        tdg.zero_rows.numpy(),
+        np.flatnonzero((deg == 0) | (deg > tdgm.ELL_SPLIT)))
+    pieces = np.bincount(
+        np.concatenate([b.row_ids.numpy() for b in tdg.ell]),
+        minlength=graph.nv)
+    np.testing.assert_array_equal(pieces > 1, deg > tdgm.ELL_SPLIT)
+    np.testing.assert_array_equal(pieces == 0, deg == 0)
+    stored = pieces == 1
+    zeroed = np.zeros(graph.nv, bool)
+    zeroed[tdg.zero_rows.numpy()] = True
+    np.testing.assert_array_equal(stored, ~zeroed)
+
+
+def test_hubs_graph_has_the_boundary_degrees():
+    g = hubs_graph()
+    deg = g.degrees()
+    assert (deg[0], deg[100], deg[200]) == (64, 65, 199)
+    assert (deg[65:100] == 0).all() and (deg[166:200] == 0).all()
+    tdg = tdgm.to_device_graph(g, device="cpu")
+    assert tdg.is_split[[0, 100, 200]].tolist() == [0, 1, 1]
+    assert set(tdg.zero_rows.tolist()) == {100, 200, *range(65, 100),
+                                           *range(166, 200)}
+    wide = tdg.ell[-1]
+    assert wide.width == 64
+    assert sorted(wide.row_ids.tolist()) == [0, 100, 200, 200, 200]
+
+
+def test_packed_views_are_slot_weights(graph):
+    tdg = tdgm.to_device_graph(graph, device="cpu")
+    wp = tdgm.pack_edge_values(tdg, torch.ones(graph.ne))
+    for view in (wp.fwd, wp.t):
+        assert isinstance(view, tdgm.SlotWeights) and isinstance(view, tuple)
+        assert len(view) == len(tdg.ell)
+        assert view.launch_table is None

@@ -22,14 +22,18 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def test_port_imports_leave_jax_out():
-    """Importing the port (and chip_smoke) in a fresh interpreter loads no
-    jax module; conftest imports jax here, hence the subprocess."""
+    """Importing every module of the port (and chip_smoke) in a fresh
+    interpreter loads no jax module and nothing of the JAX package;
+    conftest imports jax here, hence the subprocess."""
     code = (
-        "import sys\n"
-        "import graphaibench_tpu_torch, graphaibench_tpu_torch.ops.spmm\n"
-        "import graphaibench_tpu_torch.nn.model, graphaibench_tpu_torch.cli\n"
+        "import importlib, pkgutil, sys\n"
+        "import graphaibench_tpu_torch as pkg\n"
+        "names = [m.name for m in pkgutil.walk_packages(pkg.__path__, 'graphaibench_tpu_torch.')]\n"
+        "assert len(names) >= 19, names\n"
+        "for n in names:\n"
+        "    importlib.import_module(n)\n"
         "import chip_smoke\n"
-        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')]\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'graphaibench_tpu')]\n"
         "assert not bad, bad[:5]\n"
         "print('clean')\n"
     )

@@ -1,7 +1,8 @@
 """The port's SpMM against the JAX package's: the plain version of kernel
 K1 against the Pallas kernel (interpret mode) and the XLA ELL path, and
 ``spmm``'s forward and gradients against ``jax.grad`` of JAX ``spmm``.
-Tolerances: float32 sums taken in another order, rtol = atol = 1e-5."""
+Tolerances: float32 sums taken in another order, rtol = atol = 1e-5
+(the row-rule emulation: rtol 1e-5, atol 1e-6)."""
 
 import dataclasses
 
@@ -12,7 +13,7 @@ import pytest
 import torch
 
 from graphaibench_tpu.graph.generators import rmat
-from graphaibench_tpu.graph.transforms import add_selfloop
+from graphaibench_tpu.graph.transforms import add_selfloop, gcn_edge_norms
 from graphaibench_tpu.ops import device_graph as jdgm
 from graphaibench_tpu.ops.spmm import spmm as jax_spmm
 from graphaibench_tpu.ops.spmm import spmm_ell as jax_spmm_ell
@@ -21,6 +22,7 @@ from graphaibench_tpu_torch.ops import _build
 from graphaibench_tpu_torch.ops import device_graph as tdgm
 from graphaibench_tpu_torch.ops import ell_spmm as K1
 from graphaibench_tpu_torch.ops import spmm as tspmm
+from test_torch_device_graph import hubs_graph
 
 torch.set_num_threads(2)
 
@@ -173,7 +175,133 @@ def test_kernel_matches_plain_on_cuda(graphs):
     xc = torch.from_numpy(x).cuda()
     before = K1.LAUNCHES
     out = K1.ell_spmm(dg, wp.fwd, xc)
-    assert K1.LAUNCHES == before + len(dg.ell)
+    assert K1.LAUNCHES == before + 1          # one launch over all buckets
     # atomics add split rows' pieces in a run-dependent order
     torch.testing.assert_close(out, K1.ell_spmm_plain(dg, wp.fwd, xc),
                                rtol=1e-4, atol=1e-4)
+
+
+# ---- the kernel's design, as far as the CPU reaches it --------------------
+
+ROW_RULE_GRAPHS = {
+    "hubs": hubs_graph,    # degrees 64, 65, 199, 1 and 0
+    "rmat10": lambda: rmat(10, 8, seed=0),               # degree-0 rows
+    "rmat10_selfloops": lambda: add_selfloop(rmat(10, 8, seed=0)),
+}
+
+
+def _row_rule(dg, w_slots, x):
+    """What the kernel does to its output, emulated on the CPU: ``out`` is
+    uninitialised (NaN here) but for ``zero_rows``; a virtual row of an
+    unsplit row is stored, a piece of a split row is added."""
+    out = torch.full((dg.nv, x.shape[1]), float("nan"))
+    out[dg.zero_rows] = 0.0
+    for b, w in zip(dg.ell, w_slots):
+        nbr = b.nbr.view(b.rows, b.width).long()
+        contrib = (w.view(b.rows, b.width, 1) * x[nbr]).sum(1)
+        split = dg.is_split[b.row_ids.long()] != 0
+        out[b.row_ids[~split].long()] = contrib[~split]
+        out.index_add_(0, b.row_ids[split], contrib[split])
+    return out
+
+
+@pytest.mark.parametrize("f", [128, 16, 7])
+@pytest.mark.parametrize("name", sorted(ROW_RULE_GRAPHS))
+def test_row_rule_matches_plain_and_jax(name, f):
+    g = ROW_RULE_GRAPHS[name]()
+    jdg = jdgm.to_device_graph(g, seg_ell=False)
+    tdg = tdgm.to_device_graph(g, device="cpu")
+    # the main path's weights (GCN norms): the sums are well conditioned,
+    # so float32 reordering stays inside rtol 1e-5 / atol 1e-6
+    w = gcn_edge_norms(g)
+    _, x, _ = _inputs(g, f, seed=3)
+    wp = tdgm.pack_edge_values(tdg, torch.from_numpy(w))
+    tol = dict(rtol=1e-5, atol=1e-6)
+    for view, jw in ((wp.fwd, jnp.asarray(w)),
+                     (wp.t, jnp.asarray(w)[jdg.trans_perm])):
+        ours = _row_rule(tdg, view, torch.from_numpy(x)).numpy()
+        assert np.isfinite(ours).all(), "a row was neither stored nor zeroed"
+        plain = K1.ell_spmm_plain(tdg, view, torch.from_numpy(x)).numpy()
+        np.testing.assert_allclose(ours, plain, **tol)
+        pallas = np.asarray(spmm_ell_pallas(jdg, jw, jnp.asarray(x),
+                                            interpret=True))
+        xla = np.asarray(jax_spmm_ell(jdg, jw, jnp.asarray(x)))
+        np.testing.assert_allclose(ours, pallas, **tol)
+        np.testing.assert_allclose(ours, xla, **tol)
+
+
+def test_launch_table_is_built_once_per_weight_view(graphs, monkeypatch):
+    """A ``SlotWeights`` view is validated, and its table built, at its
+    first SpMM; a plain tuple gets a table per call."""
+    _, _, tdg = graphs
+    wp = tdgm.pack_edge_values(tdg, torch.ones(tdg.ne))
+    built = []
+    orig = K1._LaunchTable.__init__
+    monkeypatch.setattr(K1._LaunchTable, "__init__",
+                        lambda self, g, w: built.append(w) or orig(self, g, w))
+    x = torch.ones(tdg.nv, 4)
+    for _ in range(3):
+        K1.ell_spmm(tdg, wp.fwd, x)
+        K1.ell_spmm(tdg, wp.t, x)
+    assert built == [wp.fwd, wp.t]
+    assert wp.fwd.launch_table.graph is tdg
+    plain_tuple = tuple(wp.fwd)
+    K1.ell_spmm(tdg, plain_tuple, x)
+    K1.ell_spmm(tdg, plain_tuple, x)
+    assert len(built) == 4
+    # the same weights on another graph object are checked again
+    other = dataclasses.replace(tdg)
+    K1.ell_spmm(other, wp.fwd, x)
+    assert len(built) == 5 and wp.fwd.launch_table.graph is other
+
+
+def test_launch_table_lists_the_widest_bucket_first(graphs):
+    _, _, tdg = graphs
+    wp = tdgm.pack_edge_values(tdg, torch.ones(tdg.ne))
+    table = K1._LaunchTable(tdg, wp.fwd)
+    widths = [b.width for b in tdg.ell]
+    assert list(table.widths) == sorted(widths, reverse=True)
+    by_width = {b.width: (b, w) for b, w in zip(tdg.ell, wp.fwd)}
+    for i, width in enumerate(table.widths):
+        b, w = by_width[width]
+        assert table.rows[i] == b.rows
+        assert table.row_ids[i] == b.row_ids.data_ptr()
+        assert table.nbr[i] == b.nbr.data_ptr()
+        assert table.w[i] == w.data_ptr()
+    assert table.n == len(tdg.ell) <= K1.MAX_BUCKETS
+    assert table.vec_ok
+
+
+def test_launch_table_sends_odd_widths_to_the_scalar_instantiation():
+    g = add_selfloop(rmat(8, 8, seed=0))
+    tdg = tdgm.to_device_graph(g, device="cpu")
+    ell = tuple(tdgm.build_ell_buckets(g, device="cpu", split=5))
+    assert [b.width for b in ell] == [4, 5]
+    odd = dataclasses.replace(tdg, ell=ell)
+    table = K1._LaunchTable(odd, tuple(torch.ones(b.nbr.shape) for b in ell))
+    assert not table.vec_ok
+    assert list(table.widths) == [5, 4]
+
+
+def test_launch_table_refuses_more_buckets_than_the_kernel_holds(graphs):
+    _, _, tdg = graphs
+    many = dataclasses.replace(tdg, ell=tdg.ell * 3)
+    assert len(many.ell) > K1.MAX_BUCKETS
+    with pytest.raises(ValueError, match="table"):
+        K1.ell_spmm(many, tuple(torch.ones(b.nbr.shape) for b in many.ell),
+                    torch.ones(tdg.nv, 4))
+
+
+@pytest.mark.parametrize("nv,f,tile", [
+    (1 << 17, 128, 32),    # x of 64 MB: the 16 MB slice
+    (1 << 17, 16, 16),     # 8 MB: no tiling
+    (1 << 15, 128, 128),   # 16 MB: no tiling
+    (1 << 16, 128, 64),
+    (1 << 22, 128, 32),    # never below one 128-byte line
+    (1 << 17, 100, 32),
+    (1 << 10, 8, 8),
+    (1 << 10, 256, 128),   # a lane holds one float4: 128 floats at most
+])
+def test_tile_rule(nv, f, tile):
+    assert K1._tile_floats(nv, f) == tile
+    assert tile % 4 == 0 and tile // 4 <= 32
