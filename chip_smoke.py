@@ -10,10 +10,12 @@ non-zero exit code and no result line:
 
 1. device  — requires a CUDA device; prints the nvidia-smi name and power
              limit line and torch's device name.
-2. build   — compiles K1 (``graphaibench_tpu_torch/csrc/ell_spmm.cu``)
-             with nvcc and loads it; prints the build seconds and the
-             compiler's register report.
-3. kernel  — on rmat(17, 16) with self-loops, for F in {128, 16} and both
+2. build   — compiles the two sources of ``graphaibench_tpu_torch/csrc``
+             (``ell_spmm.cu``: K1; ``fused_gat.cu``: the four passes of
+             the fused GAT attention) with nvcc, side by side, and loads
+             them; prints the build seconds and the compiler's register
+             report for each kernel.
+3. kernel  — K1: on rmat(17, 16) with self-loops, for F in {128, 16} and both
              weight views (forward and transpose), holds the kernel
              against its plain PyTorch version and times both, beside the
              card's bound for the same work and the library call
@@ -22,19 +24,36 @@ non-zero exit code and no result line:
              Then F = 7 (the kernel's scalar instantiation), and the
              graph without self-loops, which has rows of degree 0, behind
              an allocator dirtied with NaN: both against the plain version.
+             The GAT passes (gat_rowmax, gat_v2_fwd, gat_v2_bwd_sl,
+             gat_v2_bwd_h): the same graph, F in {128, 16}, each kernel
+             against its plain version on the same inputs, timed beside
+             its bound (no single PyTorch call computes any of them, so
+             there is no library time); then F = 7 and the graph without
+             self-loops behind the dirtied allocator; then the whole
+             differentiable op, output and three gradients, against the
+             port's unfused path (sddmm_add, segment_softmax, spmm) under
+             autograd at rmat13.
 4. small   — the port's Model trained 5 steps on the GPU and on the CPU
-             (plain version) at rmat11 (ELL forced) and rmat13; the
-             trajectories must agree.
+             (plain versions) at rmat11 (ELL forced) and rmat13, for gcn,
+             sage, gat and ggnn; the trajectories must agree.
 5. main    — the GCN main path: Model(make_config("gcn", 2, 128, 128, 16,
              lr=0.01), ds, device="cuda").train(5) on rmat17, then
-             evaluate("test"); counts the kernel's launches.
-6. epochs  — the same model on after those 5 warm-up steps: the median of
-             40 epochs with K1, and with K1's plain version swapped in,
-             in the order kernel, plain, plain, kernel.
-7. profile — 10 more epochs under torch.profiler: device time per epoch
-             by kernel, and the device's busy share of the profiled wall
-             time (the profiler slows the host, so that share is a floor).
-8. result  — a JSON line of kernels, then the last line
+             evaluate("test"); counts the kernel's launches. Then the GAT
+             main path at the same widths (2 layers, 128/128/16, no
+             l2norm/dense head), with the four GAT kernels' launch counts
+             (8 per step, 4 in evaluation, no K1 launch), then sage at
+             those widths and ggnn (make_config("ggnn", 1, 128, 128, 16))
+             with K1's counts. Every count is set to 0 just before its
+             path and read just after.
+6. epochs  — the GCN and the GAT model on after those 5 warm-up steps:
+             the median of 20 epochs with the kernels, and with their
+             plain versions swapped in, in the order kernel, plain,
+             plain, kernel.
+7. profile — 10 more epochs of each under torch.profiler: device time per
+             epoch by kernel, and the device's busy share of the profiled
+             wall time (the profiler slows the host, so that share is a
+             floor).
+8. result  — a JSON line of the five kernels, then the last line
              {"ok": true, "device": {...}}.
 """
 
@@ -54,7 +73,11 @@ from graphaibench_tpu_torch.nn.layers import apply_model
 from graphaibench_tpu_torch.nn.model import aggregation_weights, prepare_graph
 from graphaibench_tpu_torch.ops import _build
 from graphaibench_tpu_torch.ops import ell_spmm as K1
+from graphaibench_tpu_torch.ops import fused_gat as FG
+from graphaibench_tpu_torch.ops import math as gmath
 from graphaibench_tpu_torch.ops.device_graph import pack_edge_values, to_device_graph
+from graphaibench_tpu_torch.ops.segment import segment_softmax
+from graphaibench_tpu_torch.ops.spmm import sddmm_add, spmm
 
 SCALE, EDGE_FACTOR = 17, 16
 FEAT, HIDDEN, CLASSES = 128, 128, 16
@@ -68,6 +91,20 @@ SPMMS_PER_EVAL = 2
 # another order than the plain version's reduction; both are float32.
 # Rows that are not split are stored, not added, and repeat bit for bit.
 KERNEL_RTOL = KERNEL_ATOL = 1e-4
+# The GAT passes against their plain versions: the same float32 reordering
+# (a lane sums its columns' products over the slots before the group adds
+# its lanes; atomics on split rows). A hub row sums thousands of terms of
+# the size of the largest outputs, and the error of a float32 sum grows
+# with the size of its terms, so the absolute tolerance is 1e-4 of the
+# largest |plain| value (at least 1e-4); the row max is exact.
+GAT_RTOL = GAT_ATOL_SCALE = 1e-4
+GAT_KERNELS = {   # name -> line of the JAX pass it replaces
+    "gat_rowmax": 285, "gat_v2_fwd": 309, "gat_v2_bwd_sl": 391,
+    "gat_v2_bwd_h": 413}
+GAT_SMALL_SCALE = 13     # the whole op against the unfused path
+# Launches of the GAT main path (2 layers): per layer one gat_rowmax and
+# one gat_v2_fwd forward, one gat_v2_bwd_sl and one gat_v2_bwd_h backward.
+GAT_LAYERS = 2
 # The card's published peaks (H100 SXM data sheet, at the 700 W limit).
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
@@ -76,7 +113,7 @@ F32_FLOP_PER_S = 67e12
 TRAJ_RTOL, TRAJ_ATOL = 1e-4, 1e-5
 TIMED_CALLS = 20         # back-to-back calls between one pair of events
 TIMED_BATCHES = 7
-TIMED_EPOCHS = 40
+TIMED_EPOCHS = 20
 PROFILED_EPOCHS = 10
 
 
@@ -98,13 +135,15 @@ def phase_device() -> str:
 
 def phase_build() -> None:
     t0 = time.perf_counter()
-    so = _build.build()
-    _build.load_library()
+    libs = _build.build()
+    for name in libs:
+        _build.load_library(name)
     dt = time.perf_counter() - t0
-    print(f"[build] {so.name} in {dt:.2f} s")
-    for line in so.with_suffix(".log").read_text().splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"[build] {line.strip()}")
+    print(f"[build] {[so.name for so in libs.values()]} in {dt:.2f} s")
+    for name, so in libs.items():
+        for line in so.with_suffix(".log").read_text().splitlines():
+            if "registers" in line or "spill" in line or "Compiling" in line:
+                print(f"[build] {name}: {line.strip()}")
 
 
 def _batch_ms(fn, calls: int = TIMED_CALLS,
@@ -126,6 +165,31 @@ def _batch_ms(fn, calls: int = TIMED_CALLS,
         end.synchronize()
         times.append(start.elapsed_time(end) / calls)
     return statistics.median(times)
+
+
+def _kernel_device_ms(fn, kernel: str, calls: int = TIMED_CALLS):
+    """Device time of one launch of the kernel whose name contains
+    ``kernel``: the mean over ``calls`` calls of ``fn`` under
+    torch.profiler. ``_batch_ms`` reads the host's enqueue instead where a
+    call's host work (allocating and initialising outputs, the ctypes
+    call) outlasts a short kernel. The profiler now and then hands back
+    no device event for so short a trace, so it is asked up to three
+    times; None when none came back."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    for _ in range(3):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        us = [e.time_range.elapsed_us() for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and kernel in e.name]
+        if us:
+            return statistics.mean(us) / 1e3
+    return None
 
 
 def _bound(dg, f: int) -> tuple[float, str, int]:
@@ -200,8 +264,10 @@ def phase_kernel(g) -> tuple[list[dict], float]:
             plain_ms = _batch_ms(lambda: K1.ell_spmm_plain(dg, w, x),
                                  calls=5, batches=3)
             library_ms = _batch_ms(lambda: torch.sparse.mm(csr[view], x))
+            device_ms = _kernel_device_ms(lambda: K1.ell_spmm(dg, w, x),
+                                          "ell_spmm_kernel")
             case = {"F": f, "view": view, "tile": K1._tile_floats(dg.nv, f),
-                    "max_abs_err": err, "ms": ms,
+                    "max_abs_err": err, "ms": ms, "device_ms": device_ms,
                     "plain_ms": plain_ms, "library_ms": library_ms,
                     "bound_ms": bound_ms, "bound_by": bound_by,
                     "bound_bytes": nbytes, "share_of_bound": bound_ms / ms,
@@ -235,6 +301,167 @@ def phase_kernel(g) -> tuple[list[dict], float]:
     return cases, max(err7, *errs)
 
 
+def _gat_close(got, want, what: str) -> float:
+    """Max |kernel - plain|; raises beyond rtol 1e-4 and an absolute
+    tolerance of 1e-4 of the largest |plain| (at least 1e-4)."""
+    err = float((got - want).abs().max())
+    atol = GAT_ATOL_SCALE * max(1.0, float(want.abs().max()))
+    if not bool(torch.isfinite(got).all()):
+        raise RuntimeError(f"{what}: the kernel's output is not finite")
+    if not torch.allclose(got, want, rtol=GAT_RTOL, atol=atol):
+        raise RuntimeError(f"{what}: kernel disagrees with plain, "
+                           f"max |diff| {err} (atol {atol})")
+    return err
+
+
+def _gat_bounds(dg, f: int) -> dict[str, tuple[float, str, int]]:
+    """Per GAT pass: the least time the card could take, in ms, what
+    bounds it, and the bytes. Bytes: every input read once and every
+    output written once — the ids of the real slots (the passes skip the
+    pads), the row ids, valid counts and split flags, the (nv,) vectors
+    and the (nv, F) matrices. Operations: per real slot the multiply-adds
+    over F and some ten scalar ones (exp counted as one)."""
+    rows = sum(b.rows for b in dg.ell)
+    ids = dg.ne * 4 + rows * 8 + dg.nv
+    vec, mat = dg.nv * 4, dg.nv * f * 4
+    work = {
+        "gat_rowmax": (ids + 2 * vec, dg.ne),
+        "gat_v2_fwd": (ids + 4 * vec + 2 * mat, dg.ne * (2 * f + 6)),
+        "gat_v2_bwd_sl": (ids + 6 * vec + 2 * mat, dg.ne * (2 * f + 10)),
+        "gat_v2_bwd_h": (ids + 6 * vec + 3 * mat, dg.ne * (4 * f + 12)),
+    }
+    out = {}
+    for name, (nbytes, ops) in work.items():
+        by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        by_ops = ops / F32_FLOP_PER_S * 1e3
+        out[name] = (max(by_bytes, by_ops),
+                     "bytes" if by_bytes >= by_ops else "operations", nbytes)
+    return out
+
+
+def _gat_passes(dg, f: int, gen, what: str, dirty: bool, timed: bool):
+    """The four kernels against their plain versions on one graph and
+    width, each on the same inputs (the later passes take the plain
+    forward's m, zinv and out). Returns {name: case}."""
+    nv = dg.nv
+    sl = torch.randn(nv, device="cuda", generator=gen)
+    sr = torch.randn(nv, device="cuda", generator=gen)
+    h = torch.randn(nv, f, device="cuda", generator=gen)
+    ct = torch.randn(nv, f, device="cuda", generator=gen)
+
+    def run(fn, *args):
+        if dirty:   # a row the kernel does not write shows as NaN
+            junk = [torch.full((nv, f), float("nan"), device="cuda"),
+                    torch.full((nv,), float("nan"), device="cuda")]
+            del junk
+        return fn(dg, *args)
+
+    m0_p = FG.gat_rowmax_plain(dg, sr)
+    m0 = run(FG.gat_rowmax, sr)
+    if not torch.equal(m0, m0_p):
+        raise RuntimeError(f"{what}: gat_rowmax differs from plain")
+    m = FG._leaky(sl + torch.where(torch.isfinite(m0_p), m0_p,
+                                   torch.zeros_like(m0_p)))
+    acc_p, z_p = FG.gat_v2_fwd_plain(dg, sl, sr, m, h)
+    acc, z = run(FG.gat_v2_fwd, sl, sr, m, h)
+    zinv = 1.0 / torch.clamp(z_p, min=FG.Z_FLOOR)
+    inner = (ct * acc_p * zinv[:, None]).sum(1)
+    bwd = (sl, sr, m, zinv, inner, h, ct)
+    d_sl_p = FG.gat_v2_bwd_sl_plain(dg, *bwd)
+    d_sl = run(FG.gat_v2_bwd_sl, *bwd)
+    d_h_p, d_sr_p = FG.gat_v2_bwd_h_plain(dg, *bwd)
+    d_h, d_sr = run(FG.gat_v2_bwd_h, *bwd)
+    torch.cuda.synchronize()
+    errs = {
+        "gat_rowmax": 0.0,
+        "gat_v2_fwd": max(_gat_close(acc, acc_p, f"{what} acc"),
+                          _gat_close(z, z_p, f"{what} z")),
+        "gat_v2_bwd_sl": _gat_close(d_sl, d_sl_p, f"{what} d_sl"),
+        "gat_v2_bwd_h": max(_gat_close(d_h, d_h_p, f"{what} d_h"),
+                            _gat_close(d_sr, d_sr_p, f"{what} d_sr")),
+    }
+    cases = {name: {"F": f, "max_abs_err": err} for name, err in errs.items()}
+    for name in ("gat_v2_fwd", "gat_v2_bwd_sl", "gat_v2_bwd_h"):
+        cases[name]["tile"] = FG._tile_floats(nv, f) if f % 4 == 0 else min(f, 32)
+    if not timed:
+        return cases
+    calls = {
+        "gat_rowmax": (FG.gat_rowmax, FG.gat_rowmax_plain, (sr,)),
+        "gat_v2_fwd": (FG.gat_v2_fwd, FG.gat_v2_fwd_plain, (sl, sr, m, h)),
+        "gat_v2_bwd_sl": (FG.gat_v2_bwd_sl, FG.gat_v2_bwd_sl_plain, bwd),
+        "gat_v2_bwd_h": (FG.gat_v2_bwd_h, FG.gat_v2_bwd_h_plain, bwd),
+    }
+    bounds = _gat_bounds(dg, f)
+    for name, (kernel, plain, args) in calls.items():
+        ms = _batch_ms(lambda: kernel(dg, *args))
+        device_ms = _kernel_device_ms(lambda: kernel(dg, *args),
+                                      f"{name}_kernel")
+        plain_ms = _batch_ms(lambda: plain(dg, *args), calls=3, batches=3)
+        bound_ms, bound_by, nbytes = bounds[name]
+        cases[name].update(
+            ms=ms, device_ms=device_ms, plain_ms=plain_ms, library_ms=None,
+            bound_ms=bound_ms,
+            bound_by=bound_by, bound_bytes=nbytes,
+            share_of_bound=bound_ms / ms, edges_per_s=dg.ne / (ms * 1e-3))
+        print(f"[kernel] {name} {json.dumps(cases[name])}")
+    return cases
+
+
+def _gat_unfused(dg, sl, sr, h):
+    logits = gmath.leaky_relu(sddmm_add(dg, sl, sr), 0.2)
+    return spmm(dg, segment_softmax(dg, logits), h, "ell")
+
+
+def phase_gat_kernels(g) -> dict[str, dict]:
+    """{kernel: {"cases": [timed cases], "max_abs_err": over every case}}."""
+    dg = to_device_graph(prepare_graph(g, "gat"), device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    res = {name: {"cases": [], "max_abs_err": 0.0} for name in GAT_KERNELS}
+
+    def fold(cases, timed):
+        for name, case in cases.items():
+            res[name]["max_abs_err"] = max(res[name]["max_abs_err"],
+                                           case["max_abs_err"])
+            if timed:
+                res[name]["cases"].append(case)
+
+    for f in (FEAT, CLASSES):
+        fold(_gat_passes(dg, f, gen, f"F={f}", dirty=False, timed=True), True)
+    fold(_gat_passes(dg, 7, gen, "F=7 (float columns)", dirty=True,
+                     timed=False), False)
+    dgs = to_device_graph(prepare_graph(g, "sage"), device="cuda")
+    if int((dgs.deg == 0).sum()) == 0:
+        raise RuntimeError("the graph without self-loops has no row of "
+                           "degree 0: the case checks nothing")
+    for f in (CLASSES, 7):
+        fold(_gat_passes(dgs, f, gen, f"no self-loops F={f}", dirty=True,
+                         timed=False), False)
+    print(f"[kernel] GAT passes at F=7 and on the graph without self-loops "
+          f"({int((dgs.deg == 0).sum())} rows of degree 0, dirtied "
+          f"allocator): max_abs_err "
+          f"{ {n: r['max_abs_err'] for n, r in res.items()} }")
+
+    # the whole differentiable op against the port's unfused path
+    gs = prepare_graph(rmat(GAT_SMALL_SCALE, 8, seed=1), "gat")
+    dg13 = to_device_graph(gs, device="cuda")
+    ct = torch.randn(dg13.nv, CLASSES, device="cuda", generator=gen)
+    outs = []
+    base = [torch.randn(dg13.nv, device="cuda", generator=gen),
+            torch.randn(dg13.nv, device="cuda", generator=gen),
+            torch.randn(dg13.nv, CLASSES, device="cuda", generator=gen)]
+    for fn in (FG.gat_attention_spmm_v2, _gat_unfused):
+        sl, sr, h = (t.clone().requires_grad_(True) for t in base)
+        out = fn(dg13, sl, sr, h)
+        (out * ct).sum().backward()
+        outs.append((out.detach(), sl.grad, sr.grad, h.grad))
+    errs = [_gat_close(a, b, f"fused vs unfused {what}")
+            for a, b, what in zip(*outs, ("out", "d_sl", "d_sr", "d_h"))]
+    print(f"[kernel] gat_attention_spmm_v2 vs the unfused path at "
+          f"rmat{GAT_SMALL_SCALE} F={CLASSES}: max_abs_err out/d_sl/d_sr/d_h "
+          f"{errs}")
+    return res
+
+
 def _dataset(g, feat: int, classes: int, seed: int = 0) -> GnnDataset:
     """bench.py's in-memory dataset shape: normal features, uniform
     labels, train on the first half, validate/test on the second."""
@@ -251,87 +478,149 @@ def _dataset(g, feat: int, classes: int, seed: int = 0) -> GnnDataset:
 
 
 def phase_small() -> None:
-    for scale, impl in ((11, "ell"), (13, "auto")):
-        ds = _dataset(rmat(scale, 8, seed=1), 32, 4)
-        cfg = make_config("gcn", 2, 32, 16, 4, lr=0.01, spmm_impl=impl)
-        runs = {}
-        for dev in ("cuda", "cpu"):
-            m = Model(cfg, ds, device=dev)
-            log = m.train(EPOCHS, verbose=False)
-            params = [p.detach().cpu().numpy() for p in m.params.parameters()]
-            runs[dev] = (np.array([(l, a) for l, a, _ in log]), params)
-        np.testing.assert_allclose(runs["cuda"][0], runs["cpu"][0],
-                                   rtol=TRAJ_RTOL, atol=TRAJ_ATOL)
-        for pc, pp in zip(runs["cuda"][1], runs["cpu"][1]):
-            np.testing.assert_allclose(pc, pp, rtol=TRAJ_RTOL, atol=TRAJ_ATOL)
-        print(f"[small] rmat{scale} spmm_impl={impl}: GPU losses "
-              f"{runs['cuda'][0][:, 0].tolist()} match the CPU run")
+    for arch in ("gcn", "sage", "gat", "ggnn"):
+        for scale, impl in ((11, "ell"), (13, "auto")):
+            ds = _dataset(rmat(scale, 8, seed=1), 32, 4)
+            cfg = make_config(arch, 2, 32, 16, 4, lr=0.01, spmm_impl=impl)
+            runs = {}
+            for dev in ("cuda", "cpu"):
+                m = Model(cfg, ds, device=dev)
+                log = m.train(EPOCHS, verbose=False)
+                params = [p.detach().cpu().numpy()
+                          for p in m.params.parameters()]
+                runs[dev] = (np.array([(l, a) for l, a, _ in log]), params)
+            np.testing.assert_allclose(runs["cuda"][0], runs["cpu"][0],
+                                       rtol=TRAJ_RTOL, atol=TRAJ_ATOL)
+            for pc, pp in zip(runs["cuda"][1], runs["cpu"][1]):
+                np.testing.assert_allclose(pc, pp, rtol=TRAJ_RTOL,
+                                           atol=TRAJ_ATOL)
+            print(f"[small] {arch} rmat{scale} spmm_impl={impl}: GPU losses "
+                  f"{runs['cuda'][0][:, 0].tolist()} match the CPU run")
 
 
-def phase_main(g) -> int:
-    ds = _dataset(g, FEAT, CLASSES)
+def _zero_counts() -> None:
+    K1.LAUNCHES = 0
+    for name in FG.LAUNCHES:
+        FG.LAUNCHES[name] = 0
+
+
+def _counts() -> dict[str, int]:
+    return {"ell_spmm": K1.LAUNCHES, **FG.LAUNCHES}
+
+
+def _drive(g, cfg, want_train: dict, want_eval: dict):
+    """One main path: set-up, every launch count set to 0, ``EPOCHS``
+    training steps, the counts read, evaluation, the counts read again.
+    Raises unless the losses are finite and fall, the logits are finite
+    and of shape (nv, classes), and each kernel was launched as often as
+    the design implies (``want_*``: per step and per evaluation; a kernel
+    not named must not be launched). Returns (model, launches)."""
+    tag = f"[main {cfg.arch}]"
+    ds = _dataset(g, cfg.dim_init, cfg.num_cls)
     t0 = time.perf_counter()
-    model = Model(make_config("gcn", 2, FEAT, HIDDEN, CLASSES, lr=0.01), ds,
-                  device="cuda")
+    model = Model(cfg, ds, device="cuda")
     torch.cuda.synchronize()
-    print(f"[main] Model set-up {time.perf_counter() - t0:.2f} s "
+    print(f"{tag} Model set-up {time.perf_counter() - t0:.2f} s "
           f"(nv={model.full.device.nv} ne={model.full.device.ne})")
     torch.cuda.reset_peak_memory_stats()
-    K1.LAUNCHES = 0
+    _zero_counts()
     log = model.train(EPOCHS)
-    train_launches = K1.LAUNCHES
+    train = _counts()
     acc = model.evaluate("test")
-    launches = K1.LAUNCHES
-    eval_launches = launches - train_launches
+    total = _counts()
     losses = [l for l, _, _ in log]
     if not all(np.isfinite(losses)):
-        raise RuntimeError(f"non-finite loss: {losses}")
+        raise RuntimeError(f"{tag} non-finite loss: {losses}")
     if not losses[-1] < losses[0]:
-        raise RuntimeError(f"loss did not decrease: {losses}")
-    if train_launches != EPOCHS * SPMMS_PER_STEP:
-        raise RuntimeError(f"{train_launches} kernel launches in training, "
-                           f"expected {EPOCHS * SPMMS_PER_STEP}")
-    if eval_launches != SPMMS_PER_EVAL:
-        raise RuntimeError(f"{eval_launches} kernel launches in evaluate, "
-                           f"expected {SPMMS_PER_EVAL}")
+        raise RuntimeError(f"{tag} loss did not decrease: {losses}")
+    for name, n in total.items():
+        want_t = EPOCHS * want_train.get(name, 0)
+        want_e = want_eval.get(name, 0)
+        if train[name] != want_t or n - train[name] != want_e:
+            raise RuntimeError(
+                f"{tag} {name}: {train[name]} launches in training and "
+                f"{n - train[name]} in evaluate, expected {want_t} and "
+                f"{want_e}")
     if not 0.0 <= acc <= 1.0:
-        raise RuntimeError(f"test accuracy {acc} outside [0, 1]")
+        raise RuntimeError(f"{tag} test accuracy {acc} outside [0, 1]")
     with torch.no_grad():
         logits = apply_model(model.cfg, model.params, model.full.device,
-                             model.full.edge_w_agg, model.feats)
-    if tuple(logits.shape) != (ds.graph.nv, CLASSES) or not bool(
+                             model.full.edge_w_agg, model.feats,
+                             trivial_w=True)
+    if tuple(logits.shape) != (g.nv, cfg.num_cls) or not bool(
             torch.isfinite(logits).all()):
-        raise RuntimeError(f"bad logits: shape {tuple(logits.shape)}")
+        raise RuntimeError(f"{tag} bad logits: shape {tuple(logits.shape)}")
     epoch_ms = statistics.median(dt for _, _, dt in log) * 1e3
-    print(f"[main] losses {losses} test_acc {acc:.4f}")
-    print(f"[main] launches: train {train_launches} eval {eval_launches}; "
+    print(f"{tag} losses {losses} test_acc {acc:.4f}")
+    print(f"{tag} launches in training {train}, with evaluation {total}; "
           f"epoch median {epoch_ms:.3f} ms (warm-up epochs included); peak "
           f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    return model, launches
+    return model, total
+
+
+def phase_main(g):
+    """The GCN path, then this port's other three architectures at the
+    same widths. Returns the GCN and GAT models and the launch counts of
+    their paths."""
+    gcn, n_gcn = _drive(
+        g, make_config("gcn", 2, FEAT, HIDDEN, CLASSES, lr=0.01),
+        {"ell_spmm": SPMMS_PER_STEP}, {"ell_spmm": SPMMS_PER_EVAL})
+    gat, n_gat = _drive(
+        g, make_config("gat", GAT_LAYERS, FEAT, HIDDEN, CLASSES, lr=0.01,
+                       use_l2norm=False, use_dense=False),
+        {name: GAT_LAYERS for name in GAT_KERNELS},
+        {"gat_rowmax": GAT_LAYERS, "gat_v2_fwd": GAT_LAYERS})
+    # SAGE: as GCN, 3 SpMMs a step (layer 1's input is constant). GGNN
+    # with dim_init == dim_hid does not project: one SpMM of the constant
+    # features a step, no adjoint.
+    _drive(g, make_config("sage", 2, FEAT, HIDDEN, CLASSES, lr=0.01),
+           {"ell_spmm": SPMMS_PER_STEP}, {"ell_spmm": SPMMS_PER_EVAL})
+    _drive(g, make_config("ggnn", 1, FEAT, HIDDEN, CLASSES, lr=0.01),
+           {"ell_spmm": 1}, {"ell_spmm": 1})
+    launches = {"ell_spmm": n_gcn["ell_spmm"],
+                **{name: n_gat[name] for name in GAT_KERNELS}}
+    return gcn, gat, launches
+
+
+class _plain_kernels:
+    """While active, the wrappers send CUDA tensors to the kernels' plain
+    versions (for timing the plain versions on the main path)."""
+
+    def __enter__(self):
+        self.saved = (K1._ell_spmm_cuda, FG.gat_rowmax, FG.gat_v2_fwd,
+                      FG.gat_v2_bwd_sl, FG.gat_v2_bwd_h)
+        K1._ell_spmm_cuda = lambda table, x: K1.ell_spmm_plain(
+            table.graph, table.w_slots, x)
+        FG.gat_rowmax = FG.gat_rowmax_plain
+        FG.gat_v2_fwd = FG.gat_v2_fwd_plain
+        FG.gat_v2_bwd_sl = FG.gat_v2_bwd_sl_plain
+        FG.gat_v2_bwd_h = FG.gat_v2_bwd_h_plain
+
+    def __exit__(self, *exc):
+        (K1._ell_spmm_cuda, FG.gat_rowmax, FG.gat_v2_fwd, FG.gat_v2_bwd_sl,
+         FG.gat_v2_bwd_h) = self.saved
 
 
 def _epoch_median_ms(model, plain: bool) -> float:
-    """Median epoch time over TIMED_EPOCHS; with ``plain``, K1's wrapper
-    sends CUDA tensors to the plain version instead of the kernel."""
-    cuda_route = K1._ell_spmm_cuda
+    """Median epoch time over TIMED_EPOCHS, with the kernels or with
+    their plain versions."""
     if plain:
-        K1._ell_spmm_cuda = lambda table, x: K1.ell_spmm_plain(
-            table.graph, table.w_slots, x)
-    try:
+        with _plain_kernels():
+            log = model.train(TIMED_EPOCHS, verbose=False)
+    else:
         log = model.train(TIMED_EPOCHS, verbose=False)
-    finally:
-        K1._ell_spmm_cuda = cuda_route
     if not all(np.isfinite([l for l, _, _ in log])):
         raise RuntimeError("non-finite loss in the timed epochs")
     return statistics.median(dt for _, _, dt in log) * 1e3
 
 
 def phase_epochs(model) -> float:
+    tag = f"[epochs {model.cfg.arch}]"
     runs = [(plain, _epoch_median_ms(model, plain))
             for plain in (False, True, True, False)]
     kernel = [ms for plain, ms in runs if not plain]
     plain = [ms for plain, ms in runs if plain]
-    print(f"[epochs] median of {TIMED_EPOCHS} epochs, kernel/plain/plain/"
+    print(f"{tag} median of {TIMED_EPOCHS} epochs, kernel/plain/plain/"
           f"kernel: {[round(ms, 4) for _, ms in runs]} ms; kernel "
           f"{statistics.mean(kernel):.4f} ms, plain "
           f"{statistics.mean(plain):.4f} ms")
@@ -341,6 +630,7 @@ def phase_epochs(model) -> float:
 def phase_profile(model, epoch_ms: float) -> None:
     from torch.profiler import ProfilerActivity, profile
 
+    tag = f"[profile {model.cfg.arch}]"
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -349,7 +639,7 @@ def phase_profile(model, epoch_ms: float) -> None:
     dev = [e for e in prof.events()
            if e.device_type == torch.autograd.DeviceType.CUDA]
     if not dev:
-        print("[profile] the profiler recorded no device events: device "
+        print(f"{tag} the profiler recorded no device events: device "
               "time and busy share not measured")
         return
     busy, end = 0.0, float("-inf")
@@ -363,14 +653,14 @@ def phase_profile(model, epoch_ms: float) -> None:
         item[0] += 1
         item[1] += e.time_range.elapsed_us()
     device_ms = busy / PROFILED_EPOCHS / 1e3
-    print(f"[profile] {PROFILED_EPOCHS} epochs: device busy "
+    print(f"{tag} {PROFILED_EPOCHS} epochs: device busy "
           f"{device_ms:.4f} ms/epoch, {len(dev) / PROFILED_EPOCHS:.1f} "
           f"device ops/epoch, busy share {busy / wall_us:.4f} of the "
           f"profiled wall time; {device_ms / epoch_ms:.4f} of the unprofiled "
           f"{epoch_ms:.4f} ms epoch (device time and wall time from two runs)")
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]
     for name, (n, us) in top:
-        print(f"[profile] {us / PROFILED_EPOCHS / 1e3:.4f} ms/epoch "
+        print(f"{tag} {us / PROFILED_EPOCHS / 1e3:.4f} ms/epoch "
               f"{us / busy:.4f} of device time, {n / PROFILED_EPOCHS:g}/epoch: "
               f"{name[:90]}")
 
@@ -383,16 +673,18 @@ def main() -> None:
     print(f"[graph] rmat({SCALE}, {EDGE_FACTOR}) generated in "
           f"{time.perf_counter() - t0:.2f} s")
     cases, other_err = phase_kernel(g)
+    gat_kernels = phase_gat_kernels(g)
     phase_small()
-    model, launches = phase_main(g)
-    phase_profile(model, phase_epochs(model))
+    gcn, gat, launches = phase_main(g)
+    for model in (gcn, gat):
+        phase_profile(model, phase_epochs(model))
     head = cases[0]
-    print(json.dumps({"kernels": [{
+    kernels = [{
         "name": "ell_spmm",
         "route": "cuda",
         "source": "graphaibench_tpu_torch/csrc/ell_spmm.cu",
         "replaces": "graphaibench_tpu/ops/pallas_spmm.py:43",
-        "launches": launches,
+        "launches": launches["ell_spmm"],
         "max_abs_err": max(other_err, *(c["max_abs_err"] for c in cases)),
         "ms": head["ms"],
         "plain_ms": head["plain_ms"],
@@ -400,7 +692,26 @@ def main() -> None:
         "bound_by": head["bound_by"],
         "library_ms": head["library_ms"],
         "cases": cases,
-    }]}))
+    }]
+    for kname, line in GAT_KERNELS.items():
+        res = gat_kernels[kname]
+        head = res["cases"][0]      # F = 128, the hidden layer's width
+        kernels.append({
+            "name": kname,
+            "route": "cuda",
+            "source": "graphaibench_tpu_torch/csrc/fused_gat.cu",
+            "replaces": f"graphaibench_tpu/ops/fused_gat.py:{line}",
+            "launches": launches[kname],
+            "max_abs_err": res["max_abs_err"],
+            "ms": head["ms"],
+            "plain_ms": head["plain_ms"],
+            "bound_ms": head["bound_ms"],
+            "bound_by": head["bound_by"],
+            # no single PyTorch call computes a pass of the fused attention
+            "library_ms": None,
+            "cases": res["cases"],
+        })
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
 

@@ -1,8 +1,8 @@
 """Command-line entry point of the port.
 
-``python -m graphaibench_tpu_torch.cli train gcn <dataset> [epochs threads
-loss hidden score_drop feat_drop lr layers subg_size val_interval
-inductive] [--device=cuda|cpu]`` takes the argv of
+``python -m graphaibench_tpu_torch.cli train gcn|sage|gat|ggnn <dataset>
+[epochs threads loss hidden score_drop feat_drop lr layers subg_size
+val_interval inductive] [--device=cuda|cpu]`` takes the argv of
 ``graphaibench_tpu.cli train`` (the reference trainer's, train.cpp:9-14)
 plus ``--device`` (default ``cuda``). It runs full-batch, single-device
 training only; the routes not ported yet exit with code 2 and name their
@@ -18,7 +18,7 @@ import glob
 import os
 import sys
 
-USAGE = ("usage: train gcn <dataset> [epochs=10] [threads=0] [loss=softmax] "
+USAGE = ("usage: train gcn|sage|gat|ggnn <dataset> [epochs=10] [threads=0] [loss=softmax] "
          "[hidden=16] [score_drop=0] [feat_drop=0] [lr=0.02] [layers=2] "
          "[subg_size=0] [val_interval=50] [inductive=0] [--device=cuda|cpu]")
 
@@ -57,9 +57,8 @@ def cmd_train(argv: list[str]) -> int:
     if device not in ("cuda", "cpu"):
         return _refuse(f"--device must be cuda or cpu, not {device!r}")
     arch = argv[0]
-    if arch != "gcn":
-        return _refuse(f"arch {arch!r} is not ported yet: only gcn runs "
-                       "(ROADMAP queue 1, P5 sage, P7 gat, P8 ggnn)")
+    if arch not in ("gcn", "sage", "gat", "ggnn"):
+        return _refuse(f"unknown arch {arch!r}: one of gcn, sage, gat, ggnn")
 
     def arg(i, default, cast):
         return cast(argv[i]) if len(argv) > i else default

@@ -8,4 +8,4 @@ from graphaibench_tpu_torch.nn.layers import (  # noqa: F401
 )
 from graphaibench_tpu_torch.nn.losses import masked_sigmoid_loss, masked_softmax_loss  # noqa: F401
 from graphaibench_tpu_torch.nn.model import GraphBundle, Model  # noqa: F401
-from graphaibench_tpu_torch.nn.optim import Adam  # noqa: F401
+from graphaibench_tpu_torch.nn.optim import OPTIMIZERS, Adam  # noqa: F401

@@ -1,4 +1,5 @@
-"""Device graph, the ELL SpMM kernel and its strategies, RNG and math.
+"""Device graph, the ELL SpMM kernel and its strategies, segment ops, the
+fused GAT attention and its kernels, RNG and math.
 
 The functions ``spmm`` and ``ell_spmm`` are not re-exported here: their
 names are also those of the modules ``ops.spmm`` and ``ops.ell_spmm``, and

@@ -1,11 +1,12 @@
 """Build and load the port's CUDA kernels.
 
-The sources in ``graphaibench_tpu_torch/csrc`` are compiled with ``nvcc``
-for sm_90a into one shared library with a plain C interface, at first
-use, into ``build/torch_kernels/`` of the checkout, keyed by a hash of the
-sources and flags. The library is loaded with ``ctypes``; pointers and the
-stream travel as ``c_void_p``, sizes as ``c_int64``, and a kernel's
-per-bucket arrays as ctypes arrays of those.
+Each source in ``graphaibench_tpu_torch/csrc`` is compiled with ``nvcc``
+for sm_90a into a shared library of its own with a plain C interface, at
+first use, into ``build/torch_kernels/`` of the checkout, keyed by a hash
+of the source and flags. The sources that still need building are
+compiled side by side, one ``nvcc`` each. A library is loaded with
+``ctypes``; pointers and the stream travel as ``c_void_p``, sizes as
+``c_int64``, and a kernel's per-bucket arrays as ctypes arrays of those.
 
 There is no fallback here: without a CUDA device or without ``nvcc``,
 ``load_library`` raises. Only the wrappers decide to take a kernel's plain
@@ -24,12 +25,36 @@ from pathlib import Path
 import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("ell_spmm.cu",)
+SOURCES = ("ell_spmm.cu", "fused_gat.cu")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
+# No --use_fast_math: it flushes subnormals to zero and swaps expf for
+# __expf; the GAT passes rely on a normal 1e-30 floor and on expf.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_LIB = None
+_vp = ctypes.c_void_p
+_vpp = ctypes.POINTER(_vp)
+_i64p = ctypes.POINTER(ctypes.c_int64)
+_i32p = ctypes.POINTER(ctypes.c_int32)
+_int, _i64 = ctypes.c_int, ctypes.c_int64
+# per-bucket arrays of the GAT passes: row_ids, nbr, valid, rows, widths, n
+_GAT_TABLE = [_vpp, _vpp, _vpp, _i64p, _i32p, _int]
+_WIDE = [_i64, _int, _int, _int, _vp]   # f, tile_v, vec, device, stream
+# C entry points per library: name -> argtypes (every one returns int)
+_SIGNATURES = {
+    "ell_spmm": {
+        "gab_ell_spmm": [_vpp, _vpp, _vpp, _i64p, _i32p, _int, _vp, _vp, _vp,
+                         _i64, _int, _int, _vp],
+    },
+    "fused_gat": {
+        "gab_gat_rowmax": _GAT_TABLE + [_vp] * 3 + [_int, _vp],
+        "gab_gat_v2_fwd": _GAT_TABLE + [_vp] * 7 + _WIDE,
+        "gab_gat_v2_bwd_sl": _GAT_TABLE + [_vp] * 9 + _WIDE,
+        "gab_gat_v2_bwd_h": _GAT_TABLE + [_vp] * 7 + _WIDE,
+    },
+}
+
+_LIBS: dict[str, ctypes.CDLL] = {}
 
 
 def find_nvcc() -> str:
@@ -50,50 +75,65 @@ def find_nvcc() -> str:
         "first use")
 
 
-def build() -> Path:
-    """Compile the sources unless a library with their hash exists;
-    return the library's path. The compiler's report (``-Xptxas -v``:
-    registers, spills) is kept beside it with the suffix ``.log``."""
-    nvcc = find_nvcc()
-    srcs = [CSRC / s for s in SOURCES]
+def _library_path(source: str) -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for s in srcs:
-        h.update(s.read_bytes())
-    so = BUILD_DIR / f"gab_torch_kernels_{h.hexdigest()[:16]}.so"
-    if so.exists():
-        return so
+    h.update((CSRC / source).read_bytes())
+    return BUILD_DIR / f"gab_{Path(source).stem}_{h.hexdigest()[:16]}.so"
+
+
+def build() -> dict[str, Path]:
+    """Compile every source that has no library with its hash yet, all at
+    once; return the libraries' paths by source stem. Each compiler
+    report (``-Xptxas -v``: registers, spills) is kept beside its library
+    with the suffix ``.log``."""
+    nvcc = find_nvcc()
+    libs = {Path(s).stem: _library_path(s) for s in SOURCES}
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-    proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", str(tmp),
-                           *map(str, srcs)],
-                          capture_output=True, text=True, timeout=900)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed with code {proc.returncode}:\n{proc.stderr}")
-    so.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    os.replace(tmp, so)
-    return so
+    running = []
+    for source in SOURCES:
+        so = libs[Path(source).stem]
+        if so.exists():
+            continue
+        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+        proc = subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / source)],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        running.append((source, so, tmp, proc))
+    failures = []
+    for source, so, tmp, proc in running:
+        try:
+            out, err = proc.communicate(timeout=900)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            out, err = proc.communicate()
+            failures.append(f"nvcc timed out on {source}:\n{err}")
+            continue
+        if proc.returncode != 0:
+            failures.append(f"nvcc failed on {source} with code "
+                            f"{proc.returncode}:\n{err}")
+            continue
+        so.with_suffix(".log").write_text(out + err)
+        os.replace(tmp, so)
+    if failures:
+        raise RuntimeError("\n".join(failures))
+    return libs
 
 
-def load_library() -> ctypes.CDLL:
-    """The kernels' library, built at first use. Raises ``RuntimeError``
-    when there is no CUDA device or no ``nvcc``."""
-    global _LIB
-    if _LIB is not None:
-        return _LIB
+def load_library(name: str) -> ctypes.CDLL:
+    """The library of ``csrc/<name>.cu``, built at first use (with every
+    other source). Raises ``RuntimeError`` when there is no CUDA device or
+    no ``nvcc``."""
+    if name in _LIBS:
+        return _LIBS[name]
     if not torch.cuda.is_available():
         raise RuntimeError(
             "the port's CUDA kernels need a CUDA device: "
             "torch.cuda.is_available() is False")
-    lib = ctypes.CDLL(str(build()))
-    vp = ctypes.c_void_p
-    vpp = ctypes.POINTER(vp)
-    lib.gab_ell_spmm.argtypes = [
-        vpp, vpp, vpp, ctypes.POINTER(ctypes.c_int64),
-        ctypes.POINTER(ctypes.c_int32), ctypes.c_int, vp, vp, vp,
-        ctypes.c_int64, ctypes.c_int, ctypes.c_int, vp]
-    lib.gab_ell_spmm.restype = ctypes.c_int
+    lib = ctypes.CDLL(str(build()[name]))
+    for fn, argtypes in _SIGNATURES[name].items():
+        getattr(lib, fn).argtypes = argtypes
+        getattr(lib, fn).restype = ctypes.c_int
     lib.gab_cuda_error_string.argtypes = [ctypes.c_int]
     lib.gab_cuda_error_string.restype = ctypes.c_char_p
-    _LIB = lib
+    _LIBS[name] = lib
     return lib

@@ -13,10 +13,14 @@ on an explicit ``device``.
     gathers a zero weight. Slot arrays are flat (R*W,), row r's slots at
     [r*W, (r+1)*W), as the reference stores them.
   * Beside the ELL layout, two arrays derived from the degrees tell the
-    SpMM kernel how to write a row: ``is_split`` (the row has several
-    virtual rows, so its pieces are added) and ``zero_rows`` (the rows a
-    kernel does not store to: degree 0, which has no virtual row, and
-    split rows, whose adds need a zero to start from).
+    kernels how to write a row: ``is_split`` (the row has several
+    virtual rows, so its pieces are combined) and ``zero_rows`` (the rows
+    a kernel does not store to: degree 0, which has no virtual row, and
+    split rows, whose adds need a zero to start from). Each bucket also
+    carries ``valid``, the number of real slots of each virtual row: the
+    pads sit at the row's tail, so a kernel that cannot neutralise a pad
+    with a zero weight (the GAT passes: ``exp`` of a pad is not 0) loops
+    over the first ``valid`` slots only.
 
 The transpose permutation (host-built once) turns the SpMM adjoint into
 the same bucket pass on transpose-permuted weights.
@@ -49,6 +53,7 @@ class EllBucket:
     nbr: torch.Tensor       # (R*W,) int32, padded with 0
     edge_id: torch.Tensor   # (R*W,) int32, padded with ne (sentinel)
     width: int
+    valid: torch.Tensor     # (R,) int32 — real slots of each virtual row
 
     @property
     def rows(self) -> int:
@@ -71,6 +76,11 @@ class DeviceGraph:
     zero_rows: torch.Tensor             # (K,) int64 — ids with deg 0 or deg > ELL_SPLIT
     nv: int
     ne: int
+    # what a kernel's wrapper derives from the graph once and keeps for
+    # its later launches (its per-bucket pointer table), by wrapper name;
+    # a copy made with dataclasses.replace starts with none
+    launch_tables: dict = dataclasses.field(
+        default_factory=dict, init=False, compare=False, repr=False)
 
     @property
     def has_ell_layout(self) -> bool:
@@ -184,6 +194,17 @@ def _to(a: np.ndarray, device) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(device)
 
 
+def _valid_slots(edge_id: np.ndarray, width: int, sentinel: int) -> np.ndarray:
+    """Real slots per virtual row of one bucket; raises unless every pad
+    sits behind every real slot of its row."""
+    real = edge_id.reshape(-1, width) != sentinel
+    valid = real.sum(1).astype(np.int32)
+    if not np.array_equal(real, np.arange(width)[None, :] < valid[:, None]):
+        raise ValueError(f"bucket of width {width}: a pad slot precedes a "
+                         "real slot of its row")
+    return valid
+
+
 def build_ell_buckets(g: CSRGraph, *, device,
                       split: int = ELL_SPLIT) -> list[EllBucket]:
     """Degree-bucketed ELL packing with heavy-row splitting, on ``device``.
@@ -197,7 +218,8 @@ def build_ell_buckets(g: CSRGraph, *, device,
                      g.degrees().astype(np.int64), g.col_idx, None, g.ne,
                      _widths_for_split(split), split)
     return [EllBucket(row_ids=_to(r, device), nbr=_to(n, device),
-                      edge_id=_to(e, device), width=int(w))
+                      edge_id=_to(e, device), width=int(w),
+                      valid=_to(_valid_slots(e, int(w), g.ne), device))
             for (w, r, n, e) in res]
 
 

@@ -137,7 +137,7 @@ def _ell_spmm_cuda(table: _LaunchTable, x: torch.Tensor) -> torch.Tensor:
     f = x.shape[1]
     if table.n == 0 or f == 0:
         return x.new_zeros((g.nv, f))
-    lib = _build.load_library()
+    lib = _build.load_library("ell_spmm")
     out = torch.empty((g.nv, f), dtype=x.dtype, device=x.device)
     if g.zero_rows.numel():
         out.index_fill_(0, g.zero_rows, 0.0)

@@ -17,6 +17,10 @@ same SpMM with transpose-permuted weights, and the weight gradient is an
 SDDMM. Each gradient is computed only when autograd asks for it: in GCN
 the first layer's input is the feature matrix, so its adjoint SpMM never
 runs, and the static edge weights need no SDDMM.
+
+The per-edge ops beside it, ``sddmm_dot`` (the weight gradient) and
+``sddmm_add`` (GAT's rank-1 logits, with its adjoint), are plain PyTorch
+on every device; GAT's unfused path runs on them.
 """
 
 from __future__ import annotations
@@ -25,6 +29,7 @@ import torch
 
 from graphaibench_tpu_torch.ops.device_graph import DeviceGraph, PackedEdgeW
 from graphaibench_tpu_torch.ops.ell_spmm import ell_spmm
+from graphaibench_tpu_torch.ops.segment import _row_reduce_ell
 
 
 def spmm_coo(g: DeviceGraph, w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
@@ -117,12 +122,45 @@ def spmm(g: DeviceGraph, w, x: torch.Tensor, impl: str = "auto") -> torch.Tensor
     return _Spmm.apply(g, impl, w, x)
 
 
-def sddmm_dot(g: DeviceGraph, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def sddmm_dot(g: DeviceGraph, a: torch.Tensor, b: torch.Tensor,
+              chunk_elems: int = 1 << 28) -> torch.Tensor:
     """Per-edge dot product s_e = <a[src_e], b[dst_e]> — the SpMM weight
-    gradient. Plain PyTorch only: its kernel is ROADMAP queue 2, K2."""
-    if a.device.type != "cpu":
-        raise NotImplementedError(
-            "sddmm_dot has no CUDA kernel yet (ROADMAP queue 2, K2); the "
-            "GCN path never asks for it because its edge weights are "
-            "constants")
-    return (a[g.edge_src] * b[g.col_idx]).sum(1)
+    gradient (gat_aggregator.cpp:106-113). Chunked over edges so that the
+    two gathered (E, F) operands stay under ``chunk_elems`` elements each
+    (about 1 GB). Plain PyTorch on every device: a hand-written kernel is
+    ROADMAP queue 2, K2."""
+    step = max(1, chunk_elems // max(a.shape[1], 1))
+    if g.ne <= step:
+        return (a[g.edge_src] * b[g.col_idx]).sum(1)
+    return torch.cat([
+        (a[g.edge_src[lo:lo + step]] * b[g.col_idx[lo:lo + step]]).sum(1)
+        for lo in range(0, g.ne, step)])
+
+
+class _SddmmAdd(torch.autograd.Function):
+    """s_e = sa[src_e] + sb[dst_e]; the adjoint is two row sums over the
+    CSR-ordered edge list, the destination side through the transpose
+    permutation, instead of autograd's scatter by unsorted indices."""
+
+    @staticmethod
+    def forward(ctx, g: DeviceGraph, sa, sb):
+        ctx.g = g
+        return sa[g.edge_src] + sb[g.col_idx]
+
+    @staticmethod
+    def backward(ctx, ct):
+        g = ctx.g
+        dsa = dsb = None
+        if ctx.needs_input_grad[1]:
+            dsa = _row_reduce_ell(g, ct, "sum")
+        if ctx.needs_input_grad[2]:
+            dsb = _row_reduce_ell(g, ct[g.trans_perm], "sum")
+        return None, dsa, dsb
+
+
+def sddmm_add(g: DeviceGraph, sa: torch.Tensor, sb: torch.Tensor) -> torch.Tensor:
+    """Per-edge s_e = sa[src_e] + sb[dst_e] (the GAT rank-1 attention
+    logits, gat_aggregator.cpp:57-80). ``g`` must be structurally
+    symmetric for the adjoint. Plain PyTorch on every device (ROADMAP
+    queue 2, K3)."""
+    return _SddmmAdd.apply(g, sa, sb)

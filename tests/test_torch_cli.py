@@ -1,5 +1,5 @@
-"""The port's CLI: ``train gcn`` runs end to end on the CPU, and routes
-not ported yet exit non-zero naming their ROADMAP item."""
+"""The port's CLI: ``train gcn|sage|gat|ggnn`` runs end to end on the CPU,
+and routes not ported yet exit non-zero naming their ROADMAP item."""
 
 import os
 import subprocess
@@ -45,8 +45,26 @@ def test_train_gcn_on_cpu(dataset):
     assert any(l.startswith("Test accuracy:") for l in r.stdout.splitlines())
 
 
+@pytest.mark.parametrize("arch", ["sage", "gat", "ggnn"])
+def test_train_other_archs_on_cpu(dataset, arch):
+    r = _cli("train", arch, dataset, "3", "0", "softmax", "16",
+             "--device=cpu")
+    assert r.returncode == 0, r.stderr
+    epochs = [l for l in r.stdout.splitlines() if l.startswith("Epoch")]
+    assert len(epochs) == 3
+    losses = [float(l.split("train_loss")[1].split()[0]) for l in epochs]
+    assert losses[-1] < losses[0]
+    assert any(l.startswith("Test accuracy:") for l in r.stdout.splitlines())
+
+
+def test_unknown_arch_exits_nonzero(dataset):
+    r = _cli("train", "gin", dataset, "1", "--device=cpu")
+    assert r.returncode == 2 and "unknown arch" in r.stderr
+
+
 @pytest.mark.parametrize("args,item", [
-    (("train", "sage", "{ds}", "1", "--device=cpu"), "P5"),
+    (("train", "gat", "{ds}", "1", "0", "softmax", "16", "0", "0", "0.02",
+      "2", "64", "--device=cpu"), "P9"),
     (("train", "gcn", "{ds}", "1", "0", "softmax", "16", "0", "0", "0.02",
       "2", "64", "--device=cpu"), "P9"),
     (("train", "gcn", "{ds}", "1", "--timers", "--device=cpu"), "P10"),

@@ -1,0 +1,332 @@
+"""The port's fused GAT attention (v2) against the JAX package's: the
+plain PyTorch version of each of the four bucket passes, the whole
+forward and the three gradients, against ``gat_attention_spmm_v2`` and
+``jax.grad`` of it, against the port's own unfused path, on edgeless
+rows, and a CPU emulation of the kernels' store-or-combine rule.
+
+Tolerances: both sides are float32 with sums taken in another order;
+values rtol = atol = 2e-5, gradients 1e-4, as the JAX package's own test
+of v2 against v1 (tests/test_ops.py::test_gat_v2_matches_v1_with_grads).
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from graphaibench_tpu.graph.csr import CSRGraph
+from graphaibench_tpu.graph.generators import rmat
+from graphaibench_tpu.graph.transforms import add_selfloop
+from graphaibench_tpu.ops import device_graph as jdgm
+from graphaibench_tpu.ops import fused_gat as jfg
+from graphaibench_tpu_torch.ops import device_graph as tdgm
+from graphaibench_tpu_torch.ops import fused_gat as tfg
+from graphaibench_tpu_torch.ops import math as tmath
+from graphaibench_tpu_torch.ops.segment import segment_softmax
+from graphaibench_tpu_torch.ops.spmm import sddmm_add, spmm
+from test_torch_device_graph import hubs_graph
+
+torch.set_num_threads(2)
+
+VAL = dict(rtol=2e-5, atol=2e-5)
+GRAD = dict(rtol=1e-4, atol=1e-4)
+
+GRAPHS = {
+    "hubs": (hubs_graph, 16),          # degrees 64, 65, 199, 1 and 0
+    "hubs_f7": (hubs_graph, 7),
+    "rmat8": (lambda: rmat(8, 8, seed=3), 16),   # tests/test_ops.py:342
+    "rmat8_selfloops": (lambda: add_selfloop(rmat(8, 8, seed=3)), 16),
+}
+
+
+def _case(name):
+    make, f = GRAPHS[name]
+    g = make()
+    rng = np.random.default_rng(0)
+    arrs = dict(h=rng.standard_normal((g.nv, f)).astype(np.float32),
+                sl=rng.standard_normal(g.nv).astype(np.float32),
+                sr=rng.standard_normal(g.nv).astype(np.float32),
+                ct=rng.standard_normal((g.nv, f)).astype(np.float32))
+    return (g, jdgm.to_device_graph(g, seg_ell=False),
+            tdgm.to_device_graph(g, device="cpu"), arrs)
+
+
+def _t(arrs, *names):
+    return [torch.from_numpy(arrs[n]) for n in names]
+
+
+def _j(arrs, *names):
+    return [jnp.asarray(arrs[n]) for n in names]
+
+
+def _jax_row_max(jdg, jsl, jsr):
+    m0 = jfg._sr_rowmax(jdg, jsr)
+    raw = jsl + jnp.where(jnp.isfinite(m0), m0, 0.0)
+    return m0, jnp.where(raw > 0, raw, 0.2 * raw)
+
+
+@pytest.mark.parametrize("name", sorted(GRAPHS))
+def test_plain_passes_match_jax(name):
+    """gat_rowmax and gat_v2_fwd against ``_sr_rowmax`` and
+    ``_v2_fwd_pass``; the two backward passes against the cotangents of
+    ``_v2_bwd`` on the same residuals."""
+    g, jdg, tdg, arrs = _case(name)
+    sl, sr, h, ct = _t(arrs, "sl", "sr", "h", "ct")
+    jsl, jsr, jh, jct = _j(arrs, "sl", "sr", "h", "ct")
+
+    jm0, jm = jax.jit(lambda a, b: _jax_row_max(jdg, a, b))(jsl, jsr)
+    m0 = tfg.gat_rowmax_plain(tdg, sr)
+    np.testing.assert_array_equal(m0.numpy(), np.asarray(jm0))
+    assert np.isneginf(m0.numpy()[g.degrees() == 0]).all()
+
+    jout, jzinv = jax.jit(
+        lambda a, b, x, m_: jfg._v2_fwd_pass(jdg, a, b, x, m_))(jsl, jsr, jh, jm)
+    m = torch.from_numpy(np.asarray(jm))
+    acc, z = tfg.gat_v2_fwd_plain(tdg, sl, sr, m, h)
+    zinv = 1.0 / torch.clamp(z, min=tfg.Z_FLOOR)
+    np.testing.assert_allclose(zinv.numpy(), np.asarray(jzinv), **VAL)
+    np.testing.assert_allclose((acc * zinv[:, None]).numpy(),
+                               np.asarray(jout), **VAL)
+
+    jdsl, jdsr, jdh = jax.jit(
+        lambda *res: jfg._v2_bwd((jdg, *res[:-1]), res[-1])[1:])(
+            jsl, jsr, jh, jm, jzinv, jout, jct)
+    out = torch.from_numpy(np.asarray(jout))
+    zinv = torch.from_numpy(np.asarray(jzinv))
+    inner = (ct * out).sum(1)
+    d_sl = tfg.gat_v2_bwd_sl_plain(tdg, sl, sr, m, zinv, inner, h, ct)
+    d_h, d_sr = tfg.gat_v2_bwd_h_plain(tdg, sl, sr, m, zinv, inner, h, ct)
+    np.testing.assert_allclose(d_sl.numpy(), np.asarray(jdsl), **GRAD)
+    np.testing.assert_allclose(d_sr.numpy(), np.asarray(jdsr), **GRAD)
+    np.testing.assert_allclose(d_h.numpy(), np.asarray(jdh), **GRAD)
+
+
+def _torch_value_and_grads(fn, arrs):
+    sl, sr, h = (t.requires_grad_(True) for t in _t(arrs, "sl", "sr", "h"))
+    out = fn(sl, sr, h)
+    (out * torch.from_numpy(arrs["ct"])).sum().backward()
+    return [out.detach().numpy(), sl.grad.numpy(), sr.grad.numpy(),
+            h.grad.numpy()]
+
+
+@pytest.mark.parametrize("name", sorted(GRAPHS))
+def test_fused_op_and_grads_match_jax(name):
+    _, jdg, tdg, arrs = _case(name)
+    jsl, jsr, jh, jct = _j(arrs, "sl", "sr", "h", "ct")
+    # jitted: one compile instead of one per eager op and shape
+    jout = jax.jit(lambda a, b, x: jfg.gat_attention_spmm_v2(jdg, a, b, x))(
+        jsl, jsr, jh)
+    jgrads = jax.jit(jax.grad(
+        lambda a, b, x: (jfg.gat_attention_spmm_v2(jdg, a, b, x) * jct).sum(),
+        argnums=(0, 1, 2)))(jsl, jsr, jh)
+    before = dict(tfg.LAUNCHES)
+    ours = _torch_value_and_grads(
+        lambda a, b, x: tfg.gat_attention_spmm_v2(tdg, a, b, x), arrs)
+    assert tfg.LAUNCHES == before      # CPU tensors launch nothing
+    np.testing.assert_allclose(ours[0], np.asarray(jout), **VAL)
+    for mine, theirs, what in zip(ours[1:], jgrads, ("d_sl", "d_sr", "d_h")):
+        np.testing.assert_allclose(mine, np.asarray(theirs), err_msg=what,
+                                   **GRAD)
+
+
+def _unfused(tdg, sl, sr, h):
+    logits = tmath.leaky_relu(sddmm_add(tdg, sl, sr), 0.2)
+    return spmm(tdg, segment_softmax(tdg, logits), h, "ell")
+
+
+@pytest.mark.parametrize("name", sorted(GRAPHS))
+def test_fused_op_matches_the_ports_unfused_path(name):
+    _, _, tdg, arrs = _case(name)
+    fused = _torch_value_and_grads(
+        lambda a, b, x: tfg.gat_attention_spmm_v2(tdg, a, b, x), arrs)
+    plain = _torch_value_and_grads(lambda a, b, x: _unfused(tdg, a, b, x),
+                                   arrs)
+    np.testing.assert_allclose(fused[0], plain[0], **VAL)
+    for a, b, what in zip(fused[1:], plain[1:], ("d_sl", "d_sr", "d_h")):
+        np.testing.assert_allclose(a, b, err_msg=what, **GRAD)
+
+
+def test_edgeless_rows_give_finite_zeros():
+    """An edgeless row has z = 0: the 1e-30 floor keeps 1/z finite, so the
+    row's output and its gradients are 0, not NaN — on the JAX side too
+    (tests/test_ops.py holds v1 to the same rule)."""
+    rp = np.array([0, 2, 4, 6, 6], np.int64)       # vertex 3: no edges
+    ci = np.array([1, 2, 0, 2, 0, 1], np.int32)
+    g = CSRGraph(row_ptr=rp, col_idx=ci)
+    tdg = tdgm.to_device_graph(g, device="cpu")
+    jdg = jdgm.to_device_graph(g, seg_ell=False)
+    rng = np.random.default_rng(0)
+    arrs = dict(h=rng.standard_normal((4, 8)).astype(np.float32),
+                sl=rng.standard_normal(4).astype(np.float32),
+                sr=rng.standard_normal(4).astype(np.float32),
+                ct=np.ones((4, 8), np.float32))
+    ours = _torch_value_and_grads(
+        lambda a, b, x: tfg.gat_attention_spmm_v2(tdg, a, b, x), arrs)
+    for a in ours:
+        assert np.isfinite(a).all()
+    assert (ours[0][3] == 0).all() and ours[1][3] == 0
+    jout = jfg.gat_attention_spmm_v2(jdg, *_j(arrs, "sl", "sr", "h"))
+    np.testing.assert_allclose(ours[0], np.asarray(jout), **VAL)
+    assert np.finfo(np.float32).tiny <= np.float32(tfg.Z_FLOOR)
+
+
+# ---- the kernels' design, as far as the CPU reaches it --------------------
+
+def _combine_rule(dg, shape, init, pieces, combine):
+    """What a kernel does to one output, emulated on the CPU: ``out`` is
+    uninitialised (NaN here) but for ``zero_rows``, which hold ``init``;
+    the piece of an unsplit row is stored, the pieces of a split row are
+    combined into what is there."""
+    out = torch.full(shape, float("nan"))
+    out[dg.zero_rows] = init
+    for b, piece in zip(dg.ell, pieces):
+        rows = b.row_ids.long()
+        split = dg.is_split[rows] != 0
+        out[rows[~split]] = piece[~split]
+        combine(out, rows[split], piece[split])
+    return out
+
+
+def _add(out, rows, piece):
+    out.index_add_(0, rows, piece)
+
+
+def _amax(out, rows, piece):
+    out.scatter_reduce_(0, rows, piece, "amax")
+
+
+def _per_bucket(dg, fn):
+    """``fn`` of each bucket taken alone: the pieces a kernel computes
+    per virtual row, over the first ``valid`` slots only."""
+    out = []
+    for b in dg.ell:
+        nbr = b.nbr.view(b.rows, b.width).long()
+        live = torch.arange(b.width)[None, :] < b.valid[:, None]
+        out.append(fn(b.row_ids.long(), nbr, live))
+    return out
+
+
+@pytest.mark.parametrize("name", ["hubs", "hubs_f7", "rmat8"])
+def test_store_or_combine_rule_matches_plain(name):
+    """Every row is stored once or initialised and combined, never left
+    unwritten, and looping over the first ``valid`` slots equals masking
+    by the pad sentinel."""
+    g, _, dg, arrs = _case(name)
+    sl, sr, h, ct = _t(arrs, "sl", "sr", "h", "ct")
+    f = h.shape[1]
+    for b in dg.ell:      # the pads sit at the tail: valid counts them out
+        real = b.edge_id.view(b.rows, b.width) != dg.ne
+        assert torch.equal(real, torch.arange(b.width)[None, :]
+                           < b.valid[:, None])
+        assert int(b.valid.min()) >= 1
+
+    m0 = _combine_rule(dg, (g.nv,), float("-inf"), _per_bucket(
+        dg, lambda rows, nbr, live: sr[nbr].masked_fill(~live, float("-inf"))
+        .amax(1)), _amax)
+    assert not torch.isnan(m0).any()
+    assert torch.equal(m0, tfg.gat_rowmax_plain(dg, sr))
+
+    m = tfg._leaky(sl + torch.where(torch.isfinite(m0), m0,
+                                    torch.zeros_like(m0)))
+
+    def e_of(rows, nbr, live):
+        raw = sl[rows][:, None] + sr[nbr]
+        return torch.exp(tfg._leaky(raw) - m[rows][:, None]) * live
+
+    acc = _combine_rule(dg, (g.nv, f), 0.0, _per_bucket(
+        dg, lambda rows, nbr, live: (e_of(rows, nbr, live)[:, :, None]
+                                     * h[nbr]).sum(1)), _add)
+    z = _combine_rule(dg, (g.nv,), 0.0, _per_bucket(
+        dg, lambda rows, nbr, live: e_of(rows, nbr, live).sum(1)), _add)
+    acc_p, z_p = tfg.gat_v2_fwd_plain(dg, sl, sr, m, h)
+    assert not torch.isnan(acc).any() and not torch.isnan(z).any()
+    torch.testing.assert_close(acc, acc_p, rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(z, z_p, rtol=1e-5, atol=1e-6)
+
+    # the backward kernels' arithmetic: the dot products are summed per
+    # lane over the slots and the term with inner is subtracted once
+    zinv = 1.0 / torch.clamp(z_p, min=tfg.Z_FLOOR)
+    inner = (ct * acc_p * zinv[:, None]).sum(1)
+
+    def d_sl_piece(rows, nbr, live):
+        raw = sl[rows][:, None] + sr[nbr]
+        pl = e_of(rows, nbr, live) * zinv[rows][:, None] * tfg._leaky_grad(raw)
+        a = (pl[:, :, None] * ct[rows][:, None, :] * h[nbr]).sum((1, 2))
+        return a - inner[rows] * pl.sum(1)
+
+    d_sl = _combine_rule(dg, (g.nv,), 0.0, _per_bucket(dg, d_sl_piece), _add)
+    assert not torch.isnan(d_sl).any()
+    torch.testing.assert_close(
+        d_sl, tfg.gat_v2_bwd_sl_plain(dg, sl, sr, m, zinv, inner, h, ct),
+        rtol=1e-4, atol=1e-5)
+
+    def p_t(rows, nbr, live):
+        raw = sl[nbr] + sr[rows][:, None]
+        p = torch.exp(tfg._leaky(raw) - m[nbr]) * zinv[nbr] * live
+        return p, p * tfg._leaky_grad(raw)
+
+    d_h = _combine_rule(dg, (g.nv, f), 0.0, _per_bucket(
+        dg, lambda rows, nbr, live: (p_t(rows, nbr, live)[0][:, :, None]
+                                     * ct[nbr]).sum(1)), _add)
+
+    def d_sr_piece(rows, nbr, live):
+        pl = p_t(rows, nbr, live)[1]
+        a = (pl[:, :, None] * h[rows][:, None, :] * ct[nbr]).sum((1, 2))
+        return a - (pl * inner[nbr]).sum(1)
+
+    d_sr = _combine_rule(dg, (g.nv,), 0.0, _per_bucket(dg, d_sr_piece), _add)
+    d_h_p, d_sr_p = tfg.gat_v2_bwd_h_plain(dg, sl, sr, m, zinv, inner, h, ct)
+    assert not torch.isnan(d_h).any() and not torch.isnan(d_sr).any()
+    torch.testing.assert_close(d_h, d_h_p, rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(d_sr, d_sr_p, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("nv,f,aligned,want", [
+    (1 << 17, 128, True, (16, 1, 2)),   # the slice exceeds L2: 64 floats
+    (1 << 15, 128, True, (32, 1, 1)),   # 16 MB fits: one tile
+    (1 << 17, 16, True, (4, 1, 1)),
+    (1 << 13, 128, True, (32, 1, 1)),
+    (1 << 10, 256, True, (32, 1, 2)),   # a group is at most one warp
+    (1 << 10, 7, True, (7, 0, 1)),      # F % 4 != 0: float columns
+    (1 << 10, 50, True, (32, 0, 2)),
+    (1 << 10, 16, False, (16, 0, 1)),   # unaligned: float columns
+])
+def test_wide_pass_shape_rule(nv, f, aligned, want):
+    class _T:
+        def data_ptr(self):
+            return 256 if aligned else 260
+
+    assert tfg._wide_shape(nv, f, _T(), _T()) == want
+    tile_v, vec, tiles = want
+    assert 1 <= tile_v <= 32 and tiles * tile_v >= (f // 4 if vec else f)
+
+
+def test_wrappers_reject_what_the_kernels_do_not_take():
+    _, _, dg, arrs = _case("rmat8")
+    sl, sr, h = _t(arrs, "sl", "sr", "h")
+    with pytest.raises(ValueError, match="float32"):
+        tfg.gat_rowmax(dg, sr.double())
+    with pytest.raises(ValueError, match="shape"):
+        tfg.gat_v2_fwd(dg, sl, sr[:-1], sl, h)
+    with pytest.raises(ValueError, match="contiguous"):
+        tfg.gat_v2_fwd(dg, sl, sr, sl, h.t().contiguous().t())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(GRAPHS))
+def test_kernels_match_plain_on_cuda(name):
+    """The four kernels against their plain versions on the card (run at
+    full size by chip_smoke.py's kernel phase)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the GAT kernels have no CPU mode")
+    g, _, _, arrs = _case(name)
+    dg = tdgm.to_device_graph(g, device="cuda")
+    fused = _torch_value_and_grads(
+        lambda a, b, x: tfg.gat_attention_spmm_v2(dg, a.cuda(), b.cuda(),
+                                                  x.cuda()).cpu(), arrs)
+    cpu = _torch_value_and_grads(
+        lambda a, b, x: tfg.gat_attention_spmm_v2(
+            tdgm.to_device_graph(g, device="cpu"), a, b, x), arrs)
+    for a, b in zip(fused, cpu):
+        np.testing.assert_allclose(a, b, **GRAD)

@@ -29,7 +29,7 @@ def test_port_imports_leave_jax_out():
         "import importlib, pkgutil, sys\n"
         "import graphaibench_tpu_torch as pkg\n"
         "names = [m.name for m in pkgutil.walk_packages(pkg.__path__, 'graphaibench_tpu_torch.')]\n"
-        "assert len(names) >= 19, names\n"
+        "assert len(names) >= 21, names\n"
         "for n in names:\n"
         "    importlib.import_module(n)\n"
         "import chip_smoke\n"
@@ -90,6 +90,35 @@ def test_params_from_jax_equal_port_init(use_dense):
 
 @pytest.mark.parametrize("arch", ["sage", "gat", "ggnn"])
 def test_unported_archs_name_their_roadmap_item(arch):
-    cfg = tl.make_config(arch, 2, 8, 8, 3)
+    """Every architecture initialises now; what each still refuses (layer
+    remat) names its ROADMAP item."""
+    cfg = tl.make_config(arch, 2, 8, 8, 3, remat=True)
+    params = tl.init_params(cfg, device="cpu")
+    assert [n.split(".")[-1] for n, _ in params.gconv[0].named_parameters()
+            ] == list(tl.LAYER_PARAMS[arch])
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tl.init_params(cfg, device="cpu")
+        tl.apply_model(cfg, params, None, None, torch.zeros(4, 8))
+
+
+@pytest.mark.parametrize("arch,layers,dims", [
+    ("sage", 2, (24, 16, 5)), ("gat", 2, (24, 16, 5)), ("gat", 3, (8, 8, 3)),
+    ("ggnn", 1, (24, 16, 5)), ("ggnn", 1, (16, 16, 5))])
+def test_params_from_jax_carry_every_arch(arch, layers, dims):
+    """The JAX pytree's paths become the module's names, value for value,
+    and the port's own init draws the same numbers."""
+    jcfg = jl.make_config(arch, layers, *dims)
+    jparams = jax.tree.map(np.asarray, jl.init_params(jcfg))
+    carried = dict(tl.params_from_jax(jparams, "cpu").named_parameters())
+    own = dict(tl.init_params(tl.make_config(arch, layers, *dims),
+                              device="cpu").named_parameters())
+    want = {f"gconv.{l}.{k}": v for l, layer in enumerate(jparams["gconv"])
+            for k, v in layer.items()}
+    if "dense" in jparams:
+        want["dense.W"] = jparams["dense"]["W"]
+    assert set(carried) == set(own) == set(want)
+    for name, value in want.items():
+        assert np.array_equal(carried[name].detach().numpy(), value), name
+        assert torch.equal(carried[name], own[name]), name
+    with pytest.raises(ValueError, match="not those"):
+        tl.params_from_jax({"gconv": [{"W_neigh": value, "bogus": value}]},
+                           "cpu")

@@ -147,10 +147,15 @@ def test_ell_spmm_rejects_what_the_kernel_does_not_take(graphs):
 
 
 def test_sddmm_dot_guard_off_the_cpu(graphs):
+    """No guard is left: ``sddmm_dot`` is plain PyTorch on any device (a
+    meta tensor stands in for one that is not the CPU)."""
     _, _, tdg = graphs
     a = torch.empty(tdg.nv, 4, device="meta")
-    with pytest.raises(NotImplementedError, match="K2"):
-        tspmm.sddmm_dot(tdg, a, a)
+    meta = dataclasses.replace(tdg, edge_src=tdg.edge_src.to("meta"),
+                               col_idx=tdg.col_idx.to("meta"))
+    out = tspmm.sddmm_dot(meta, a, a)
+    assert out.device.type == "meta" and out.shape == (tdg.ne,)
+    assert tspmm.sddmm_dot(meta, a, a, chunk_elems=4 * 1000).shape == (tdg.ne,)
 
 
 def test_kernel_build_raises_without_cuda():
@@ -158,8 +163,9 @@ def test_kernel_build_raises_without_cuda():
     library's entry raises instead of handing back something else."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the build guard cannot fire")
-    with pytest.raises(RuntimeError, match="CUDA|nvcc"):
-        _build.load_library()
+    for name in ("ell_spmm", "fused_gat"):
+        with pytest.raises(RuntimeError, match="CUDA|nvcc"):
+            _build.load_library(name)
 
 
 @pytest.mark.cuda
