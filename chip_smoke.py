@@ -10,11 +10,12 @@ non-zero exit code and no result line:
 
 1. device  — requires a CUDA device; prints the nvidia-smi name and power
              limit line and torch's device name.
-2. build   — compiles the two sources of ``graphaibench_tpu_torch/csrc``
+2. build   — compiles the three sources of ``graphaibench_tpu_torch/csrc``
              (``ell_spmm.cu``: K1; ``fused_gat.cu``: the four passes of
-             the fused GAT attention) with nvcc, side by side, and loads
-             them; prints the build seconds and the compiler's register
-             report for each kernel.
+             the fused GAT attention v2; ``ell_edge.cu``: the three passes
+             over per-edge values that v1 runs on) with nvcc, side by
+             side, and loads them; prints the build seconds and the
+             compiler's register report for each kernel.
 3. kernel  — K1: on rmat(17, 16) with self-loops, for F in {128, 16} and both
              weight views (forward and transpose), holds the kernel
              against its plain PyTorch version and times both, beside the
@@ -33,9 +34,22 @@ non-zero exit code and no result line:
              differentiable op, output and three gradients, against the
              port's unfused path (sddmm_add, segment_softmax, spmm) under
              autograd at rmat13.
+             The passes over per-edge values (ell_row_reduce in its three
+             kinds, gat_v1_fwd, sddmm_dot_ell): the same graph with a
+             random 0/1 mask as edge weights, F in {128, 16}, each kernel
+             against its plain version, timed beside its bound and, where
+             one PyTorch call computes the same function (index_add_,
+             scatter_reduce_, torch.sparse.sampled_addmm), that call;
+             then F = 7 and the graph without self-loops behind the
+             dirtied allocator; then the v1 op (gat_attention_spmm),
+             output and three gradients, against the unfused path at
+             rmat13.
 4. small   — the port's Model trained 5 steps on the GPU and on the CPU
              (plain versions) at rmat11 (ELL forced) and rmat13, for gcn,
-             sage, gat and ggnn; the trajectories must agree.
+             sage, gat and ggnn; the trajectories must agree. Then
+             train_sampled for gcn (COO strategy) and gat (dense
+             strategy) and inductive training for gat, GPU against CPU,
+             and a save/restore round trip on the card.
 5. main    — the GCN main path: Model(make_config("gcn", 2, 128, 128, 16,
              lr=0.01), ds, device="cuda").train(5) on rmat17, then
              evaluate("test"); counts the kernel's launches. Then the GAT
@@ -43,8 +57,16 @@ non-zero exit code and no result line:
              l2norm/dense head), with the four GAT kernels' launch counts
              (8 per step, 4 in evaluation, no K1 launch), then sage at
              those widths and ggnn (make_config("ggnn", 1, 128, 128, 16))
-             with K1's counts. Every count is set to 0 just before its
-             path and read just after.
+             with K1's counts. Then 5 GAT steps at the same widths through
+             apply_model with its default trivial_w and a random 0/1 mask
+             as edge weights (the v1 fused attention): per step 10
+             ell_row_reduce, 2 gat_v1_fwd, 2 sddmm_dot_ell and 2 K1
+             launches. Then 5 epochs of train_sampled each for gcn and gat
+             at subg_size 32768 (COO strategy, l2norm + dense head), with
+             the sampler-wait, step and evaluation seconds of OpTimers
+             and the launches of its two full-graph evaluations. Every
+             count is set to 0 just before its path and read just
+             after.
 6. epochs  — the GCN and the GAT model on after those 5 warm-up steps:
              the median of 20 epochs with the kernels, and with their
              plain versions swapped in, in the order kernel, plain,
@@ -52,8 +74,10 @@ non-zero exit code and no result line:
 7. profile — 10 more epochs of each under torch.profiler: device time per
              epoch by kernel, and the device's busy share of the profiled
              wall time (the profiler slows the host, so that share is a
-             floor).
-8. result  — a JSON line of the five kernels, then the last line
+             floor). The v1 path (20 timed steps, 10 profiled) and the
+             sampled paths (3 profiled epochs) are profiled inside the
+             main phase, right after they are driven.
+8. result  — a JSON line of the eight kernels, then the last line
              {"ok": true, "device": {...}}.
 """
 
@@ -62,6 +86,7 @@ from __future__ import annotations
 import json
 import statistics
 import subprocess
+import tempfile
 import time
 
 import numpy as np
@@ -70,14 +95,17 @@ import torch
 from graphaibench_tpu_torch import GnnDataset, rmat
 from graphaibench_tpu_torch.nn import Model, make_config
 from graphaibench_tpu_torch.nn.layers import apply_model
+from graphaibench_tpu_torch.nn.losses import masked_softmax_loss
 from graphaibench_tpu_torch.nn.model import aggregation_weights, prepare_graph
 from graphaibench_tpu_torch.ops import _build
+from graphaibench_tpu_torch.ops import ell_edge as EE
 from graphaibench_tpu_torch.ops import ell_spmm as K1
 from graphaibench_tpu_torch.ops import fused_gat as FG
 from graphaibench_tpu_torch.ops import math as gmath
 from graphaibench_tpu_torch.ops.device_graph import pack_edge_values, to_device_graph
 from graphaibench_tpu_torch.ops.segment import segment_softmax
 from graphaibench_tpu_torch.ops.spmm import sddmm_add, spmm
+from graphaibench_tpu_torch.utils.timers import OP_EVAL, OP_SAMPLE, OP_STEP, OpTimers
 
 SCALE, EDGE_FACTOR = 17, 16
 FEAT, HIDDEN, CLASSES = 128, 128, 16
@@ -102,6 +130,18 @@ GAT_KERNELS = {   # name -> line of the JAX pass it replaces
     "gat_rowmax": 285, "gat_v2_fwd": 309, "gat_v2_bwd_sl": 391,
     "gat_v2_bwd_h": 413}
 GAT_SMALL_SCALE = 13     # the whole op against the unfused path
+EDGE_KERNELS = {  # name -> file:line of the JAX program it replaces
+    "ell_row_reduce": "graphaibench_tpu/ops/segment.py:16",
+    "gat_v1_fwd": "graphaibench_tpu/ops/fused_gat.py:36",
+    "sddmm_dot_ell": "graphaibench_tpu/ops/spmm.py:307"}
+MASK_KEEP = 0.7          # share of edges the random 0/1 mask keeps
+# Launches of one v1 GAT step per layer: forward the row max, the row sum
+# of exp and gat_v1_fwd; backward K1 (dx), sddmm_dot_ell, the softmax
+# adjoint's row sum, and the two row sums of sddmm_add's adjoint.
+V1_ROW_REDUCES_PER_LAYER = (2, 3)      # forward, backward
+SUBG_SIZE = 32768        # sampled main path: n_pad > 4096, the COO strategy
+SAMPLED_VAL_INTERVAL = 2  # evaluations after epochs 2 and 4
+SAMPLED_PROFILED_EPOCHS = 3
 # Launches of the GAT main path (2 layers): per layer one gat_rowmax and
 # one gat_v2_fwd forward, one gat_v2_bwd_sl and one gat_v2_bwd_h backward.
 GAT_LAYERS = 2
@@ -462,6 +502,195 @@ def phase_gat_kernels(g) -> dict[str, dict]:
     return res
 
 
+def _edge_bounds(dg, f: int) -> dict[str, tuple[float, str, int]]:
+    """Per pass over per-edge values: the least time the card could take,
+    in ms, what bounds it, and the bytes. Bytes: every input read once and
+    every output written once — per real slot its edge id and, for the two
+    wide passes, its neighbour id (the passes skip the pads), the row ids
+    and valid counts, the split flags where rows are combined, the (ne,)
+    and (nv,) vectors and the (nv, F) matrices. Operations: per real slot
+    the multiply-adds over F and a few scalar ones (exp counted as one)."""
+    rows = sum(b.rows for b in dg.ell)
+    eids = dg.ne * 4 + rows * 8
+    evec, vec, mat = dg.ne * 4, dg.nv * 4, dg.nv * f * 4
+    work = {
+        "ell_row_reduce max": (eids + dg.nv + evec + vec, dg.ne),
+        "ell_row_reduce sum": (eids + dg.nv + evec + vec, dg.ne),
+        "ell_row_reduce sumexp": (eids + dg.nv + evec + 2 * vec, 2 * dg.ne),
+        "gat_v1_fwd": (eids + dg.ne * 4 + dg.nv + 2 * evec + 2 * vec + 2 * mat,
+                       dg.ne * (2 * f + 4)),
+        "sddmm_dot_ell": (eids + dg.ne * 4 + 2 * mat + evec, dg.ne * 2 * f),
+    }
+    out = {}
+    for name, (nbytes, ops) in work.items():
+        by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        by_ops = ops / F32_FLOP_PER_S * 1e3
+        out[name] = (max(by_bytes, by_ops),
+                     "bytes" if by_bytes >= by_ops else "operations", nbytes)
+    return out
+
+
+def _edge_passes(dg, f: int, gen, what: str, dirty: bool, timed: bool,
+                 reduces: bool = True):
+    """The three kernels of csrc/ell_edge.cu against their plain versions
+    on one graph and width, each on the same inputs (gat_v1_fwd takes the
+    plain passes' m and zinv), with a random 0/1 mask as edge weights.
+    Returns {case name: case}; ``reduces`` says whether ell_row_reduce,
+    which does not depend on F, is among them."""
+    nv, ne = dg.nv, dg.ne
+    logits = 2.0 * torch.randn(ne, device="cuda", generator=gen)
+    mask = (torch.rand(ne, device="cuda", generator=gen) < MASK_KEEP).float()
+    x = torch.randn(nv, f, device="cuda", generator=gen)
+    ct = torch.randn(nv, f, device="cuda", generator=gen)
+
+    def run(fn, *args):
+        if dirty:   # an element the kernel does not write shows as NaN
+            junk = [torch.full((nv, f), float("nan"), device="cuda"),
+                    torch.full((nv,), float("nan"), device="cuda"),
+                    torch.full((ne,), float("nan"), device="cuda")]
+            del junk
+        return fn(dg, *args)
+
+    m_p = EE.ell_row_reduce_plain(dg, logits, "max")
+    m = torch.where(torch.isfinite(m_p), m_p, torch.zeros_like(m_p))
+    z_p = EE.ell_row_reduce_plain(dg, logits, "sumexp", m)
+    zinv = 1.0 / torch.clamp(z_p, min=FG.Z_FLOOR)
+    errs = {}
+    if reduces:
+        if not torch.equal(run(EE.ell_row_reduce, logits, "max"), m_p):
+            raise RuntimeError(f"{what}: ell_row_reduce max differs from plain")
+        errs["ell_row_reduce max"] = 0.0
+        errs["ell_row_reduce sum"] = _gat_close(
+            run(EE.ell_row_reduce, logits, "sum"),
+            EE.ell_row_reduce_plain(dg, logits, "sum"), f"{what} row sum")
+        errs["ell_row_reduce sumexp"] = _gat_close(
+            run(EE.ell_row_reduce, logits, "sumexp", m), z_p,
+            f"{what} row sumexp")
+    v1 = (logits, mask, x, m, zinv)
+    out_p = EE.gat_v1_fwd_plain(dg, *v1)
+    errs["gat_v1_fwd"] = _gat_close(run(EE.gat_v1_fwd, *v1), out_p,
+                                    f"{what} gat_v1_fwd")
+    raw_p = EE.sddmm_dot_ell_plain(dg, ct, x)
+    errs["sddmm_dot_ell"] = _gat_close(run(EE.sddmm_dot_ell, ct, x), raw_p,
+                                       f"{what} sddmm_dot_ell")
+    torch.cuda.synchronize()
+    cases = {name: {"F": f, "max_abs_err": err} for name, err in errs.items()}
+    if not timed:
+        return cases
+    # the one PyTorch call that computes the same function, where there is
+    # one; timed here and used nowhere on a CUDA graph with ELL buckets
+    src = dg.edge_src.long()
+    pattern = torch.sparse_csr_tensor(dg.row_ptr, dg.col_idx,
+                                      torch.zeros(ne, device="cuda"),
+                                      size=(nv, nv))
+    xt = x.t().contiguous()
+    library = {
+        "ell_row_reduce max": lambda: torch.full(
+            (nv,), float("-inf"), device="cuda").scatter_reduce_(
+                0, src, logits, "amax"),
+        "ell_row_reduce sum": lambda: torch.zeros(nv, device="cuda").index_add_(
+            0, src, logits),
+        "sddmm_dot_ell": lambda: torch.sparse.sampled_addmm(
+            pattern, ct, xt, beta=0.0),
+    }
+    for name, want in (("ell_row_reduce max", m_p),
+                       ("ell_row_reduce sum",
+                        EE.ell_row_reduce_plain(dg, logits, "sum")),
+                       ("sddmm_dot_ell", raw_p)):
+        got = library[name]()
+        got = got.values() if got.layout == torch.sparse_csr else got
+        _gat_close(got, want, f"{what} library call for {name}")
+    calls = {
+        "ell_row_reduce max": (EE.ell_row_reduce, EE.ell_row_reduce_plain,
+                               (logits, "max")),
+        "ell_row_reduce sum": (EE.ell_row_reduce, EE.ell_row_reduce_plain,
+                               (logits, "sum")),
+        "ell_row_reduce sumexp": (EE.ell_row_reduce, EE.ell_row_reduce_plain,
+                                  (logits, "sumexp", m)),
+        "gat_v1_fwd": (EE.gat_v1_fwd, EE.gat_v1_fwd_plain, v1),
+        "sddmm_dot_ell": (EE.sddmm_dot_ell, EE.sddmm_dot_ell_plain, (ct, x)),
+    }
+    bounds = _edge_bounds(dg, f)
+    for name in cases:
+        kernel, plain, args = calls[name]
+        ms = _batch_ms(lambda: kernel(dg, *args))
+        device_ms = _kernel_device_ms(lambda: kernel(dg, *args),
+                                      f"{name.split()[0]}_kernel")
+        plain_ms = _batch_ms(lambda: plain(dg, *args), calls=3, batches=3)
+        library_ms = _batch_ms(library[name]) if name in library else None
+        bound_ms, bound_by, nbytes = bounds[name]
+        cases[name].update(
+            ms=ms, device_ms=device_ms, plain_ms=plain_ms,
+            library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
+            bound_bytes=nbytes, share_of_bound=bound_ms / ms,
+            edges_per_s=ne / (ms * 1e-3))
+        if name.startswith("gat_v1") or name.startswith("sddmm"):
+            cases[name]["tile"] = (FG._tile_floats(nv, f)
+                                   if name.startswith("gat_v1") else f)
+        print(f"[kernel] {name} {json.dumps(cases[name])}")
+    return cases
+
+
+def _v1_unfused(dg, logits, w, x):
+    return spmm(dg, segment_softmax(dg, logits) * w, x, "ell")
+
+
+def phase_edge_kernels(g) -> dict[str, dict]:
+    """{kernel: {"cases": [timed cases], "max_abs_err": over every case}}
+    for ell_row_reduce (cases: its three kinds), gat_v1_fwd and
+    sddmm_dot_ell (cases: F = 128 and 16)."""
+    dg = to_device_graph(prepare_graph(g, "gat"), device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    res = {name: {"cases": [], "max_abs_err": 0.0} for name in EDGE_KERNELS}
+
+    def fold(cases, timed):
+        for name, case in cases.items():
+            kernel = name.split()[0]
+            res[kernel]["max_abs_err"] = max(res[kernel]["max_abs_err"],
+                                             case["max_abs_err"])
+            if timed:
+                res[kernel]["cases"].append(dict(case, case=name))
+
+    for f in (FEAT, CLASSES):
+        fold(_edge_passes(dg, f, gen, f"F={f}", dirty=False, timed=True,
+                          reduces=f == FEAT), True)
+    fold(_edge_passes(dg, 7, gen, "F=7 (float columns)", dirty=True,
+                      timed=False), False)
+    dgs = to_device_graph(prepare_graph(g, "sage"), device="cuda")
+    empty = int((dgs.deg == 0).sum())
+    if empty == 0:
+        raise RuntimeError("the graph without self-loops has no row of "
+                           "degree 0: the case checks nothing")
+    for f in (CLASSES, 7):
+        fold(_edge_passes(dgs, f, gen, f"no self-loops F={f}", dirty=True,
+                          timed=False), False)
+    print(f"[kernel] passes over per-edge values at F=7 and on the graph "
+          f"without self-loops ({empty} rows of degree 0, dirtied allocator, "
+          f"0/1 mask): max_abs_err "
+          f"{ {n: r['max_abs_err'] for n, r in res.items()} }")
+
+    # the v1 op and its three gradients against the port's unfused path
+    dg13 = to_device_graph(prepare_graph(rmat(GAT_SMALL_SCALE, 8, seed=1),
+                                         "gat"), device="cuda")
+    ct = torch.randn(dg13.nv, CLASSES, device="cuda", generator=gen)
+    base = [torch.randn(dg13.ne, device="cuda", generator=gen),
+            (torch.rand(dg13.ne, device="cuda", generator=gen)
+             < MASK_KEEP).float(),
+            torch.randn(dg13.nv, CLASSES, device="cuda", generator=gen)]
+    outs = []
+    for fn in (FG.gat_attention_spmm, _v1_unfused):
+        l, w, x = (t.clone().requires_grad_(True) for t in base)
+        out = fn(dg13, l, w, x)
+        (out * ct).sum().backward()
+        outs.append((out.detach(), l.grad, w.grad, x.grad))
+    errs = [_gat_close(a, b, f"v1 fused vs unfused {what}")
+            for a, b, what in zip(*outs, ("out", "d_logits", "d_edge_w", "d_x"))]
+    print(f"[kernel] gat_attention_spmm (v1, 0/1 mask) vs the unfused path at "
+          f"rmat{GAT_SMALL_SCALE} F={CLASSES}: max_abs_err "
+          f"out/d_logits/d_edge_w/d_x {errs}")
+    return res
+
+
 def _dataset(g, feat: int, classes: int, seed: int = 0) -> GnnDataset:
     """bench.py's in-memory dataset shape: normal features, uniform
     labels, train on the first half, validate/test on the second."""
@@ -498,14 +727,89 @@ def phase_small() -> None:
                   f"{runs['cuda'][0][:, 0].tolist()} match the CPU run")
 
 
+def _params_np(model) -> list:
+    return [p.detach().cpu().numpy() for p in model.params.parameters()]
+
+
+def _assert_same_run(a, b, what: str) -> None:
+    """Two (trajectory, parameters) pairs within the trajectory tolerance."""
+    np.testing.assert_allclose(a[0], b[0], rtol=TRAJ_RTOL, atol=TRAJ_ATOL,
+                               err_msg=what)
+    for pa, pb in zip(a[1], b[1]):
+        np.testing.assert_allclose(pa, pb, rtol=TRAJ_RTOL, atol=TRAJ_ATOL,
+                                   err_msg=what)
+
+
+def phase_small_trainer() -> None:
+    """GPU against CPU for what the trainer does beyond full-batch steps:
+    sampled training (gcn above 4096 padded vertices: the COO strategy;
+    gat below: the dense one), inductive training, and a save/restore
+    round trip on the card."""
+    for arch, scale, subg in (("gcn", 13, 5000), ("gat", 11, 600)):
+        ds = _dataset(rmat(scale, 8, seed=1), 32, 4)
+        cfg = make_config(arch, 2, 32, 16, 4, lr=0.01, subg_size=subg)
+        runs = {}
+        for dev in ("cuda", "cpu"):
+            m = Model(cfg, ds, device=dev, inductive=True)
+            log = m.train_sampled(3, subg, verbose=False, seed=5)
+            runs[dev] = (np.array([(l, a) for l, a, _ in log]), _params_np(m))
+        _assert_same_run(runs["cuda"], runs["cpu"], f"sampled {arch}")
+        print(f"[small] train_sampled {arch} rmat{scale} subg_size={subg}: GPU "
+              f"losses {runs['cuda'][0][:, 0].tolist()} match the CPU run")
+
+    g = rmat(13, 8, seed=1)
+    ds = _dataset(g, 32, 4)
+    ds.train_mask = (np.arange(g.nv) % 3 != 0).astype(np.uint8)
+    cfg = make_config("gat", 2, 32, 16, 4, lr=0.01)
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        m = Model(cfg, ds, device=dev, inductive=True)
+        log = m.train(EPOCHS, verbose=False)
+        runs[dev] = (np.array([(l, a) for l, a, _ in log]), _params_np(m))
+    _assert_same_run(runs["cuda"], runs["cpu"], "inductive gat")
+    print(f"[small] inductive gat rmat13 (training graph ne="
+          f"{m.training.host.ne} of {m.full.host.ne}): GPU losses "
+          f"{runs['cuda'][0][:, 0].tolist()} match the CPU run")
+
+    # save after 2 steps, restore into a fresh Model, 2 more: the state
+    # comes back bit for bit, and the run goes on as the uninterrupted
+    # one within the trajectory tolerance (split rows are added with
+    # atomics, so two runs on the card are not bit-equal)
+    cfg = make_config("gcn", 2, 32, 16, 4, lr=0.01)
+    whole = Model(cfg, ds, device="cuda")
+    want = whole.train(4, verbose=False)
+    first = Model(cfg, ds, device="cuda")
+    got = first.train(2, verbose=False)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = first.save(tmp, step=2)
+        second = Model(cfg, ds, device="cuda")
+        second.restore(tmp, step=2)
+    for a, b in zip(first.params.parameters(), second.params.parameters()):
+        if not (torch.equal(a, b) and b.is_cuda):
+            raise RuntimeError("restore did not bring the parameters back")
+    saved, back = first.opt.state_dict(), second.opt.state_dict()
+    for name in ("m", "v"):
+        if not all(torch.equal(a, b) for a, b in zip(saved[name], back[name])):
+            raise RuntimeError(f"restore did not bring Adam's {name} back")
+    if float(saved["b1_t"]) != float(back["b1_t"]):
+        raise RuntimeError("restore did not bring Adam's b1_t back")
+    got += second.train(2, verbose=False)
+    _assert_same_run((np.array([(l, a) for l, a, _ in got]), _params_np(second)),
+                     (np.array([(l, a) for l, a, _ in want]), _params_np(whole)),
+                     "save/restore")
+    print(f"[small] save/restore on the card ({path.rsplit('/', 1)[-1]}): 2 + 2 "
+          f"steps match 4 uninterrupted steps")
+
+
 def _zero_counts() -> None:
     K1.LAUNCHES = 0
-    for name in FG.LAUNCHES:
-        FG.LAUNCHES[name] = 0
+    for counts in (FG.LAUNCHES, EE.LAUNCHES):
+        for name in counts:
+            counts[name] = 0
 
 
 def _counts() -> dict[str, int]:
-    return {"ell_spmm": K1.LAUNCHES, **FG.LAUNCHES}
+    return {"ell_spmm": K1.LAUNCHES, **FG.LAUNCHES, **EE.LAUNCHES}
 
 
 def _drive(g, cfg, want_train: dict, want_eval: dict):
@@ -582,6 +886,132 @@ def phase_main(g):
     return gcn, gat, launches
 
 
+def _assert_counts(tag: str, got: dict, want: dict) -> None:
+    """Every kernel launched as often as ``want`` says; one not named,
+    not at all."""
+    for name, n in got.items():
+        if n != want.get(name, 0):
+            raise RuntimeError(f"{tag} {name}: {n} launches, expected "
+                               f"{want.get(name, 0)} (all counts: {got})")
+
+
+def phase_main_v1(g) -> dict[str, int]:
+    """The v1 main path: ``EPOCHS`` GAT steps at full width through
+    ``apply_model`` with its default ``trivial_w`` and a random 0/1 mask
+    as edge weights, then one evaluation forward; then ``TIMED_EPOCHS``
+    more steps on the host clock and ``PROFILED_EPOCHS`` under the
+    profiler. Returns the launch counts of training and evaluation
+    together."""
+    tag = "[main gat v1]"
+    cfg = make_config("gat", GAT_LAYERS, FEAT, HIDDEN, CLASSES, lr=0.01,
+                      use_l2norm=False, use_dense=False)
+    ds = _dataset(g, FEAT, CLASSES)
+    model = Model(cfg, ds, device="cuda")
+    dg = model.full.device
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    mask = (torch.rand(dg.ne, device="cuda", generator=gen) < MASK_KEEP).float()
+    begin, end, _ = ds.train_range
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    losses, times = [], []
+
+    def steps(n: int) -> None:
+        for _ in range(n):
+            t0 = time.perf_counter()
+            model.opt.zero_grad()
+            logits = apply_model(cfg, model.params, dg, mask, model.feats,
+                                 train=True)
+            loss, rep, _ = masked_softmax_loss(logits, model.labels, begin,
+                                               end, model.masks["train"])
+            loss.backward()
+            model.opt.step()
+            losses.append(float(rep.detach()))     # waits for the device
+            times.append(time.perf_counter() - t0)
+
+    steps(EPOCHS)
+    train = _counts()
+    fwd, bwd = V1_ROW_REDUCES_PER_LAYER
+    _assert_counts(f"{tag} training", train, {
+        "ell_row_reduce": EPOCHS * GAT_LAYERS * (fwd + bwd),
+        "gat_v1_fwd": EPOCHS * GAT_LAYERS,
+        "sddmm_dot_ell": EPOCHS * GAT_LAYERS,
+        "ell_spmm": EPOCHS * GAT_LAYERS})       # K1: dx, once per layer
+    with torch.no_grad():
+        logits = apply_model(cfg, model.params, dg, mask, model.feats)
+    total = _counts()
+    _assert_counts(f"{tag} evaluation",
+                   {k: total[k] - train[k] for k in total},
+                   {"ell_row_reduce": GAT_LAYERS * fwd,
+                    "gat_v1_fwd": GAT_LAYERS})
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise RuntimeError(f"{tag} losses not finite or not falling: {losses}")
+    if tuple(logits.shape) != (g.nv, CLASSES) or not bool(
+            torch.isfinite(logits).all()):
+        raise RuntimeError(f"{tag} bad logits: shape {tuple(logits.shape)}")
+    print(f"{tag} losses {losses}")
+    print(f"{tag} launches in training {train}, with one evaluation forward "
+          f"{total}; step median {statistics.median(times) * 1e3:.3f} ms "
+          f"(warm-up steps included); peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    steps(TIMED_EPOCHS)
+    step_ms = statistics.median(times[EPOCHS:]) * 1e3
+    print(f"{tag} median of {TIMED_EPOCHS} more steps {step_ms:.4f} ms")
+    phase_profile("gat v1", steps, PROFILED_EPOCHS, step_ms)
+    return total
+
+
+def phase_main_sampled(g) -> None:
+    """The sampled main path: ``EPOCHS`` epochs of ``train_sampled`` each
+    for gcn and gat at full width, ``SUBG_SIZE`` vertices a subgraph,
+    with the stage seconds of OpTimers and the launches of its full-graph
+    evaluations (the sampled step itself runs on a graph without ELL
+    buckets: plain PyTorch, no kernel of this port)."""
+    evals = len(range(SAMPLED_VAL_INTERVAL, EPOCHS, SAMPLED_VAL_INTERVAL))
+    per_eval = {"gcn": {"ell_spmm": SPMMS_PER_EVAL},
+                "gat": {"gat_rowmax": GAT_LAYERS, "gat_v2_fwd": GAT_LAYERS}}
+    for arch in ("gcn", "gat"):
+        tag = f"[main sampled {arch}]"
+        cfg = make_config(arch, 2, FEAT, HIDDEN, CLASSES, lr=0.01,
+                          subg_size=SUBG_SIZE)
+        timers = OpTimers()
+        t0 = time.perf_counter()
+        model = Model(cfg, _dataset(g, FEAT, CLASSES), device="cuda",
+                      inductive=True, timers=timers)
+        torch.cuda.synchronize()
+        setup = time.perf_counter() - t0
+        torch.cuda.reset_peak_memory_stats()
+        _zero_counts()
+        log = model.train_sampled(EPOCHS, SUBG_SIZE,
+                                  val_interval=SAMPLED_VAL_INTERVAL)
+        counts = _counts()
+        _assert_counts(tag, counts, {k: evals * n
+                                     for k, n in per_eval[arch].items()})
+        # every epoch trains on another subgraph (and the labels are
+        # random), so the losses need not fall within 5 epochs
+        losses = [l for l, _, _ in log]
+        if not all(np.isfinite(losses)):
+            raise RuntimeError(f"{tag} non-finite loss: {losses}")
+        acc = model.evaluate("test")
+        if not 0.0 <= acc <= 1.0:
+            raise RuntimeError(f"{tag} test accuracy {acc} outside [0, 1]")
+        if (timers.counts[OP_SAMPLE], timers.counts[OP_STEP],
+                timers.counts[OP_EVAL]) != (EPOCHS, EPOCHS, evals + 1):
+            raise RuntimeError(f"{tag} timer counts {dict(timers.counts)}")
+        print(f"{tag} set-up {setup:.2f} s; losses {losses} test_acc {acc:.4f}; "
+              f"launches of {evals} evaluations {counts}")
+        epoch_ms = statistics.median(dt for _, _, dt in log) * 1e3
+        print(f"{tag} epoch median {epoch_ms:.3f} ms; "
+              f"OpTimers seconds over {EPOCHS} epochs: sampler wait "
+              f"{timers.times[OP_SAMPLE]:.4f}, step {timers.times[OP_STEP]:.4f}, "
+              f"evaluation x{evals + 1} {timers.times[OP_EVAL]:.4f}; peak memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        phase_profile(f"sampled {arch}",
+                      lambda n, m=model: m.train_sampled(
+                          n, SUBG_SIZE, verbose=False, seed=EPOCHS),
+                      SAMPLED_PROFILED_EPOCHS, epoch_ms)
+
+
 class _plain_kernels:
     """While active, the wrappers send CUDA tensors to the kernels' plain
     versions (for timing the plain versions on the main path)."""
@@ -627,14 +1057,17 @@ def phase_epochs(model) -> float:
     return statistics.mean(kernel)
 
 
-def phase_profile(model, epoch_ms: float) -> None:
+def phase_profile(tag: str, run, epochs: int, epoch_ms: float) -> None:
+    """``run(epochs)`` under torch.profiler: device time per epoch by
+    kernel and the device's busy share; ``epoch_ms`` is the unprofiled
+    epoch on the host clock, from another run."""
     from torch.profiler import ProfilerActivity, profile
 
-    tag = f"[profile {model.cfg.arch}]"
+    tag = f"[profile {tag}]"
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        model.train(PROFILED_EPOCHS, verbose=False)
+        run(epochs)
         wall_us = (time.perf_counter() - t0) * 1e6
     dev = [e for e in prof.events()
            if e.device_type == torch.autograd.DeviceType.CUDA]
@@ -652,16 +1085,16 @@ def phase_profile(model, epoch_ms: float) -> None:
         item = by_name.setdefault(e.name, [0, 0.0])
         item[0] += 1
         item[1] += e.time_range.elapsed_us()
-    device_ms = busy / PROFILED_EPOCHS / 1e3
-    print(f"{tag} {PROFILED_EPOCHS} epochs: device busy "
-          f"{device_ms:.4f} ms/epoch, {len(dev) / PROFILED_EPOCHS:.1f} "
+    device_ms = busy / epochs / 1e3
+    print(f"{tag} {epochs} epochs: device busy "
+          f"{device_ms:.4f} ms/epoch, {len(dev) / epochs:.1f} "
           f"device ops/epoch, busy share {busy / wall_us:.4f} of the "
           f"profiled wall time; {device_ms / epoch_ms:.4f} of the unprofiled "
           f"{epoch_ms:.4f} ms epoch (device time and wall time from two runs)")
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]
     for name, (n, us) in top:
-        print(f"{tag} {us / PROFILED_EPOCHS / 1e3:.4f} ms/epoch "
-              f"{us / busy:.4f} of device time, {n / PROFILED_EPOCHS:g}/epoch: "
+        print(f"{tag} {us / epochs / 1e3:.4f} ms/epoch "
+              f"{us / busy:.4f} of device time, {n / epochs:g}/epoch: "
               f"{name[:90]}")
 
 
@@ -674,10 +1107,16 @@ def main() -> None:
           f"{time.perf_counter() - t0:.2f} s")
     cases, other_err = phase_kernel(g)
     gat_kernels = phase_gat_kernels(g)
+    edge_kernels = phase_edge_kernels(g)
     phase_small()
+    phase_small_trainer()
     gcn, gat, launches = phase_main(g)
+    v1_launches = phase_main_v1(g)
+    phase_main_sampled(g)
     for model in (gcn, gat):
-        phase_profile(model, phase_epochs(model))
+        phase_profile(model.cfg.arch,
+                      lambda n, m=model: m.train(n, verbose=False),
+                      PROFILED_EPOCHS, phase_epochs(model))
     head = cases[0]
     kernels = [{
         "name": "ell_spmm",
@@ -709,6 +1148,25 @@ def main() -> None:
             "bound_by": head["bound_by"],
             # no single PyTorch call computes a pass of the fused attention
             "library_ms": None,
+            "cases": res["cases"],
+        })
+    for kname, replaces in EDGE_KERNELS.items():
+        res = edge_kernels[kname]
+        # F = 128; for ell_row_reduce the sum, which has a library call
+        head = next(c for c in res["cases"]
+                    if c["case"] in ("ell_row_reduce sum", kname))
+        kernels.append({
+            "name": kname,
+            "route": "cuda",
+            "source": "graphaibench_tpu_torch/csrc/ell_edge.cu",
+            "replaces": replaces,
+            "launches": v1_launches[kname],
+            "max_abs_err": res["max_abs_err"],
+            "ms": head["ms"],
+            "plain_ms": head["plain_ms"],
+            "bound_ms": head["bound_ms"],
+            "bound_by": head["bound_by"],
+            "library_ms": head["library_ms"],
             "cases": res["cases"],
         })
     print(json.dumps({"kernels": kernels}))

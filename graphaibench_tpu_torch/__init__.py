@@ -12,13 +12,19 @@ package's, bit for bit.
 
 Subpackages
 -----------
-native  C++ host kernels (CSR build, stable key sort, ELL packing), built
-      with g++ at first use; numpy routes without a toolchain
+native  C++ host kernels (CSR build, stable key sort, ELL packing, the
+      GraphSAINT sampler), built with g++ at first use; numpy routes
+      without a toolchain
 graph CSR container, transforms, generators, dataset readers
-ops   device graph (degree-bucketed ELL), the ELL SpMM kernel (CUDA C++
-      in ``csrc/``) with its plain PyTorch version, SpMM autograd, math
-nn    GCN layers, losses, the reference's Adam, the training Model
-cli   ``python -m graphaibench_tpu_torch.cli train gcn <dataset> ...``
+ops   device graph (degree-bucketed ELL), the kernels (CUDA C++ in
+      ``csrc/``: the ELL SpMM, the fused GAT attention's passes, the
+      passes over per-edge values) with their plain PyTorch versions,
+      SpMM and attention autograd, segment ops, math
+nn    layers of the four architectures, losses, the reference's
+      optimizers, the GraphSAINT sampler, the training Model
+utils stage timers, profiler capture, checkpoints
+entry ``entry()``: the flagship model's forward function and arguments
+cli   ``python -m graphaibench_tpu_torch.cli train <arch> <dataset> ...``
 """
 
 __version__ = "0.1.0"

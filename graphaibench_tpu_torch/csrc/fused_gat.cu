@@ -31,7 +31,8 @@
 // What the design does about it (the same family as csrc/ell_spmm.cu):
 //   * One launch per pass for all buckets: a table of per-bucket pointers,
 //     row counts and widths travels by value, a block finds its bucket from a
-//     prefix of block counts, the widest bucket first.
+//     prefix of block counts, the widest bucket first (csrc/ell_table.cuh,
+//     shared with csrc/ell_edge.cu).
 //   * A group of 2^lg lanes owns one virtual row; each lane owns one column
 //     of V (float4 when F % 4 == 0 and the tensors are aligned, else float)
 //     of the current feature tile. The per-slot scalars (sr_j, or the packed
@@ -67,6 +68,8 @@
 
 #include <cuda_runtime.h>
 
+#include "ell_table.cuh"
+
 namespace {
 
 // Two tuning constants can be set at build time (-D...), which
@@ -78,50 +81,9 @@ namespace {
 #define GAB_GAT_ROWMAX_LG 3
 #endif
 
-constexpr int kMaxBuckets = 8;
-constexpr int kThreads = 256;
 constexpr int kChunk = GAB_GAT_CHUNK;          // slots gathered together
 constexpr int kRowmaxLg = GAB_GAT_ROWMAX_LG;   // log2 lanes per row, gat_rowmax
 constexpr float kSlope = 0.2f;
-
-struct Bucket {
-  const int32_t* row_ids;  // (rows,)
-  const int32_t* nbr;      // (rows * width,)
-  const int32_t* valid;    // (rows,) real slots of each virtual row
-  int64_t rows;
-  int32_t width;
-  int32_t first_block;     // of this bucket inside one tile's blocks
-};
-
-struct Table {
-  Bucket b[kMaxBuckets];
-  int32_t n;
-  int32_t blocks_per_tile;
-  int32_t tiles;
-};
-
-// Where a thread works: bucket, virtual row, lane of the row's group, tile.
-struct Pos {
-  int bucket;
-  int64_t r;
-  int gl;
-  int64_t tile;
-  bool live;  // r is a row of the bucket
-};
-
-__device__ __forceinline__ Pos locate(const Table& tab, int lg) {
-  Pos p;
-  p.tile = blockIdx.x / tab.blocks_per_tile;
-  const int32_t blk = blockIdx.x % tab.blocks_per_tile;
-  int i = 0;
-  while (i + 1 < tab.n && blk >= tab.b[i + 1].first_block) ++i;
-  p.bucket = i;
-  p.r = (static_cast<int64_t>(blk - tab.b[i].first_block) * kThreads +
-         threadIdx.x) >> lg;
-  p.gl = threadIdx.x & ((1 << lg) - 1);
-  p.live = p.r < tab.b[i].rows;
-  return p;
-}
 
 __device__ __forceinline__ float leaky(float raw) {
   return raw > 0.0f ? raw : kSlope * raw;
@@ -129,57 +91,6 @@ __device__ __forceinline__ float leaky(float raw) {
 
 __device__ __forceinline__ float leaky_grad(float raw) {
   return raw > 0.0f ? 1.0f : kSlope;
-}
-
-template <typename V> __device__ __forceinline__ V zero();
-template <> __device__ __forceinline__ float zero<float>() { return 0.0f; }
-template <> __device__ __forceinline__ float4 zero<float4>() {
-  return make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-}
-
-__device__ __forceinline__ void axpy(float& acc, float a, float v) {
-  acc = fmaf(a, v, acc);
-}
-__device__ __forceinline__ void axpy(float4& acc, float a, const float4& v) {
-  acc.x = fmaf(a, v.x, acc.x);
-  acc.y = fmaf(a, v.y, acc.y);
-  acc.z = fmaf(a, v.z, acc.z);
-  acc.w = fmaf(a, v.w, acc.w);
-}
-
-__device__ __forceinline__ float dot(float a, float b) { return a * b; }
-__device__ __forceinline__ float dot(const float4& a, const float4& b) {
-  return fmaf(a.x, b.x, fmaf(a.y, b.y, fmaf(a.z, b.z, a.w * b.w)));
-}
-
-// Store, or add where several writers share the address.
-template <typename V>
-__device__ __forceinline__ void put(V* dst, const V& v, bool add) {
-  if (add) {
-    atomicAdd(dst, v);
-  } else {
-    *dst = v;
-  }
-}
-
-// Sum over the 2^lg lanes of a group; every lane of the warp takes part.
-__device__ __forceinline__ float group_sum(float v, int lg) {
-  for (int o = (1 << lg) >> 1; o > 0; o >>= 1) {
-    v += __shfl_xor_sync(0xffffffffu, v, o);
-  }
-  return v;
-}
-
-// max into *addr for floats of any sign: non-negative floats order like
-// signed integers, negative ones in reverse like unsigned integers. -0 is
-// turned into +0 first, so that it takes the integer route of its value.
-__device__ __forceinline__ void atomic_max_float(float* addr, float v) {
-  v += 0.0f;
-  if (v >= 0.0f) {
-    atomicMax(reinterpret_cast<int*>(addr), __float_as_int(v));
-  } else {
-    atomicMin(reinterpret_cast<unsigned int*>(addr), __float_as_uint(v));
-  }
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -375,84 +286,12 @@ gat_v2_bwd_h_kernel(const __grid_constant__ Table tab,
   }
 }
 
-// Fills the table for groups of 2^lg lanes and `tiles` feature tiles;
-// returns the grid size, or 0 and an error code in *err.
-int64_t fill_table(Table* tab, const void* const* row_ids,
-                   const void* const* nbr, const void* const* valid,
-                   const int64_t* rows, const int32_t* widths, int n_buckets,
-                   int lg, int64_t tiles, cudaError_t* err) {
-  *err = cudaErrorInvalidValue;
-  if (n_buckets <= 0 || n_buckets > kMaxBuckets || tiles <= 0) return 0;
-  const int64_t rows_per_block = kThreads >> lg;
-  *tab = Table{};
-  tab->n = n_buckets;
-  int64_t blocks = 0;
-  for (int i = 0; i < n_buckets; ++i) {
-    if (rows[i] <= 0 || widths[i] <= 0) return 0;
-    tab->b[i].row_ids = static_cast<const int32_t*>(row_ids[i]);
-    tab->b[i].nbr = static_cast<const int32_t*>(nbr[i]);
-    tab->b[i].valid = static_cast<const int32_t*>(valid[i]);
-    tab->b[i].rows = rows[i];
-    tab->b[i].width = widths[i];
-    tab->b[i].first_block = static_cast<int32_t>(blocks);
-    blocks += (rows[i] + rows_per_block - 1) / rows_per_block;
-    if (blocks > 0x7fffffff) {
-      *err = cudaErrorInvalidConfiguration;
-      return 0;
-    }
-  }
-  if (blocks * tiles > 0x7fffffff) {
-    *err = cudaErrorInvalidConfiguration;
-    return 0;
-  }
-  tab->blocks_per_tile = static_cast<int32_t>(blocks);
-  tab->tiles = static_cast<int32_t>(tiles);
-  *err = cudaSuccess;
-  return blocks * tiles;
-}
-
-// Lanes per row (as a power of two) and tiles for a wide pass over f_v
-// columns of V in tiles of tile_v.
-bool wide_shape(int64_t f_v, int tile_v, int* lg, int64_t* tiles) {
-  if (f_v <= 0 || tile_v <= 0 || tile_v > 32) return false;
-  *lg = 0;
-  while ((1 << *lg) < tile_v) ++*lg;
-  *tiles = (f_v + tile_v - 1) / tile_v;
-  return true;
-}
-
-// What a wide pass settles before it launches.
-struct WidePlan {
-  Table tab;
-  int64_t f_v;  // columns of V
-  int lg;       // log2 lanes per row
-  dim3 grid;
-};
-
-// Checks the shape of a wide pass, fills its table and selects `device`;
-// returns the first CUDA error.
-cudaError_t plan_wide(WidePlan* p, const void* const* row_ids,
-                      const void* const* nbr, const void* const* valid,
-                      const int64_t* rows, const int32_t* widths,
-                      int n_buckets, int64_t f, int tile_v, int vec,
-                      int device) {
-  if (vec && f % 4 != 0) return cudaErrorInvalidValue;
-  p->f_v = vec ? f / 4 : f;
-  int64_t tiles;
-  if (!wide_shape(p->f_v, tile_v, &p->lg, &tiles)) return cudaErrorInvalidValue;
-  cudaError_t err;
-  const int64_t grid = fill_table(&p->tab, row_ids, nbr, valid, rows, widths,
-                                  n_buckets, p->lg, tiles, &err);
-  if (err != cudaSuccess) return err;
-  p->grid = dim3(static_cast<unsigned>(grid));
-  return cudaSetDevice(device);
-}
 
 }  // namespace
 
-// Common arguments of the four entries: n_buckets buckets in launch order
-// (widest first); row_ids[i] and valid[i] (rows[i],) int32, nbr[i]
-// (rows[i] * widths[i],) int32, is_split (nv,) uint8; every pointer on CUDA
+// Common arguments of the four entries: the per-bucket arrays
+// (GAB_TABLE_PARAMS of csrc/ell_table.cuh; these passes do not read the edge
+// ids), then is_split (nv,) uint8; every pointer on CUDA
 // device `device`, stream a cudaStream_t of that device. The wide passes take
 // f = F, tile_v (1..32 columns of V per tile) and vec: 1 asks for V = float4
 // (f % 4 == 0; the (nv, f) matrices aligned to 16 bytes), 0 for V = float.
@@ -461,16 +300,12 @@ cudaError_t plan_wide(WidePlan* p, const void* const* row_ids,
 // allocates nothing and does not synchronise.
 
 // m0 (nv,) with -inf in split and edgeless rows -> m0_i = max_j sr_j.
-extern "C" int gab_gat_rowmax(const void* const* row_ids,
-                              const void* const* nbr, const void* const* valid,
-                              const int64_t* rows, const int32_t* widths,
-                              int n_buckets, const void* is_split,
+extern "C" int gab_gat_rowmax(GAB_TABLE_PARAMS, const void* is_split,
                               const void* sr, void* m0, int device,
                               void* stream) {
   Table tab;
   cudaError_t err;
-  const int64_t grid = fill_table(&tab, row_ids, nbr, valid, rows, widths,
-                                  n_buckets, kRowmaxLg, 1, &err);
+  const int64_t grid = fill_table(&tab, GAB_TABLE_ARGS, kRowmaxLg, 1, &err);
   if (err != cudaSuccess) return static_cast<int>(err);
   err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -482,16 +317,12 @@ extern "C" int gab_gat_rowmax(const void* const* row_ids,
 }
 
 // acc (nv, f) and z (nv,) with zeros in split and edgeless rows.
-extern "C" int gab_gat_v2_fwd(const void* const* row_ids,
-                              const void* const* nbr, const void* const* valid,
-                              const int64_t* rows, const int32_t* widths,
-                              int n_buckets, const void* is_split,
+extern "C" int gab_gat_v2_fwd(GAB_TABLE_PARAMS, const void* is_split,
                               const void* sl, const void* sr, const void* m,
                               const void* h, void* acc, void* z, int64_t f,
                               int tile_v, int vec, int device, void* stream) {
   WidePlan p;
-  const cudaError_t err = plan_wide(&p, row_ids, nbr, valid, rows, widths,
-                                    n_buckets, f, tile_v, vec, device);
+  const cudaError_t err = plan_wide(&p, GAB_TABLE_ARGS, f, tile_v, vec, device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const uint8_t* split = static_cast<const uint8_t*>(is_split);
@@ -514,15 +345,12 @@ extern "C" int gab_gat_v2_fwd(const void* const* row_ids,
 // d_sl (nv,) with zeros in split and edgeless rows, or all zeros when the
 // pass takes more than one tile (f / (vec ? 4 : 1) > tile_v).
 extern "C" int gab_gat_v2_bwd_sl(
-    const void* const* row_ids, const void* const* nbr,
-    const void* const* valid, const int64_t* rows, const int32_t* widths,
-    int n_buckets, const void* is_split, const void* sl, const void* sr,
+    GAB_TABLE_PARAMS, const void* is_split, const void* sl, const void* sr,
     const void* m, const void* zinv, const void* inner, const void* h,
     const void* ct, void* d_sl, int64_t f, int tile_v, int vec, int device,
     void* stream) {
   WidePlan p;
-  const cudaError_t err = plan_wide(&p, row_ids, nbr, valid, rows, widths,
-                                    n_buckets, f, tile_v, vec, device);
+  const cudaError_t err = plan_wide(&p, GAB_TABLE_ARGS, f, tile_v, vec, device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const uint8_t* split = static_cast<const uint8_t*>(is_split);
@@ -548,14 +376,11 @@ extern "C" int gab_gat_v2_bwd_sl(
 // (nv, f) with zeros in split and edgeless rows; d_sr (nv,) likewise, or all
 // zeros when the pass takes more than one tile.
 extern "C" int gab_gat_v2_bwd_h(
-    const void* const* row_ids, const void* const* nbr,
-    const void* const* valid, const int64_t* rows, const int32_t* widths,
-    int n_buckets, const void* is_split, const void* pack, const void* sr,
+    GAB_TABLE_PARAMS, const void* is_split, const void* pack, const void* sr,
     const void* h, const void* ct, void* d_h, void* d_sr, int64_t f,
     int tile_v, int vec, int device, void* stream) {
   WidePlan p;
-  const cudaError_t err = plan_wide(&p, row_ids, nbr, valid, rows, widths,
-                                    n_buckets, f, tile_v, vec, device);
+  const cudaError_t err = plan_wide(&p, GAB_TABLE_ARGS, f, tile_v, vec, device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const uint8_t* split = static_cast<const uint8_t*>(is_split);

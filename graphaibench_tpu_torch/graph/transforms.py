@@ -11,9 +11,11 @@ a mutating method of the reference graph classes but returns a fresh
   gcn_vertex_norms    — lgraph.cpp:22-34 (1/sqrt(deg))
   gcn_edge_norms      — lgraph.cpp:6-20 (1/sqrt(d_i d_j))
   sage_edge_norms     — sage_aggregator.cpp:14-28 (1/deg)
+  masked_subgraph     — lgraph.h:231-272 (inductive training graph)
+  induced_subgraph    — sampler.cpp:69-95 (GraphSAINT reindexing)
 
-The reorderings, subgraphs and the orientation of the JAX package's
-module come with the slices that need them.
+The reorderings and the orientation of the JAX package's module come with
+the slices that need them.
 """
 
 from __future__ import annotations
@@ -70,6 +72,32 @@ def transpose_edge_permutation(g: CSRGraph) -> np.ndarray:
     if perm is not None:
         return perm
     return np.lexsort((src, dst)).astype(np.int32)
+
+
+def masked_subgraph(g: CSRGraph, mask: np.ndarray) -> CSRGraph:
+    """Keep only edges whose endpoints are both masked; vertex set and ids
+    unchanged — LearningGraph::generate_masked_graph (lgraph.h:231-272)."""
+    mask = np.asarray(mask).astype(bool)
+    src, dst = g.coo()
+    keep = mask[src] & mask[dst]
+    return from_edges(src[keep], dst[keep], g.nv, sort_neighbors=False)
+
+
+def induced_subgraph(g: CSRGraph, vertices: np.ndarray) -> tuple[CSRGraph, np.ndarray]:
+    """Vertex-induced subgraph with local reindexing.
+
+    Returns (subgraph, vertices) where subgraph vertex i corresponds to
+    global vertex vertices[i] (sorted ascending) — the reindexSubgraph
+    semantics of the GraphSAINT sampler (sampler.cpp:69-95)."""
+    vs = np.unique(np.asarray(vertices, dtype=np.int64))
+    remap = -np.ones(g.nv, dtype=np.int64)
+    remap[vs] = np.arange(len(vs))
+    src, dst = g.coo()
+    keep = (remap[src] >= 0) & (remap[dst] >= 0)
+    return (
+        from_edges(remap[src[keep]], remap[dst[keep]], len(vs), sort_neighbors=False),
+        vs.astype(np.int32),
+    )
 
 
 def gcn_vertex_norms(g: CSRGraph) -> np.ndarray:

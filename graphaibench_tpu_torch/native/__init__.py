@@ -2,7 +2,7 @@
 
 Counterpart of ``graphaibench_tpu/native``: the host-side hot loops that
 feed the device path (CSR building, the stable key sort behind the
-transpose permutation, ELL packing). The port keeps its own copy of the
+transpose permutation, ELL packing, the GraphSAINT frontier sampler). The port keeps its own copy of the
 source (``src/gab_native.cpp``) and compiles it once with ``g++`` into
 ``build/native/`` of the checkout, keyed by a hash of the source. Every
 wrapper returns ``None`` when there is no toolchain, and its caller then
@@ -68,6 +68,10 @@ def get_lib():
 
     lib.stable_key_sort.restype = ctypes.c_int
     lib.stable_key_sort.argtypes = [i64, p_i32, i64, p_i32]
+
+    lib.saint_sample.restype = i64
+    lib.saint_sample.argtypes = [i64, p_i64, p_i32, p_i64, i64, i64, i64, i64,
+                                 ctypes.c_uint64, p_i32]
 
     lib.ell_pack_count.restype = i64
     lib.ell_pack_count.argtypes = [i64, p_i64, p_i32, ctypes.c_int, i64, p_i64]
@@ -166,3 +170,20 @@ def ell_pack(targets, starts, counts, col, eid, sentinel: int,
                     nbr_flat[slot_off[i]:slot_off[i + 1]],
                     eid_flat[slot_off[i]:slot_off[i + 1]]))
     return out
+
+
+def saint_sample(row_ptr, col_idx, train_nodes, n, m, clip, seed):
+    """Sorted unique vertices of one GraphSAINT frontier sample (m seeds
+    from ``train_nodes``, n - m weighted expansions), or None without the
+    toolchain."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    nv = len(row_ptr) - 1
+    out = np.zeros(min(nv, n + m), dtype=np.int32)
+    k = lib.saint_sample(
+        nv, np.ascontiguousarray(row_ptr, np.int64),
+        np.ascontiguousarray(col_idx, np.int32),
+        np.ascontiguousarray(train_nodes, np.int64), len(train_nodes),
+        n, m, clip, seed, out)
+    return out[:k].astype(np.int64)

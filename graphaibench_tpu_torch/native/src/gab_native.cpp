@@ -7,6 +7,7 @@
 //   * CSR construction from edge lists (counting sort)
 //   * stable counting sort by key (the transpose-edge permutation)
 //   * degree-bucketed ELL packing
+//   * the GraphSAINT frontier sampler
 // All entry points are extern "C" for ctypes; arrays are caller-allocated
 // numpy buffers. OpenMP parallelism where profitable.
 //
@@ -170,5 +171,58 @@ int ell_pack_fill(int64_t nrows, const int32_t* targets, const int64_t* starts,
   return 0;
 }
 
-}  // extern "C"
+// ---------------------------------------------------------------------
+// GraphSAINT frontier sampler (sampler.cpp:163-293 distribution):
+// m seed frontier slots from train_nodes, then n-m expansions choosing a
+// slot weighted by clipped degree, hopping to a uniform neighbor.
+// Returns number of unique sampled vertices written to out (sorted).
+static inline uint64_t xorshift64(uint64_t& s) {
+  s ^= s << 13; s ^= s >> 7; s ^= s << 17; return s;
+}
 
+int64_t saint_sample(int64_t nv, const int64_t* row_ptr, const int32_t* col_idx,
+                     const int64_t* train_nodes, int64_t n_train, int64_t n,
+                     int64_t m, int64_t clip, uint64_t seed, int32_t* out) {
+  if (m > n) m = n;
+  uint64_t s = seed * 2654435761ull + 1442695040888963407ull;
+  std::vector<int64_t> frontier(m);
+  std::vector<double> weights(m);
+  std::vector<uint8_t> in_sample(nv, 0);
+  int64_t n_sampled = 0;
+  auto deg = [&](int64_t v) { return row_ptr[v + 1] - row_ptr[v]; };
+  for (int64_t i = 0; i < m; i++) {
+    int64_t v = train_nodes[xorshift64(s) % (uint64_t)n_train];
+    frontier[i] = v;
+    if (!in_sample[v]) { in_sample[v] = 1; n_sampled++; }
+    weights[i] = (double)std::min(deg(v), clip);
+  }
+  for (int64_t it = 0; it < n - m; it++) {
+    double total = 0;
+    for (int64_t i = 0; i < m; i++) total += weights[i];
+    if (total <= 0) break;
+    double pick = (double)(xorshift64(s) >> 11) / 9007199254740992.0 * total;
+    int64_t slot = 0;
+    double acc = 0;
+    for (; slot < m; slot++) {
+      acc += weights[slot];
+      if (pick < acc) break;
+    }
+    if (slot == m) slot = m - 1;
+    int64_t v = frontier[slot];
+    int64_t d = deg(v);
+    if (d > 0) {
+      int64_t u = col_idx[row_ptr[v] + (int64_t)(xorshift64(s) % (uint64_t)d)];
+      if (!in_sample[u]) { in_sample[u] = 1; n_sampled++; }
+      frontier[slot] = u;
+      weights[slot] = (double)std::min(deg(u), clip);
+    } else {
+      weights[slot] = 0.0;
+    }
+  }
+  int64_t k = 0;
+  for (int64_t v = 0; v < nv; v++)
+    if (in_sample[v]) out[k++] = (int32_t)v;
+  return k;
+}
+
+}  // extern "C"

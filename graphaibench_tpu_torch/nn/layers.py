@@ -24,7 +24,10 @@ from torch import nn
 
 from graphaibench_tpu_torch.ops import math as gmath
 from graphaibench_tpu_torch.ops.device_graph import DeviceGraph
-from graphaibench_tpu_torch.ops.fused_gat import gat_attention_spmm_v2
+from graphaibench_tpu_torch.ops.fused_gat import (
+    gat_attention_spmm,
+    gat_attention_spmm_v2,
+)
 from graphaibench_tpu_torch.ops.rng import glorot_reference
 from graphaibench_tpu_torch.ops.segment import segment_softmax
 from graphaibench_tpu_torch.ops.spmm import _pick_impl, sddmm_add, spmm
@@ -128,21 +131,38 @@ class GcnParams(nn.Module):
         self.dense = _Dense(dense) if dense is not None else None
 
 
+def _layer_names(layer: dict) -> tuple:
+    """The parameter names of one gconv layer in the port's order,
+    whatever order the dict has them in."""
+    for names in LAYER_PARAMS.values():
+        if set(names) == set(layer):
+            return names
+    raise ValueError(f"parameters {sorted(layer)} are not those of a gcn, "
+                     "sage, gat or ggnn layer")
+
+
+def leaves_in_param_order(tree: dict) -> list:
+    """The leaves of a pytree shaped like the JAX package's parameters
+    (``{"gconv": [{name: leaf}], "dense": {"W": leaf}}``) in the order of
+    ``GcnParams.parameters()``: layer by layer in ``LAYER_PARAMS`` order,
+    then ``dense.W``."""
+    leaves = [layer[name] for layer in tree["gconv"]
+              for name in _layer_names(layer)]
+    if tree.get("dense") is not None:
+        leaves.append(tree["dense"]["W"])
+    return leaves
+
+
 def params_from_jax(params_np: dict, device) -> GcnParams:
     """The port's parameters from the JAX package's parameter pytree, as
     numpy arrays: ``{"gconv": [{"W_neigh": ..., ...}], "dense": {"W":
     ...}}``, for any of the four architectures."""
-    known = set(map(frozenset, LAYER_PARAMS.values()))
-    for layer in params_np["gconv"]:
-        if frozenset(layer) not in known:
-            raise ValueError(f"parameters {sorted(layer)} are not those of "
-                             "a gcn, sage, gat or ggnn layer")
 
     def t(a):
         return torch.tensor(np.asarray(a, np.float32), device=device)
 
     dense = params_np.get("dense")
-    return GcnParams([{k: t(v) for k, v in layer.items()}
+    return GcnParams([{k: t(layer[k]) for k in _layer_names(layer)}
                       for layer in params_np["gconv"]],
                      t(dense["W"]) if dense is not None else None)
 
@@ -211,10 +231,13 @@ def gat_layer_fwd(p: _GConv, dg: DeviceGraph, edge_w, x, *, act, cfg,
     edge logits a_l.h_src + a_r.h_dst, LeakyReLU(0.2), softmax over each
     source vertex's edge list, score-weighted aggregation.
 
-    On the ELL strategy the softmax fuses into the aggregation
-    (``gat_attention_spmm_v2``), which needs ``trivial_w``: a static
-    promise that ``edge_w`` is all ones. The unfused path serves
-    ``return_scores``, score dropout and the other strategies."""
+    On the ELL strategy the softmax fuses into the aggregation: with
+    ``trivial_w``, a static promise that ``edge_w`` is all ones, the
+    logits are computed inside the bucket passes
+    (``gat_attention_spmm_v2``); without it ``edge_w`` weighs or masks
+    the edges (``gat_attention_spmm`` on per-edge logits). The unfused
+    path serves ``return_scores``, score dropout and the other
+    strategies."""
     x = _maybe_dropout(x, cfg.feat_drop, train, generator)
     h = matmul(x, p.W_neigh)
     sl = h @ p.alpha_l
@@ -222,12 +245,11 @@ def gat_layer_fwd(p: _GConv, dg: DeviceGraph, edge_w, x, *, act, cfg,
     drop_scores = train and cfg.score_drop > 0.0 and generator is not None
     if (dg.has_ell_layout and not (return_scores or drop_scores)
             and _pick_impl(dg, cfg.spmm_impl) == "ell"):
-        if not trivial_w:
-            raise NotImplementedError(
-                "fused GAT attention on per-edge weights or masks (v1, for "
-                "padded sampled subgraphs) is not ported yet (ROADMAP queue "
-                "1, P9; queue 2, K7)")
-        out = gat_attention_spmm_v2(dg, sl, sr, h)
+        if trivial_w:
+            out = gat_attention_spmm_v2(dg, sl, sr, h)
+        else:
+            logits = gmath.leaky_relu(sddmm_add(dg, sl, sr), 0.2)
+            out = gat_attention_spmm(dg, logits, edge_w, h)
         return torch.relu(out) if act else out
     logits = gmath.leaky_relu(sddmm_add(dg, sl, sr), 0.2)
     scores = segment_softmax(dg, logits) * edge_w
@@ -275,7 +297,9 @@ def apply_model(cfg: ModelConfig, params: GcnParams, dg: DeviceGraph,
     Mirrors Model::forward_prop (net.cpp:457-502). ``generator`` draws
     the dropout masks when ``train`` and a drop rate is positive.
     ``trivial_w`` is a static promise that ``edge_w`` is all ones
-    (full-batch graphs), which lets GAT take the fused attention."""
+    (full-batch graphs), which lets GAT compute its logits inside the
+    fused attention; without it GAT's fused attention takes ``edge_w`` as
+    per-edge weights or a mask."""
     if cfg.remat:
         raise NotImplementedError(
             "layer remat is not ported (ROADMAP queue 1, P11 measures "

@@ -19,17 +19,47 @@ gradient still moves the weight, so such a parameter is not skipped.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
 class _Optimizer:
     """Parameter list, per-parameter state buffers and the gradient
-    convention shared by every rule."""
+    convention shared by every rule. ``BUFFERS`` and ``SCALARS`` name a
+    rule's state as the JAX package's state tuples do (``AdamState.m``,
+    ``.b1_t`` ...): per-parameter buffers, in the order of
+    ``self.buffers``, and float32 scalars held as attributes."""
+
+    BUFFERS: tuple = ()
+    SCALARS: tuple = ()
 
     def __init__(self, params, n_buffers: int):
         self.params = list(params)
         self.buffers = [[torch.zeros_like(p) for p in self.params]
                         for _ in range(n_buffers)]
+
+    def state_dict(self) -> dict:
+        """The rule's state by name: a list of tensors per buffer, a
+        tensor per scalar."""
+        state = {name: list(buf) for name, buf in zip(self.BUFFERS, self.buffers)}
+        state.update({name: getattr(self, name) for name in self.SCALARS})
+        return state
+
+    @torch.no_grad()
+    def load_state_dict(self, state: dict) -> None:
+        """Copy a ``state_dict`` into the buffers in place, onto their
+        device; raises on a missing name or another shape."""
+        for name, buf in zip(self.BUFFERS, self.buffers):
+            if len(state[name]) != len(buf):
+                raise ValueError(f"{name}: {len(state[name])} tensors for "
+                                 f"{len(buf)} parameters")
+            for dst, src in zip(buf, state[name]):
+                if dst.shape != src.shape:
+                    raise ValueError(f"{name}: shape {tuple(src.shape)} for "
+                                     f"a parameter of {tuple(dst.shape)}")
+                dst.copy_(src)
+        for name in self.SCALARS:
+            setattr(self, name, self._scalar(float(state[name])))
 
     def zero_grad(self) -> None:
         for p in self.params:
@@ -49,6 +79,8 @@ class _Optimizer:
 
 
 class Adam(_Optimizer):
+    BUFFERS, SCALARS = ("m", "v"), ("b1_t", "b2_t")
+
     def __init__(self, params, lr: float = 0.01, b1: float = 0.9,
                  b2: float = 0.999, eps: float = 1e-8):
         super().__init__(params, 2)
@@ -85,6 +117,8 @@ class Momentum(_Optimizer):
     """momentum (optimizer.cpp:57-66): V = mu*V - lr*(dW + W*lambda);
     W += V."""
 
+    BUFFERS = ("dw_prev",)
+
     def __init__(self, params, lr: float = 0.01, mu: float = 0.9,
                  weight_decay: float = 0.0):
         super().__init__(params, 1)
@@ -114,6 +148,8 @@ class Adagrad(_Optimizer):
     """adagrad (optimizer.cpp:4-11): g2 += dW^2;
     W -= lr*dW/(sqrt(g2)+eps)."""
 
+    BUFFERS = ("g2",)
+
     def __init__(self, params, lr: float = 0.01, eps: float = 1e-8):
         super().__init__(params, 1)
         self.lr, self.eps = lr, eps
@@ -130,6 +166,8 @@ class RMSprop(_Optimizer):
     """RMSprop (optimizer.cpp:13-20): g2 = mu*g2+(1-mu)dW^2;
     W -= lr*dW/sqrt(g2+eps)."""
 
+    BUFFERS = ("g2",)
+
     def __init__(self, params, lr: float = 0.0001, mu: float = 0.99,
                  eps: float = 1e-8):
         super().__init__(params, 1)
@@ -145,6 +183,8 @@ class RMSprop(_Optimizer):
 
 class Adamax(_Optimizer):
     """adamax (optimizer.cpp:37-48)."""
+
+    BUFFERS, SCALARS = ("m", "u"), ("b1_t",)
 
     def __init__(self, params, lr: float = 0.002, b1: float = 0.9,
                  b2: float = 0.999, eps: float = 1e-8):
@@ -173,3 +213,21 @@ OPTIMIZERS = {
     "rmsprop": RMSprop,
     "adamax": Adamax,
 }
+
+
+def opt_state_from_jax(opt: _Optimizer, jax_opt_state) -> None:
+    """Load into ``opt`` the state of the JAX package's optimizer of the
+    same rule, given as numpy arrays (``jax.tree.map(np.asarray, state)``:
+    an ``AdamState``, ``MomentumState`` ... or a dict of its fields). A
+    per-parameter field is a pytree shaped like the JAX parameters, read
+    in the port's parameter order (``layers.leaves_in_param_order``), which
+    is the order of the parameters ``opt`` was built on."""
+    from graphaibench_tpu_torch.nn.layers import leaves_in_param_order
+
+    fields = (jax_opt_state._asdict() if hasattr(jax_opt_state, "_asdict")
+              else dict(jax_opt_state))
+    state = {name: [torch.tensor(np.asarray(a, np.float32))
+                    for a in leaves_in_param_order(fields[name])]
+             for name in opt.BUFFERS}
+    state.update({name: float(np.asarray(fields[name])) for name in opt.SCALARS})
+    opt.load_state_dict(state)

@@ -3,7 +3,7 @@
 Each source in ``graphaibench_tpu_torch/csrc`` is compiled with ``nvcc``
 for sm_90a into a shared library of its own with a plain C interface, at
 first use, into ``build/torch_kernels/`` of the checkout, keyed by a hash
-of the source and flags. The sources that still need building are
+of the source, the headers beside it (``*.cuh``) and the flags. The sources that still need building are
 compiled side by side, one ``nvcc`` each. A library is loaded with
 ``ctypes``; pointers and the stream travel as ``c_void_p``, sizes as
 ``c_int64``, and a kernel's per-bucket arrays as ctypes arrays of those.
@@ -25,7 +25,7 @@ from pathlib import Path
 import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("ell_spmm.cu", "fused_gat.cu")
+SOURCES = ("ell_spmm.cu", "fused_gat.cu", "ell_edge.cu")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 # No --use_fast_math: it flushes subnormals to zero and swaps expf for
 # __expf; the GAT passes rely on a normal 1e-30 floor and on expf.
@@ -37,8 +37,9 @@ _vpp = ctypes.POINTER(_vp)
 _i64p = ctypes.POINTER(ctypes.c_int64)
 _i32p = ctypes.POINTER(ctypes.c_int32)
 _int, _i64 = ctypes.c_int, ctypes.c_int64
-# per-bucket arrays of the GAT passes: row_ids, nbr, valid, rows, widths, n
-_GAT_TABLE = [_vpp, _vpp, _vpp, _i64p, _i32p, _int]
+# per-bucket arrays of the bucket passes (GAB_TABLE_PARAMS of
+# csrc/ell_table.cuh): row_ids, nbr, edge_id, valid, rows, widths, n
+_GAT_TABLE = [_vpp, _vpp, _vpp, _vpp, _i64p, _i32p, _int]
 _WIDE = [_i64, _int, _int, _int, _vp]   # f, tile_v, vec, device, stream
 # C entry points per library: name -> argtypes (every one returns int)
 _SIGNATURES = {
@@ -51,6 +52,11 @@ _SIGNATURES = {
         "gab_gat_v2_fwd": _GAT_TABLE + [_vp] * 7 + _WIDE,
         "gab_gat_v2_bwd_sl": _GAT_TABLE + [_vp] * 9 + _WIDE,
         "gab_gat_v2_bwd_h": _GAT_TABLE + [_vp] * 7 + _WIDE,
+    },
+    "ell_edge": {
+        "gab_ell_row_reduce": _GAT_TABLE + [_vp] * 4 + [_int, _int, _vp],
+        "gab_gat_v1_fwd": _GAT_TABLE + [_vp] * 7 + _WIDE,
+        "gab_sddmm_dot_ell": _GAT_TABLE + [_vp] * 3 + [_i64, _int, _int, _vp],
     },
 }
 
@@ -78,6 +84,8 @@ def find_nvcc() -> str:
 def _library_path(source: str) -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     h.update((CSRC / source).read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
     return BUILD_DIR / f"gab_{Path(source).stem}_{h.hexdigest()[:16]}.so"
 
 

@@ -243,3 +243,24 @@ def to_device_graph(g: CSRGraph, *, device) -> DeviceGraph:
         nv=g.nv,
         ne=g.ne,
     )
+
+
+def coo_device_graph(edge_src, col_idx, trans_perm, deg, *, nv: int,
+                     device) -> DeviceGraph:
+    """A device graph of COO arrays only, from host arrays of one padded
+    sampled subgraph: no ELL buckets, so it takes the ``coo`` or ``dense``
+    SpMM strategy and the plain per-edge ops. ``row_ptr`` is not read on
+    those paths and stays empty."""
+    none = torch.zeros(0, dtype=torch.int32, device=device)
+    return DeviceGraph(
+        row_ptr=none,
+        col_idx=_to(col_idx, device),
+        edge_src=_to(edge_src, device),
+        deg=_to(deg, device),
+        trans_perm=_to(trans_perm, device),
+        ell=(),
+        is_split=torch.zeros(nv, dtype=torch.uint8, device=device),
+        zero_rows=torch.zeros(0, dtype=torch.int64, device=device),
+        nv=nv,
+        ne=len(col_idx),
+    )

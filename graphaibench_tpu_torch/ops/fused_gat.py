@@ -1,8 +1,9 @@
-"""Fused GAT attention (v2): softmax over each vertex's edges and the
-score-weighted aggregation without a per-edge array.
+"""Fused GAT attention: softmax over each vertex's edges and the
+score-weighted aggregation in one op, in two versions.
 
-Counterpart of ``graphaibench_tpu/ops/fused_gat.py::gat_attention_spmm_v2``.
-For all-ones edge weights on a structurally symmetric graph,
+v2, counterpart of ``graphaibench_tpu/ops/fused_gat.py::gat_attention_spmm_v2``,
+works without any per-edge array. For all-ones edge weights on a
+structurally symmetric graph,
 
     out_i = sum_j softmax_j(leaky(sl_i + sr_j)) h_j      (j over i's edges)
 
@@ -39,19 +40,39 @@ engine and memory and are not carried over: the port gathers float32 at
 every size, so at nv >= 2^17 the two packages differ by bf16 rounding of
 the gathered operands on the JAX side.
 
-v1 (per-edge weights and masks, for padded sampled subgraphs) is ROADMAP
-queue 1, P9.
+v1, counterpart of ``gat_attention_spmm`` of the same JAX module, takes
+(ne,) logits and (ne,) edge weights or masks, which v2 cannot:
+
+    out_i = sum_e softmax_row(logits)_e edge_w_e x_j      (e = (i, j))
+
+Its forward is three bucket passes of ``ops/ell_edge.py`` (row max, row
+sum of exp, the weighted aggregation ``gat_v1_fwd``): the normalizers are
+indexed per row inside the passes and no normalized score vector is
+written. Its backward materializes the scores once, as the JAX module's
+does, and runs the ELL SpMM (K1) on the transpose-permuted scores for
+``dx``, ``sddmm_dot_ell`` for the per-edge <ct_i, x_j> and a row sum for
+the softmax adjoint. ``apply_model`` reaches it for GAT on an ELL graph
+unless the caller promises all-ones weights (``trivial_w``).
 """
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from graphaibench_tpu_torch.ops import _build
+from graphaibench_tpu_torch.ops._ell_launch import (
+    _check,
+    _empty_but,
+    _launch_tail,
+    _raise_on,
+    _table,
+    _tile_floats,  # noqa: F401  (read by chip_smoke.py and the probe)
+    _wide_shape,
+)
 from graphaibench_tpu_torch.ops.device_graph import DeviceGraph
-from graphaibench_tpu_torch.ops.ell_spmm import _L2_TILE_BYTES, MAX_BUCKETS
+from graphaibench_tpu_torch.ops.ell_edge import ell_row_reduce, gat_v1_fwd
+from graphaibench_tpu_torch.ops.segment import _row_reduce_ell
+from graphaibench_tpu_torch.ops.spmm import sddmm_dot, spmm_ell
 
 LAUNCHES = {"gat_rowmax": 0, "gat_v2_fwd": 0, "gat_v2_bwd_sl": 0,
             "gat_v2_bwd_h": 0}
@@ -60,7 +81,6 @@ SLOPE = 0.2
 # Floor of the softmax denominator: a NORMAL float32 (1e-38 is subnormal
 # and a flush-to-zero mode would turn an edgeless row's 1/z into inf).
 Z_FLOOR = 1e-30
-_MAX_TILE_V = 32                      # a group is at most one warp
 
 
 def _leaky(raw: torch.Tensor) -> torch.Tensor:
@@ -130,105 +150,6 @@ def gat_v2_bwd_h_plain(g: DeviceGraph, sl, sr, m, zinv, inner, h, ct):
 
 # ---- the kernels' wrappers -------------------------------------------------
 
-class _Table:
-    """The per-bucket pointer, row-count and width arrays of a graph in
-    launch order (widest bucket first), validated once. It is kept on the
-    graph (``g.launch_tables``), whose tensors' addresses it holds, and
-    lives as long as the graph."""
-
-    def __init__(self, g: DeviceGraph):
-        if not g.has_ell_layout:
-            raise ValueError("DeviceGraph has no ELL buckets (no edges)")
-        if len(g.ell) > MAX_BUCKETS:
-            raise ValueError(f"{len(g.ell)} buckets, the kernels' table "
-                             f"holds {MAX_BUCKETS}")
-        buckets = sorted(g.ell, key=lambda b: -b.width)
-        for b in buckets:
-            for t, shape in ((b.row_ids, (b.rows,)), (b.valid, (b.rows,)),
-                             (b.nbr, (b.rows * b.width,))):
-                if (t.dtype != torch.int32 or tuple(t.shape) != shape
-                        or not t.is_contiguous()
-                        or t.device != g.is_split.device):
-                    raise ValueError(
-                        f"bucket of width {b.width}: ids must be contiguous "
-                        f"int32 of shape {shape} on the graph's device")
-        n = len(buckets)
-        vp = ctypes.c_void_p
-        self.args = (
-            (vp * n)(*(b.row_ids.data_ptr() for b in buckets)),
-            (vp * n)(*(b.nbr.data_ptr() for b in buckets)),
-            (vp * n)(*(b.valid.data_ptr() for b in buckets)),
-            (ctypes.c_int64 * n)(*(b.rows for b in buckets)),
-            (ctypes.c_int32 * n)(*(b.width for b in buckets)),
-            n, g.is_split.data_ptr())
-
-
-def _table(g: DeviceGraph) -> _Table:
-    table = g.launch_tables.get("fused_gat")
-    if table is None:
-        table = g.launch_tables["fused_gat"] = _Table(g)
-    return table
-
-
-def _check(g: DeviceGraph, vectors=(), matrices=()) -> torch.device:
-    """Every operand float32, contiguous, on the graph's device, (nv,) or
-    (nv, F) with one F. Returns the device."""
-    dev = g.is_split.device
-    f = matrices[0].shape[1] if matrices and matrices[0].dim() == 2 else None
-    for t in (*vectors, *matrices):
-        shape = (g.nv,) if any(t is v for v in vectors) else (g.nv, f)
-        if t.dtype != torch.float32 or tuple(t.shape) != shape:
-            raise ValueError(f"expected float32 of shape {shape}, got "
-                             f"{t.dtype} {tuple(t.shape)}")
-        if not t.is_contiguous():
-            raise ValueError("operands must be contiguous")
-        if t.device != dev:
-            raise ValueError("graph and operands must be on one device")
-    if dev.type not in ("cpu", "cuda"):
-        raise ValueError(f"the GAT passes run on cpu or cuda, not {dev}")
-    return dev
-
-
-def _tile_floats(nv: int, f: int) -> int:
-    """Feature columns per tile of the float4 instantiation: up to 128
-    (one float4 per lane of a warp) while that slice of the gathered
-    matrix fits the L2 budget of the SpMM kernel, else 64. Each tile
-    repeats the per-slot scalar gathers and the exp, so narrower tiles
-    than the SpMM's 32 pay: measured on an H100 (device times of
-    tools/gat_kernels_probe.py, F = 128) 64 floats beat 32 by 2-4% at
-    2^17 and 2^19 vertices and 128 by 2-6% at 2^19."""
-    return min(f, 128 if nv * min(f, 128) * 4 <= _L2_TILE_BYTES else 64)
-
-
-def _wide_shape(nv: int, f: int, *mats) -> tuple[int, int, int]:
-    """(tile_v, vec, tiles) of a wide pass: V = float4 when F % 4 == 0
-    and every matrix is aligned to 16 bytes, else float; a tile has at
-    most 32 columns of V."""
-    vec = int(f % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in mats))
-    tile_v = (_tile_floats(nv, f) // 4 if vec else min(f, _MAX_TILE_V))
-    f_v = f // 4 if vec else f
-    return tile_v, vec, -(-f_v // tile_v)
-
-
-def _raise_on(rc: int, lib, name: str, detail: str) -> None:
-    if rc != 0:
-        raise RuntimeError(f"{name} kernel launch failed ({detail}): CUDA "
-                           f"error {rc}: {lib.gab_cuda_error_string(rc).decode()}")
-
-
-def _empty_but(g: DeviceGraph, like: torch.Tensor, shape, fill: float):
-    """An uninitialised output in which only ``g.zero_rows`` (edgeless and
-    split rows: the rows no kernel stores to) hold ``fill``."""
-    out = torch.empty(shape, dtype=like.dtype, device=like.device)
-    if g.zero_rows.numel():
-        out.index_fill_(0, g.zero_rows, fill)
-    return out
-
-
-def _launch_tail(t: torch.Tensor) -> tuple:
-    return (t.device.index, torch.cuda.current_stream(t.device).cuda_stream)
-
-
 def gat_rowmax(g: DeviceGraph, sr: torch.Tensor) -> torch.Tensor:
     """m0_i = max over i's edges of sr_j; -inf for an edgeless row."""
     if _check(g, vectors=(sr,)).type == "cpu":
@@ -238,7 +159,7 @@ def gat_rowmax(g: DeviceGraph, sr: torch.Tensor) -> torch.Tensor:
     m0 = _empty_but(g, sr, (g.nv,), float("-inf"))
     rc = lib.gab_gat_rowmax(*table.args, sr.data_ptr(), m0.data_ptr(),
                             *_launch_tail(sr))
-    _raise_on(rc, lib, "gat_rowmax", f"{table.args[5]} buckets")
+    _raise_on(rc, lib, "gat_rowmax", f"{table.args[6]} buckets")
     LAUNCHES["gat_rowmax"] += 1
     return m0
 
@@ -356,3 +277,58 @@ def gat_attention_spmm_v2(g: DeviceGraph, sl: torch.Tensor, sr: torch.Tensor,
     Requires all-ones edge weights and a structurally symmetric graph —
     the full-batch GAT case (gat_aggregator.cpp:57-102 semantics)."""
     return _GatV2.apply(g, sl, sr, h)
+
+
+# ---- v1: per-edge logits and weights ---------------------------------------
+
+def _norm_consts(g: DeviceGraph, logits: torch.Tensor):
+    """(m, zinv): the row max of the logits (0 for an edgeless row) and
+    the inverse softmax denominator, floored like v2's."""
+    m = ell_row_reduce(g, logits, "max")
+    m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+    z = ell_row_reduce(g, logits, "sumexp", m)
+    return m, 1.0 / torch.clamp(z, min=Z_FLOOR)
+
+
+class _GatV1(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, g: DeviceGraph, logits, edge_w, x):
+        logits, edge_w, x = logits.contiguous(), edge_w.contiguous(), x.contiguous()
+        m, zinv = _norm_consts(g, logits)
+        ctx.g = g
+        ctx.save_for_backward(logits, edge_w, x, m, zinv)
+        return gat_v1_fwd(g, logits, edge_w, x, m, zinv)
+
+    @staticmethod
+    def backward(ctx, ct):
+        g = ctx.g
+        logits, edge_w, x, m, zinv = ctx.saved_tensors
+        ct = ct.contiguous()
+        need_l, need_w, need_x = ctx.needs_input_grad[1:]
+        src = g.edge_src
+        # the backward affords one materialized score vector
+        s_soft = torch.exp(logits - m[src]) * zinv[src]
+        dl = dew = dx = None
+        if need_x:
+            # adjoint aggregation: same topology, transpose-permuted scores
+            dx = spmm_ell(g, (s_soft * edge_w)[g.trans_perm], ct)
+        if need_l or need_w:
+            # per-edge <ct[src], x[dst]> feeds the edge_w cotangent and
+            # the softmax adjoint, as on the unfused path
+            raw = sddmm_dot(g, ct, x)
+            if need_w:
+                dew = s_soft * raw
+            if need_l:
+                dsw = raw * edge_w
+                inner = _row_reduce_ell(g, s_soft * dsw, "sum")
+                dl = s_soft * (dsw - inner[src])
+        return None, dl, dew, dx
+
+
+def gat_attention_spmm(g: DeviceGraph, logits: torch.Tensor,
+                       edge_w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """out = A(softmax_row(logits) * edge_w) @ x, fused over the ELL
+    buckets; differentiable in ``logits``, ``edge_w`` and ``x`` (edge_w's
+    cotangent is softmax(logits) * <ct[src], x[dst]>, as on the unfused
+    path). ``g`` must have ELL buckets and be structurally symmetric."""
+    return _GatV1.apply(g, logits, edge_w, x)

@@ -1,8 +1,11 @@
-"""The port's fused GAT attention (v2) against the JAX package's: the
+"""The port's fused GAT attention against the JAX package's. v2: the
 plain PyTorch version of each of the four bucket passes, the whole
 forward and the three gradients, against ``gat_attention_spmm_v2`` and
 ``jax.grad`` of it, against the port's own unfused path, on edgeless
-rows, and a CPU emulation of the kernels' store-or-combine rule.
+rows, and a CPU emulation of the kernels' store-or-combine rule. v1
+(per-edge logits and weights or masks, at the end of the file): the same
+against ``gat_attention_spmm``, and ``apply_model`` with its default
+``trivial_w``.
 
 Tolerances: both sides are float32 with sums taken in another order;
 values rtol = atol = 2e-5, gradients 1e-4, as the JAX package's own test
@@ -21,6 +24,7 @@ from graphaibench_tpu.graph.transforms import add_selfloop
 from graphaibench_tpu.ops import device_graph as jdgm
 from graphaibench_tpu.ops import fused_gat as jfg
 from graphaibench_tpu_torch.ops import device_graph as tdgm
+from graphaibench_tpu_torch.ops import ell_edge as tee
 from graphaibench_tpu_torch.ops import fused_gat as tfg
 from graphaibench_tpu_torch.ops import math as tmath
 from graphaibench_tpu_torch.ops.segment import segment_softmax
@@ -329,4 +333,241 @@ def test_kernels_match_plain_on_cuda(name):
         lambda a, b, x: tfg.gat_attention_spmm_v2(
             tdgm.to_device_graph(g, device="cpu"), a, b, x), arrs)
     for a, b in zip(fused, cpu):
+        np.testing.assert_allclose(a, b, **GRAD)
+
+
+# ---- v1: per-edge logits and weights --------------------------------------
+
+V1_GRAPHS = {
+    "hubs": (hubs_graph, 16),          # degrees 64, 65, 199, 1 and 0
+    "hubs_f7": (hubs_graph, 7),
+    "rmat11": (lambda: add_selfloop(rmat(11, 8, seed=1)), 16),
+    "rmat11_edgeless_rows": (lambda: rmat(11, 8, seed=1), 12),
+}
+WEIGHTS = ("mask", "positive")
+
+
+def _v1_case(name, weights):
+    make, f = V1_GRAPHS[name]
+    g = make()
+    rng = np.random.default_rng(2)
+    w = ((rng.random(g.ne) < 0.6).astype(np.float32) if weights == "mask"
+         else rng.random(g.ne).astype(np.float32) + 0.1)
+    arrs = dict(l=rng.standard_normal(g.ne).astype(np.float32) * 2, w=w,
+                x=rng.standard_normal((g.nv, f)).astype(np.float32),
+                ct=rng.standard_normal((g.nv, f)).astype(np.float32))
+    return (g, jdgm.to_device_graph(g, seg_ell=False),
+            tdgm.to_device_graph(g, device="cpu"), arrs)
+
+
+def _v1_value_and_grads(fn, arrs):
+    l, w, x = (t.requires_grad_(True) for t in _t(arrs, "l", "w", "x"))
+    out = fn(l, w, x)
+    (out * torch.from_numpy(arrs["ct"])).sum().backward()
+    return [out.detach().numpy(), l.grad.numpy(), w.grad.numpy(),
+            x.grad.numpy()]
+
+
+@pytest.mark.parametrize("weights", WEIGHTS)
+@pytest.mark.parametrize("name", sorted(V1_GRAPHS))
+def test_v1_op_and_grads_match_jax(name, weights):
+    """``gat_attention_spmm`` (the plain versions of its three passes on
+    the CPU) against the JAX op and ``jax.grad`` of it in logits, edge_w
+    and x, with a random 0/1 mask and with random positive weights."""
+    _, jdg, tdg, arrs = _v1_case(name, weights)
+    jl_, jw, jx, jct = _j(arrs, "l", "w", "x", "ct")
+    jout = jax.jit(lambda a, b, c: jfg.gat_attention_spmm(jdg, a, b, c))(
+        jl_, jw, jx)
+    jgrads = jax.jit(jax.grad(
+        lambda a, b, c: (jfg.gat_attention_spmm(jdg, a, b, c) * jct).sum(),
+        argnums=(0, 1, 2)))(jl_, jw, jx)
+    before = dict(tee.LAUNCHES)
+    ours = _v1_value_and_grads(
+        lambda a, b, c: tfg.gat_attention_spmm(tdg, a, b, c), arrs)
+    assert tee.LAUNCHES == before      # CPU tensors launch nothing
+    np.testing.assert_allclose(ours[0], np.asarray(jout), **VAL)
+    for mine, theirs, what in zip(ours[1:], jgrads, ("d_l", "d_w", "d_x")):
+        np.testing.assert_allclose(mine, np.asarray(theirs), err_msg=what,
+                                   **GRAD)
+
+
+def _v1_unfused(tdg, l, w, x):
+    return spmm(tdg, segment_softmax(tdg, l) * w, x, "ell")
+
+
+@pytest.mark.parametrize("weights", WEIGHTS)
+@pytest.mark.parametrize("name", sorted(V1_GRAPHS))
+def test_v1_op_matches_the_ports_unfused_path(name, weights):
+    g, _, tdg, arrs = _v1_case(name, weights)
+    fused = _v1_value_and_grads(
+        lambda a, b, c: tfg.gat_attention_spmm(tdg, a, b, c), arrs)
+    plain = _v1_value_and_grads(lambda a, b, c: _v1_unfused(tdg, a, b, c), arrs)
+    np.testing.assert_allclose(fused[0], plain[0], **VAL)
+    for a, b, what in zip(fused[1:], plain[1:], ("d_l", "d_w", "d_x")):
+        np.testing.assert_allclose(a, b, err_msg=what, **GRAD)
+    # an edgeless row: output and gradients finite, the row's output 0
+    assert all(np.isfinite(a).all() for a in fused)
+    assert (fused[0][g.degrees() == 0] == 0).all()
+
+
+def test_v1_masked_edges_add_exact_zeros():
+    """A row whose edges are all masked out gives exact zeros even where
+    its scores overflow (a row shift far below the logits): 0, not
+    0 * inf."""
+    _, _, tdg, arrs = _v1_case("hubs", "mask")
+    l, w, x = _t(arrs, "l", "w", "x")
+    row = int(torch.argmax(tdg.deg))
+    lo, hi = int(tdg.row_ptr[row]), int(tdg.row_ptr[row + 1])
+    w[lo:hi] = 0.0
+    m, zinv = tfg._norm_consts(tdg, l)
+    m[row] = -200.0
+    assert torch.isinf(torch.exp(l[lo:hi] - m[row])).all()
+    out = tee.gat_v1_fwd_plain(tdg, l, w, x, m, zinv)
+    assert (out[row] == 0).all() and torch.isfinite(out).all()
+
+
+@pytest.mark.parametrize("impl", ["ell", "auto"])
+def test_apply_model_default_trivial_w_matches_jax(impl, monkeypatch):
+    """``apply_model`` for GAT with the default ``trivial_w=False`` and a
+    0/1 mask as edge weights on rmat13 (nv = 8192, so both strategies are
+    ELL and both packages take the v1 fused attention): logits and every
+    parameter's gradient. Values 2e-5, gradients 1e-4."""
+    from graphaibench_tpu.nn import layers as jl
+    from graphaibench_tpu.nn import model as jm
+    from graphaibench_tpu_torch.nn import layers as tl
+    from graphaibench_tpu_torch.nn import model as tm
+
+    g = rmat(13, 8, seed=1)
+    rng = np.random.default_rng(3)
+    x = rng.standard_normal((g.nv, 24)).astype(np.float32)
+    jcfg = jl.make_config("gat", 2, 24, 16, 4, spmm_impl=impl)
+    tcfg = tl.make_config("gat", 2, 24, 16, 4, spmm_impl=impl)
+    jb = jm.GraphBundle.build(g, "gat", spmm_impl=impl)
+    tb = tm.GraphBundle.build(g, "gat", device="cpu", spmm_impl=impl)
+    mask = (rng.random(tb.host.ne) < 0.7).astype(np.float32)
+    ct = rng.standard_normal((g.nv, 4)).astype(np.float32)
+    jparams = jl.init_params(jcfg)
+    tparams = tl.params_from_jax(jax.tree.map(np.asarray, jparams), "cpu")
+
+    def jloss(p):
+        out = jl.apply_model(jcfg, p, jb.device, jnp.asarray(mask),
+                             jnp.asarray(x))
+        return (out * jnp.asarray(ct)).sum(), out
+
+    jgrads, jout = jax.jit(jax.grad(jloss, has_aux=True))(jparams)
+    calls = []
+    plain = tee.gat_v1_fwd_plain
+    monkeypatch.setattr(tee, "gat_v1_fwd_plain",
+                        lambda *a: (calls.append(1), plain(*a))[1])
+    tout = tl.apply_model(tcfg, tparams, tb.device, torch.from_numpy(mask),
+                          torch.from_numpy(x))
+    assert len(calls) == 2      # the v1 forward pass, once per layer
+    (tout * torch.from_numpy(ct)).sum().backward()
+    np.testing.assert_allclose(tout.detach().numpy(), np.asarray(jout), **VAL)
+    tgrads = {n: p.grad.numpy() for n, p in tparams.named_parameters()}
+    want = {f"gconv.{l}.{k}": v for l, layer in enumerate(jgrads["gconv"])
+            for k, v in layer.items()}
+    want["dense.W"] = jgrads["dense"]["W"]
+    assert set(want) == set(tgrads)
+    for name, value in want.items():
+        np.testing.assert_allclose(tgrads[name], np.asarray(value),
+                                   err_msg=name, **GRAD)
+
+
+@pytest.mark.parametrize("weights", WEIGHTS)
+@pytest.mark.parametrize("name", ["hubs", "hubs_f7", "rmat11_edgeless_rows"])
+def test_v1_store_or_combine_rule_matches_plain(name, weights):
+    """The three new kernels' rule, emulated on the CPU: outputs NaN but
+    for ``zero_rows``, an unsplit row's piece stored, a split row's pieces
+    combined, only the first ``valid`` slots read (never ``vals[ne]``);
+    and every edge written exactly once by ``sddmm_dot_ell``."""
+    g, _, dg, arrs = _v1_case(name, weights)
+    l, w, x, ct = _t(arrs, "l", "w", "x", "ct")
+    f = x.shape[1]
+
+    def per_bucket(fn):
+        out = []
+        for b in dg.ell:
+            eid = b.edge_id.view(b.rows, b.width).long()
+            live = torch.arange(b.width)[None, :] < b.valid[:, None]
+            assert int(eid[live].max()) < dg.ne       # no pad id is read
+            eid = torch.where(live, eid, torch.zeros_like(eid))
+            out.append(fn(b.row_ids.long(), b.nbr.view(b.rows, b.width).long(),
+                          eid, live))
+        return out
+
+    neg = float("-inf")
+    m = _combine_rule(dg, (g.nv,), neg, per_bucket(
+        lambda rows, nbr, eid, live: l[eid].masked_fill(~live, neg).amax(1)),
+        _amax)
+    assert torch.equal(m, tee.ell_row_reduce_plain(dg, l, "max"))
+    total = _combine_rule(dg, (g.nv,), 0.0, per_bucket(
+        lambda rows, nbr, eid, live: (l[eid] * live).sum(1)), _add)
+    torch.testing.assert_close(total, tee.ell_row_reduce_plain(dg, l, "sum"),
+                               rtol=1e-5, atol=1e-5)
+    m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+    z = _combine_rule(dg, (g.nv,), 0.0, per_bucket(
+        lambda rows, nbr, eid, live:
+        (torch.exp(l[eid] - m[rows][:, None]) * live).sum(1)), _add)
+    z_p = tee.ell_row_reduce_plain(dg, l, "sumexp", m)
+    assert not torch.isnan(z).any()
+    torch.testing.assert_close(z, z_p, rtol=1e-5, atol=1e-6)
+    zinv = 1.0 / torch.clamp(z_p, min=tfg.Z_FLOOR)
+
+    def v1_piece(rows, nbr, eid, live):
+        s = (torch.exp(l[eid] - m[rows][:, None]) * zinv[rows][:, None]
+             * w[eid] * live)
+        return (s[:, :, None] * x[nbr]).sum(1)
+
+    out = _combine_rule(dg, (g.nv, f), 0.0, per_bucket(v1_piece), _add)
+    assert not torch.isnan(out).any()
+    torch.testing.assert_close(out, tee.gat_v1_fwd_plain(dg, l, w, x, m, zinv),
+                               rtol=1e-5, atol=1e-6)
+
+    raw = torch.full((dg.ne,), float("nan"))
+    writes = torch.zeros(dg.ne, dtype=torch.int64)
+    for b in dg.ell:
+        eid = b.edge_id.view(b.rows, b.width).long()
+        live = torch.arange(b.width)[None, :] < b.valid[:, None]
+        d = (ct[b.row_ids.long()][:, None, :]
+             * x[b.nbr.view(b.rows, b.width).long()]).sum(-1)
+        raw[eid[live]] = d[live]
+        writes.index_add_(0, eid[live], torch.ones_like(eid[live]))
+    assert (writes == 1).all()
+    torch.testing.assert_close(raw, tee.sddmm_dot_ell_plain(dg, ct, x))
+
+
+def test_v1_wrappers_reject_what_the_kernels_do_not_take():
+    _, _, dg, arrs = _v1_case("hubs", "mask")
+    l, w, x = _t(arrs, "l", "w", "x")
+    m, zinv = tfg._norm_consts(dg, l)
+    with pytest.raises(ValueError, match="unknown reduction"):
+        tee.ell_row_reduce(dg, l, "min")
+    with pytest.raises(ValueError, match="sumexp"):
+        tee.ell_row_reduce(dg, l, "sum", m)
+    with pytest.raises(ValueError, match="shape"):
+        tee.ell_row_reduce(dg, l[:-1], "sum")
+    with pytest.raises(ValueError, match="float32"):
+        tee.gat_v1_fwd(dg, l, w.double(), x, m, zinv)
+    with pytest.raises(ValueError, match="shape"):
+        tee.sddmm_dot_ell(dg, x, x[:, :-1])
+    with pytest.raises(ValueError, match="contiguous"):
+        tee.sddmm_dot_ell(dg, x, x.t().contiguous().t())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(V1_GRAPHS))
+def test_v1_kernels_match_plain_on_cuda(name):
+    """The v1 op through its kernels on the card against the CPU's plain
+    versions (run at full size by chip_smoke.py's kernel phase)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    g, _, tdg, arrs = _v1_case(name, "mask")
+    dg = tdgm.to_device_graph(g, device="cuda")
+    card = _v1_value_and_grads(
+        lambda a, b, c: tfg.gat_attention_spmm(dg, a.cuda(), b.cuda(),
+                                               c.cuda()).cpu(), arrs)
+    cpu = _v1_value_and_grads(
+        lambda a, b, c: tfg.gat_attention_spmm(tdg, a, b, c), arrs)
+    for a, b in zip(card, cpu):
         np.testing.assert_allclose(a, b, **GRAD)

@@ -75,6 +75,32 @@ def test_graph_transforms_bit_equal(pair, fn):
     _same_graph(getattr(tT, fn)(t), getattr(jT, fn)(j))
 
 
+def _masks(nv):
+    rng = np.random.default_rng(11)
+    return {"empty": np.zeros(nv, np.uint8), "full": np.ones(nv, np.uint8),
+            "half": (rng.random(nv) < 0.5).astype(np.uint8),
+            "sparse": (rng.random(nv) < 0.1).astype(np.uint8),
+            "bool_prefix": np.arange(nv) < nv // 3}
+
+
+@pytest.mark.parametrize("mask", ["empty", "full", "half", "sparse",
+                                  "bool_prefix"])
+def test_masked_and_induced_subgraph_bit_equal(pair, mask):
+    """``masked_subgraph`` under the mask, and ``induced_subgraph`` on the
+    mask's vertices (given unsorted and with repeats): graph and the
+    local-to-global ids."""
+    t, j = pair
+    m = _masks(t.nv)[mask]
+    _same_graph(tT.masked_subgraph(t, m), jT.masked_subgraph(j, m))
+    vs = np.flatnonzero(m)[::-1]
+    vs = np.concatenate([vs, vs[:3]])
+    tsub, tl2g = tT.induced_subgraph(t, vs)
+    jsub, jl2g = jT.induced_subgraph(j, vs)
+    _same_graph(tsub, jsub)
+    _same(tl2g, jl2g, "l2g")
+    assert tsub.nv == int(np.asarray(m, bool).sum())
+
+
 @pytest.mark.parametrize("fn", ["gcn_vertex_norms", "gcn_edge_norms",
                                 "sage_edge_norms",
                                 "transpose_edge_permutation"])

@@ -146,12 +146,19 @@ def test_model_refuses_unported_routes():
     with pytest.raises(NotImplementedError, match="P11"):
         tm.Model(dataclasses.replace(cfg, remat=True), ds,
                  device="cpu").train_epoch()
-    # fused GAT attention on per-edge weights (v1) waits for sampling
+    # the fused GAT attention on per-edge weights (v1) is what the
+    # default ``trivial_w`` reaches on an ELL graph: equal to JAX's
     gat = tl.make_config("gat", 2, 8, 8, 3, spmm_impl="ell")
     m = tm.Model(gat, ds, device="cpu")
-    with pytest.raises(NotImplementedError, match="P9"):
-        tl.apply_model(gat, m.params, m.full.device, m.full.edge_w_agg,
-                       m.feats, trivial_w=False)
+    with torch.no_grad():
+        out = tl.apply_model(gat, m.params, m.full.device, m.full.edge_w_agg,
+                             m.feats)
+    jgat = jl.make_config("gat", 2, 8, 8, 3, spmm_impl="ell")
+    jb = jm.GraphBundle.build(ds.graph, "gat", spmm_impl="ell")
+    jout = jl.apply_model(jgat, jl.init_params(jgat), jb.device, jb.edge_w,
+                          jnp.asarray(ds.feats))
+    np.testing.assert_allclose(out.numpy(), np.asarray(jout),
+                               rtol=2e-5, atol=2e-5)
 
 
 ARCH_CASES = {
@@ -350,6 +357,217 @@ def test_gat_gradient_is_the_full_gradient(impl):
     np.testing.assert_allclose(
         model.params.gconv[0].W_neigh.detach().numpy(), oracles[True].W[0],
         atol=2e-4)
+
+
+def _jax_sampled_log(monkeypatch, jmodel, epochs, subg_size, seed):
+    """(loss, acc) per epoch of the JAX Model's ``train_sampled`` at full
+    precision: its jitted step is wrapped where ``train_sampled`` makes
+    it, since the method itself only prints three decimals."""
+    log = []
+    real_jit = jax.jit
+
+    def spy(fn, *a, **kw):
+        jitted = real_jit(fn, *a, **kw)
+        if getattr(fn, "__name__", "") != "sampled_step":
+            return jitted
+
+        def run(*args):
+            out = jitted(*args)
+            log.append((float(out[2]), float(out[3])))
+            return out
+        return run
+
+    monkeypatch.setattr(jax, "jit", spy)
+    jmodel.train_sampled(epochs, subg_size, verbose=False, seed=seed)
+    monkeypatch.setattr(jax, "jit", real_jit)
+    assert len(log) == epochs
+    return log
+
+
+def _assert_params_match(tmodel, jmodel, arch):
+    jparams = jax.tree.map(np.asarray, jmodel.params)
+    tparams = dict(tmodel.params.named_parameters())
+    want = {f"gconv.{l}.{k}": v for l, layer in enumerate(jparams["gconv"])
+            for k, v in layer.items()}
+    if "dense" in jparams:
+        want["dense.W"] = jparams["dense"]["W"]
+    assert set(want) == set(tparams)
+    for name, value in want.items():
+        np.testing.assert_allclose(tparams[name].detach().numpy(), value,
+                                   rtol=1e-4, atol=1e-5, err_msg=name)
+
+
+SAMPLED_CASES = {
+    # name: (scale, subg_size, config overrides); n_pad <= 4096 takes the
+    # dense strategy, above it COO
+    "dense": (11, 600, {}),
+    "coo": (13, 5000, {}),
+}
+
+
+@pytest.mark.parametrize("case", sorted(SAMPLED_CASES))
+@pytest.mark.parametrize("arch", ["gcn", "sage", "gat", "ggnn"])
+def test_sampled_trajectory_matches_jax(arch, case, monkeypatch):
+    """3 epochs of ``train_sampled`` of the JAX Model and the port's on
+    one dataset, the same sampler seeds: loss and accuracy per epoch, every
+    final parameter and the test accuracy. rtol 1e-4, atol 1e-5: f32
+    reductions in another order, compounded over 3 Adam steps."""
+    scale, subg, kw = SAMPLED_CASES[case]
+    ds = _dataset(rmat(scale, 8, seed=1), 32, 4)
+    args = (arch, 2, 32, 16, 4)
+    jmodel = jm.Model(jl.make_config(*args, lr=0.01, subg_size=subg, **kw), ds,
+                      inductive=True)
+    tmodel = tm.Model(tl.make_config(*args, lr=0.01, subg_size=subg, **kw), ds,
+                      device="cpu", inductive=True)
+    assert tmodel.cfg.use_dense
+    jlog = _jax_sampled_log(monkeypatch, jmodel, 3, subg, seed=5)
+    tlog = tmodel.train_sampled(3, subg, verbose=False, seed=5)
+    np.testing.assert_allclose([(l, a) for l, a, _ in tlog], jlog,
+                               rtol=1e-4, atol=1e-5)
+    _assert_params_match(tmodel, jmodel, arch)
+    assert tmodel.evaluate("test") == pytest.approx(jmodel.evaluate("test"),
+                                                   abs=1e-6)
+
+
+def test_sampled_step_applies_no_dropout(monkeypatch, capsys):
+    """With feat_drop 0.5 the sampled step of either package drops
+    nothing (it hands the forward no key / no generator), so the
+    trajectories stay equal; and the verbose lines carry ``subg_nv``."""
+    ds = _dataset(rmat(11, 8, seed=1), 32, 4)
+    kw = dict(lr=0.01, subg_size=600, feat_drop=0.5, score_drop=0.3)
+    jmodel = jm.Model(jl.make_config("gat", 2, 32, 16, 4, **kw), ds,
+                      inductive=True)
+    tmodel = tm.Model(tl.make_config("gat", 2, 32, 16, 4, **kw), ds,
+                      device="cpu", inductive=True)
+    jlog = _jax_sampled_log(monkeypatch, jmodel, 3, 600, seed=0)
+    tlog = tmodel.train_sampled(3, 600, val_interval=2, seed=0)
+    np.testing.assert_allclose([(l, a) for l, a, _ in tlog], jlog,
+                               rtol=1e-4, atol=1e-5)
+    _assert_params_match(tmodel, jmodel, "gat")
+    lines = [l for l in capsys.readouterr().out.splitlines()
+             if l.startswith("Epoch")]
+    assert len(lines) == 3 and all(" subg_nv " in l for l in lines)
+    assert "val_acc" in lines[2] and "val_acc" not in lines[1]
+
+
+def test_sampled_graph_has_no_buckets():
+    """The padded subgraph is COO-only: it builds without ELL buckets and
+    picks the dense strategy up to 4096 vertices, COO above."""
+    from graphaibench_tpu_torch.ops.device_graph import coo_device_graph
+    from graphaibench_tpu_torch.ops.spmm import _pick_impl
+
+    z = np.zeros(8, np.int32)
+    for nv, want in ((4096, "dense"), (4104, "coo")):
+        dg = coo_device_graph(z, z, np.arange(8, dtype=np.int32),
+                              np.zeros(nv, np.int32), nv=nv, device="cpu")
+        assert not dg.has_ell_layout and dg.ne == 8
+        assert _pick_impl(dg, "auto") == want
+
+
+@pytest.mark.parametrize("arch", ["gcn", "gat", "sage"])
+def test_inductive_trajectory_matches_jax(arch):
+    """5 full-batch steps on the subgraph of the train-masked vertices
+    (both drop rates 0: the two packages draw dropout from other
+    streams), evaluation on the full graph. rmat13, so the ELL strategy;
+    rtol 1e-4, atol 1e-5 as the other trajectories."""
+    g = rmat(13, 8, seed=1)
+    ds = _dataset(g, 32, 4)
+    ds.train_mask = (np.arange(g.nv) % 3 != 0).astype(np.uint8)
+    jmodel = jm.Model(jl.make_config(arch, 2, 32, 16, 4, lr=0.01), ds,
+                      inductive=True)
+    tmodel = tm.Model(tl.make_config(arch, 2, 32, 16, 4, lr=0.01), ds,
+                      device="cpu", inductive=True)
+    assert tmodel.training is not tmodel.full
+    assert tmodel.training.host.ne == jmodel.training.host.ne < tmodel.full.host.ne
+    jtraj = [jmodel.train_epoch() for _ in range(5)]
+    ttraj = [tmodel.train_epoch() for _ in range(5)]
+    np.testing.assert_allclose(ttraj, jtraj, rtol=1e-4, atol=1e-5)
+    _assert_params_match(tmodel, jmodel, arch)
+    assert tmodel.evaluate("test") == pytest.approx(jmodel.evaluate("test"),
+                                                   abs=1e-6)
+
+
+def _toy():
+    """tests/test_gnn.py::make_toy, with the port's generator."""
+    from graphaibench_tpu_torch.graph.generators import uniform_random
+
+    nv = 60
+    g = uniform_random(nv, 150, seed=5)
+    rng = np.random.default_rng(5)
+    feats = rng.standard_normal((nv, 10)).astype(np.float32)
+    labels = rng.integers(0, 4, nv).astype(np.int32)
+    mask = np.zeros(nv, dtype=np.uint8)
+    mask[: nv // 2] = 1
+    return g, feats, labels, mask
+
+
+def test_gcn_forward_parity_with_oracle():
+    """Per-layer activations of the port's GCN against the float64
+    reference-semantics oracle, as tests/test_gnn.py holds the JAX one:
+    rtol 1e-4, atol 1e-5."""
+    sys.path.insert(0, os.path.dirname(__file__))
+    from oracle_gnn import GcnOracle
+
+    g, feats, labels, mask = _toy()
+    cfg = tl.ModelConfig(arch="gcn", num_layers=2, dim_init=10, dim_hid=16,
+                         num_cls=4, lr=0.02)
+    gb = tm.GraphBundle.build(g, "gcn", device="cpu")
+    params = tl.init_params(cfg, device="cpu")
+    with torch.no_grad():
+        _, acts = tl.apply_model(cfg, params, gb.device, gb.edge_w,
+                                 torch.from_numpy(feats),
+                                 return_intermediates=True)
+    oracle = GcnOracle(gb.host, gb.edge_w.numpy(), cfg.gconv_dims,
+                       [p.W_neigh.detach().numpy() for p in params.gconv],
+                       cfg.lr, 0, 30, labels, mask)
+    for a, r in zip(acts, oracle.forward(feats)):
+        np.testing.assert_allclose(a.numpy(), r, rtol=1e-4, atol=1e-5)
+
+
+def test_gcn_training_parity_three_steps():
+    """Losses and weights of 3 full steps (forward, backward, Adam)
+    against the oracle: |loss diff| < 1e-4, weights rtol 1e-3 / atol 1e-5,
+    the tolerances of tests/test_gnn.py."""
+    sys.path.insert(0, os.path.dirname(__file__))
+    from oracle_gnn import GcnOracle
+
+    g, feats, labels, mask = _toy()
+    begin, end = 0, 30
+    cfg = tl.ModelConfig(arch="gcn", num_layers=2, dim_init=10, dim_hid=16,
+                         num_cls=4, lr=0.02)
+    ds = GnnDataset(graph=g, feats=feats, labels=labels, train_mask=mask,
+                    val_mask=mask, test_mask=mask, num_classes=4,
+                    train_range=(begin, end, int(mask[begin:end].sum())),
+                    val_range=(begin, end, 1), test_range=(begin, end, 1))
+    model = tm.Model(cfg, ds, device="cpu")
+    oracle = GcnOracle(model.full.host, model.full.edge_w.numpy(),
+                       cfg.gconv_dims,
+                       [p.W_neigh.detach().numpy().copy()
+                        for p in model.params.gconv],
+                       cfg.lr, begin, end, labels, mask)
+    for step in range(3):
+        loss, _ = model.train_epoch()
+        ref_loss, _ = oracle.step(feats)
+        assert abs(loss - ref_loss) < 1e-4, (step, loss, ref_loss)
+    for l in range(2):
+        np.testing.assert_allclose(
+            model.params.gconv[l].W_neigh.detach().numpy(), oracle.W[l],
+            rtol=1e-3, atol=1e-5)
+
+
+def test_model_timers_collect_the_stages():
+    from graphaibench_tpu_torch.utils import timers as tt
+
+    ds = _dataset(rmat(9, 8, seed=1), 16, 4)
+    timers = tt.OpTimers()
+    model = tm.Model(tl.make_config("gcn", 2, 16, 16, 4, subg_size=100), ds,
+                     device="cpu", inductive=True, timers=timers)
+    model.train(2, verbose=False)
+    model.train_sampled(3, 100, verbose=False)
+    model.evaluate("val")
+    assert dict(timers.counts) == {tt.OP_STEP: 5, tt.OP_SAMPLE: 3,
+                                   tt.OP_EVAL: 1}
+    assert all(t > 0 for t in timers.times.values())
 
 
 MATH_CASES = {

@@ -17,7 +17,9 @@ from graphaibench_tpu.ops import device_graph as jdgm
 from graphaibench_tpu.ops import segment as jseg
 from graphaibench_tpu.ops.spmm import sddmm_add as jax_sddmm_add
 from graphaibench_tpu.ops.spmm import sddmm_dot as jax_sddmm_dot
+from graphaibench_tpu.ops import fused_gat as jfg
 from graphaibench_tpu_torch.ops import device_graph as tdgm
+from graphaibench_tpu_torch.ops import ell_edge as tee
 from graphaibench_tpu_torch.ops import segment as tseg
 from graphaibench_tpu_torch.ops import spmm as tspmm
 from test_torch_device_graph import hubs_graph
@@ -119,3 +121,58 @@ def test_sddmm_dot_chunked_matches_jax(case, chunk_elems):
                            chunk_elems=chunk_elems)
     assert ours.shape == (tdg.ne,)
     np.testing.assert_allclose(ours.numpy(), want, **TOL)
+
+
+@pytest.mark.parametrize("kind", ["sum", "max", "sumexp"])
+def test_ell_row_reduce_plain_matches_jax(case, kind):
+    """The plain version of the kernel ``ell_row_reduce`` (a sweep of the
+    ELL buckets through the slots' edge ids) against the JAX package's
+    ``_row_reduce_ell`` and ``_row_denom_ell``, edgeless rows included;
+    the max is exact."""
+    g, jdg, tdg, arrs = case
+    e = torch.from_numpy(arrs["e"])
+    if kind == "sumexp":
+        jm_ = jseg._row_reduce_ell(jdg, jnp.asarray(arrs["e"]), "max")
+        jm_ = jnp.where(jnp.isfinite(jm_), jm_, 0.0)
+        want = jfg._row_denom_ell(jdg, jnp.asarray(arrs["e"]), jm_)
+        got = tee.ell_row_reduce(tdg, e, kind, torch.tensor(np.asarray(jm_)))
+    else:
+        want = jseg._row_reduce_ell(jdg, jnp.asarray(arrs["e"]), kind)
+        got = tee.ell_row_reduce(tdg, e, kind)
+    empty = g.degrees() == 0
+    assert (got.numpy()[empty] == (-np.inf if kind == "max" else 0.0)).all()
+    if kind == "max":
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    else:
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    # the same numbers as the reduction over edge_src
+    if kind != "sumexp":
+        np.testing.assert_allclose(got.numpy(),
+                                   tseg._row_reduce_ell(tdg, e, kind).numpy(),
+                                   **TOL)
+
+
+def test_sddmm_dot_ell_plain_matches_jax(case):
+    """The plain version of the kernel ``sddmm_dot_ell`` writes every
+    edge's <a[src], b[dst]> through the slots' edge ids."""
+    _, jdg, tdg, arrs = case
+    want = jax_sddmm_dot(jdg, jnp.asarray(arrs["x"]), jnp.asarray(arrs["y"]))
+    got = tee.sddmm_dot_ell(tdg, torch.from_numpy(arrs["x"]),
+                            torch.from_numpy(arrs["y"]))
+    assert not torch.isnan(got).any()
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+def test_row_sum_kernel_route_has_the_gather_adjoint(case, monkeypatch):
+    """On a CUDA graph ``_row_reduce_ell`` goes through an autograd
+    Function around the kernel; its adjoint (a gather by edge source)
+    equals autograd's through ``index_add_``. Driven on the CPU with the
+    plain version in the kernel's place."""
+    _, _, tdg, arrs = case
+    e = torch.from_numpy(arrs["e"]).requires_grad_(True)
+    ct = torch.from_numpy(arrs["a"])
+    (tseg._row_reduce_ell(tdg, e, "sum") * ct).sum().backward()
+    want = e.grad.clone()
+    e.grad = None
+    (tseg._RowSumEll.apply(tdg, e) * ct).sum().backward()
+    np.testing.assert_array_equal(e.grad.numpy(), want.numpy())

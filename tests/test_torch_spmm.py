@@ -147,8 +147,9 @@ def test_ell_spmm_rejects_what_the_kernel_does_not_take(graphs):
 
 
 def test_sddmm_dot_guard_off_the_cpu(graphs):
-    """No guard is left: ``sddmm_dot`` is plain PyTorch on any device (a
-    meta tensor stands in for one that is not the CPU)."""
+    """Off the CPU ``sddmm_dot`` is still plain PyTorch on a graph without
+    ELL buckets and on any device that is not CUDA (a meta tensor stands
+    in for one); only a CUDA graph with buckets takes the kernel."""
     _, _, tdg = graphs
     a = torch.empty(tdg.nv, 4, device="meta")
     meta = dataclasses.replace(tdg, edge_src=tdg.edge_src.to("meta"),
@@ -163,7 +164,7 @@ def test_kernel_build_raises_without_cuda():
     library's entry raises instead of handing back something else."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the build guard cannot fire")
-    for name in ("ell_spmm", "fused_gat"):
+    for name in ("ell_spmm", "fused_gat", "ell_edge"):
         with pytest.raises(RuntimeError, match="CUDA|nvcc"):
             _build.load_library(name)
 

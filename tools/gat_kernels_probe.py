@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Time the four GAT kernels of the port (``csrc/fused_gat.cu``) on one
-CUDA card under their tuning choices, in one run:
+"""Time the four GAT v2 kernels of the port (``csrc/fused_gat.cu``) on one
+CUDA card under their tuning choices, and the three passes over per-edge
+values that v1 runs on (``csrc/ell_edge.cu``), in one run:
 
     python3 tools/gat_kernels_probe.py [--scale 17] [--tiles-only]
 
@@ -12,7 +13,11 @@ the work differently (floats per tile; "none" is one tile up to 128
 floats); ``--tiles-only`` stops after the first build. Every variant is first held against the plain PyTorch version
 (rtol 1e-4, atol 1e-4 of the largest |plain| value). A time is the
 kernel's device time under torch.profiler, the mean of 20 back-to-back
-calls; the inputs stay in L2 as the last call left them.
+calls; the inputs stay in L2 as the last call left them. After the first
+build it times ``ell_row_reduce`` (max, sum, sumexp), and ``gat_v1_fwd``
+(under the same tile widths) and ``sddmm_dot_ell`` for both F, with a
+random 0/1 mask as edge weights, each first held against its plain
+version; those rows carry ``"source": "ell_edge"``.
 
 Prints the card's nvidia-smi name and power limit, one line per
 measurement, and a last JSON line with every time in ms. Needs a CUDA
@@ -35,6 +40,7 @@ import torch  # noqa: E402
 from graphaibench_tpu_torch import rmat  # noqa: E402
 from graphaibench_tpu_torch.nn.model import prepare_graph  # noqa: E402
 from graphaibench_tpu_torch.ops import _build  # noqa: E402
+from graphaibench_tpu_torch.ops import ell_edge as EE  # noqa: E402
 from graphaibench_tpu_torch.ops import fused_gat as FG  # noqa: E402
 from graphaibench_tpu_torch.ops.device_graph import to_device_graph  # noqa: E402
 
@@ -71,6 +77,53 @@ def _close(got, want, what):
     if not torch.allclose(got, want, rtol=1e-4, atol=atol):
         raise RuntimeError(f"{what}: kernel disagrees with plain, max |diff| "
                            f"{float((got - want).abs().max())}")
+
+
+def _edge_rows(dg, gen) -> list[dict]:
+    """Device times of the three kernels of csrc/ell_edge.cu (their source
+    has no build-time variants; gat_v1_fwd takes the wrappers' tile)."""
+    logits = 2.0 * torch.randn(dg.ne, device="cuda", generator=gen)
+    mask = (torch.rand(dg.ne, device="cuda", generator=gen) < 0.7).float()
+    m = EE.ell_row_reduce_plain(dg, logits, "max")
+    if not torch.equal(EE.ell_row_reduce(dg, logits, "max"), m):
+        raise RuntimeError("ell_row_reduce max differs from plain")
+    m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+    z = EE.ell_row_reduce_plain(dg, logits, "sumexp", m)
+    _close(EE.ell_row_reduce(dg, logits, "sum"),
+           EE.ell_row_reduce_plain(dg, logits, "sum"), "row sum")
+    _close(EE.ell_row_reduce(dg, logits, "sumexp", m), z, "row sumexp")
+    zinv = 1.0 / torch.clamp(z, min=FG.Z_FLOOR)
+    rows = [{"source": "ell_edge", "ell_row_reduce": {
+        kind: _device_ms(lambda: EE.ell_row_reduce(dg, logits, kind, *shift),
+                         "ell_row_reduce_kernel")
+        for kind, shift in (("max", ()), ("sum", ()), ("sumexp", (m,)))}}]
+    rule = EE._wide_shape
+    for f, tiles in TILES.items():
+        x = torch.randn(dg.nv, f, device="cuda", generator=gen)
+        ct = torch.randn(dg.nv, f, device="cuda", generator=gen)
+        out = EE.gat_v1_fwd_plain(dg, logits, mask, x, m, zinv)
+        _close(EE.sddmm_dot_ell(dg, ct, x), EE.sddmm_dot_ell_plain(dg, ct, x),
+               "sddmm_dot_ell")
+        row = {"source": "ell_edge", "F": f, "sddmm_dot_ell": _device_ms(
+            lambda: EE.sddmm_dot_ell(dg, ct, x), "sddmm_dot_ell_kernel")}
+        for tile in tiles:
+            if tile is not None:
+                EE._wide_shape = (lambda nv, f_, *mats, t=tile:
+                                  (min(t, f_) // 4, 1,
+                                   -(-(f_ // 4) // (min(t, f_) // 4))))
+            try:
+                _close(EE.gat_v1_fwd(dg, logits, mask, x, m, zinv), out,
+                       "gat_v1_fwd")
+                key = "rule" if tile is None else str(tile)
+                row[f"gat_v1_fwd tile_{key}"] = _device_ms(
+                    lambda: EE.gat_v1_fwd(dg, logits, mask, x, m, zinv),
+                    "gat_v1_fwd_kernel")
+            finally:
+                EE._wide_shape = rule
+        rows.append(row)
+    for row in rows:
+        print(json.dumps(row))
+    return rows
 
 
 def main() -> None:
@@ -143,6 +196,8 @@ def main() -> None:
             FG._wide_shape = rule
             print(json.dumps(row))
             results.append(row)
+        if (chunk, lg) == VARIANTS[0]:
+            results += _edge_rows(dg, gen)
     print(json.dumps({"scale": args.scale, "nv": dg.nv, "ne": dg.ne,
                       "results": results}))
 
