@@ -40,10 +40,13 @@ non-zero exit code and no result line:
              against its plain version, timed beside its bound and, where
              one PyTorch call computes the same function (index_add_,
              scatter_reduce_, torch.sparse.sampled_addmm), that call;
-             then F = 7 and the graph without self-loops behind the
-             dirtied allocator; then the v1 op (gat_attention_spmm),
-             output and three gradients, against the unfused path at
-             rmat13.
+             gat_v1_fwd also with the scores it writes for the backward;
+             then F = 7, 33, 12 and 256 (float columns, more columns than
+             a group has lanes, a group with an idle lane, several
+             columns a lane and several tiles) and the graph without
+             self-loops behind the dirtied allocator; then the v1 op
+             (gat_attention_spmm), output and three gradients, against
+             the unfused path at rmat13.
 4. small   — the port's Model trained 5 steps on the GPU and on the CPU
              (plain versions) at rmat11 (ELL forced) and rmat13, for gcn,
              sage, gat and ggnn; the trajectories must agree. Then
@@ -135,6 +138,7 @@ EDGE_KERNELS = {  # name -> file:line of the JAX program it replaces
     "gat_v1_fwd": "graphaibench_tpu/ops/fused_gat.py:36",
     "sddmm_dot_ell": "graphaibench_tpu/ops/spmm.py:307"}
 MASK_KEEP = 0.7          # share of edges the random 0/1 mask keeps
+EDGE_WIDTHS = (7, 33, 12, 256)   # untimed, behind the dirtied allocator
 # Launches of one v1 GAT step per layer: forward the row max, the row sum
 # of exp and gat_v1_fwd; backward K1 (dx), sddmm_dot_ell, the softmax
 # adjoint's row sum, and the two row sums of sddmm_add's adjoint.
@@ -519,6 +523,9 @@ def _edge_bounds(dg, f: int) -> dict[str, tuple[float, str, int]]:
         "ell_row_reduce sumexp": (eids + dg.nv + evec + 2 * vec, 2 * dg.ne),
         "gat_v1_fwd": (eids + dg.ne * 4 + dg.nv + 2 * evec + 2 * vec + 2 * mat,
                        dg.ne * (2 * f + 4)),
+        "gat_v1_fwd with scores": (
+            eids + dg.ne * 4 + dg.nv + 3 * evec + 2 * vec + 2 * mat,
+            dg.ne * (2 * f + 4)),
         "sddmm_dot_ell": (eids + dg.ne * 4 + 2 * mat + evec, dg.ne * 2 * f),
     }
     out = {}
@@ -534,7 +541,8 @@ def _edge_passes(dg, f: int, gen, what: str, dirty: bool, timed: bool,
                  reduces: bool = True):
     """The three kernels of csrc/ell_edge.cu against their plain versions
     on one graph and width, each on the same inputs (gat_v1_fwd takes the
-    plain passes' m and zinv), with a random 0/1 mask as edge weights.
+    plain passes' m and zinv, and is held to its plain version with and
+    without the scores), with a random 0/1 mask as edge weights.
     Returns {case name: case}; ``reduces`` says whether ell_row_reduce,
     which does not depend on F, is among them."""
     nv, ne = dg.nv, dg.ne
@@ -567,9 +575,13 @@ def _edge_passes(dg, f: int, gen, what: str, dirty: bool, timed: bool,
             run(EE.ell_row_reduce, logits, "sumexp", m), z_p,
             f"{what} row sumexp")
     v1 = (logits, mask, x, m, zinv)
-    out_p = EE.gat_v1_fwd_plain(dg, *v1)
+    out_p, scores_p = EE.gat_v1_fwd_plain(dg, *v1, True)
     errs["gat_v1_fwd"] = _gat_close(run(EE.gat_v1_fwd, *v1), out_p,
                                     f"{what} gat_v1_fwd")
+    out_s, scores = run(EE.gat_v1_fwd, *v1, True)
+    errs["gat_v1_fwd with scores"] = max(
+        _gat_close(out_s, out_p, f"{what} gat_v1_fwd beside its scores"),
+        _gat_close(scores, scores_p, f"{what} gat_v1_fwd's scores"))
     raw_p = EE.sddmm_dot_ell_plain(dg, ct, x)
     errs["sddmm_dot_ell"] = _gat_close(run(EE.sddmm_dot_ell, ct, x), raw_p,
                                        f"{what} sddmm_dot_ell")
@@ -608,6 +620,8 @@ def _edge_passes(dg, f: int, gen, what: str, dirty: bool, timed: bool,
         "ell_row_reduce sumexp": (EE.ell_row_reduce, EE.ell_row_reduce_plain,
                                   (logits, "sumexp", m)),
         "gat_v1_fwd": (EE.gat_v1_fwd, EE.gat_v1_fwd_plain, v1),
+        "gat_v1_fwd with scores": (EE.gat_v1_fwd, EE.gat_v1_fwd_plain,
+                                   (*v1, True)),
         "sddmm_dot_ell": (EE.sddmm_dot_ell, EE.sddmm_dot_ell_plain, (ct, x)),
     }
     bounds = _edge_bounds(dg, f)
@@ -625,7 +639,7 @@ def _edge_passes(dg, f: int, gen, what: str, dirty: bool, timed: bool,
             bound_bytes=nbytes, share_of_bound=bound_ms / ms,
             edges_per_s=ne / (ms * 1e-3))
         if name.startswith("gat_v1") or name.startswith("sddmm"):
-            cases[name]["tile"] = (FG._tile_floats(nv, f)
+            cases[name]["tile"] = (EE._v1_tile_floats(nv, f)
                                    if name.startswith("gat_v1") else f)
         print(f"[kernel] {name} {json.dumps(cases[name])}")
     return cases
@@ -637,8 +651,9 @@ def _v1_unfused(dg, logits, w, x):
 
 def phase_edge_kernels(g) -> dict[str, dict]:
     """{kernel: {"cases": [timed cases], "max_abs_err": over every case}}
-    for ell_row_reduce (cases: its three kinds), gat_v1_fwd and
-    sddmm_dot_ell (cases: F = 128 and 16)."""
+    for ell_row_reduce (cases: its three kinds), gat_v1_fwd (cases: F = 128
+    and 16, each without and with the scores) and sddmm_dot_ell (cases:
+    F = 128 and 16)."""
     dg = to_device_graph(prepare_graph(g, "gat"), device="cuda")
     gen = torch.Generator(device="cuda").manual_seed(2)
     res = {name: {"cases": [], "max_abs_err": 0.0} for name in EDGE_KERNELS}
@@ -654,8 +669,13 @@ def phase_edge_kernels(g) -> dict[str, dict]:
     for f in (FEAT, CLASSES):
         fold(_edge_passes(dg, f, gen, f"F={f}", dirty=False, timed=True,
                           reduces=f == FEAT), True)
-    fold(_edge_passes(dg, 7, gen, "F=7 (float columns)", dirty=True,
-                      timed=False), False)
+    # F = 7 and 33: float columns, 33 more of them than a group has lanes;
+    # 12: three columns of V in a group of four lanes; 256: more float4
+    # columns a lane than sddmm_dot_ell keeps in registers, two tiles for
+    # gat_v1_fwd
+    for f in EDGE_WIDTHS:
+        fold(_edge_passes(dg, f, gen, f"F={f}", dirty=True, timed=False,
+                          reduces=f == EDGE_WIDTHS[0]), False)
     dgs = to_device_graph(prepare_graph(g, "sage"), device="cuda")
     empty = int((dgs.deg == 0).sum())
     if empty == 0:
@@ -664,8 +684,8 @@ def phase_edge_kernels(g) -> dict[str, dict]:
     for f in (CLASSES, 7):
         fold(_edge_passes(dgs, f, gen, f"no self-loops F={f}", dirty=True,
                           timed=False), False)
-    print(f"[kernel] passes over per-edge values at F=7 and on the graph "
-          f"without self-loops ({empty} rows of degree 0, dirtied allocator, "
+    print(f"[kernel] passes over per-edge values at F in {EDGE_WIDTHS} and on "
+          f"the graph without self-loops ({empty} rows of degree 0, dirtied allocator, "
           f"0/1 mask): max_abs_err "
           f"{ {n: r['max_abs_err'] for n, r in res.items()} }")
 
@@ -895,13 +915,14 @@ def _assert_counts(tag: str, got: dict, want: dict) -> None:
                                f"{want.get(name, 0)} (all counts: {got})")
 
 
-def phase_main_v1(g) -> dict[str, int]:
+def phase_main_v1(g) -> tuple[dict[str, int], dict]:
     """The v1 main path: ``EPOCHS`` GAT steps at full width through
     ``apply_model`` with its default ``trivial_w`` and a random 0/1 mask
     as edge weights, then one evaluation forward; then ``TIMED_EPOCHS``
     more steps on the host clock and ``PROFILED_EPOCHS`` under the
     profiler. Returns the launch counts of training and evaluation
-    together."""
+    together, and the step's host-clock ms, device ms, device ops and the
+    peak memory in GiB."""
     tag = "[main gat v1]"
     cfg = make_config("gat", GAT_LAYERS, FEAT, HIDDEN, CLASSES, lr=0.01,
                       use_l2norm=False, use_dense=False)
@@ -949,16 +970,18 @@ def phase_main_v1(g) -> dict[str, int]:
     if tuple(logits.shape) != (g.nv, CLASSES) or not bool(
             torch.isfinite(logits).all()):
         raise RuntimeError(f"{tag} bad logits: shape {tuple(logits.shape)}")
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
     print(f"{tag} losses {losses}")
     print(f"{tag} launches in training {train}, with one evaluation forward "
           f"{total}; step median {statistics.median(times) * 1e3:.3f} ms "
-          f"(warm-up steps included); peak memory "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+          f"(warm-up steps included); peak memory {peak_gib:.4f} GiB")
     steps(TIMED_EPOCHS)
     step_ms = statistics.median(times[EPOCHS:]) * 1e3
     print(f"{tag} median of {TIMED_EPOCHS} more steps {step_ms:.4f} ms")
-    phase_profile("gat v1", steps, PROFILED_EPOCHS, step_ms)
-    return total
+    device_ms, device_ops = phase_profile("gat v1", steps, PROFILED_EPOCHS,
+                                          step_ms)
+    return total, {"step_ms": step_ms, "device_ms": device_ms,
+                   "device_ops": device_ops, "peak_gib": peak_gib}
 
 
 def phase_main_sampled(g) -> None:
@@ -1057,10 +1080,11 @@ def phase_epochs(model) -> float:
     return statistics.mean(kernel)
 
 
-def phase_profile(tag: str, run, epochs: int, epoch_ms: float) -> None:
+def phase_profile(tag: str, run, epochs: int, epoch_ms: float):
     """``run(epochs)`` under torch.profiler: device time per epoch by
     kernel and the device's busy share; ``epoch_ms`` is the unprofiled
-    epoch on the host clock, from another run."""
+    epoch on the host clock, from another run. Returns (device ms per
+    epoch, device ops per epoch), or (None, None) without device events."""
     from torch.profiler import ProfilerActivity, profile
 
     tag = f"[profile {tag}]"
@@ -1074,7 +1098,7 @@ def phase_profile(tag: str, run, epochs: int, epoch_ms: float) -> None:
     if not dev:
         print(f"{tag} the profiler recorded no device events: device "
               "time and busy share not measured")
-        return
+        return None, None
     busy, end = 0.0, float("-inf")
     for e in sorted(dev, key=lambda e: e.time_range.start):
         lo, hi = max(e.time_range.start, end), e.time_range.end
@@ -1096,6 +1120,7 @@ def phase_profile(tag: str, run, epochs: int, epoch_ms: float) -> None:
         print(f"{tag} {us / epochs / 1e3:.4f} ms/epoch "
               f"{us / busy:.4f} of device time, {n / epochs:g}/epoch: "
               f"{name[:90]}")
+    return device_ms, len(dev) / epochs
 
 
 def main() -> None:
@@ -1111,7 +1136,7 @@ def main() -> None:
     phase_small()
     phase_small_trainer()
     gcn, gat, launches = phase_main(g)
-    v1_launches = phase_main_v1(g)
+    v1_launches, _ = phase_main_v1(g)
     phase_main_sampled(g)
     for model in (gcn, gat):
         phase_profile(model.cfg.arch,

@@ -55,7 +55,7 @@ _SIGNATURES = {
     },
     "ell_edge": {
         "gab_ell_row_reduce": _GAT_TABLE + [_vp] * 4 + [_int, _int, _vp],
-        "gab_gat_v1_fwd": _GAT_TABLE + [_vp] * 7 + _WIDE,
+        "gab_gat_v1_fwd": _GAT_TABLE + [_vp] * 8 + _WIDE,
         "gab_sddmm_dot_ell": _GAT_TABLE + [_vp] * 3 + [_i64, _int, _int, _vp],
     },
 }

@@ -91,12 +91,14 @@ def _tile_floats(nv: int, f: int) -> int:
     return min(f, 128 if nv * min(f, 128) * 4 <= _L2_TILE_BYTES else 64)
 
 
-def _wide_shape(nv: int, f: int, *mats) -> tuple[int, int, int]:
+def _wide_shape(nv: int, f: int, *mats,
+                tile_floats=_tile_floats) -> tuple[int, int, int]:
     """(tile_v, vec, tiles) of a wide pass: V = float4 when F % 4 == 0
     and every matrix is aligned to 16 bytes, else float; a tile has at
-    most 32 columns of V."""
+    most 32 columns of V, and ``tile_floats(nv, f)`` feature columns in
+    the float4 instantiation."""
     vec = int(f % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in mats))
-    tile_v = (_tile_floats(nv, f) // 4 if vec else min(f, _MAX_TILE_V))
+    tile_v = (tile_floats(nv, f) // 4 if vec else min(f, _MAX_TILE_V))
     f_v = f // 4 if vec else f
     return tile_v, vec, -(-f_v // tile_v)
 

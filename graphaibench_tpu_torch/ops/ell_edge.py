@@ -19,8 +19,20 @@ its kernel for tensors on a CUDA device, or raises; ``LAUNCHES`` counts
 the launches per kernel. A row of degree > 64 is several virtual rows: the
 kernels store the rows that have one and combine (atomic add, atomic max)
 the pieces of split rows into outputs whose ``g.zero_rows`` the wrapper
-initialised. Every edge sits in exactly one slot, so ``sddmm_dot_ell``
-writes each element of its output once, by a plain store.
+initialised.
+
+Bytes bound all three (0.5 flop per gathered byte in the wide passes, no
+reuse across pairs, hence no tensor cores); the two wide passes run at the
+time of the SpMM's gather of the same rows. ``gat_v1_fwd`` does a slot's
+scalar work (ids, weight, logit, one exp) in one lane and hands id and
+coefficient to the row's other lanes by shuffles; asked to, it also writes
+the row softmax of the logits it has in hand, which the v1 backward reads
+instead of computing it again. Its feature tile follows a rule of its own
+(``_v1_tile_floats``). ``sddmm_dot_ell`` gives a row at most 16 lanes, adds
+the lanes' partial dot products of 8 slots by a transposing butterfly that
+leaves each slot's total in another lane, and stores them together; every
+edge sits in exactly one slot, so each element of its output is written
+once, by a plain store. The source's note has the measurements.
 """
 
 from __future__ import annotations
@@ -41,6 +53,18 @@ from graphaibench_tpu_torch.ops.device_graph import DeviceGraph
 LAUNCHES = {"ell_row_reduce": 0, "gat_v1_fwd": 0, "sddmm_dot_ell": 0}
 
 KINDS = {"max": 0, "sum": 1, "sumexp": 2}     # the kernel's `kind` argument
+
+
+def _v1_tile_floats(nv: int, f: int) -> int:
+    """Feature columns per tile of gat_v1_fwd's float4 instantiation: one
+    float4 per lane of a warp, whatever the graph's size. Every tile
+    prepares the slots again (ids, weight, logit, exp), and with that work
+    done once per slot the gather's locality no longer pays for a second
+    tile: measured on an H100 at F = 128 (device times of
+    tools/gat_kernels_probe.py), 128 floats take 0.289 ms at 2^17 vertices
+    where 64 take 0.298 and 32 take 0.332; at 2^19 vertices 1.548, 1.547
+    and 1.749 ms, and 1.618 against 1.632 with the scores written."""
+    return min(f, 128)
 
 
 # ---- plain PyTorch versions ------------------------------------------------
@@ -71,17 +95,23 @@ def ell_row_reduce_plain(g: DeviceGraph, vals: torch.Tensor, kind: str,
     return out
 
 
-def gat_v1_fwd_plain(g: DeviceGraph, logits, edge_w, x, m, zinv):
+def gat_v1_fwd_plain(g: DeviceGraph, logits, edge_w, x, m, zinv,
+                     with_scores: bool = False):
     l_pad = torch.cat([logits, logits.new_full((1,), float("-inf"))])
     w_pad = torch.cat([edge_w, edge_w.new_zeros(1)])
     out = x.new_zeros((g.nv, x.shape[1]))
+    # NaN where no slot writes: every edge must have one
+    scores = logits.new_full((g.ne,), float("nan")) if with_scores else None
     for b in g.ell:
         rows, nbr, eid = _views(b)
         w = w_pad[eid]
-        s = torch.exp(l_pad[eid] - m[rows][:, None]) * zinv[rows][:, None] * w
-        s = torch.where(w == 0, torch.zeros_like(s), s)   # a mask gives exact 0
+        p = torch.exp(l_pad[eid] - m[rows][:, None]) * zinv[rows][:, None]
+        s = torch.where(w == 0, torch.zeros_like(p), p * w)   # a mask gives exact 0
         out.index_add_(0, rows, (s[:, :, None] * x[nbr]).sum(1))
-    return out
+        if with_scores:
+            real = eid != g.ne
+            scores[eid[real]] = p[real]
+    return (out, scores) if with_scores else out
 
 
 def sddmm_dot_ell_plain(g: DeviceGraph, a: torch.Tensor,
@@ -122,27 +152,34 @@ def ell_row_reduce(g: DeviceGraph, vals: torch.Tensor, kind: str,
     return out
 
 
-def gat_v1_fwd(g: DeviceGraph, logits, edge_w, x, m, zinv) -> torch.Tensor:
+def gat_v1_fwd(g: DeviceGraph, logits, edge_w, x, m, zinv,
+               with_scores: bool = False):
     """out_i = sum over i's edges e = (i, j) of
     exp(logits_e - m_i) zinv_i edge_w_e x_j, for the row max ``m`` and the
-    inverse softmax denominator ``zinv`` of the logits."""
+    inverse softmax denominator ``zinv`` of the logits. With
+    ``with_scores`` the pair (out, scores): scores_e = exp(logits_e - m_i)
+    zinv_i, (ne,), the softmax of the logits over each row, which the pass
+    has in hand and a backward would compute again."""
     dev = _check(g, vectors=(m, zinv), matrices=(x,), edges=(logits, edge_w))
     if dev.type == "cpu":
-        return gat_v1_fwd_plain(g, logits, edge_w, x, m, zinv)
+        return gat_v1_fwd_plain(g, logits, edge_w, x, m, zinv, with_scores)
     f = x.shape[1]
     if f == 0:
         raise ValueError("x has no columns")
     table = _table(g)
     lib = _build.load_library("ell_edge")
     out = _empty_but(g, x, (g.nv, f), 0.0)
-    tile_v, vec, _ = _wide_shape(g.nv, f, x, out)
+    scores = torch.empty_like(logits) if with_scores else None
+    tile_v, vec, _ = _wide_shape(g.nv, f, x, out,
+                                 tile_floats=_v1_tile_floats)
     rc = lib.gab_gat_v1_fwd(
         *table.args, logits.data_ptr(), edge_w.data_ptr(), m.data_ptr(),
-        zinv.data_ptr(), x.data_ptr(), out.data_ptr(), f, tile_v, vec,
+        zinv.data_ptr(), x.data_ptr(), out.data_ptr(),
+        scores.data_ptr() if with_scores else None, f, tile_v, vec,
         *_launch_tail(x))
     _raise_on(rc, lib, "gat_v1_fwd", f"F={f}, tile_v={tile_v}, vec={vec}")
     LAUNCHES["gat_v1_fwd"] += 1
-    return out
+    return (out, scores) if with_scores else out
 
 
 def sddmm_dot_ell(g: DeviceGraph, a: torch.Tensor,

@@ -47,9 +47,11 @@ v1, counterpart of ``gat_attention_spmm`` of the same JAX module, takes
 
 Its forward is three bucket passes of ``ops/ell_edge.py`` (row max, row
 sum of exp, the weighted aggregation ``gat_v1_fwd``): the normalizers are
-indexed per row inside the passes and no normalized score vector is
-written. Its backward materializes the scores once, as the JAX module's
-does, and runs the ELL SpMM (K1) on the transpose-permuted scores for
+indexed per row inside the passes. The backward affords one materialized
+score vector, as the JAX module's does; where a backward can follow, the
+forward pass, which has every score in hand, writes it, and it is saved
+in place of the logits and the normalizers (an evaluation writes none).
+The backward runs the ELL SpMM (K1) on the transpose-permuted scores for
 ``dx``, ``sddmm_dot_ell`` for the per-edge <ct_i, x_j> and a row sum for
 the softmax adjoint. ``apply_model`` reaches it for GAT on an ELL graph
 unless the caller promises all-ones weights (``trivial_w``).
@@ -292,37 +294,44 @@ def _norm_consts(g: DeviceGraph, logits: torch.Tensor):
 
 class _GatV1(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, g: DeviceGraph, logits, edge_w, x):
+    def forward(ctx, g: DeviceGraph, logits, edge_w, x, differentiated: bool):
         logits, edge_w, x = logits.contiguous(), edge_w.contiguous(), x.contiguous()
         m, zinv = _norm_consts(g, logits)
+        if not differentiated:
+            return gat_v1_fwd(g, logits, edge_w, x, m, zinv)
+        # the backward affords one materialized score vector; the forward
+        # pass has it in hand and writes it once
+        out, s_soft = gat_v1_fwd(g, logits, edge_w, x, m, zinv, True)
         ctx.g = g
-        ctx.save_for_backward(logits, edge_w, x, m, zinv)
-        return gat_v1_fwd(g, logits, edge_w, x, m, zinv)
+        ctx.save_for_backward(edge_w, x, s_soft)
+        return out
 
     @staticmethod
     def backward(ctx, ct):
-        g = ctx.g
-        logits, edge_w, x, m, zinv = ctx.saved_tensors
-        ct = ct.contiguous()
-        need_l, need_w, need_x = ctx.needs_input_grad[1:]
-        src = g.edge_src
-        # the backward affords one materialized score vector
-        s_soft = torch.exp(logits - m[src]) * zinv[src]
-        dl = dew = dx = None
-        if need_x:
-            # adjoint aggregation: same topology, transpose-permuted scores
-            dx = spmm_ell(g, (s_soft * edge_w)[g.trans_perm], ct)
-        if need_l or need_w:
-            # per-edge <ct[src], x[dst]> feeds the edge_w cotangent and
-            # the softmax adjoint, as on the unfused path
-            raw = sddmm_dot(g, ct, x)
-            if need_w:
-                dew = s_soft * raw
-            if need_l:
-                dsw = raw * edge_w
-                inner = _row_reduce_ell(g, s_soft * dsw, "sum")
-                dl = s_soft * (dsw - inner[src])
-        return None, dl, dew, dx
+        edge_w, x, s_soft = ctx.saved_tensors
+        return (None, *_v1_backward(ctx.g, ct.contiguous(), edge_w, x, s_soft,
+                                    ctx.needs_input_grad[1:4]), None)
+
+
+def _v1_backward(g: DeviceGraph, ct, edge_w, x, s_soft, needs):
+    """(d_logits, d_edge_w, d_x) of v1, each None where ``needs`` says so,
+    from the row softmax ``s_soft`` of the logits."""
+    need_l, need_w, need_x = needs
+    dl = dew = dx = None
+    if need_x:
+        # adjoint aggregation: same topology, transpose-permuted scores
+        dx = spmm_ell(g, (s_soft * edge_w)[g.trans_perm], ct)
+    if need_l or need_w:
+        # per-edge <ct[src], x[dst]> feeds the edge_w cotangent and
+        # the softmax adjoint, as on the unfused path
+        raw = sddmm_dot(g, ct, x)
+        if need_w:
+            dew = s_soft * raw
+        if need_l:
+            dsw = raw * edge_w
+            inner = _row_reduce_ell(g, s_soft * dsw, "sum")
+            dl = s_soft * (dsw - inner[g.edge_src])
+    return dl, dew, dx
 
 
 def gat_attention_spmm(g: DeviceGraph, logits: torch.Tensor,
@@ -331,4 +340,8 @@ def gat_attention_spmm(g: DeviceGraph, logits: torch.Tensor,
     buckets; differentiable in ``logits``, ``edge_w`` and ``x`` (edge_w's
     cotangent is softmax(logits) * <ct[src], x[dst]>, as on the unfused
     path). ``g`` must have ELL buckets and be structurally symmetric."""
-    return _GatV1.apply(g, logits, edge_w, x)
+    # inside the Function grad mode is off and needs_input_grad ignores it:
+    # whether a backward can follow is settled here
+    differentiated = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (logits, edge_w, x))
+    return _GatV1.apply(g, logits, edge_w, x, differentiated)

@@ -341,6 +341,8 @@ def test_kernels_match_plain_on_cuda(name):
 V1_GRAPHS = {
     "hubs": (hubs_graph, 16),          # degrees 64, 65, 199, 1 and 0
     "hubs_f7": (hubs_graph, 7),
+    "hubs_f33": (hubs_graph, 33),      # more float columns than lanes
+    "hubs_f256": (hubs_graph, 256),    # several float4 columns a lane, tiles
     "rmat11": (lambda: add_selfloop(rmat(11, 8, seed=1)), 16),
     "rmat11_edgeless_rows": (lambda: rmat(11, 8, seed=1), 12),
 }
