@@ -11,7 +11,7 @@ non-zero exit code and no result line:
 1. device  — requires a CUDA device; prints the nvidia-smi name and power
              limit line and torch's device name.
 2. build   — compiles the three sources of ``graphaibench_tpu_torch/csrc``
-             (``ell_spmm.cu``: K1; ``fused_gat.cu``: the four passes of
+             (``ell_spmm.cu``: K1; ``fused_gat.cu``: the five passes of
              the fused GAT attention v2; ``ell_edge.cu``: the three passes
              over per-edge values that v1 runs on) with nvcc, side by
              side, and loads them; prints the build seconds and the
@@ -26,11 +26,13 @@ non-zero exit code and no result line:
              graph without self-loops, which has rows of degree 0, behind
              an allocator dirtied with NaN: both against the plain version.
              The GAT passes (gat_rowmax, gat_v2_fwd, gat_v2_bwd_sl,
-             gat_v2_bwd_h): the same graph, F in {128, 16}, each kernel
-             against its plain version on the same inputs, timed beside
-             its bound (no single PyTorch call computes any of them, so
-             there is no library time); then F = 7 and the graph without
-             self-loops behind the dirtied allocator; then the whole
+             gat_v2_bwd_h, and gat_v2_bwd, the backward in one pass): the
+             same graph, F in {128, 16}, each kernel against its plain
+             version on the same inputs, timed beside its bound (no
+             single PyTorch call computes any of them, so there is no
+             library time); then F = 7, 256 and 33 (float columns,
+             several tiles, both) and the graph without self-loops
+             behind the dirtied allocator; then the whole
              differentiable op, output and three gradients, against the
              port's unfused path (sddmm_add, segment_softmax, spmm) under
              autograd at rmat13.
@@ -57,8 +59,10 @@ non-zero exit code and no result line:
              lr=0.01), ds, device="cuda").train(5) on rmat17, then
              evaluate("test"); counts the kernel's launches. Then the GAT
              main path at the same widths (2 layers, 128/128/16, no
-             l2norm/dense head), with the four GAT kernels' launch counts
-             (8 per step, 4 in evaluation, no K1 launch), then sage at
+             l2norm/dense head), with the GAT kernels' launch counts (per
+             step gat_rowmax and gat_v2_fwd twice, gat_v2_bwd once, for the
+             hidden layer, gat_v2_bwd_sl and gat_v2_bwd_h once, for the
+             output layer; 4 in evaluation, no K1 launch), then sage at
              those widths and ggnn (make_config("ggnn", 1, 128, 128, 16))
              with K1's counts. Then 5 GAT steps at the same widths through
              apply_model with its default trivial_w and a random 0/1 mask
@@ -80,7 +84,7 @@ non-zero exit code and no result line:
              floor). The v1 path (20 timed steps, 10 profiled) and the
              sampled paths (3 profiled epochs) are profiled inside the
              main phase, right after they are driven.
-8. result  — a JSON line of the eight kernels, then the last line
+8. result  — a JSON line of the nine kernels, then the last line
              {"ok": true, "device": {...}}.
 """
 
@@ -131,7 +135,8 @@ KERNEL_RTOL = KERNEL_ATOL = 1e-4
 GAT_RTOL = GAT_ATOL_SCALE = 1e-4
 GAT_KERNELS = {   # name -> line of the JAX pass it replaces
     "gat_rowmax": 285, "gat_v2_fwd": 309, "gat_v2_bwd_sl": 391,
-    "gat_v2_bwd_h": 413}
+    "gat_v2_bwd_h": 413, "gat_v2_bwd": 373}     # 373: both passes, _v2_bwd
+GAT_WIDTHS = (7, 256, 33)   # untimed, behind the dirtied allocator
 GAT_SMALL_SCALE = 13     # the whole op against the unfused path
 EDGE_KERNELS = {  # name -> file:line of the JAX program it replaces
     "ell_row_reduce": "graphaibench_tpu/ops/segment.py:16",
@@ -147,8 +152,13 @@ SUBG_SIZE = 32768        # sampled main path: n_pad > 4096, the COO strategy
 SAMPLED_VAL_INTERVAL = 2  # evaluations after epochs 2 and 4
 SAMPLED_PROFILED_EPOCHS = 3
 # Launches of the GAT main path (2 layers): per layer one gat_rowmax and
-# one gat_v2_fwd forward, one gat_v2_bwd_sl and one gat_v2_bwd_h backward.
+# one gat_v2_fwd forward; backward, by the size rule of
+# ops/fused_gat.py::_single_pass, one gat_v2_bwd for the hidden layer
+# (F = 128) and one gat_v2_bwd_sl and one gat_v2_bwd_h for the output layer
+# (F = 16).
 GAT_LAYERS = 2
+GAT_STEP_LAUNCHES = {"gat_rowmax": GAT_LAYERS, "gat_v2_fwd": GAT_LAYERS,
+                     "gat_v2_bwd": 1, "gat_v2_bwd_sl": 1, "gat_v2_bwd_h": 1}
 # The card's published peaks (H100 SXM data sheet, at the 700 W limit).
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
@@ -373,6 +383,8 @@ def _gat_bounds(dg, f: int) -> dict[str, tuple[float, str, int]]:
         "gat_v2_fwd": (ids + 4 * vec + 2 * mat, dg.ne * (2 * f + 6)),
         "gat_v2_bwd_sl": (ids + 6 * vec + 2 * mat, dg.ne * (2 * f + 10)),
         "gat_v2_bwd_h": (ids + 6 * vec + 3 * mat, dg.ne * (4 * f + 12)),
+        # as gat_v2_bwd_h, and d_sl written
+        "gat_v2_bwd": (ids + 7 * vec + 3 * mat, dg.ne * (4 * f + 13)),
     }
     out = {}
     for name, (nbytes, ops) in work.items():
@@ -384,7 +396,7 @@ def _gat_bounds(dg, f: int) -> dict[str, tuple[float, str, int]]:
 
 
 def _gat_passes(dg, f: int, gen, what: str, dirty: bool, timed: bool):
-    """The four kernels against their plain versions on one graph and
+    """The five kernels against their plain versions on one graph and
     width, each on the same inputs (the later passes take the plain
     forward's m, zinv and out). Returns {name: case}."""
     nv = dg.nv
@@ -415,6 +427,8 @@ def _gat_passes(dg, f: int, gen, what: str, dirty: bool, timed: bool):
     d_sl = run(FG.gat_v2_bwd_sl, *bwd)
     d_h_p, d_sr_p = FG.gat_v2_bwd_h_plain(dg, *bwd)
     d_h, d_sr = run(FG.gat_v2_bwd_h, *bwd)
+    one = run(FG.gat_v2_bwd, *bwd)
+    one_p = FG.gat_v2_bwd_plain(dg, *bwd)
     torch.cuda.synchronize()
     errs = {
         "gat_rowmax": 0.0,
@@ -423,10 +437,19 @@ def _gat_passes(dg, f: int, gen, what: str, dirty: bool, timed: bool):
         "gat_v2_bwd_sl": _gat_close(d_sl, d_sl_p, f"{what} d_sl"),
         "gat_v2_bwd_h": max(_gat_close(d_h, d_h_p, f"{what} d_h"),
                             _gat_close(d_sr, d_sr_p, f"{what} d_sr")),
+        "gat_v2_bwd": max(
+            _gat_close(got, want, f"{what} single pass {name}")
+            for got, want, name in zip(one, one_p, ("d_sl", "d_sr", "d_h"))),
     }
+    # the single pass's plain version against the two passes' plain versions
+    for got, want, name in zip(one_p, (d_sl_p, d_sr_p, d_h_p),
+                               ("d_sl", "d_sr", "d_h")):
+        _gat_close(got, want, f"{what} plain single pass {name}")
     cases = {name: {"F": f, "max_abs_err": err} for name, err in errs.items()}
-    for name in ("gat_v2_fwd", "gat_v2_bwd_sl", "gat_v2_bwd_h"):
-        cases[name]["tile"] = FG._tile_floats(nv, f) if f % 4 == 0 else min(f, 32)
+    for name in GAT_KERNELS:
+        if name != "gat_rowmax":
+            rule = FG._tile_floats if name == "gat_v2_fwd" else FG._bwd_tile_floats
+            cases[name]["tile"] = rule(nv, f) if f % 4 == 0 else min(f, 32)
     if not timed:
         return cases
     calls = {
@@ -434,12 +457,15 @@ def _gat_passes(dg, f: int, gen, what: str, dirty: bool, timed: bool):
         "gat_v2_fwd": (FG.gat_v2_fwd, FG.gat_v2_fwd_plain, (sl, sr, m, h)),
         "gat_v2_bwd_sl": (FG.gat_v2_bwd_sl, FG.gat_v2_bwd_sl_plain, bwd),
         "gat_v2_bwd_h": (FG.gat_v2_bwd_h, FG.gat_v2_bwd_h_plain, bwd),
+        "gat_v2_bwd": (FG.gat_v2_bwd, FG.gat_v2_bwd_plain, bwd),
     }
     bounds = _gat_bounds(dg, f)
     for name, (kernel, plain, args) in calls.items():
         ms = _batch_ms(lambda: kernel(dg, *args))
-        device_ms = _kernel_device_ms(lambda: kernel(dg, *args),
-                                      f"{name}_kernel")
+        # the single pass is gat_v2_bwd_h's kernel with d_sl to add into
+        device_ms = _kernel_device_ms(
+            lambda: kernel(dg, *args),
+            f"{'gat_v2_bwd_h' if name == 'gat_v2_bwd' else name}_kernel")
         plain_ms = _batch_ms(lambda: plain(dg, *args), calls=3, batches=3)
         bound_ms, bound_by, nbytes = bounds[name]
         cases[name].update(
@@ -471,8 +497,9 @@ def phase_gat_kernels(g) -> dict[str, dict]:
 
     for f in (FEAT, CLASSES):
         fold(_gat_passes(dg, f, gen, f"F={f}", dirty=False, timed=True), True)
-    fold(_gat_passes(dg, 7, gen, "F=7 (float columns)", dirty=True,
-                     timed=False), False)
+    # F = 7: float columns; 256: two tiles; 33: float columns in two tiles
+    for f in GAT_WIDTHS:
+        fold(_gat_passes(dg, f, gen, f"F={f}", dirty=True, timed=False), False)
     dgs = to_device_graph(prepare_graph(g, "sage"), device="cuda")
     if int((dgs.deg == 0).sum()) == 0:
         raise RuntimeError("the graph without self-loops has no row of "
@@ -480,8 +507,8 @@ def phase_gat_kernels(g) -> dict[str, dict]:
     for f in (CLASSES, 7):
         fold(_gat_passes(dgs, f, gen, f"no self-loops F={f}", dirty=True,
                          timed=False), False)
-    print(f"[kernel] GAT passes at F=7 and on the graph without self-loops "
-          f"({int((dgs.deg == 0).sum())} rows of degree 0, dirtied "
+    print(f"[kernel] GAT passes at F in {GAT_WIDTHS} and on the graph "
+          f"without self-loops ({int((dgs.deg == 0).sum())} rows of degree 0, dirtied "
           f"allocator): max_abs_err "
           f"{ {n: r['max_abs_err'] for n, r in res.items()} }")
 
@@ -493,16 +520,25 @@ def phase_gat_kernels(g) -> dict[str, dict]:
     base = [torch.randn(dg13.nv, device="cuda", generator=gen),
             torch.randn(dg13.nv, device="cuda", generator=gen),
             torch.randn(dg13.nv, CLASSES, device="cuda", generator=gen)]
-    for fn in (FG.gat_attention_spmm_v2, _gat_unfused):
+    # the op as its size rule runs it here (two backward passes), with the
+    # single pass forced, and the unfused path
+    rule = FG._single_pass
+    for fn, single in ((FG.gat_attention_spmm_v2, False),
+                       (FG.gat_attention_spmm_v2, True), (_gat_unfused, False)):
         sl, sr, h = (t.clone().requires_grad_(True) for t in base)
-        out = fn(dg13, sl, sr, h)
-        (out * ct).sum().backward()
+        FG._single_pass = (lambda nv, f: True) if single else rule
+        try:
+            out = fn(dg13, sl, sr, h)
+            (out * ct).sum().backward()
+        finally:
+            FG._single_pass = rule
         outs.append((out.detach(), sl.grad, sr.grad, h.grad))
-    errs = [_gat_close(a, b, f"fused vs unfused {what}")
-            for a, b, what in zip(*outs, ("out", "d_sl", "d_sr", "d_h"))]
-    print(f"[kernel] gat_attention_spmm_v2 vs the unfused path at "
-          f"rmat{GAT_SMALL_SCALE} F={CLASSES}: max_abs_err out/d_sl/d_sr/d_h "
-          f"{errs}")
+    errs = [max(_gat_close(a, c, f"fused vs unfused {what}"),
+                _gat_close(b, c, f"fused (single pass) vs unfused {what}"))
+            for a, b, c, what in zip(*outs, ("out", "d_sl", "d_sr", "d_h"))]
+    print(f"[kernel] gat_attention_spmm_v2 (backward in two passes and in "
+          f"one) vs the unfused path at rmat{GAT_SMALL_SCALE} F={CLASSES}: "
+          f"max_abs_err out/d_sl/d_sr/d_h {errs}")
     return res
 
 
@@ -892,7 +928,7 @@ def phase_main(g):
     gat, n_gat = _drive(
         g, make_config("gat", GAT_LAYERS, FEAT, HIDDEN, CLASSES, lr=0.01,
                        use_l2norm=False, use_dense=False),
-        {name: GAT_LAYERS for name in GAT_KERNELS},
+        GAT_STEP_LAUNCHES,
         {"gat_rowmax": GAT_LAYERS, "gat_v2_fwd": GAT_LAYERS})
     # SAGE: as GCN, 3 SpMMs a step (layer 1's input is constant). GGNN
     # with dim_init == dim_hid does not project: one SpMM of the constant
@@ -1041,17 +1077,18 @@ class _plain_kernels:
 
     def __enter__(self):
         self.saved = (K1._ell_spmm_cuda, FG.gat_rowmax, FG.gat_v2_fwd,
-                      FG.gat_v2_bwd_sl, FG.gat_v2_bwd_h)
+                      FG.gat_v2_bwd_sl, FG.gat_v2_bwd_h, FG.gat_v2_bwd)
         K1._ell_spmm_cuda = lambda table, x: K1.ell_spmm_plain(
             table.graph, table.w_slots, x)
         FG.gat_rowmax = FG.gat_rowmax_plain
         FG.gat_v2_fwd = FG.gat_v2_fwd_plain
         FG.gat_v2_bwd_sl = FG.gat_v2_bwd_sl_plain
         FG.gat_v2_bwd_h = FG.gat_v2_bwd_h_plain
+        FG.gat_v2_bwd = FG.gat_v2_bwd_plain
 
     def __exit__(self, *exc):
         (K1._ell_spmm_cuda, FG.gat_rowmax, FG.gat_v2_fwd, FG.gat_v2_bwd_sl,
-         FG.gat_v2_bwd_h) = self.saved
+         FG.gat_v2_bwd_h, FG.gat_v2_bwd) = self.saved
 
 
 def _epoch_median_ms(model, plain: bool) -> float:

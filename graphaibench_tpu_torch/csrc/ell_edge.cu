@@ -138,7 +138,6 @@ constexpr int kDotChunk = 1 << kDotChunkLg;
 constexpr int kDotCols = GAB_DOT_COLS;
 constexpr int kDotLanesLg = GAB_DOT_LANES_LG;
 constexpr int kReduceLg = 3;  // log2 lanes per row, ell_row_reduce
-constexpr unsigned kFullMask = 0xffffffffu;
 static_assert(kV1ChunkLg >= 0 && kV1ChunkLg <= 5 && kV1NarrowChunkLg >= 0 &&
                   kV1NarrowChunkLg <= 5 && kDotChunkLg >= 0 && kDotChunkLg <= 5,
               "a chunk is at most 32 slots");
@@ -297,42 +296,6 @@ gat_v1_fwd_kernel(const __grid_constant__ Table tab,
   }
 }
 
-__device__ __forceinline__ float dot_acc(float acc, float a, float b) {
-  return fmaf(a, b, acc);
-}
-__device__ __forceinline__ float dot_acc(float acc, const float4& a,
-                                         const float4& b) {
-  return fmaf(a.x, b.x, fmaf(a.y, b.y, fmaf(a.z, b.z, fmaf(a.w, b.w, acc))));
-}
-
-// Adds, over the 2^LG lanes of a group, the kDotChunk partial sums that each
-// lane holds, one per slot, and leaves every slot's total in one lane: a
-// transposing butterfly. At step s a lane keeps the even or the odd half of
-// its values, by bit s of its lane number, and hands the other half to the
-// lane across that bit, so the values halve while the lanes summed double.
-// After T = min(LG, log2 kDotChunk) steps d[i] is the group's total for slot
-// i 2^T + (gl mod 2^T), for i < kDotChunk / 2^T. With more lanes than slots
-// the remaining bits are summed in place and every lane holds slot
-// gl mod kDotChunk. Every lane of the warp takes part.
-template <int LG>
-__device__ __forceinline__ void transpose_sum(float (&d)[kDotChunk], int gl) {
-  constexpr int T = LG < kDotChunkLg ? LG : kDotChunkLg;
-#pragma unroll
-  for (int s = 0; s < T; ++s) {
-    const bool odd = ((gl >> s) & 1) != 0;
-#pragma unroll
-    for (int i = 0; i < (kDotChunk >> (s + 1)); ++i) {
-      const float mine = odd ? d[2 * i + 1] : d[2 * i];
-      const float theirs = odd ? d[2 * i] : d[2 * i + 1];
-      d[i] = mine + __shfl_xor_sync(kFullMask, theirs, 1 << s);
-    }
-  }
-#pragma unroll
-  for (int s = T; s < LG; ++s) {
-    d[0] += __shfl_xor_sync(kFullMask, d[0], 1 << s);
-  }
-}
-
 // A group of G = 2^LG lanes owns a virtual row; lane gl owns the columns
 // gl + q G of V and keeps the first COLS of its row of `a` in registers
 // (further columns, of a wide F, are read again per chunk).
@@ -409,7 +372,7 @@ sddmm_dot_ell_kernel(const __grid_constant__ Table tab,
         d[k] = dot_acc(d[k], av, v[k]);
       }
     }
-    transpose_sum<LG>(d, p.gl);
+    transpose_sum<LG, kDotChunkLg>(d, p.gl);
 #pragma unroll
     for (int i = 0; i < kOwn; ++i) {
       if (e[i] >= 0) raw[e[i]] = d[i];

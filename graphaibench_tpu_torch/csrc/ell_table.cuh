@@ -27,6 +27,7 @@ namespace {
 
 constexpr int kMaxBuckets = 8;
 constexpr int kThreads = 256;
+constexpr unsigned kFullMask = 0xffffffffu;
 
 struct Bucket {
   const int32_t* row_ids;  // (rows,)
@@ -89,6 +90,14 @@ __device__ __forceinline__ float dot(const float4& a, const float4& b) {
   return fmaf(a.x, b.x, fmaf(a.y, b.y, fmaf(a.z, b.z, a.w * b.w)));
 }
 
+__device__ __forceinline__ float dot_acc(float acc, float a, float b) {
+  return fmaf(a, b, acc);
+}
+__device__ __forceinline__ float dot_acc(float acc, const float4& a,
+                                         const float4& b) {
+  return fmaf(a.x, b.x, fmaf(a.y, b.y, fmaf(a.z, b.z, fmaf(a.w, b.w, acc))));
+}
+
 // Store, or add where several writers share the address.
 template <typename V>
 __device__ __forceinline__ void put(V* dst, const V& v, bool add) {
@@ -105,6 +114,35 @@ __device__ __forceinline__ float group_sum(float v, int lg) {
     v += __shfl_xor_sync(0xffffffffu, v, o);
   }
   return v;
+}
+
+// Adds, over the 2^LG lanes of a group, the 2^CHUNK_LG partial sums that each
+// lane holds, one per slot, and leaves every slot's total in one lane: a
+// transposing butterfly. At step s a lane keeps the even or the odd half of
+// its values, by bit s of its lane number, and hands the other half to the
+// lane across that bit, so the values halve while the lanes summed double.
+// After T = min(LG, CHUNK_LG) steps d[i] is the group's total for slot
+// i 2^T + (gl mod 2^T), for i < 2^(CHUNK_LG - T). With more lanes than slots
+// the remaining bits are summed in place and every lane holds slot
+// gl mod 2^CHUNK_LG. Every lane of the warp takes part.
+template <int LG, int CHUNK_LG>
+__device__ __forceinline__ void transpose_sum(float (&d)[1 << CHUNK_LG],
+                                              int gl) {
+  constexpr int T = LG < CHUNK_LG ? LG : CHUNK_LG;
+#pragma unroll
+  for (int s = 0; s < T; ++s) {
+    const bool odd = ((gl >> s) & 1) != 0;
+#pragma unroll
+    for (int i = 0; i < (1 << (CHUNK_LG - s - 1)); ++i) {
+      const float mine = odd ? d[2 * i + 1] : d[2 * i];
+      const float theirs = odd ? d[2 * i] : d[2 * i + 1];
+      d[i] = mine + __shfl_xor_sync(kFullMask, theirs, 1 << s);
+    }
+  }
+#pragma unroll
+  for (int s = T; s < LG; ++s) {
+    d[0] += __shfl_xor_sync(kFullMask, d[0], 1 << s);
+  }
 }
 
 // max into *addr for floats of any sign: non-negative floats order like
@@ -154,12 +192,13 @@ int64_t fill_table(Table* tab, GAB_TABLE_PARAMS, int lg, int64_t tiles,
   return blocks * tiles;
 }
 
-// Lanes per row (as a power of two) and tiles for a wide pass over f_v
-// columns of V in tiles of tile_v.
-bool wide_shape(int64_t f_v, int tile_v, int* lg, int64_t* tiles) {
+// Lanes per row (as a power of two, at most 2^max_lg: a lane then owns several
+// columns of a tile) and tiles for a wide pass over f_v columns of V in tiles
+// of tile_v.
+bool wide_shape(int64_t f_v, int tile_v, int max_lg, int* lg, int64_t* tiles) {
   if (f_v <= 0 || tile_v <= 0 || tile_v > 32) return false;
   *lg = 0;
-  while ((1 << *lg) < tile_v) ++*lg;
+  while (*lg < max_lg && (1 << *lg) < tile_v) ++*lg;
   *tiles = (f_v + tile_v - 1) / tile_v;
   return true;
 }
@@ -175,11 +214,13 @@ struct WidePlan {
 // Checks the shape of a wide pass, fills its table and selects `device`;
 // returns the first CUDA error.
 cudaError_t plan_wide(WidePlan* p, GAB_TABLE_PARAMS, int64_t f, int tile_v,
-                      int vec, int device) {
+                      int vec, int device, int max_lg = 5) {
   if (vec && f % 4 != 0) return cudaErrorInvalidValue;
   p->f_v = vec ? f / 4 : f;
   int64_t tiles;
-  if (!wide_shape(p->f_v, tile_v, &p->lg, &tiles)) return cudaErrorInvalidValue;
+  if (!wide_shape(p->f_v, tile_v, max_lg, &p->lg, &tiles)) {
+    return cudaErrorInvalidValue;
+  }
   cudaError_t err;
   const int64_t grid =
       fill_table(&p->tab, GAB_TABLE_ARGS, p->lg, tiles, &err);

@@ -299,8 +299,10 @@ def apply_model(cfg: ModelConfig, params: GcnParams, dg: DeviceGraph,
     ``trivial_w`` is a static promise that ``edge_w`` is all ones
     (full-batch graphs), which lets GAT compute its logits inside the
     fused attention; without it GAT's fused attention takes ``edge_w`` as
-    per-edge weights or a mask."""
-    if cfg.remat:
+    per-edge weights or a mask. With ``return_intermediates`` every
+    activation is kept anyway, so ``cfg.remat`` is ignored there, as in
+    the JAX package."""
+    if cfg.remat and not return_intermediates:
         raise NotImplementedError(
             "layer remat is not ported (ROADMAP queue 1, P11 measures "
             "whether 80 GB still needs it)")

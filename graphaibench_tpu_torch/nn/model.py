@@ -134,12 +134,17 @@ class Model:
         acc = model.evaluate("test")
 
     ``inductive`` trains on the subgraph of the train-masked vertices and
-    evaluates on the full graph. ``timers`` (a ``utils.timers.OpTimers``)
-    collects the stage breakdown (train.cpp:60-76).
+    evaluates on the full graph. ``seed`` seeds the dropout masks' generator.
+    ``timers`` (a ``utils.timers.OpTimers``) collects the stage breakdown
+    (train.cpp:60-76).
+
+    ``train`` and ``train_sampled`` return one (loss, accuracy, seconds)
+    per epoch, where the JAX package's ``Model`` returns the total seconds:
+    the total is ``sum(dt for _, _, dt in log)``.
     """
 
     def __init__(self, cfg: ModelConfig, data: GnnDataset, *, device,
-                 inductive: bool = False, timers=None):
+                 inductive: bool = False, seed: int = 0, timers=None):
         if cfg.optimizer not in OPTIMIZERS:
             raise ValueError(f"unknown optimizer {cfg.optimizer!r}: one of "
                              f"{sorted(OPTIMIZERS)}")
@@ -160,7 +165,7 @@ class Model:
         self.params = init_params(cfg, device=self.device)
         self.opt = OPTIMIZERS[cfg.optimizer](self.params.parameters(),
                                              lr=cfg.lr)
-        self.generator = torch.Generator(device=self.device).manual_seed(0)
+        self.generator = torch.Generator(device=self.device).manual_seed(seed)
 
         self.feats = torch.from_numpy(
             np.ascontiguousarray(data.feats, np.float32)).to(self.device)
@@ -209,9 +214,10 @@ class Model:
 
     def train(self, num_epochs: int, *, val_interval: int = 50,
               verbose: bool = True) -> list[tuple[float, float, float]]:
-        """Run ``num_epochs`` steps; returns (loss, acc, seconds) per epoch.
-        Each epoch's time ends when its loss reaches the host, which
-        waits for the device."""
+        """Run ``num_epochs`` steps; returns (loss, acc, seconds) per epoch
+        (a list, not the JAX ``Model.train``'s total seconds, which is the
+        sum of the third entries). Each epoch's time ends when its loss
+        reaches the host, which waits for the device."""
         log = []
         for epoch in range(num_epochs):
             t0 = time.perf_counter()
@@ -271,7 +277,8 @@ class Model:
         subgraph of ~subg_size vertices of the training graph; evaluation
         uses the full graph. A one-thread pool samples and pads epoch
         k+1's subgraph while epoch k's step runs. Returns (loss, acc,
-        seconds) per epoch."""
+        seconds) per epoch (a list, not the JAX ``Model.train_sampled``'s
+        total seconds, which is the sum of the third entries)."""
         sampler = SaintSampler(self.data.graph, self.training.host,
                                self.data.train_mask)
         n_pad = -(-subg_size // 8) * 8

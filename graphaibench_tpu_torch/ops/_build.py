@@ -51,7 +51,7 @@ _SIGNATURES = {
         "gab_gat_rowmax": _GAT_TABLE + [_vp] * 3 + [_int, _vp],
         "gab_gat_v2_fwd": _GAT_TABLE + [_vp] * 7 + _WIDE,
         "gab_gat_v2_bwd_sl": _GAT_TABLE + [_vp] * 9 + _WIDE,
-        "gab_gat_v2_bwd_h": _GAT_TABLE + [_vp] * 7 + _WIDE,
+        "gab_gat_v2_bwd_h": _GAT_TABLE + [_vp] * 8 + _WIDE,
     },
     "ell_edge": {
         "gab_ell_row_reduce": _GAT_TABLE + [_vp] * 4 + [_int, _int, _vp],

@@ -13,7 +13,7 @@ monotone, so the row max of the logits is ``leaky(sl_i + max_j sr_j)``;
 and the softmax adjoint's row term ``sum_j p_ij <ct_i, h_j>`` equals
 ``<ct_i, out_i>``, elementwise from the saved output.
 
-Four bucket passes do the work, each a hand-written CUDA kernel in
+Bucket passes do the work, each a hand-written CUDA kernel in
 ``csrc/fused_gat.cu`` with its plain PyTorch version here:
 
     gat_rowmax     m0_i = max_j sr_j                       (-inf: no edges)
@@ -24,7 +24,15 @@ Four bucket passes do the work, each a hand-written CUDA kernel in
     gat_v2_bwd_h   transpose role, same buckets: for row j over its
                    neighbours i, p = exp(leaky(sl_i + sr_j) - m_i) zinv_i;
                    d_h_j = sum_i p ct_i;
-                   d_sr_j = sum_i p (<h_j, ct_i> - inner_i) leaky'
+                   t_ij = p (<h_j, ct_i> - inner_i) leaky';
+                   d_sr_j = sum_i t_ij
+    gat_v2_bwd     gat_v2_bwd_h, which also adds every t_ij into d_sl_i:
+                   the whole backward with one gather
+
+The backward that wants all three gradients takes the single pass where
+the gathered matrix is large enough for the gather to hide its atomics
+(``_single_pass``), else the two passes; a caller that wants ``d_sl``
+alone, or no ``d_sl``, gets the one pass it needs.
 
 Each wrapper takes the plain version for tensors on the CPU and launches
 its kernel for tensors on a CUDA device, or raises; ``LAUNCHES`` counts
@@ -77,7 +85,7 @@ from graphaibench_tpu_torch.ops.segment import _row_reduce_ell
 from graphaibench_tpu_torch.ops.spmm import sddmm_dot, spmm_ell
 
 LAUNCHES = {"gat_rowmax": 0, "gat_v2_fwd": 0, "gat_v2_bwd_sl": 0,
-            "gat_v2_bwd_h": 0}
+            "gat_v2_bwd_h": 0, "gat_v2_bwd": 0}
 
 SLOPE = 0.2
 # Floor of the softmax denominator: a NORMAL float32 (1e-38 is subnormal
@@ -150,6 +158,25 @@ def gat_v2_bwd_h_plain(g: DeviceGraph, sl, sr, m, zinv, inner, h, ct):
     return d_h, d_sr
 
 
+def gat_v2_bwd_plain(g: DeviceGraph, sl, sr, m, zinv, inner, h, ct):
+    """(d_sl, d_sr, d_h) from the transpose role alone: d_sl sums the
+    per-slot terms by neighbour, which needs the structural symmetry."""
+    d_h = h.new_zeros((g.nv, h.shape[1]))
+    d_sl = sl.new_zeros(g.nv)
+    d_sr = sr.new_zeros(g.nv)
+    for b in g.ell:
+        rows, nbr, pad = _views(g, b)
+        raw = sl[nbr] + sr[rows][:, None]              # sl_i + sr_j
+        p = (torch.exp(_leaky(raw) - m[nbr]) * zinv[nbr]).masked_fill(pad, 0.0)
+        ctg = ct[nbr]
+        dsw = (h[rows][:, None, :] * ctg).sum(-1)
+        t = p * (dsw - inner[nbr]) * _leaky_grad(raw)
+        d_h.index_add_(0, rows, (p[:, :, None] * ctg).sum(1))
+        d_sr.index_add_(0, rows, t.sum(1))
+        d_sl.index_add_(0, nbr.reshape(-1), t.reshape(-1))
+    return d_sl, d_sr, d_h
+
+
 # ---- the kernels' wrappers -------------------------------------------------
 
 def gat_rowmax(g: DeviceGraph, sr: torch.Tensor) -> torch.Tensor:
@@ -187,6 +214,31 @@ def gat_v2_fwd(g: DeviceGraph, sl, sr, m, h):
     return acc, z
 
 
+def _bwd_tile_floats(nv: int, f: int) -> int:
+    """Feature columns per tile of the backward passes' float4
+    instantiation: one tile of up to 128 floats, whatever the graph's
+    size. A second tile repeats every slot's scalar work and turns the
+    per-row sums into atomics: measured on an H100 at F = 128 (device
+    times of tools/gat_kernels_probe.py), 128 floats against 64 take
+    0.341 against 0.376 ms (gat_v2_bwd_h), 0.354 against 0.411
+    (gat_v2_bwd) and 0.284 against 0.291 (gat_v2_bwd_sl) at 2^17
+    vertices; at 2^19 vertices 1.783 against 1.811, 1.892 against 1.974
+    and 1.409 against 1.381."""
+    return min(f, 128)
+
+
+def _single_pass(nv: int, f: int) -> bool:
+    """Whether the backward that wants all three gradients takes one pass
+    (``gat_v2_bwd``) or two (``gat_v2_bwd_sl``, ``gat_v2_bwd_h``). One
+    pass gathers once but adds an atomic per slot, which only a long
+    gather hides: measured on an H100 (device times of
+    tools/gat_kernels_probe.py) it wins from a 16 MiB matrix on - at 2^17
+    vertices 0.139 ms against 0.180 at F = 32 and 0.352 against 0.625 at
+    F = 128, at 2^19 vertices 0.524 against 0.561 at F = 8 - and loses
+    below: at 2^17 vertices 0.143 against 0.123 at F = 16."""
+    return nv * f * 4 >= 16 << 20
+
+
 def gat_v2_bwd_sl(g: DeviceGraph, sl, sr, m, zinv, inner, h, ct):
     """d_sl of the fused attention (pass B1)."""
     dev = _check(g, vectors=(sl, sr, m, zinv, inner), matrices=(h, ct))
@@ -197,7 +249,8 @@ def gat_v2_bwd_sl(g: DeviceGraph, sl, sr, m, zinv, inner, h, ct):
         raise ValueError("h has no columns")
     table = _table(g)
     lib = _build.load_library("fused_gat")
-    tile_v, vec, tiles = _wide_shape(g.nv, f, h, ct)
+    tile_v, vec, tiles = _wide_shape(g.nv, f, h, ct,
+                                     tile_floats=_bwd_tile_floats)
     # several tiles add their parts of a row's sum: then every row starts at 0
     d_sl = (sl.new_zeros(g.nv) if tiles > 1
             else _empty_but(g, sl, (g.nv,), 0.0))
@@ -210,11 +263,10 @@ def gat_v2_bwd_sl(g: DeviceGraph, sl, sr, m, zinv, inner, h, ct):
     return d_sl
 
 
-def gat_v2_bwd_h(g: DeviceGraph, sl, sr, m, zinv, inner, h, ct):
-    """(d_h, d_sr) of the fused attention (pass B2, transpose role)."""
-    dev = _check(g, vectors=(sl, sr, m, zinv, inner), matrices=(h, ct))
-    if dev.type == "cpu":
-        return gat_v2_bwd_h_plain(g, sl, sr, m, zinv, inner, h, ct)
+def _bwd_h_launch(g: DeviceGraph, name, sl, sr, m, zinv, inner, h, ct,
+                  with_sl: bool):
+    """(d_h, d_sr, d_sl or None) by the transpose-role kernel, counted
+    under ``name``."""
     f = h.shape[1]
     if f == 0:
         raise ValueError("h has no columns")
@@ -224,16 +276,42 @@ def gat_v2_bwd_h(g: DeviceGraph, sl, sr, m, zinv, inner, h, ct):
     # 16-byte row per vertex
     pack = torch.stack([sl, m, zinv, inner], dim=1)
     d_h = _empty_but(g, h, (g.nv, f), 0.0)
-    tile_v, vec, tiles = _wide_shape(g.nv, f, h, ct, d_h)
+    tile_v, vec, tiles = _wide_shape(g.nv, f, h, ct, d_h,
+                                     tile_floats=_bwd_tile_floats)
     d_sr = (sr.new_zeros(g.nv) if tiles > 1
             else _empty_but(g, sr, (g.nv,), 0.0))
+    # every slot adds its term to its neighbour's d_sl
+    d_sl = sl.new_zeros(g.nv) if with_sl else None
     rc = lib.gab_gat_v2_bwd_h(
         *table.args, pack.data_ptr(), sr.data_ptr(), h.data_ptr(),
-        ct.data_ptr(), d_h.data_ptr(), d_sr.data_ptr(), f, tile_v, vec,
+        ct.data_ptr(), d_h.data_ptr(), d_sr.data_ptr(),
+        d_sl.data_ptr() if with_sl else None, f, tile_v, vec,
         *_launch_tail(h))
-    _raise_on(rc, lib, "gat_v2_bwd_h", f"F={f}, tile_v={tile_v}, vec={vec}")
-    LAUNCHES["gat_v2_bwd_h"] += 1
-    return d_h, d_sr
+    _raise_on(rc, lib, name, f"F={f}, tile_v={tile_v}, vec={vec}")
+    LAUNCHES[name] += 1
+    return d_h, d_sr, d_sl
+
+
+def gat_v2_bwd_h(g: DeviceGraph, sl, sr, m, zinv, inner, h, ct):
+    """(d_h, d_sr) of the fused attention (pass B2, transpose role)."""
+    dev = _check(g, vectors=(sl, sr, m, zinv, inner), matrices=(h, ct))
+    if dev.type == "cpu":
+        return gat_v2_bwd_h_plain(g, sl, sr, m, zinv, inner, h, ct)
+    return _bwd_h_launch(g, "gat_v2_bwd_h", sl, sr, m, zinv, inner, h, ct,
+                         False)[:2]
+
+
+def gat_v2_bwd(g: DeviceGraph, sl, sr, m, zinv, inner, h, ct):
+    """(d_sl, d_sr, d_h) of the fused attention with one gather: the
+    transpose-role pass has every t_ij = p_ij leaky'_ij (<ct_i, h_j> -
+    inner_i) in hand, d_sr_j is its sum over the row and d_sl_i its sum
+    by neighbour, which the pass adds with one atomic per slot."""
+    dev = _check(g, vectors=(sl, sr, m, zinv, inner), matrices=(h, ct))
+    if dev.type == "cpu":
+        return gat_v2_bwd_plain(g, sl, sr, m, zinv, inner, h, ct)
+    d_h, d_sr, d_sl = _bwd_h_launch(g, "gat_v2_bwd", sl, sr, m, zinv, inner,
+                                    h, ct, True)
+    return d_sl, d_sr, d_h
 
 
 # ---- the differentiable op -------------------------------------------------
@@ -264,11 +342,18 @@ class _GatV2(torch.autograd.Function):
         ct = ct.contiguous()
         # softmax-adjoint row term: sum_j p_j <ct_i, h_j> = <ct_i, out_i>
         inner = (ct * out).sum(1)
+        args = (g, sl, sr, m, zinv, inner, h, ct)
         d_sl = d_sr = d_h = None
-        if ctx.needs_input_grad[1]:
-            d_sl = gat_v2_bwd_sl(g, sl, sr, m, zinv, inner, h, ct)
         if ctx.needs_input_grad[2] or ctx.needs_input_grad[3]:
-            d_h, d_sr = gat_v2_bwd_h(g, sl, sr, m, zinv, inner, h, ct)
+            if not ctx.needs_input_grad[1]:
+                d_h, d_sr = gat_v2_bwd_h(*args)
+            elif _single_pass(g.nv, h.shape[1]):
+                d_sl, d_sr, d_h = gat_v2_bwd(*args)
+            else:
+                d_sl = gat_v2_bwd_sl(*args)
+                d_h, d_sr = gat_v2_bwd_h(*args)
+        elif ctx.needs_input_grad[1]:
+            d_sl = gat_v2_bwd_sl(*args)
         return None, d_sl, d_sr, d_h
 
 

@@ -1,8 +1,9 @@
 """The port's fused GAT attention against the JAX package's. v2: the
-plain PyTorch version of each of the four bucket passes, the whole
-forward and the three gradients, against ``gat_attention_spmm_v2`` and
-``jax.grad`` of it, against the port's own unfused path, on edgeless
-rows, and a CPU emulation of the kernels' store-or-combine rule. v1
+plain PyTorch version of each of the bucket passes (the backward as two
+passes and as one), the whole forward and the three gradients, against
+``gat_attention_spmm_v2`` and ``jax.grad`` of it, against the port's own
+unfused path, on edgeless rows, and a CPU emulation of the kernels'
+store-or-combine rule. v1
 (per-edge logits and weights or masks, at the end of the file): the same
 against ``gat_attention_spmm``, and ``apply_model`` with its default
 ``trivial_w``.
@@ -42,10 +43,17 @@ GRAPHS = {
     "rmat8": (lambda: rmat(8, 8, seed=3), 16),   # tests/test_ops.py:342
     "rmat8_selfloops": (lambda: add_selfloop(rmat(8, 8, seed=3)), 16),
 }
+# the backward's cases: split rows (degree > 64) and an edgeless row in
+# each, at the main path's two widths and with float columns
+BWD_GRAPHS = {
+    **{k: GRAPHS[k] for k in ("hubs", "hubs_f7", "rmat8")},
+    "hubs_f128": (hubs_graph, 128),
+    "rmat8_f128": (lambda: rmat(8, 8, seed=3), 128),
+}
 
 
 def _case(name):
-    make, f = GRAPHS[name]
+    make, f = {**GRAPHS, **BWD_GRAPHS}[name]
     g = make()
     rng = np.random.default_rng(0)
     arrs = dict(h=rng.standard_normal((g.nv, f)).astype(np.float32),
@@ -106,12 +114,14 @@ def test_plain_passes_match_jax(name):
     np.testing.assert_allclose(d_h.numpy(), np.asarray(jdh), **GRAD)
 
 
-def _torch_value_and_grads(fn, arrs):
-    sl, sr, h = (t.requires_grad_(True) for t in _t(arrs, "sl", "sr", "h"))
+def _torch_value_and_grads(fn, arrs, needs=("sl", "sr", "h")):
+    """[out, d_sl, d_sr, d_h]; None for an input not in ``needs``."""
+    sl, sr, h = (t.requires_grad_(n in needs)
+                 for t, n in zip(_t(arrs, "sl", "sr", "h"), ("sl", "sr", "h")))
     out = fn(sl, sr, h)
     (out * torch.from_numpy(arrs["ct"])).sum().backward()
-    return [out.detach().numpy(), sl.grad.numpy(), sr.grad.numpy(),
-            h.grad.numpy()]
+    return [out.detach().numpy(),
+            *(None if t.grad is None else t.grad.numpy() for t in (sl, sr, h))]
 
 
 @pytest.mark.parametrize("name", sorted(GRAPHS))
@@ -132,6 +142,63 @@ def test_fused_op_and_grads_match_jax(name):
     for mine, theirs, what in zip(ours[1:], jgrads, ("d_sl", "d_sr", "d_h")):
         np.testing.assert_allclose(mine, np.asarray(theirs), err_msg=what,
                                    **GRAD)
+
+
+@pytest.mark.parametrize("name", sorted(BWD_GRAPHS))
+def test_single_pass_plain_matches_the_two_passes(name):
+    """``gat_v2_bwd_plain`` sums the per-slot terms by row for d_sr and by
+    neighbour for d_sl, from the transpose role alone; the two passes'
+    plain versions sum d_sl in the forward role."""
+    g, _, tdg, arrs = _case(name)
+    assert int(tdg.is_split.sum()) > 0 and (g.degrees() == 0).any()
+    sl, sr, h, ct = _t(arrs, "sl", "sr", "h", "ct")
+    m0 = tfg.gat_rowmax_plain(tdg, sr)
+    m = tfg._leaky(sl + torch.where(torch.isfinite(m0), m0,
+                                    torch.zeros_like(m0)))
+    acc, z = tfg.gat_v2_fwd_plain(tdg, sl, sr, m, h)
+    zinv = 1.0 / torch.clamp(z, min=tfg.Z_FLOOR)
+    bwd = (sl, sr, m, zinv, (ct * acc * zinv[:, None]).sum(1), h, ct)
+    before = dict(tfg.LAUNCHES)
+    d_sl, d_sr, d_h = tfg.gat_v2_bwd(tdg, *bwd)     # a CPU tensor: plain
+    assert tfg.LAUNCHES == before
+    d_h_p, d_sr_p = tfg.gat_v2_bwd_h_plain(tdg, *bwd)
+    torch.testing.assert_close(d_h, d_h_p, rtol=0, atol=0)
+    torch.testing.assert_close(d_sr, d_sr_p, rtol=0, atol=0)
+    # hub rows sum hundreds of terms of the size of the largest outputs
+    np.testing.assert_allclose(
+        d_sl.numpy(), tfg.gat_v2_bwd_sl_plain(tdg, *bwd).numpy(), rtol=1e-4,
+        atol=1e-4 * max(1.0, float(d_sl.abs().max())))
+    assert (d_sl[torch.from_numpy(g.degrees() == 0)] == 0).all()
+
+
+@pytest.mark.parametrize("needs", ["sl", "h", "all"])
+@pytest.mark.parametrize("name", sorted(BWD_GRAPHS))
+def test_backward_routes_match_jax(name, needs, monkeypatch):
+    """The three routes of ``_GatV2.backward`` against ``jax.grad``: ``sl``
+    alone (gat_v2_bwd_sl), ``h`` alone (gat_v2_bwd_h), and all three with
+    the single pass (gat_v2_bwd), which the size rule keeps for large
+    matrices and the test forces here."""
+    _, jdg, tdg, arrs = _case(name)
+    jsl, jsr, jh, jct = _j(arrs, "sl", "sr", "h", "ct")
+    jgrads = jax.jit(jax.grad(
+        lambda a, b, x: (jfg.gat_attention_spmm_v2(jdg, a, b, x) * jct).sum(),
+        argnums=(0, 1, 2)))(jsl, jsr, jh)
+    calls = []
+    for fn in ("gat_v2_bwd_sl", "gat_v2_bwd_h", "gat_v2_bwd"):
+        monkeypatch.setattr(tfg, fn, lambda *a, fn=fn, real=getattr(tfg, fn):
+                            (calls.append(fn), real(*a))[1])
+    monkeypatch.setattr(tfg, "_single_pass", lambda nv, f: True)
+    ours = _torch_value_and_grads(
+        lambda a, b, x: tfg.gat_attention_spmm_v2(tdg, a, b, x), arrs,
+        needs=("sl", "sr", "h") if needs == "all" else (needs,))
+    assert calls == [{"sl": "gat_v2_bwd_sl", "h": "gat_v2_bwd_h",
+                      "all": "gat_v2_bwd"}[needs]]
+    for mine, theirs, what in zip(ours[1:], jgrads, ("sl", "sr", "h")):
+        if needs != "all" and what != needs:
+            assert mine is None
+        else:
+            np.testing.assert_allclose(mine, np.asarray(theirs),
+                                       err_msg=f"d_{what}", **GRAD)
 
 
 def _unfused(tdg, sl, sr, h):
@@ -306,6 +373,36 @@ def test_wide_pass_shape_rule(nv, f, aligned, want):
     assert 1 <= tile_v <= 32 and tiles * tile_v >= (f // 4 if vec else f)
 
 
+@pytest.mark.parametrize("nv", [1 << 17, 1 << 19])
+@pytest.mark.parametrize("f,aligned,want", [
+    (128, True, (32, 1, 1)),    # one tile at every size
+    (16, True, (4, 1, 1)),
+    (256, True, (32, 1, 2)),    # a tile is at most 32 columns of V
+    (33, True, (32, 0, 2)),
+    (128, False, (32, 0, 4)),   # unaligned: float columns
+])
+def test_backward_tile_rule(nv, f, aligned, want):
+    class _T:
+        def data_ptr(self):
+            return 256 if aligned else 260
+
+    assert tfg._bwd_tile_floats(nv, f) == min(f, 128)
+    assert tfg._wide_shape(nv, f, _T(), _T(),
+                           tile_floats=tfg._bwd_tile_floats) == want
+
+
+@pytest.mark.parametrize("nv,f,want", [
+    (1 << 17, 128, True), (1 << 17, 64, True), (1 << 17, 32, True),
+    (1 << 17, 16, False), (1 << 17, 8, False),
+    (1 << 19, 128, True), (1 << 19, 16, True), (1 << 19, 8, True),
+    (1 << 19, 4, False), (1 << 13, 128, False),
+])
+def test_single_pass_rule(nv, f, want):
+    """One backward pass from a 16 MiB matrix on: the cells it was
+    measured at, and the small graphs of the tests, which take two."""
+    assert tfg._single_pass(nv, f) is want
+
+
 def test_wrappers_reject_what_the_kernels_do_not_take():
     _, _, dg, arrs = _case("rmat8")
     sl, sr, h = _t(arrs, "sl", "sr", "h")
@@ -318,12 +415,16 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("single", [False, True])
 @pytest.mark.parametrize("name", sorted(GRAPHS))
-def test_kernels_match_plain_on_cuda(name):
-    """The four kernels against their plain versions on the card (run at
-    full size by chip_smoke.py's kernel phase)."""
+def test_kernels_match_plain_on_cuda(name, single, monkeypatch):
+    """The kernels against their plain versions on the card, the backward
+    in two passes and in one (run at full size by chip_smoke.py's kernel
+    phase)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the GAT kernels have no CPU mode")
+    if single:
+        monkeypatch.setattr(tfg, "_single_pass", lambda nv, f: True)
     g, _, _, arrs = _case(name)
     dg = tdgm.to_device_graph(g, device="cuda")
     fused = _torch_value_and_grads(

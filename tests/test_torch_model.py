@@ -161,6 +161,77 @@ def test_model_refuses_unported_routes():
                                rtol=2e-5, atol=2e-5)
 
 
+def test_train_returns_one_entry_per_epoch():
+    """``train`` and ``train_sampled`` return (loss, accuracy, seconds) per
+    epoch where the JAX ``Model`` returns the total seconds: a stated
+    difference. The seconds add up to what the JAX side would return."""
+    ds = _dataset(rmat(8, 4, seed=0), 8, 3)
+    cfg = tl.make_config("gcn", 2, 8, 8, 3, subg_size=64)
+    model = tm.Model(cfg, ds, device="cpu", inductive=True)
+    for log in (model.train(3, verbose=False),
+                model.train_sampled(2, 64, verbose=False)):
+        assert isinstance(log, list) and len(log) in (3, 2)
+        for loss, acc, dt in log:
+            assert np.isfinite(loss) and 0.0 <= acc <= 1.0 and dt > 0.0
+    assert model.train(0, verbose=False) == []
+    total = jm.Model(jl.make_config("gcn", 2, 8, 8, 3), ds).train(
+        2, verbose=False)
+    assert isinstance(total, float)
+
+
+def test_model_seed_seeds_the_dropout_masks():
+    """``Model(seed=)``, default 0: the default's trajectory is the one of
+    an explicit 0 (and of the generator seeded with 0, as before the
+    argument existed); another seed draws other masks."""
+    ds = _dataset(rmat(8, 4, seed=0), 8, 3)
+    cfg = dataclasses.replace(tl.make_config("gcn", 2, 8, 8, 3),
+                              feat_drop=0.5)
+
+    def run(**kw):
+        model = tm.Model(cfg, ds, device="cpu", **kw)
+        return [model.train_epoch() for _ in range(3)]
+
+    default, zero, one = run(), run(seed=0), run(seed=1)
+    assert default == zero
+    assert default != one
+    model = tm.Model(cfg, ds, device="cpu")
+    model.generator = torch.Generator().manual_seed(0)
+    assert [model.train_epoch() for _ in range(3)] == default
+
+
+@pytest.mark.parametrize("arch", ["gcn", "gat"])
+def test_apply_model_ignores_remat_with_intermediates(arch):
+    """``cfg.remat`` is refused on the plain forward, but with
+    ``return_intermediates`` nothing can be rematerialized and the flag is
+    ignored, as ``graphaibench_tpu/nn/layers.py::apply_model`` does."""
+    g = rmat(8, 4, seed=0)
+    x = np.random.default_rng(0).standard_normal((g.nv, 8)).astype(np.float32)
+    cfg = tl.make_config(arch, 2, 8, 8, 3, spmm_impl="ell")
+    jcfg = dataclasses.replace(jl.make_config(arch, 2, 8, 8, 3,
+                                              spmm_impl="ell"), remat=True)
+    tb = tm.GraphBundle.build(g, arch, device="cpu", spmm_impl="ell")
+    jb = jm.GraphBundle.build(g, arch, spmm_impl="ell")
+    jparams = jl.init_params(jcfg)
+    params = tl.params_from_jax(jax.tree.map(np.asarray, jparams), "cpu")
+    with torch.no_grad():
+        want, want_acts = tl.apply_model(cfg, params, tb.device, tb.edge_w_agg,
+                                         torch.from_numpy(x),
+                                         return_intermediates=True)
+        got, acts = tl.apply_model(dataclasses.replace(cfg, remat=True),
+                                   params, tb.device, tb.edge_w_agg,
+                                   torch.from_numpy(x),
+                                   return_intermediates=True)
+        with pytest.raises(NotImplementedError, match="P11"):
+            tl.apply_model(dataclasses.replace(cfg, remat=True), params,
+                           tb.device, tb.edge_w_agg, torch.from_numpy(x))
+    assert torch.equal(got, want) and len(acts) == len(want_acts)
+    jout, jacts = jl.apply_model(jcfg, jparams, jb.device, jb.edge_w_agg,
+                                 jnp.asarray(x), return_intermediates=True)
+    assert len(jacts) == len(acts)
+    np.testing.assert_allclose(got.numpy(), np.asarray(jout),
+                               rtol=2e-5, atol=2e-5)
+
+
 ARCH_CASES = {
     # name: (arch, layers, dim_init, dim_hid, impl, config overrides)
     "sage_ell": ("sage", 2, 32, 16, "ell", {}),
