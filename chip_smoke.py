@@ -448,7 +448,8 @@ def _gat_passes(dg, f: int, gen, what: str, dirty: bool, timed: bool):
     cases = {name: {"F": f, "max_abs_err": err} for name, err in errs.items()}
     for name in GAT_KERNELS:
         if name != "gat_rowmax":
-            rule = FG._tile_floats if name == "gat_v2_fwd" else FG._bwd_tile_floats
+            rule = (FG._fwd_tile_floats if name == "gat_v2_fwd"
+                    else FG._bwd_tile_floats)
             cases[name]["tile"] = rule(nv, f) if f % 4 == 0 else min(f, 32)
     if not timed:
         return cases

@@ -1,7 +1,7 @@
 """What the wrappers of the bucket passes share (``ops/fused_gat.py``,
 ``ops/ell_edge.py``; kernels in ``csrc/fused_gat.cu`` and
 ``csrc/ell_edge.cu`` over ``csrc/ell_table.cuh``): the per-bucket pointer
-table kept on the graph, operand checks, the feature-tile rule, outputs
+table kept on the graph, operand checks, the shape of a wide pass, outputs
 in which only the rows no kernel stores to are initialised, and the
 launch's tail arguments."""
 
@@ -12,7 +12,7 @@ import ctypes
 import torch
 
 from graphaibench_tpu_torch.ops.device_graph import DeviceGraph
-from graphaibench_tpu_torch.ops.ell_spmm import _L2_TILE_BYTES, MAX_BUCKETS
+from graphaibench_tpu_torch.ops.ell_spmm import MAX_BUCKETS
 
 _MAX_TILE_V = 32                      # a group is at most one warp
 
@@ -80,23 +80,11 @@ def _check(g: DeviceGraph, vectors=(), matrices=(), edges=()) -> torch.device:
     return dev
 
 
-def _tile_floats(nv: int, f: int) -> int:
-    """Feature columns per tile of the float4 instantiation: up to 128
-    (one float4 per lane of a warp) while that slice of the gathered
-    matrix fits the L2 budget of the SpMM kernel, else 64. Each tile
-    repeats the per-slot scalar gathers and the exp, so narrower tiles
-    than the SpMM's 32 pay: measured on an H100 (device times of
-    tools/gat_kernels_probe.py, F = 128) 64 floats beat 32 by 2-4% at
-    2^17 and 2^19 vertices and 128 by 2-6% at 2^19."""
-    return min(f, 128 if nv * min(f, 128) * 4 <= _L2_TILE_BYTES else 64)
-
-
-def _wide_shape(nv: int, f: int, *mats,
-                tile_floats=_tile_floats) -> tuple[int, int, int]:
+def _wide_shape(nv: int, f: int, *mats, tile_floats) -> tuple[int, int, int]:
     """(tile_v, vec, tiles) of a wide pass: V = float4 when F % 4 == 0
     and every matrix is aligned to 16 bytes, else float; a tile has at
     most 32 columns of V, and ``tile_floats(nv, f)`` feature columns in
-    the float4 instantiation."""
+    the float4 instantiation (each pass has its rule)."""
     vec = int(f % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in mats))
     tile_v = (tile_floats(nv, f) // 4 if vec else min(f, _MAX_TILE_V))
     f_v = f // 4 if vec else f

@@ -76,7 +76,6 @@ from graphaibench_tpu_torch.ops._ell_launch import (
     _launch_tail,
     _raise_on,
     _table,
-    _tile_floats,  # noqa: F401  (read by chip_smoke.py and the probe)
     _wide_shape,
 )
 from graphaibench_tpu_torch.ops.device_graph import DeviceGraph
@@ -179,11 +178,24 @@ def gat_v2_bwd_plain(g: DeviceGraph, sl, sr, m, zinv, inner, h, ct):
 
 # ---- the kernels' wrappers -------------------------------------------------
 
+def _check_int4_ids(g: DeviceGraph) -> None:
+    """gat_rowmax reads a row's neighbour ids as int4: every bucket's
+    width must be a multiple of 4 and its ids 16-byte aligned, as in
+    every graph ``to_device_graph`` builds (widths 4 to 64, a tensor
+    each)."""
+    for b in g.ell:
+        if b.width % 4 or b.nbr.data_ptr() % 16:
+            raise ValueError(
+                f"gat_rowmax reads ids four at a time: bucket of width "
+                f"{b.width} with ids at byte {b.nbr.data_ptr() % 16} of 16")
+
+
 def gat_rowmax(g: DeviceGraph, sr: torch.Tensor) -> torch.Tensor:
     """m0_i = max over i's edges of sr_j; -inf for an edgeless row."""
     if _check(g, vectors=(sr,)).type == "cpu":
         return gat_rowmax_plain(g, sr)
     table = _table(g)
+    _check_int4_ids(g)
     lib = _build.load_library("fused_gat")
     m0 = _empty_but(g, sr, (g.nv,), float("-inf"))
     rc = lib.gab_gat_rowmax(*table.args, sr.data_ptr(), m0.data_ptr(),
@@ -191,6 +203,18 @@ def gat_rowmax(g: DeviceGraph, sr: torch.Tensor) -> torch.Tensor:
     _raise_on(rc, lib, "gat_rowmax", f"{table.args[6]} buckets")
     LAUNCHES["gat_rowmax"] += 1
     return m0
+
+
+def _fwd_tile_floats(nv: int, f: int) -> int:
+    """Feature columns per tile of the forward pass's float4
+    instantiation: 64, whatever the graph's size, though every further
+    tile repeats each slot's id read, ``sr`` gather and exp. Measured on
+    an H100 at F = 128 (device times of tools/gat_kernels_probe.py): 64
+    floats against 128 take 0.0581 against 0.0595 ms at 2^15 vertices,
+    0.1271 against 0.1260 at 2^16, 0.2711 against 0.2712 at 2^17 and
+    1.3040 against 1.3855 at 2^19; 32 floats 0.2865 and 1.3579. One tile
+    of 128 wins only at 2^13 vertices, 0.0144 against 0.0150."""
+    return min(f, 64)
 
 
 def gat_v2_fwd(g: DeviceGraph, sl, sr, m, h):
@@ -205,7 +229,8 @@ def gat_v2_fwd(g: DeviceGraph, sl, sr, m, h):
     lib = _build.load_library("fused_gat")
     acc = _empty_but(g, h, (g.nv, f), 0.0)
     z = _empty_but(g, h, (g.nv,), 0.0)
-    tile_v, vec, _ = _wide_shape(g.nv, f, h, acc)
+    tile_v, vec, _ = _wide_shape(g.nv, f, h, acc,
+                                 tile_floats=_fwd_tile_floats)
     rc = lib.gab_gat_v2_fwd(*table.args, sl.data_ptr(), sr.data_ptr(),
                             m.data_ptr(), h.data_ptr(), acc.data_ptr(),
                             z.data_ptr(), f, tile_v, vec, *_launch_tail(h))

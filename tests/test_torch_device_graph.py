@@ -12,6 +12,7 @@ from graphaibench_tpu.graph.csr import from_edges
 from graphaibench_tpu.graph.generators import rmat, uniform_random
 from graphaibench_tpu.ops import device_graph as jdgm
 from graphaibench_tpu_torch.ops import device_graph as tdgm
+from test_torch_sampler import jax_native  # noqa: F401  (a fixture)
 
 torch.set_num_threads(2)
 
@@ -81,9 +82,7 @@ def test_pack_edge_values_match_jax(graph):
 
 
 @pytest.mark.parametrize("split", [64, 8])
-def test_numpy_packing_equals_native(graph, split):
-    if not native.available():
-        pytest.skip("no g++: the native packer is not built on this host")
+def test_numpy_packing_equals_native(graph, split, jax_native):
     widths = tdgm._widths_for_split(split)
     args = (np.arange(graph.nv, dtype=np.int32), graph.row_ptr[:-1],
             graph.degrees().astype(np.int64), graph.col_idx, None, graph.ne,

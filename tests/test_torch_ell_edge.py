@@ -351,8 +351,9 @@ def test_v1_tile_rule_is_its_own():
             nv, f, _T(), tile_floats=tee._v1_tile_floats)
         assert vec == 1 and tile_v == tee._v1_tile_floats(nv, f) // 4
         assert 1 <= tile_v <= 32 and tiles * tile_v >= f // 4
-    # v2's keeps serving v2
-    assert tee._wide_shape(1 << 17, 128, _T()) == (16, 1, 2)
+    # the shape takes the rule it is given
+    assert tee._wide_shape(1 << 17, 128, _T(),
+                           tile_floats=lambda nv, f: 64) == (16, 1, 2)
 
 
 # ---- the scores, and the plain versions against the JAX package -------------

@@ -13,6 +13,9 @@ values rtol = atol = 2e-5, gradients 1e-4, as the JAX package's own test
 of v2 against v1 (tests/test_ops.py::test_gat_v2_matches_v1_with_grads).
 """
 
+import dataclasses
+import types
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -354,13 +357,13 @@ def test_store_or_combine_rule_matches_plain(name):
 
 
 @pytest.mark.parametrize("nv,f,aligned,want", [
-    (1 << 17, 128, True, (16, 1, 2)),   # the slice exceeds L2: 64 floats
-    (1 << 15, 128, True, (32, 1, 1)),   # 16 MB fits: one tile
+    (1 << 17, 128, True, (16, 1, 2)),   # 64 floats a tile at every size
+    (1 << 15, 128, True, (16, 1, 2)),
     (1 << 17, 16, True, (4, 1, 1)),
-    (1 << 13, 128, True, (32, 1, 1)),
-    (1 << 10, 256, True, (32, 1, 2)),   # a group is at most one warp
+    (1 << 13, 64, True, (16, 1, 1)),
+    (1 << 10, 256, True, (16, 1, 4)),
     (1 << 10, 7, True, (7, 0, 1)),      # F % 4 != 0: float columns
-    (1 << 10, 50, True, (32, 0, 2)),
+    (1 << 10, 50, True, (32, 0, 2)),    # a group is at most one warp
     (1 << 10, 16, False, (16, 0, 1)),   # unaligned: float columns
 ])
 def test_wide_pass_shape_rule(nv, f, aligned, want):
@@ -368,9 +371,27 @@ def test_wide_pass_shape_rule(nv, f, aligned, want):
         def data_ptr(self):
             return 256 if aligned else 260
 
-    assert tfg._wide_shape(nv, f, _T(), _T()) == want
+    assert tfg._wide_shape(nv, f, _T(), _T(),
+                           tile_floats=tfg._fwd_tile_floats) == want
     tile_v, vec, tiles = want
     assert 1 <= tile_v <= 32 and tiles * tile_v >= (f // 4 if vec else f)
+
+
+@pytest.mark.parametrize("nv", [1 << 13, 1 << 17, 1 << 19, 1 << 21])
+@pytest.mark.parametrize("f", [4, 16, 64, 128, 256])
+def test_forward_tile_rule(nv, f):
+    """gat_v2_fwd takes tiles of up to 64 floats whatever the graph's
+    size (the rule before it took 128 while the slice fit 24 MiB), and
+    the backward one tile of up to 128: each pass has its own rule."""
+    class _T:
+        def data_ptr(self):
+            return 256
+
+    assert tfg._fwd_tile_floats(nv, f) == min(f, 64)
+    tile_v, vec, tiles = tfg._wide_shape(nv, f, _T(), _T(),
+                                         tile_floats=tfg._fwd_tile_floats)
+    assert (tile_v, vec, tiles) == (min(f, 64) // 4, 1, -(-f // 64))
+    assert tfg._bwd_tile_floats(nv, f) == min(f, 128)
 
 
 @pytest.mark.parametrize("nv", [1 << 17, 1 << 19])
@@ -412,6 +433,25 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
         tfg.gat_v2_fwd(dg, sl, sr[:-1], sl, h)
     with pytest.raises(ValueError, match="contiguous"):
         tfg.gat_v2_fwd(dg, sl, sr, sl, h.t().contiguous().t())
+
+
+def test_rowmax_needs_int4_ids():
+    """gat_rowmax's kernel reads a row's neighbour ids four at a time:
+    every graph ``to_device_graph`` builds qualifies, and a bucket of
+    another width or with ids that do not start on 16 bytes is refused
+    before a launch."""
+    g, _, dg, _ = _case("hubs")
+    tfg._check_int4_ids(dg)
+    odd = tdgm.build_ell_buckets(g, device="cpu", split=5)
+    assert {b.width for b in odd} == {4, 5}
+    with pytest.raises(ValueError, match="four at a time"):
+        tfg._check_int4_ids(types.SimpleNamespace(ell=odd))
+    b = dg.ell[0]
+    shifted = torch.cat([b.nbr.new_zeros(1), b.nbr])[1:]
+    assert shifted.data_ptr() % 16 == 4
+    with pytest.raises(ValueError, match="four at a time"):
+        tfg._check_int4_ids(types.SimpleNamespace(
+            ell=[dataclasses.replace(b, nbr=shifted)]))
 
 
 @pytest.mark.cuda

@@ -20,6 +20,7 @@ from graphaibench_tpu_torch.graph import csr as tcsr
 from graphaibench_tpu_torch.graph import generators as tgen
 from graphaibench_tpu_torch.graph import io as tio
 from graphaibench_tpu_torch.graph import transforms as tT
+from test_torch_sampler import jax_native  # noqa: F401  (a fixture)
 
 GRAPHS = {
     "rmat10": ("rmat", (10, 8), {"seed": 0}),
@@ -151,7 +152,7 @@ def test_native_builds_into_the_checkout():
 
 
 @pytest.mark.parametrize("n,nkeys", [(0, 5), (1000, 7), (50000, 4096)])
-def test_native_stable_key_sort_bit_equal(n, nkeys):
+def test_native_stable_key_sort_bit_equal(n, nkeys, jax_native):
     keys = np.random.default_rng(n).integers(0, nkeys, n).astype(np.int32)
     perm = tnative.stable_key_sort(keys, nkeys)
     _same(perm, jnative.stable_key_sort(keys, nkeys), "perm")
@@ -164,7 +165,7 @@ def test_native_stable_key_sort_rejects_out_of_range_keys():
 
 
 @pytest.mark.parametrize("sort_neighbors", [True, False])
-def test_native_build_csr_bit_equal(sort_neighbors):
+def test_native_build_csr_bit_equal(sort_neighbors, jax_native):
     rng = np.random.default_rng(7)
     src, dst = rng.integers(0, 999, 20000), rng.integers(0, 999, 20000)
     t = tnative.build_csr(src, dst, 999, sort_neighbors=sort_neighbors)
@@ -175,7 +176,7 @@ def test_native_build_csr_bit_equal(sort_neighbors):
 
 @pytest.mark.parametrize("split,widths", [(64, [4, 8, 16, 32, 64]),
                                           (8, [4, 8]), (5, [4, 5])])
-def test_native_ell_pack_bit_equal(pair, split, widths):
+def test_native_ell_pack_bit_equal(pair, split, widths, jax_native):
     t, j = pair
     args = lambda g: (np.arange(g.nv, dtype=np.int32), g.row_ptr[:-1],  # noqa: E731
                       g.degrees().astype(np.int64), g.col_idx, None, g.ne,

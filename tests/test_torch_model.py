@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+from graphaibench_tpu import native as jnative
 from graphaibench_tpu.graph.generators import rmat
 from graphaibench_tpu.graph.io import GnnDataset
 from graphaibench_tpu.nn import layers as jl
@@ -21,6 +22,7 @@ from graphaibench_tpu_torch.nn import layers as tl
 from graphaibench_tpu_torch.nn import losses as tlosses
 from graphaibench_tpu_torch.nn import model as tm
 from graphaibench_tpu_torch.nn import optim as toptim
+from test_torch_sampler import jax_native  # noqa: F401  (a fixture)
 
 torch.set_num_threads(2)
 
@@ -478,11 +480,31 @@ SAMPLED_CASES = {
 
 @pytest.mark.parametrize("case", sorted(SAMPLED_CASES))
 @pytest.mark.parametrize("arch", ["gcn", "sage", "gat", "ggnn"])
-def test_sampled_trajectory_matches_jax(arch, case, monkeypatch):
+def test_sampled_trajectory_matches_jax(arch, case, monkeypatch, jax_native):
     """3 epochs of ``train_sampled`` of the JAX Model and the port's on
     one dataset, the same sampler seeds: loss and accuracy per epoch, every
     final parameter and the test accuracy. rtol 1e-4, atol 1e-5: f32
-    reductions in another order, compounded over 3 Adam steps."""
+    reductions in another order, compounded over 3 Adam steps. Both
+    samplers take their C++ route (``jax_native``)."""
+    _sampled_case(arch, case, monkeypatch)
+
+
+def test_sampled_trajectory_survives_a_lost_native_build(monkeypatch,
+                                                        request):
+    """A test process in which the JAX package's native library did not
+    load (here: switched off by ``GAB_DISABLE_NATIVE``, as a process that
+    lost the race of the first-use build is left) still compares like
+    with like: the ``jax_native`` fixture loads the library again."""
+    monkeypatch.setenv("GAB_DISABLE_NATIVE", "1")
+    monkeypatch.setattr(jnative, "_LIB", None)
+    monkeypatch.setattr(jnative, "_TRIED", False)
+    assert not jnative.available()
+    request.getfixturevalue("jax_native")
+    assert jnative.available()
+    _sampled_case("gcn", "dense", monkeypatch)
+
+
+def _sampled_case(arch, case, monkeypatch):
     scale, subg, kw = SAMPLED_CASES[case]
     ds = _dataset(rmat(scale, 8, seed=1), 32, 4)
     args = (arch, 2, 32, 16, 4)
@@ -500,7 +522,7 @@ def test_sampled_trajectory_matches_jax(arch, case, monkeypatch):
                                                    abs=1e-6)
 
 
-def test_sampled_step_applies_no_dropout(monkeypatch, capsys):
+def test_sampled_step_applies_no_dropout(monkeypatch, capsys, jax_native):
     """With feat_drop 0.5 the sampled step of either package drops
     nothing (it hands the forward no key / no generator), so the
     trajectories stay equal; and the verbose lines carry ``subg_nv``."""

@@ -1,6 +1,12 @@
 """The port's GraphSAINT sampler and subgraph padding against the JAX
 package's: every array bit-equal (same dtype, same values), since both
-packages' sampled steps are compared on them array by array."""
+packages' sampled steps are compared on them array by array.
+
+``jax_native`` is the fixture of every port test that holds the port's
+C++ host kernels against the JAX package's native library; the other
+test files import it from here."""
+
+import shutil
 
 import numpy as np
 import pytest
@@ -17,6 +23,31 @@ from graphaibench_tpu_torch.nn import model as tm
 from graphaibench_tpu_torch.nn import sampler as tsampler
 
 SEEDS = [0, 1, 2, 7, 12345]
+
+
+@pytest.fixture
+def jax_native(tmp_path_factory, monkeypatch):
+    """The JAX package's native library, loaded in this process from a
+    build of its own. The package builds it at first use into a cache
+    that every process shares, through one fixed temporary file name:
+    when several test processes start on an empty cache at once, the
+    ones that lose the race get no library for the rest of their life
+    and take the numpy routes, whose sampler draws other vertices than
+    the C++ one the port takes. Fails, rather than skips, where g++ is
+    present and the library still does not load."""
+    cache = tmp_path_factory.getbasetemp() / "jax_native"
+    cache.mkdir(exist_ok=True)
+    monkeypatch.setenv("GAB_NATIVE_CACHE", str(cache))
+    monkeypatch.delenv("GAB_DISABLE_NATIVE", raising=False)
+    monkeypatch.setattr(jnative, "_LIB", None)
+    monkeypatch.setattr(jnative, "_TRIED", False)
+    if jnative.get_lib() is None:
+        if shutil.which("g++") is None:
+            pytest.skip("no g++: the JAX package's native library is not "
+                        "built on this host")
+        pytest.fail("g++ is on this host: the JAX package's native library "
+                    "must load")
+    return jnative
 
 
 def _same(a, b, what=""):
@@ -40,10 +71,10 @@ def test_constants_match():
 
 @pytest.mark.parametrize("n", [64, 700])
 @pytest.mark.parametrize("seed", SEEDS)
-def test_native_saint_sample_bit_equal(seed, n):
+def test_native_saint_sample_bit_equal(seed, n, jax_native):
     """The C++ frontier sampler with its xorshift64 stream, n below and
     above the frontier size 200."""
-    assert tnative.available() and jnative.available()
+    assert tnative.available()
     ts, js = _samplers(frontier=200)
     args = (ts.masked.row_ptr, ts.masked.col_idx,
             ts.train_nodes.astype(np.int64), n, min(200, n),

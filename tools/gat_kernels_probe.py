@@ -6,16 +6,22 @@ values that v1 runs on (``csrc/ell_edge.cu``), in one run:
     python3 tools/gat_kernels_probe.py [--scale 17] [--tiles-only]
     python3 tools/gat_kernels_probe.py --v2-only         # csrc/fused_gat.cu alone
     python3 tools/gat_kernels_probe.py --edge-only       # csrc/ell_edge.cu alone
+    python3 tools/gat_kernels_probe.py --fwd-only        # gat_rowmax, gat_v2_fwd
     python3 tools/gat_kernels_probe.py --parent build/parent [--scale 19]
+        [--parent-define GAB_GAT_ROWMAX_LG=2 ...]
     python3 tools/gat_kernels_probe.py --v1-step | --v2-step
 
 On rmat(scale, 16) with self-loops, for F in {128, 16}, it builds
 ``csrc/fused_gat.cu`` once per variant of its build-time choices
 (``VARIANTS``: lanes per row, columns per lane, slots gathered together,
-blocks per SM) and, for each build, times every kernel with the wrapper's
-own feature-tile rule; the first build also with the tile forced to each
-width that divides the work differently (floats per tile), and
-``--tiles-only`` stops after it. The backward is timed as its two passes
+blocks per SM, of the forward and of the backward; lanes per row of the
+row max) and, for each build, times every kernel with
+the wrapper's own feature-tile rule, and ``gat_v2_fwd`` also with the
+tile forced to each width that divides the work differently (floats per
+tile); the first build times the backward's kernels under those widths
+too, and ``--tiles-only`` stops after it. ``--fwd-only`` builds only the
+variants of the forward's and the row max's choices and times those two
+kernels alone. The backward is timed as its two passes
 (``gat_v2_bwd_sl``, ``gat_v2_bwd_h``) and as the single pass
 (``gat_v2_bwd``): per kernel its own device time and, under "... call",
 that of everything its wrapper launches. After the variants the backward's
@@ -40,8 +46,10 @@ make the parent's with
 ``git archive <commit> graphaibench_tpu_torch | tar -x -C build/parent``).
 Each turn is a process of its own that imports ``graphaibench_tpu_torch``
 from its tree, builds that tree's kernels, holds ``sddmm_dot_ell``,
-``gat_v1_fwd`` and the v2 backward's kernels against their plain versions
-and times them at F = 128 and 16 on the same graph.
+``gat_v1_fwd`` and the v2 kernels (``gat_rowmax``, ``gat_v2_fwd`` and the
+backward's) against their plain versions and times them at F = 128 and 16
+on the same graph. ``--parent-define NAME=VALUE`` builds the parent's
+kernels under that ``-D`` choice as well (repeatable).
 
 ``--v1-step`` times the GAT v1 training step of ``chip_smoke.py``
 (2 layers, 128/128/16, a 0/1 mask as edge weights) as shipped, where the
@@ -80,17 +88,19 @@ CALLS = 20
 # (CHUNK_LG) and of up to four (NARROW_CHUNK_LG), log2 of the most lanes a
 # row gets in gat_v2_bwd_h (LANES_LG) and gat_v2_bwd_sl (SL_LANES_LG; a tile
 # of 32 columns gives a lane 32 / lanes of them), the blocks per SM that
-# bound gat_v2_bwd_h's registers (MIN_BLOCKS). GAB_GAT_CHUNK: slots gathered
-# together by gat_v2_fwd; GAB_GAT_ROWMAX_LG: log2 lanes per row of gat_rowmax.
+# bound gat_v2_bwd_h's registers (MIN_BLOCKS). GAB_FWD_*: log2 slots wide
+# groups of gat_v2_fwd gather together, and its blocks per SM.
+# GAB_GAT_ROWMAX_LG: log2 lanes per row of gat_rowmax.
 VARIANTS = (
-    {}, {"GAB_BWD_LANES_LG": 5}, {"GAB_BWD_LANES_LG": 3},
+    {}, {"GAB_FWD_MIN_BLOCKS": 4}, {"GAB_FWD_MIN_BLOCKS": 5},
+    {"GAB_FWD_MIN_BLOCKS": 7}, {"GAB_FWD_CHUNK_LG": 2},
+    {"GAB_GAT_ROWMAX_LG": 3}, {"GAB_GAT_ROWMAX_LG": 4},
+    {"GAB_BWD_LANES_LG": 5}, {"GAB_BWD_LANES_LG": 3},
     {"GAB_BWD_SL_LANES_LG": 4}, {"GAB_BWD_SL_LANES_LG": 3},
     {"GAB_BWD_CHUNK_LG": 2}, {"GAB_BWD_CHUNK_LG": 4},
     {"GAB_BWD_NARROW_CHUNK_LG": 3}, {"GAB_BWD_NARROW_CHUNK_LG": 4},
     {"GAB_BWD_MIN_BLOCKS": 1}, {"GAB_BWD_MIN_BLOCKS": 2},
     {"GAB_BWD_MIN_BLOCKS": 4},
-    {"GAB_GAT_CHUNK": 8}, {"GAB_GAT_CHUNK": 2},
-    {"GAB_GAT_ROWMAX_LG": 2}, {"GAB_GAT_ROWMAX_LG": 4},
 )
 BETWEEN = (64, 32, 8)   # widths between and below the main path's
 TILES = {128: (None, 128, 64, 32, 16), 16: (None, 16, 8)}
@@ -314,11 +324,18 @@ def _bwd_row(dg, bwd, want) -> dict:
     return row
 
 
-def _v2_rows(dg, gen, tiles_only: bool) -> list[dict]:
+def _v2_rows(dg, gen, tiles_only: bool, fwd_only: bool) -> list[dict]:
+    """The kernels of csrc/fused_gat.cu under each of VARIANTS (the first
+    alone with ``tiles_only``; with ``fwd_only`` those that set only the
+    forward's and the row max's choices, and no backward): gat_v2_fwd
+    under each forced tile in every build, the backward's kernels under
+    them in the first build and under the wrapper's rule in the others."""
     flags = _build.NVCC_FLAGS
     rule = FG._wide_shape
+    variants = [v for v in VARIANTS if not fwd_only or all(
+        k.startswith(("GAB_FWD", "GAB_GAT")) for k in v)]
     results = []
-    for n, variant in enumerate(VARIANTS[:1] if tiles_only else VARIANTS):
+    for n, variant in enumerate(variants[:1] if tiles_only else variants):
         _build.NVCC_FLAGS = flags + tuple(
             f"-D{name}={v}" for name, v in variant.items())
         _build._LIBS.pop("fused_gat", None)
@@ -329,9 +346,7 @@ def _v2_rows(dg, gen, tiles_only: bool) -> list[dict]:
             row = {"variant": variant, "F": f,
                    "gat_rowmax": _device_ms(lambda: FG.gat_rowmax(dg, sr),
                                             "gat_rowmax_kernel")}
-            # the tile is the wrapper's business: only the first variant
-            # of the build constants walks through the forced widths
-            for tile in tiles if n == 0 else (None,):
+            for tile in tiles:
                 if tile is None:
                     FG._wide_shape = rule
                 else:
@@ -342,21 +357,41 @@ def _v2_rows(dg, gen, tiles_only: bool) -> list[dict]:
                 _close(a, want["acc"], "acc")
                 _close(zz, want["z"], "z")
                 key = "rule" if tile is None else str(tile)
-                row[f"tile_{key}"] = {
-                    "gat_v2_fwd": _device_ms(
-                        lambda: FG.gat_v2_fwd(dg, sl, sr, m, h),
-                        "gat_v2_fwd_kernel"),
-                    **_bwd_row(dg, bwd, want)}
+                cell = {"gat_v2_fwd": _device_ms(
+                    lambda: FG.gat_v2_fwd(dg, sl, sr, m, h),
+                    "gat_v2_fwd_kernel")}
+                if not fwd_only and (n == 0 or tile is None):
+                    cell.update(_bwd_row(dg, bwd, want))
+                row[f"tile_{key}"] = cell
             FG._wide_shape = rule
             print(json.dumps(row))
             results.append(row)
-        results.append({"variant": variant,
-                        "ptxas": {k: v for k, v in _ptxas("fused_gat").items()
-                                  if "bwd" in k}})
+        results.append({"variant": variant, "ptxas": _ptxas("fused_gat")})
         print(json.dumps(results[-1]))
     _build.NVCC_FLAGS = flags
     _build._LIBS.pop("fused_gat", None)
     return results
+
+
+def _v2_fwd_rows(dg, gen) -> list[dict]:
+    """The forward's kernels as built, at F = 128 and 16: gat_rowmax
+    held bit for bit, gat_v2_fwd within the tolerance, then timed."""
+    rows = []
+    for f in TILES:
+        (sl, sr, m, h), _, want = _v2_inputs(dg, f, gen)
+        if not torch.equal(FG.gat_rowmax(dg, sr), want["m0"]):
+            raise RuntimeError("gat_rowmax differs from plain")
+        a, zz = FG.gat_v2_fwd(dg, sl, sr, m, h)
+        _close(a, want["acc"], "acc")
+        _close(zz, want["z"], "z")
+        rows.append({"source": "fused_gat", "F": f,
+                     "gat_rowmax": _device_ms(lambda: FG.gat_rowmax(dg, sr),
+                                              "gat_rowmax_kernel"),
+                     "gat_v2_fwd": _device_ms(
+                         lambda: FG.gat_v2_fwd(dg, sl, sr, m, h),
+                         "gat_v2_fwd_kernel")})
+        print(json.dumps(rows[-1]))
+    return rows
 
 
 def _v2_bwd_rows(dg, gen, widths=tuple(TILES)) -> list[dict]:
@@ -369,11 +404,12 @@ def _v2_bwd_rows(dg, gen, widths=tuple(TILES)) -> list[dict]:
     return rows
 
 
-def worker(tree: str, graph_npz: str) -> None:
+def worker(tree: str, graph_npz: str, defines=()) -> None:
     """One turn of ``--parent``: the two wide passes of csrc/ell_edge.cu
-    and the v2 backward's kernels of the checkout at ``tree`` on the graph
-    in ``graph_npz``."""
+    and the v2 kernels of the checkout at ``tree`` on the graph in
+    ``graph_npz``, built under the ``-D`` choices ``defines``."""
     _import_port(tree)
+    _build.NVCC_FLAGS += tuple(f"-D{d}" for d in defines)
     z = np.load(graph_npz)
     dg = to_device_graph(prepare_graph(
         CSRGraph(row_ptr=z["row_ptr"], col_idx=z["col_idx"]), "gat"),
@@ -381,15 +417,17 @@ def worker(tree: str, graph_npz: str) -> None:
     gen = torch.Generator(device="cuda").manual_seed(1)
     logits, mask, m, zz = _edge_inputs(dg, gen)
     rows = _wide_rows(dg, gen, logits, mask, m, zz, tiles=False)
+    rows += _v2_fwd_rows(dg, gen)
     rows += _v2_bwd_rows(dg, gen)
     print("GAT_PROBE " + json.dumps({
-        "tree": tree, "rows": rows, "ptxas": _ptxas("ell_edge"),
-        "ptxas_v2": {k: v for k, v in _ptxas("fused_gat").items()
-                     if "bwd" in k}}))
+        "tree": tree, "defines": list(defines), "rows": rows,
+        "ptxas": _ptxas("ell_edge"),
+        "ptxas_v2": _ptxas("fused_gat")}))
 
 
-def compare(parent: str, scale: int) -> list[dict]:
-    """parent, change, change, parent: one process each."""
+def compare(parent: str, scale: int, defines=()) -> list[dict]:
+    """parent, change, change, parent: one process each; the parent's
+    built under the ``-D`` choices ``defines``."""
     _import_port(ROOT)
     turns = []
     with tempfile.TemporaryDirectory() as tmp:
@@ -399,9 +437,11 @@ def compare(parent: str, scale: int) -> list[dict]:
         order = [("parent", parent), ("change", ROOT), ("change", ROOT),
                  ("parent", parent)]
         for name, tree in order:
+            extra = [f"--parent-define={d}" for d in defines
+                     ] if name == "parent" else []
             r = subprocess.run(
                 [sys.executable, os.path.abspath(__file__), "--worker", tree,
-                 npz], capture_output=True, text=True, timeout=900)
+                 npz, *extra], capture_output=True, text=True, timeout=900)
             lines = [l for l in r.stdout.splitlines()
                      if l.startswith("GAT_PROBE ")]
             if r.returncode != 0 or not lines:
@@ -514,9 +554,15 @@ def main() -> None:
                     help="skip the v2 kernels of csrc/fused_gat.cu")
     ap.add_argument("--v2-only", action="store_true",
                     help="skip the passes of csrc/ell_edge.cu")
+    ap.add_argument("--fwd-only", action="store_true",
+                    help="gat_rowmax and gat_v2_fwd alone, under their "
+                    "own build-time choices")
     ap.add_argument("--parent", help="root of the parent commit's checkout: "
                     "compare its wide passes of csrc/ell_edge.cu and its v2 "
-                    "backward with this checkout's")
+                    "kernels with this checkout's")
+    ap.add_argument("--parent-define", action="append", default=[],
+                    metavar="NAME=VALUE",
+                    help="build the parent's kernels under this -D choice")
     ap.add_argument("--v1-step", action="store_true")
     ap.add_argument("--v2-step", action="store_true")
     ap.add_argument("--worker", nargs=2, metavar=("TREE", "GRAPH_NPZ"),
@@ -525,7 +571,7 @@ def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA device")
     if args.worker:
-        worker(*args.worker)
+        worker(*args.worker, args.parent_define)
         return
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -533,7 +579,8 @@ def main() -> None:
     print(card)
     if args.parent:
         print(json.dumps({"card": card, "scale": args.scale,
-                          "turns": compare(args.parent, args.scale)}))
+                          "turns": compare(args.parent, args.scale,
+                                           args.parent_define)}))
         return
     if args.v1_step or args.v2_step:
         step = v1_step if args.v1_step else v2_step
@@ -544,11 +591,12 @@ def main() -> None:
     dg = to_device_graph(prepare_graph(rmat(args.scale, 16, seed=0), "gat"),
                          device="cuda")
     gen = torch.Generator(device="cuda").manual_seed(1)
-    results = [] if args.edge_only else _v2_rows(dg, gen, args.tiles_only)
-    if not args.edge_only:
+    results = ([] if args.edge_only
+               else _v2_rows(dg, gen, args.tiles_only, args.fwd_only))
+    if not (args.edge_only or args.fwd_only):
         # where the single pass starts to pay: the widths between the two
         results += _v2_bwd_rows(dg, gen, BETWEEN)
-    if not args.v2_only:
+    if not (args.v2_only or args.fwd_only):
         results += _edge_rows(dg, gen, variants=not args.tiles_only)
     print(json.dumps({"card": card, "scale": args.scale, "nv": dg.nv,
                       "ne": dg.ne, "results": results}))
