@@ -10,12 +10,13 @@ non-zero exit code and no result line:
 
 1. device  — requires a CUDA device; prints the nvidia-smi name and power
              limit line and torch's device name.
-2. build   — compiles the three sources of ``graphaibench_tpu_torch/csrc``
+2. build   — compiles the four sources of ``graphaibench_tpu_torch/csrc``
              (``ell_spmm.cu``: K1; ``fused_gat.cu``: the five passes of
              the fused GAT attention v2; ``ell_edge.cu``: the three passes
-             over per-edge values that v1 runs on) with nvcc, side by
-             side, and loads them; prints the build seconds and the
-             compiler's register report for each kernel.
+             over per-edge values that v1 runs on; ``ell_pull.cu``: K8,
+             ``neighbor_reduce``, the analytics' pull step) with nvcc,
+             side by side, and loads them; prints the build seconds and
+             the compiler's register report for each kernel.
 3. kernel  — K1: on rmat(17, 16) with self-loops, for F in {128, 16} and both
              weight views (forward and transpose), holds the kernel
              against its plain PyTorch version and times both, beside the
@@ -84,15 +85,32 @@ non-zero exit code and no result line:
              floor). The v1 path (20 timed steps, 10 profiled) and the
              sampled paths (3 profiled epochs) are profiled inside the
              main phase, right after they are driven.
-8. result  — a JSON line of the nine kernels, then the last line
+8. analytics — on rmat(19, 16) (symmetric, the JAX package's analytics
+             size): K8 against its plain version in every case (each kind
+             for int32 and float32 vals, float32 also with edge values
+             packed and as an (ne,) array), three cases timed beside the
+             bound and, for the float32 sum, torch.sparse.mm (an SpMV);
+             then every case at rmat13 behind an allocator dirtied with
+             NaN. Then, every count set to 0 just before them, bfs,
+             sssp_bellman_ford with symmetric and with asymmetric weights,
+             pagerank, connected_components and the Afforest route, each
+             held to scipy or a float64 numpy power iteration, with
+             seconds per warm solve, sweeps and K8 launches (one a sweep);
+             one BFS under the profiler. Then bfs and bfs_frontier on
+             grid2d(512), a directed rmat13 through bfs_host's push route,
+             and ``cli analytics bfs|sssp|pr|cc`` in four processes on a
+             dataset written by the port's save_graph. Prints its seconds.
+9. result  — a JSON line of the ten kernels, then the last line
              {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
 import json
+import os
 import statistics
 import subprocess
+import sys
 import tempfile
 import time
 
@@ -100,12 +118,19 @@ import numpy as np
 import torch
 
 from graphaibench_tpu_torch import GnnDataset, rmat
+from graphaibench_tpu_torch.analytics import cc as CCM
+from graphaibench_tpu_torch.analytics import pr as PRM
+from graphaibench_tpu_torch.analytics import traversal as TR
+from graphaibench_tpu_torch.graph.generators import grid2d
+from graphaibench_tpu_torch.graph.io import save_graph
+from graphaibench_tpu_torch.graph.transforms import is_symmetric
 from graphaibench_tpu_torch.nn import Model, make_config
 from graphaibench_tpu_torch.nn.layers import apply_model
 from graphaibench_tpu_torch.nn.losses import masked_softmax_loss
 from graphaibench_tpu_torch.nn.model import aggregation_weights, prepare_graph
 from graphaibench_tpu_torch.ops import _build
 from graphaibench_tpu_torch.ops import ell_edge as EE
+from graphaibench_tpu_torch.ops import ell_pull as K8
 from graphaibench_tpu_torch.ops import ell_spmm as K1
 from graphaibench_tpu_torch.ops import fused_gat as FG
 from graphaibench_tpu_torch.ops import math as gmath
@@ -169,6 +194,25 @@ TIMED_CALLS = 20         # back-to-back calls between one pair of events
 TIMED_BATCHES = 7
 TIMED_EPOCHS = 20
 PROFILED_EPOCHS = 10
+# The analytics phase: the JAX package's analytics size, rmat(19, 16)
+# symmetric; K8 also behind a dirtied allocator at rmat13; the
+# high-diameter grid; a directed input; the CLI on a small dataset.
+ANALYTICS_SCALE = 19
+PULL_DIRTY_SCALE = 13
+PULL_REPLACES = "graphaibench_tpu/ops/segment.py:124"
+# K8 against its plain version: min, max and int32 sums exact; a float32
+# sum adds in another order (atomics on split rows, in an order that
+# changes from run to run): rtol 1e-5, atol 1e-6 of the largest |plain|.
+PULL_FSUM_RTOL = 1e-5
+PULL_FSUM_ATOL_SCALE = 1e-6
+PULL_TIMED = ("float32 min packed", "int32 min", "float32 sum")
+PULL_HEAD = "float32 sum"          # the timed case with a library call
+SOLVES = 3                         # warm solves timed after the checked one
+SSSP_RTOL = 1e-5                   # run_benchmark's tolerance
+PR_L1 = 1e-4                       # the solver's epsilon
+GRID_SIDE = 512
+DIRECTED_SCALE = 13
+CLI_KERNELS = ("bfs", "sssp", "pr", "cc")
 
 
 def phase_device() -> str:
@@ -860,13 +904,14 @@ def phase_small_trainer() -> None:
 
 def _zero_counts() -> None:
     K1.LAUNCHES = 0
-    for counts in (FG.LAUNCHES, EE.LAUNCHES):
+    for counts in (FG.LAUNCHES, EE.LAUNCHES, K8.LAUNCHES):
         for name in counts:
             counts[name] = 0
 
 
 def _counts() -> dict[str, int]:
-    return {"ell_spmm": K1.LAUNCHES, **FG.LAUNCHES, **EE.LAUNCHES}
+    return {"ell_spmm": K1.LAUNCHES, **FG.LAUNCHES, **EE.LAUNCHES,
+            **K8.LAUNCHES}
 
 
 def _drive(g, cfg, want_train: dict, want_eval: dict):
@@ -1118,11 +1163,13 @@ def phase_epochs(model) -> float:
     return statistics.mean(kernel)
 
 
-def phase_profile(tag: str, run, epochs: int, epoch_ms: float):
+def phase_profile(tag: str, run, epochs: int, epoch_ms: float,
+                  unit: str = "epoch"):
     """``run(epochs)`` under torch.profiler: device time per epoch by
     kernel and the device's busy share; ``epoch_ms`` is the unprofiled
     epoch on the host clock, from another run. Returns (device ms per
-    epoch, device ops per epoch), or (None, None) without device events."""
+    epoch, device ops per epoch), or (None, None) without device events.
+    ``unit`` names what ``run`` repeats in the printed lines."""
     from torch.profiler import ProfilerActivity, profile
 
     tag = f"[profile {tag}]"
@@ -1148,17 +1195,401 @@ def phase_profile(tag: str, run, epochs: int, epoch_ms: float):
         item[0] += 1
         item[1] += e.time_range.elapsed_us()
     device_ms = busy / epochs / 1e3
-    print(f"{tag} {epochs} epochs: device busy "
-          f"{device_ms:.4f} ms/epoch, {len(dev) / epochs:.1f} "
-          f"device ops/epoch, busy share {busy / wall_us:.4f} of the "
+    print(f"{tag} {epochs} {unit}s: device busy "
+          f"{device_ms:.4f} ms/{unit}, {len(dev) / epochs:.1f} "
+          f"device ops/{unit}, busy share {busy / wall_us:.4f} of the "
           f"profiled wall time; {device_ms / epoch_ms:.4f} of the unprofiled "
-          f"{epoch_ms:.4f} ms epoch (device time and wall time from two runs)")
+          f"{epoch_ms:.4f} ms {unit} (device time and wall time from two runs)")
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]
     for name, (n, us) in top:
-        print(f"{tag} {us / epochs / 1e3:.4f} ms/epoch "
-              f"{us / busy:.4f} of device time, {n / epochs:g}/epoch: "
+        print(f"{tag} {us / epochs / 1e3:.4f} ms/{unit} "
+              f"{us / busy:.4f} of device time, {n / epochs:g}/{unit}: "
               f"{name[:90]}")
     return device_ms, len(dev) / epochs
+
+
+# ---- the analytics phase ---------------------------------------------------
+
+def _pull_bound(dg, edge_vals: bool) -> tuple[float, str, int]:
+    """The least time the card could take for one neighbor_reduce, in ms,
+    what bounds it, and the bytes: per real slot its neighbour id and, with
+    edge values, its value (the pads are the layout's, not the function's);
+    the row id and count of each virtual row; the split flags; vals read
+    once and out written once. Against one operation a slot (two with edge
+    values) over the float32 rate (int32 at that rate too: the card's int32
+    rate is not in the data sheet)."""
+    rows = sum(b.rows for b in dg.ell)
+    nbytes = dg.ne * (8 if edge_vals else 4) + rows * 8 + dg.nv * 9
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_ops = dg.ne * (2 if edge_vals else 1) / F32_FLOP_PER_S * 1e3
+    return (max(by_bytes, by_ops),
+            "bytes" if by_bytes >= by_ops else "operations", nbytes)
+
+
+def _pull_close(got, want, what: str) -> float:
+    """Max |kernel - plain|: equal for min, max and int32 sums; a float32
+    sum within rtol 1e-5 and an absolute 1e-6 of the largest |plain|."""
+    if got.dtype != want.dtype:
+        raise RuntimeError(f"{what}: {got.dtype} against plain's {want.dtype}")
+    if not what.startswith("float32 sum"):
+        if not torch.equal(got, want):
+            raise RuntimeError(f"{what}: neighbor_reduce differs from plain in "
+                               f"{int((got != want).sum())} rows")
+        return 0.0
+    atol = PULL_FSUM_ATOL_SCALE * float(want.abs().max())
+    err = float((got - want).abs().max())
+    if not torch.allclose(got, want, rtol=PULL_FSUM_RTOL, atol=atol):
+        raise RuntimeError(f"{what}: neighbor_reduce disagrees with plain, "
+                           f"max |diff| {err} (atol {atol})")
+    return err
+
+
+def _pull_cases(dg, gen, what: str, dirty: bool, timed: bool) -> dict:
+    """K8 against its plain version on one graph in every case: each kind
+    for int32 and float32 vals, float32 also with edge values packed and
+    as an (ne,) array. Returns {case: {"max_abs_err", and where timed the
+    times beside the bound}}."""
+    nv, ne = dg.nv, dg.ne
+    vals = {"int32": torch.randint(-10**6, 10**6, (nv,), dtype=torch.int32,
+                                   device="cuda", generator=gen),
+            "float32": torch.randn(nv, device="cuda", generator=gen)}
+    ev = torch.rand(ne, device="cuda", generator=gen) + 0.25
+    packed = K8.pack_neighbor_edge_vals(dg, ev)
+    forms = {"": None, " packed": packed, " flat": ev}
+    specs = {f"{dtype} {kind}{form}": (vals[dtype], kind, e)
+             for dtype in vals for kind in K8.KINDS for form, e in forms.items()
+             if dtype == "float32" or e is None}
+    cases = {}
+    for name, (v, kind, e) in specs.items():
+        if dirty:   # a row the kernel does not write shows as NaN
+            junk = torch.full((nv,), float("nan"), device="cuda")
+            del junk
+        got = K8.neighbor_reduce(dg, v, kind, e)
+        want = K8.neighbor_reduce_plain(dg, v, kind,
+                                        None if e is None else packed)
+        torch.cuda.synchronize()
+        cases[name] = {"max_abs_err": _pull_close(got, want, name)}
+    if not timed:
+        return cases
+    # the one PyTorch call that computes a float32 sum over the neighbours,
+    # an SpMV of the graph's CSR matrix; timed here and used nowhere
+    ones = torch.sparse_csr_tensor(dg.row_ptr, dg.col_idx,
+                                   torch.ones(ne, device="cuda"), size=(nv, nv))
+    col = vals["float32"][:, None]
+    library = {"float32 sum": lambda: torch.sparse.mm(ones, col)}
+    _pull_close(library["float32 sum"]()[:, 0],
+                K8.neighbor_reduce_plain(dg, vals["float32"], "sum"),
+                "float32 sum: the library call")
+    for name in PULL_TIMED:
+        v, kind, e = specs[name]
+        slots = None if e is None else packed
+        ms = _batch_ms(lambda: K8.neighbor_reduce(dg, v, kind, e))
+        device_ms = _kernel_device_ms(
+            lambda: K8.neighbor_reduce(dg, v, kind, e), "neighbor_reduce_kernel")
+        plain_ms = _batch_ms(lambda: K8.neighbor_reduce_plain(dg, v, kind, slots),
+                             calls=3, batches=3)
+        library_ms = _batch_ms(library[name]) if name in library else None
+        bound_ms, bound_by, nbytes = _pull_bound(dg, e is not None)
+        cases[name].update(
+            ms=ms, device_ms=device_ms, plain_ms=plain_ms,
+            library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
+            bound_bytes=nbytes, share_of_bound=bound_ms / ms,
+            edges_per_s=ne / (ms * 1e-3))
+        print(f"[analytics] neighbor_reduce {name} {json.dumps(cases[name])}")
+    return cases
+
+
+def phase_pull_kernel(dg) -> dict:
+    """K8 against its plain version at the analytics size (timed), then on
+    rmat13 behind an allocator dirtied with NaN. Returns {"cases": the
+    timed cases, "max_abs_err": over every case}."""
+    split, empty = int(dg.is_split.sum()), int((dg.deg == 0).sum())
+    print(f"[analytics] rmat{ANALYTICS_SCALE} nv={dg.nv} ne={dg.ne} "
+          f"buckets={[(b.width, b.rows) for b in dg.ell]} split_rows={split} "
+          f"edgeless_rows={empty}")
+    if not split or not empty:
+        raise RuntimeError("the analytics graph must have split and edgeless "
+                           "rows: the cases would check less")
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    cases = _pull_cases(dg, gen, f"rmat{ANALYTICS_SCALE}", dirty=False,
+                        timed=True)
+    small = to_device_graph(rmat(PULL_DIRTY_SCALE, EDGE_FACTOR, seed=0),
+                            device="cuda")
+    dirty = _pull_cases(small, gen, f"rmat{PULL_DIRTY_SCALE}", dirty=True,
+                        timed=False)
+    err = max(c["max_abs_err"] for c in (*cases.values(), *dirty.values()))
+    print(f"[analytics] neighbor_reduce: {len(cases)} cases at "
+          f"rmat{ANALYTICS_SCALE} and {len(dirty)} at rmat{PULL_DIRTY_SCALE} "
+          f"behind a NaN-dirtied allocator agree with plain, max_abs_err {err}")
+    return {"cases": [dict(cases[n], case=n) for n in PULL_TIMED],
+            "max_abs_err": err}
+
+
+class _sweeps:
+    """While active, counts the solvers' calls of neighbor_reduce: one a
+    sweep of their pull route."""
+
+    def __enter__(self):
+        self.n = 0
+
+        def counted(*args, **kw):
+            self.n += 1
+            return K8.neighbor_reduce(*args, **kw)
+
+        for module in (TR, PRM, CCM):
+            module.neighbor_reduce = counted
+        return self
+
+    def __exit__(self, *exc):
+        for module in (TR, PRM, CCM):
+            module.neighbor_reduce = K8.neighbor_reduce
+
+
+def _scipy_csr(g, w=None):
+    from scipy.sparse import csr_matrix
+
+    data = np.ones(g.ne) if w is None else w.astype(np.float64)
+    return csr_matrix((data, g.col_idx, g.row_ptr), shape=(g.nv, g.nv))
+
+
+def _bfs_ref(g, source: int = 0) -> np.ndarray:
+    """Depths from scipy, -1 where unreached."""
+    from scipy.sparse.csgraph import shortest_path
+
+    d = shortest_path(_scipy_csr(g), directed=True, unweighted=True,
+                      indices=source)
+    return np.where(np.isfinite(d), d, -1).astype(np.int32)
+
+
+def _sssp_ref(g, w, source: int = 0) -> np.ndarray:
+    from scipy.sparse.csgraph import dijkstra
+
+    return dijkstra(_scipy_csr(g, w), directed=True, indices=source)
+
+
+def _cc_ref(g) -> np.ndarray:
+    """scipy's components, each named by its least vertex id."""
+    from scipy.sparse.csgraph import connected_components
+
+    _, lab = connected_components(_scipy_csr(g), directed=False)
+    _, first = np.unique(lab, return_index=True)
+    return first[lab].astype(np.int32)
+
+
+def _pagerank_ref(g) -> tuple[np.ndarray, int]:
+    """A float64 power iteration with the solver's rule and constants:
+    new_i = (1 - d) / nv + d * sum over j in N(i) of s_j / max(deg_j, 1),
+    until the L1 change falls below epsilon or after MAX_ITER."""
+    nv = g.nv
+    src = np.repeat(np.arange(nv), np.diff(g.row_ptr))
+    deg = np.maximum(np.diff(g.row_ptr), 1)
+    s = np.full(nv, 1.0 / nv)
+    for it in range(1, PRM.MAX_ITER + 1):
+        new = ((1 - PRM.K_DAMP) / nv + PRM.K_DAMP * np.bincount(
+            src, weights=(s / deg)[g.col_idx], minlength=nv))
+        err = np.abs(new - s).sum()
+        s = new
+        if err < PRM.EPSILON:
+            break
+    return s, it
+
+
+def _solve(tag: str, ne: int | None, fn, check, solves: int = SOLVES) -> dict:
+    """One solve held to its reference by ``check`` (which raises, or
+    returns what to print), with its sweeps and neighbor_reduce launches;
+    then ``solves`` timed ones (host clock, ending in a sync). ``ne``: the
+    edges a sweep covers, for edges x sweeps / s (None: not one graph)."""
+    with _sweeps() as sw:
+        before = K8.LAUNCHES["neighbor_reduce"]
+        out = fn()
+        torch.cuda.synchronize()
+        launches = K8.LAUNCHES["neighbor_reduce"] - before
+    info = {"solver": tag, **check(out), "sweeps": sw.n, "launches": launches}
+    if launches != sw.n:
+        raise RuntimeError(f"[analytics] {tag}: {launches} neighbor_reduce "
+                           f"launches in {sw.n} pull sweeps")
+    times = []
+    for _ in range(solves):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    s = statistics.median(times)
+    info.update(s_per_solve=s, edges_x_sweeps_per_s=(
+        None if ne is None else ne * sw.n / s))
+    print(f"[analytics] {json.dumps(info)}")
+    return info
+
+
+def _exact(got, want, what: str) -> None:
+    if not np.array_equal(got, want):
+        raise RuntimeError(f"[analytics] {what} differs from the reference in "
+                           f"{int((got != want).sum())} vertices")
+
+
+def phase_solvers(g, dg) -> int:
+    """The solvers at the analytics size through the calls run_benchmark
+    makes, each against a reference independent of both packages (scipy,
+    numpy), timed; then one BFS under the profiler. Returns the
+    neighbor_reduce launches of the checked and timed solves, every count
+    set to 0 just before them."""
+    nv, ne = g.nv, g.ne
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(1)
+    # one weight per undirected edge: an edge and its reverse take the draw
+    # at the lower edge id (trans_perm maps an edge to its reverse)
+    rev = dg.trans_perm.cpu().numpy()
+    w_sym = rng.uniform(0.1, 2.0, ne).astype(np.float32)[
+        np.minimum(np.arange(ne), rev)]
+    w_asym = rng.uniform(0.1, 2.0, ne).astype(np.float32)
+    ref_bfs, ref_cc = _bfs_ref(g), _cc_ref(g)
+    ref_sssp = {"symmetric": _sssp_ref(g, w_sym),
+                "asymmetric": _sssp_ref(g, w_asym)}
+    ref_pr, ref_iters = _pagerank_ref(g)
+    print(f"[analytics] references (scipy, numpy float64) in "
+          f"{time.perf_counter() - t0:.2f} s: reached {int((ref_bfs >= 0).sum())}, "
+          f"depth {ref_bfs.max()}, {len(np.unique(ref_cc))} components, "
+          f"pagerank {ref_iters} iterations")
+
+    def check_bfs(dist):
+        dist = dist.cpu().numpy()
+        _exact(dist, ref_bfs, "bfs")
+        return {"reached": int((dist >= 0).sum()), "max_depth": int(dist.max())}
+
+    def check_sssp(kind):
+        def check(dist):
+            dist = dist.cpu().numpy()
+            if not np.allclose(dist, ref_sssp[kind], rtol=SSSP_RTOL,
+                               equal_nan=True):
+                raise RuntimeError(f"[analytics] sssp ({kind} weights) differs "
+                                   "from dijkstra beyond rtol 1e-5")
+            return {"reached": int(np.isfinite(dist).sum())}
+        return check
+
+    def check_pr(res):
+        scores, iters = res
+        l1 = float(np.abs(scores.cpu().numpy() - ref_pr).sum())
+        if l1 >= PR_L1 or abs(iters - ref_iters) > 1:
+            raise RuntimeError(f"[analytics] pagerank: L1 {l1} from the float64 "
+                               f"reference, {iters} iterations against {ref_iters}")
+        return {"iterations": iters, "l1_from_float64": l1}
+
+    def check_cc(comp):
+        comp = comp if isinstance(comp, np.ndarray) else comp.cpu().numpy()
+        _exact(comp, ref_cc, "cc")
+        return {"components": int(len(np.unique(comp)))}
+
+    weights = {k: torch.from_numpy(w).cuda()
+               for k, w in (("symmetric", w_sym), ("asymmetric", w_asym))}
+    _zero_counts()
+    bfs = _solve("bfs", ne, lambda: TR.bfs(dg, 0), check_bfs)
+    if bfs["sweeps"] != ref_bfs.max() + 1:
+        raise RuntimeError(f"[analytics] bfs took {bfs['sweeps']} sweeps for "
+                           f"depth {ref_bfs.max()}")
+    for kind, w in weights.items():
+        _solve(f"sssp_bellman_ford {kind} weights", ne,
+               lambda w=w: TR.sssp_bellman_ford(dg, w, 0), check_sssp(kind))
+    pr = _solve("pagerank", ne, lambda: PRM.pagerank(dg), check_pr)
+    if pr["sweeps"] != pr["iterations"]:
+        raise RuntimeError("[analytics] pagerank's sweeps are not its iterations")
+    _solve("connected_components", ne, lambda: CCM.connected_components(dg),
+           check_cc)
+    _solve("connected_components_afforest", None,
+           lambda: CCM.connected_components_afforest(g, device="cuda"), check_cc)
+    counts = _counts()
+    launches = counts["neighbor_reduce"]
+    if launches == 0:
+        raise RuntimeError("[analytics] the solvers launched no neighbor_reduce")
+    _assert_counts("[analytics]", counts, {"neighbor_reduce": launches})
+    print(f"[analytics] launches of the solves above {counts}")
+    phase_profile(f"bfs rmat{ANALYTICS_SCALE}",
+                  lambda n: [TR.bfs(dg, 0) for _ in range(n)], 1,
+                  bfs["s_per_solve"] * 1e3, unit="solve")
+    return launches
+
+
+def phase_grid_and_directed() -> None:
+    """The high-diameter grid through bfs and bfs_frontier, and a directed
+    rmat through bfs_host, which takes the push route."""
+    g = grid2d(GRID_SIDE)
+    dg = to_device_graph(g, device="cuda", with_transpose=False)
+    ref = _bfs_ref(g)
+
+    def check(dist):
+        # "sweeps" below counts the pull sweeps; bfs_frontier takes a
+        # sparse (push) sweep for each other level
+        _exact(dist.cpu().numpy(), ref, f"grid2d({GRID_SIDE}) bfs")
+        return {"max_depth": int(ref.max()), "levels": int(ref.max()) + 1}
+
+    for name, fn in (("bfs", TR.bfs), ("bfs_frontier", TR.bfs_frontier)):
+        _solve(f"{name} grid2d({GRID_SIDE})", g.ne, lambda fn=fn: fn(dg, 0),
+               check, solves=1)
+    g = rmat(DIRECTED_SCALE, 8, seed=0, undirected=False)
+    if is_symmetric(g):
+        raise RuntimeError("the directed rmat came out symmetric")
+    before = K8.LAUNCHES["neighbor_reduce"]
+    dist = TR.bfs_host(g, 0, device="cuda")
+    if K8.LAUNCHES["neighbor_reduce"] != before:
+        raise RuntimeError("bfs_host pulled over a directed graph")
+    _exact(dist, _bfs_ref(g), f"directed rmat{DIRECTED_SCALE} bfs_host")
+    print(f"[analytics] directed rmat({DIRECTED_SCALE}, 8): bfs_host took the "
+          f"push route (no ELL buckets, no neighbor_reduce launch), reached "
+          f"{int((dist >= 0).sum())} of {g.nv}, equal to scipy")
+
+
+def phase_analytics_cli() -> None:
+    """``python -m graphaibench_tpu_torch.cli analytics <k> <dir> 0`` for
+    the four solvers on a small dataset written by the port's save_graph,
+    without --device, side by side: each must print ``device = cuda`` and
+    ``Correct`` and exit 0."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = {k: v for k, v in os.environ.items() if k != "GAB_SHARDS"}
+    with tempfile.TemporaryDirectory() as tmp:
+        save_graph(rmat(PULL_DIRTY_SCALE, EDGE_FACTOR, seed=0), tmp)
+        t0 = time.perf_counter()
+        procs = {k: subprocess.Popen(
+            [sys.executable, "-m", "graphaibench_tpu_torch.cli", "analytics",
+             k, tmp, "0"], cwd=root, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True) for k in CLI_KERNELS}
+        try:
+            outs = {k: p.communicate(timeout=600) for k, p in procs.items()}
+        finally:
+            for p in procs.values():
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+    for k, (out, err) in outs.items():
+        lines = out.splitlines()
+        if (procs[k].returncode != 0 or "device = cuda" not in lines
+                or "Correct" not in lines):
+            raise RuntimeError(f"cli analytics {k}: exit {procs[k].returncode}"
+                               f"\n{out}\n{err[-3000:]}")
+        runtime = next(l for l in lines if l.startswith("runtime"))
+        print(f"[analytics] cli analytics {k} rmat{PULL_DIRTY_SCALE}: "
+              f"device = cuda, Correct, {runtime}")
+    print(f"[analytics] the four CLI runs side by side in "
+          f"{time.perf_counter() - t0:.2f} s")
+
+
+def phase_analytics() -> dict:
+    """K8 and the analytics solvers. Returns K8's entry data: its timed
+    cases, its largest error and the launches of the solvers' path."""
+    t0 = time.perf_counter()
+    g = rmat(ANALYTICS_SCALE, EDGE_FACTOR, seed=0)
+    t1 = time.perf_counter()
+    dg = to_device_graph(g, device="cuda")
+    torch.cuda.synchronize()
+    print(f"[analytics] rmat({ANALYTICS_SCALE}, {EDGE_FACTOR}) generated in "
+          f"{t1 - t0:.2f} s, on the card in {time.perf_counter() - t1:.2f} s")
+    if not is_symmetric(g):
+        raise RuntimeError("the analytics graph must be symmetric")
+    pull = phase_pull_kernel(dg)
+    launches = phase_solvers(g, dg)
+    phase_grid_and_directed()
+    phase_analytics_cli()
+    print(f"[analytics] phase took {time.perf_counter() - t0:.2f} s")
+    return dict(pull, launches=launches)
 
 
 def main() -> None:
@@ -1180,6 +1611,7 @@ def main() -> None:
         phase_profile(model.cfg.arch,
                       lambda n, m=model: m.train(n, verbose=False),
                       PROFILED_EPOCHS, phase_epochs(model))
+    pull = phase_analytics()
     head = cases[0]
     kernels = [{
         "name": "ell_spmm",
@@ -1232,6 +1664,21 @@ def main() -> None:
             "library_ms": head["library_ms"],
             "cases": res["cases"],
         })
+    head = next(c for c in pull["cases"] if c["case"] == PULL_HEAD)
+    kernels.append({
+        "name": "neighbor_reduce",
+        "route": "cuda",
+        "source": "graphaibench_tpu_torch/csrc/ell_pull.cu",
+        "replaces": PULL_REPLACES,
+        "launches": pull["launches"],
+        "max_abs_err": pull["max_abs_err"],
+        "ms": head["ms"],
+        "plain_ms": head["plain_ms"],
+        "bound_ms": head["bound_ms"],
+        "bound_by": head["bound_by"],
+        "library_ms": head["library_ms"],
+        "cases": pull["cases"],
+    })
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

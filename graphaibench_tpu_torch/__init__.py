@@ -18,13 +18,17 @@ native  C++ host kernels (CSR build, stable key sort, ELL packing, the
 graph CSR container, transforms, generators, dataset readers
 ops   device graph (degree-bucketed ELL), the kernels (CUDA C++ in
       ``csrc/``: the ELL SpMM, the fused GAT attention's passes, the
-      passes over per-edge values) with their plain PyTorch versions,
-      SpMM and attention autograd, segment ops, math
+      passes over per-edge values, the analytics' neighbour reduction)
+      with their plain PyTorch versions, SpMM and attention autograd,
+      segment ops, math
 nn    layers of the four architectures, losses, the reference's
       optimizers, the GraphSAINT sampler, the training Model
+analytics  the pull-mode solvers (BFS, SSSP, PageRank, CC) with their
+      serial verifiers and ``run_benchmark``
 utils stage timers, profiler capture, checkpoints
 entry ``entry()``: the flagship model's forward function and arguments
 cli   ``python -m graphaibench_tpu_torch.cli train <arch> <dataset> ...``
+      and ``... cli analytics bfs|sssp|pr|cc <dataset> [source]``
 """
 
 __version__ = "0.1.0"

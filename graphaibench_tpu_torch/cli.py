@@ -13,6 +13,12 @@ and ``--profile=DIR`` (a torch.profiler Chrome trace of the whole run in
 ``DIR/trace.json``). The multi-device routes (``GAB_SHARDS``, ``GAB_DP``)
 are not ported yet: they exit with code 2 and name their ROADMAP item.
 
+``python -m graphaibench_tpu_torch.cli analytics bfs|sssp|pr|cc <dataset>
+[source] [--device=cuda|cpu]`` runs the JAX CLI's ``analytics`` route for
+the pull-mode solvers (``analytics.run_benchmark``), with the same default
+device and no fallback; the other analytics kernels, compressed-graph
+prefixes and ``GAB_SHARDS`` exit with code 2 and name their ROADMAP item.
+
 Dataset resolution: an existing directory (or compressed-graph prefix) is
 used directly; otherwise ``$DATASET_PATH/<name>`` (configs.h:5).
 """
@@ -39,6 +45,10 @@ def resolve_dataset(name: str) -> str:
     if root and os.path.isdir(os.path.join(root, name)):
         return os.path.join(root, name)
     raise SystemExit(f"dataset '{name}' not found (set DATASET_PATH)")
+
+
+ANALYTICS_USAGE = ("usage: analytics bfs|sssp|pr|cc <dataset> [source=0] "
+                   "[--device=cuda|cpu]")
 
 
 def _refuse(msg: str) -> int:
@@ -139,12 +149,34 @@ def cmd_train(argv: list[str]) -> int:
     return 0
 
 
-def main() -> int:
-    if len(sys.argv) < 2 or sys.argv[1] != "train":
-        print("usage: graphaibench_tpu_torch.cli train ... "
-              "(analytics, compress, partition and info: ROADMAP queue 1)")
+def cmd_analytics(argv: list[str]) -> int:
+    """<kernel> <dataset> [args...] — the analytics solvers with their
+    verifiers, on ``--device`` (default ``cuda``)."""
+    device = "cuda"
+    rest = []
+    for a in argv:
+        if a.startswith("--device="):
+            device = a.split("=", 1)[1]
+        else:
+            rest.append(a)
+    if len(rest) < 2:
+        print(ANALYTICS_USAGE)
         return 2
-    return cmd_train(sys.argv[2:])
+    if device not in ("cuda", "cpu"):
+        return _refuse(f"--device must be cuda or cpu, not {device!r}")
+    from graphaibench_tpu_torch.analytics import run_benchmark
+
+    return run_benchmark(rest[0], resolve_dataset(rest[1]), rest[2:],
+                         device=device)
+
+
+def main() -> int:
+    commands = {"train": cmd_train, "analytics": cmd_analytics}
+    if len(sys.argv) < 2 or sys.argv[1] not in commands:
+        print("usage: graphaibench_tpu_torch.cli train|analytics ... "
+              "(compress, partition and info: ROADMAP queue 1)")
+        return 2
+    return commands[sys.argv[1]](sys.argv[2:])
 
 
 if __name__ == "__main__":

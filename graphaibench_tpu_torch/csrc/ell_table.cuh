@@ -157,6 +157,18 @@ __device__ __forceinline__ void atomic_max_float(float* addr, float v) {
   }
 }
 
+// min into *addr, the mirror of atomic_max_float: the least non-negative
+// float is the least signed integer, the least negative float the greatest
+// unsigned one. -0 is taken as +0.
+__device__ __forceinline__ void atomic_min_float(float* addr, float v) {
+  v += 0.0f;
+  if (v >= 0.0f) {
+    atomicMin(reinterpret_cast<int*>(addr), __float_as_int(v));
+  } else {
+    atomicMax(reinterpret_cast<unsigned int*>(addr), __float_as_uint(v));
+  }
+}
+
 // Fills the table for groups of 2^lg lanes and `tiles` feature tiles;
 // returns the grid size, or 0 and an error code in *err.
 int64_t fill_table(Table* tab, GAB_TABLE_PARAMS, int lg, int64_t tiles,

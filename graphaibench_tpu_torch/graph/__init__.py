@@ -8,4 +8,5 @@ from graphaibench_tpu_torch.graph.io import (  # noqa: F401
     load_gnn_dataset_csgr,
     load_graph,
     read_meta,
+    save_graph,
 )

@@ -2,7 +2,8 @@
 
 The port's own copy of ``graphaibench_tpu/graph/generators.py`` (same
 names, same graphs bit for bit): uniform random (Erdos-Renyi) and RMAT
-(power-law, Graph500-style). All deterministic given a seed.
+(power-law, Graph500-style) and a 4-neighbour grid (the high-diameter
+case). All deterministic given a seed.
 """
 
 from __future__ import annotations
@@ -72,3 +73,11 @@ def rmat(scale: int, edge_factor: int = 16, seed: int = 0,
         np.savez(tmp, row_ptr=g.row_ptr, col_idx=g.col_idx)
         os.replace(tmp, cpath)
     return g
+
+
+def grid2d(side: int) -> CSRGraph:
+    """side x side 4-neighbor grid, undirected."""
+    idx = np.arange(side * side).reshape(side, side)
+    src = np.concatenate([idx[:, :-1].ravel(), idx[:-1, :].ravel()])
+    dst = np.concatenate([idx[:, 1:].ravel(), idx[1:, :].ravel()])
+    return symmetrize(from_edges(src, dst, side * side))

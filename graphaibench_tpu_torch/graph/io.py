@@ -1,7 +1,8 @@
 """Binary on-disk graph format I/O.
 
-The port's own copy of the readers of ``graphaibench_tpu/graph/io.py`` and
-of ``read_gr`` from ``graph/converters.py`` (same names, same arrays).
+The port's own copy of the readers and the writer (``save_graph``) of
+``graphaibench_tpu/graph/io.py`` and of ``read_gr`` from
+``graph/converters.py`` (same names, same arrays and files).
 Reads the exact GraphAIBench dataset layout (reference
 src/gnn/reader.cpp:414-457, src/common/graph.cc:190-222, README.md:95-110):
 
@@ -153,6 +154,30 @@ def load_graph(path: str, *, with_vlabels: bool = False,
     return CSRGraph(row_ptr=row_ptr, col_idx=col_idx.astype(np.int32),
                     vlabels=vlabels, elabels=elabels,
                     n_left=meta.nv_left, n_right=meta.nv_right)
+
+
+def save_graph(g: CSRGraph, path: str, *, meta: Optional[Meta] = None) -> None:
+    """Write a CSRGraph in the reference binary layout."""
+    os.makedirs(path, exist_ok=True)
+    m = meta or Meta(nv=g.nv, ne=g.ne, max_degree=g.max_degree())
+    m.nv, m.ne, m.max_degree = g.nv, g.ne, g.max_degree()
+    lines = [f"{g.n_left} {g.n_right}" if g.is_bipartite() else str(m.nv),
+             str(m.ne),
+             f"{m.vid_size} {m.eid_size} {m.vlabel_size} {m.elabel_size}",
+             str(m.max_degree), str(m.feat_len), str(m.num_vertex_classes),
+             str(m.num_edge_classes)]
+    for field in ("train", "val", "test"):
+        rng = getattr(m, field)
+        if rng is not None:
+            lines.append(f"{rng[0]} {rng[1]} {rng[2]}")
+    with open(os.path.join(path, "graph.meta.txt"), "w") as f:
+        f.write("\n".join(lines) + "\n")
+    g.row_ptr.astype(np.int64).tofile(os.path.join(path, "graph.vertex.bin"))
+    g.col_idx.astype(np.uint32).tofile(os.path.join(path, "graph.edge.bin"))
+    if g.vlabels is not None:
+        g.vlabels.astype(np.uint8).tofile(os.path.join(path, "graph.vlabel.bin"))
+    if g.elabels is not None:
+        g.elabels.tofile(os.path.join(path, "graph.elabel.bin"))
 
 
 def read_gr(path: str) -> CSRGraph:

@@ -7,6 +7,8 @@ a mutating method of the reference graph classes but returns a fresh
 
   add_selfloop        — lgraph.h:185-218
   symmetrize          — graph.cc:397 (Converter symmetrization)
+  is_symmetric        — the gate of the pull-mode analytics solvers
+  reverse             — graph.cc:511-560 (incoming-edge graph)
   sort_and_clean      — graph.cc:237-280 (sort, dedup, strip selfloops)
   gcn_vertex_norms    — lgraph.cpp:22-34 (1/sqrt(deg))
   gcn_edge_norms      — lgraph.cpp:6-20 (1/sqrt(d_i d_j))
@@ -15,7 +17,7 @@ a mutating method of the reference graph classes but returns a fresh
   induced_subgraph    — sampler.cpp:69-95 (GraphSAINT reindexing)
 
 The reorderings and the orientation of the JAX package's module come with
-the slices that need them.
+the slices that need them (ROADMAP P12b, P15).
 """
 
 from __future__ import annotations
@@ -45,6 +47,23 @@ def symmetrize(g: CSRGraph) -> CSRGraph:
     s, d = s[keep], d[keep]
     uniq = np.unique(np.stack([s.astype(np.int64), d.astype(np.int64)], axis=1), axis=0)
     return from_edges(uniq[:, 0], uniq[:, 1], g.nv)
+
+
+def is_symmetric(g: CSRGraph) -> bool:
+    """True iff every edge (u, v) has its reverse (v, u). Pull-mode
+    frontier kernels (neighbor_reduce over row buckets) are only valid
+    on structurally symmetric graphs: the CLI uses this to gate them
+    (the push scatter formulation stays correct on directed inputs)."""
+    src, dst = g.coo()
+    fwd = src.astype(np.int64) * g.nv + dst
+    rev = dst.astype(np.int64) * g.nv + src
+    return np.array_equal(np.sort(fwd), np.sort(rev))
+
+
+def reverse(g: CSRGraph) -> CSRGraph:
+    """Incoming-edge (transposed) graph — graph.cc:511-560."""
+    src, dst = g.coo()
+    return from_edges(dst, src, g.nv, elabels=g.elabels)
 
 
 def sort_and_clean(g: CSRGraph) -> CSRGraph:

@@ -25,7 +25,7 @@ from pathlib import Path
 import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("ell_spmm.cu", "fused_gat.cu", "ell_edge.cu")
+SOURCES = ("ell_spmm.cu", "fused_gat.cu", "ell_edge.cu", "ell_pull.cu")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 # No --use_fast_math: it flushes subnormals to zero and swaps expf for
 # __expf; the GAT passes rely on a normal 1e-30 floor and on expf.
@@ -57,6 +57,12 @@ _SIGNATURES = {
         "gab_ell_row_reduce": _GAT_TABLE + [_vp] * 4 + [_int, _int, _vp],
         "gab_gat_v1_fwd": _GAT_TABLE + [_vp] * 8 + _WIDE,
         "gab_sddmm_dot_ell": _GAT_TABLE + [_vp] * 3 + [_i64, _int, _int, _vp],
+    },
+    "ell_pull": {
+        # is_split, edge_vals (per-bucket pointers or null), vals, out, kind,
+        # dtype, device, stream
+        "gab_neighbor_reduce": _GAT_TABLE + [_vp, _vpp, _vp, _vp, _int, _int,
+                                             _int, _vp],
     },
 }
 

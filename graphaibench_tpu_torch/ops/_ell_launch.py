@@ -1,9 +1,9 @@
 """What the wrappers of the bucket passes share (``ops/fused_gat.py``,
-``ops/ell_edge.py``; kernels in ``csrc/fused_gat.cu`` and
-``csrc/ell_edge.cu`` over ``csrc/ell_table.cuh``): the per-bucket pointer
-table kept on the graph, operand checks, the shape of a wide pass, outputs
-in which only the rows no kernel stores to are initialised, and the
-launch's tail arguments."""
+``ops/ell_edge.py``, ``ops/ell_pull.py``; kernels in ``csrc/fused_gat.cu``,
+``csrc/ell_edge.cu`` and ``csrc/ell_pull.cu`` over ``csrc/ell_table.cuh``):
+the per-bucket pointer table kept on the graph, operand checks, the shape
+of a wide pass, outputs in which only the rows no kernel stores to are
+initialised, and the launch's tail arguments."""
 
 from __future__ import annotations
 
@@ -21,7 +21,9 @@ class _Table:
     """The per-bucket pointer, row-count and width arrays of a graph in
     launch order (widest bucket first), validated once. It is kept on the
     graph (``g.launch_tables``), whose tensors' addresses it holds, and
-    lives as long as the graph."""
+    lives as long as the graph. ``order`` holds the index in ``g.ell`` of
+    each bucket in launch order, for arrays that a caller keeps per bucket
+    in the graph's order."""
 
     def __init__(self, g: DeviceGraph):
         if not g.has_ell_layout:
@@ -29,7 +31,8 @@ class _Table:
         if len(g.ell) > MAX_BUCKETS:
             raise ValueError(f"{len(g.ell)} buckets, the kernels' table "
                              f"holds {MAX_BUCKETS}")
-        buckets = sorted(g.ell, key=lambda b: -b.width)
+        self.order = sorted(range(len(g.ell)), key=lambda i: -g.ell[i].width)
+        buckets = [g.ell[i] for i in self.order]
         for b in buckets:
             for t, shape in ((b.row_ids, (b.rows,)), (b.valid, (b.rows,)),
                              (b.nbr, (b.rows * b.width,)),
@@ -59,8 +62,9 @@ def _table(g: DeviceGraph) -> _Table:
     return table
 
 
-def _check(g: DeviceGraph, vectors=(), matrices=(), edges=()) -> torch.device:
-    """Every operand float32, contiguous, on the graph's device: (nv,)
+def _check(g: DeviceGraph, vectors=(), matrices=(), edges=(),
+           dtype: torch.dtype = torch.float32) -> torch.device:
+    """Every operand of ``dtype``, contiguous, on the graph's device: (nv,)
     ``vectors``, (nv, F) ``matrices`` with one F, (ne,) per-edge arrays
     ``edges``. Returns the device."""
     dev = g.is_split.device
@@ -68,8 +72,8 @@ def _check(g: DeviceGraph, vectors=(), matrices=(), edges=()) -> torch.device:
     for t in (*vectors, *matrices, *edges):
         shape = ((g.nv,) if any(t is v for v in vectors)
                  else (g.ne,) if any(t is e for e in edges) else (g.nv, f))
-        if t.dtype != torch.float32 or tuple(t.shape) != shape:
-            raise ValueError(f"expected float32 of shape {shape}, got "
+        if t.dtype != dtype or tuple(t.shape) != shape:
+            raise ValueError(f"expected {dtype} of shape {shape}, got "
                              f"{t.dtype} {tuple(t.shape)}")
         if not t.is_contiguous():
             raise ValueError("operands must be contiguous")
@@ -97,7 +101,19 @@ def _raise_on(rc: int, lib, name: str, detail: str) -> None:
                            f"error {rc}: {lib.gab_cuda_error_string(rc).decode()}")
 
 
-def _empty_but(g: DeviceGraph, like: torch.Tensor, shape, fill: float):
+def _check_int4_ids(g: DeviceGraph, kernel: str) -> None:
+    """A kernel that reads a row's neighbour ids as int4 needs every
+    bucket's width to be a multiple of 4 and its ids 16-byte aligned, as in
+    every graph ``to_device_graph`` builds (widths 4 to 64, a tensor
+    each)."""
+    for b in g.ell:
+        if b.width % 4 or b.nbr.data_ptr() % 16:
+            raise ValueError(
+                f"{kernel} reads ids four at a time: bucket of width "
+                f"{b.width} with ids at byte {b.nbr.data_ptr() % 16} of 16")
+
+
+def _empty_but(g: DeviceGraph, like: torch.Tensor, shape, fill):
     """An uninitialised output in which only ``g.zero_rows`` (edgeless and
     split rows: the rows no kernel stores to) hold ``fill``."""
     out = torch.empty(shape, dtype=like.dtype, device=like.device)

@@ -23,7 +23,10 @@ on an explicit ``device``.
     over the first ``valid`` slots only.
 
 The transpose permutation (host-built once) turns the SpMM adjoint into
-the same bucket pass on transpose-permuted weights.
+the same bucket pass on transpose-permuted weights. A caller that needs
+neither (``with_transpose=False``) or no buckets (``with_ell=False``: the
+analytics solvers' push route on directed inputs) leaves them out, as the
+JAX package's analytics CLI does.
 
 The host ELL packing is ``native.ell_pack`` (one native pass), with the
 numpy route (``_virtual_rows``, ``_pack_buckets``) for hosts without
@@ -36,6 +39,7 @@ for addresses.
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import numpy as np
 import torch
@@ -69,9 +73,10 @@ class DeviceGraph:
     col_idx: torch.Tensor               # (E,) int32 — CSR destination ids
     edge_src: torch.Tensor              # (E,) int32 — CSR-ordered source ids
     deg: torch.Tensor                   # (N,) int32
-    # edge k of G^T is edge trans_perm[k] of G
-    trans_perm: torch.Tensor            # (E,) int32
-    ell: tuple                          # tuple[EllBucket, ...] (empty if ne == 0)
+    # edge k of G^T is edge trans_perm[k] of G; None when not built
+    trans_perm: Optional[torch.Tensor]  # (E,) int32
+    ell: tuple                          # tuple[EllBucket, ...] (empty if ne == 0
+                                        # or built without ELL)
     is_split: torch.Tensor              # (N,) uint8 — 1 where deg > ELL_SPLIT
     zero_rows: torch.Tensor             # (K,) int64 — ids with deg 0 or deg > ELL_SPLIT
     nv: int
@@ -223,8 +228,11 @@ def build_ell_buckets(g: CSRGraph, *, device,
             for (w, r, n, e) in res]
 
 
-def to_device_graph(g: CSRGraph, *, device) -> DeviceGraph:
-    """One-time host -> device transfer of every layout of ``g``."""
+def to_device_graph(g: CSRGraph, *, device, with_transpose: bool = True,
+                    with_ell: bool = True) -> DeviceGraph:
+    """One-time host -> device transfer of the layouts of ``g``: every one
+    by default; without the transpose permutation (``trans_perm`` None) or
+    without the ELL buckets (``ell`` empty) on request."""
     if g.ne >= 2**31:
         raise ValueError("edge count must fit int32")
     src, dst = g.coo()
@@ -235,8 +243,9 @@ def to_device_graph(g: CSRGraph, *, device) -> DeviceGraph:
         col_idx=_to(dst, device),
         edge_src=_to(src, device),
         deg=_to(deg, device),
-        trans_perm=_to(T.transpose_edge_permutation(g), device),
-        ell=tuple(build_ell_buckets(g, device=device)),
+        trans_perm=(_to(T.transpose_edge_permutation(g), device)
+                    if with_transpose else None),
+        ell=tuple(build_ell_buckets(g, device=device)) if with_ell else (),
         is_split=torch.from_numpy(split.astype(np.uint8)).to(device),
         zero_rows=torch.from_numpy(
             np.flatnonzero(split | (deg == 0)).astype(np.int64)).to(device),

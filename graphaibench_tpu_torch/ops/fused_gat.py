@@ -69,7 +69,7 @@ from __future__ import annotations
 
 import torch
 
-from graphaibench_tpu_torch.ops import _build
+from graphaibench_tpu_torch.ops import _build, _ell_launch
 from graphaibench_tpu_torch.ops._ell_launch import (
     _check,
     _empty_but,
@@ -179,15 +179,8 @@ def gat_v2_bwd_plain(g: DeviceGraph, sl, sr, m, zinv, inner, h, ct):
 # ---- the kernels' wrappers -------------------------------------------------
 
 def _check_int4_ids(g: DeviceGraph) -> None:
-    """gat_rowmax reads a row's neighbour ids as int4: every bucket's
-    width must be a multiple of 4 and its ids 16-byte aligned, as in
-    every graph ``to_device_graph`` builds (widths 4 to 64, a tensor
-    each)."""
-    for b in g.ell:
-        if b.width % 4 or b.nbr.data_ptr() % 16:
-            raise ValueError(
-                f"gat_rowmax reads ids four at a time: bucket of width "
-                f"{b.width} with ids at byte {b.nbr.data_ptr() % 16} of 16")
+    """gat_rowmax reads a row's neighbour ids as int4 (``_ell_launch``)."""
+    _ell_launch._check_int4_ids(g, "gat_rowmax")
 
 
 def gat_rowmax(g: DeviceGraph, sr: torch.Tensor) -> torch.Tensor:

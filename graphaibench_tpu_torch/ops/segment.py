@@ -8,8 +8,9 @@ through the ELL buckets; on a CUDA graph with ELL buckets the port does
 too, through the kernel ``ell_row_reduce`` (``ops/ell_edge.py``). On the
 CPU, and on a graph without buckets (the padded subgraphs of sampled
 training), a row reduction is one ``index_add_`` / ``scatter_reduce_``
-over ``edge_src``. ``neighbor_reduce`` (the analytics pull primitive) is
-ROADMAP queue 1, P12.
+over ``edge_src``. ``neighbor_reduce`` and ``pack_neighbor_edge_vals``, the
+pull step of the analytics solvers, are defined with their kernel in
+``ops/ell_pull.py`` and exported here under the JAX module's names.
 """
 
 from __future__ import annotations
@@ -18,6 +19,10 @@ import torch
 
 from graphaibench_tpu_torch.ops.device_graph import DeviceGraph
 from graphaibench_tpu_torch.ops.ell_edge import ell_row_reduce
+from graphaibench_tpu_torch.ops.ell_pull import (  # noqa: F401
+    neighbor_reduce,
+    pack_neighbor_edge_vals,
+)
 
 
 class _RowSumEll(torch.autograd.Function):

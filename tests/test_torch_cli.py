@@ -10,8 +10,8 @@ import sys
 import pytest
 import torch
 
-from graphaibench_tpu.graph.generators import rmat
-from graphaibench_tpu.graph.io import Meta, save_graph
+from graphaibench_tpu_torch.graph.generators import rmat
+from graphaibench_tpu_torch.graph.io import Meta, save_graph
 
 torch.set_num_threads(2)
 
@@ -20,6 +20,8 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 @pytest.fixture(scope="module")
 def dataset(tmp_path_factory):
+    """rmat(9, 8) written by the port's own save_graph (the JAX CLI reads
+    it too)."""
     path = str(tmp_path_factory.mktemp("rmat9"))
     g = rmat(9, 8, seed=0)
     # no feature or label files: load_gnn_dataset synthesizes both

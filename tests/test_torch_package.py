@@ -30,7 +30,8 @@ def test_port_imports_leave_jax_out():
         "import graphaibench_tpu_torch as pkg\n"
         "names = [m.name for m in pkgutil.walk_packages(pkg.__path__, 'graphaibench_tpu_torch.')]\n"
         "assert len(names) >= 28, names\n"
-        "for new in ('nn.sampler', 'utils.timers', 'utils.checkpoint', 'entry', 'ops.ell_edge', 'ops._ell_launch'):\n"
+        "for new in ('nn.sampler', 'utils.timers', 'utils.checkpoint', 'entry', 'ops.ell_edge', 'ops._ell_launch',\n"
+        "            'ops.ell_pull', 'analytics', 'analytics.verifiers', 'analytics.traversal', 'analytics.pr', 'analytics.cc'):\n"
         "    assert 'graphaibench_tpu_torch.' + new in names, new\n"
         "for n in names:\n"
         "    importlib.import_module(n)\n"
