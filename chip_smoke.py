@@ -10,11 +10,13 @@ non-zero exit code and no result line:
 
 1. device  — requires a CUDA device; prints the nvidia-smi name and power
              limit line and torch's device name.
-2. build   — compiles the four sources of ``graphaibench_tpu_torch/csrc``
+2. build   — compiles the six sources of ``graphaibench_tpu_torch/csrc``
              (``ell_spmm.cu``: K1; ``fused_gat.cu``: the five passes of
              the fused GAT attention v2; ``ell_edge.cu``: the three passes
              over per-edge values that v1 runs on; ``ell_pull.cu``: K8,
-             ``neighbor_reduce``, the analytics' pull step) with nvcc,
+             ``neighbor_reduce``, the analytics' pull step; ``tc_count.cu``:
+             K9, triangle counting's DAG intersection count;
+             ``kcore_hindex.cu``: K10, k-core's h-index sweep) with nvcc,
              side by side, and loads them; prints the build seconds and
              the compiler's register report for each kernel.
 3. kernel  — K1: on rmat(17, 16) with self-loops, for F in {128, 16} and both
@@ -96,11 +98,24 @@ non-zero exit code and no result line:
              pagerank, connected_components and the Afforest route, each
              held to scipy or a float64 numpy power iteration, with
              seconds per warm solve, sweeps and K8 launches (one a sweep);
-             one BFS under the profiler. Then bfs and bfs_frontier on
-             grid2d(512), a directed rmat13 through bfs_host's push route,
-             and ``cli analytics bfs|sssp|pr|cc`` in four processes on a
-             dataset written by the port's save_graph. Prints its seconds.
-9. result  — a JSON line of the ten kernels, then the last line
+             one BFS under the profiler. Then K9 against its plain version
+             at rmat19 (timed beside its bound) and at rmat13 behind the
+             dirtied allocator, and triangle_count held to scipy's count
+             (19,736,616 on rmat(19, 16, seed=0)), one cold solve and warm
+             ones, one K9 launch a count; K10 against its plain version on
+             one sweep from the degrees at rmat19 (timed beside its bound)
+             and at rmat13 behind the dirtied allocator, k_core_hindex (one
+             K10 launch a sweep) and k_core_peel (one K8 launch a peel)
+             equal to the serial oracle; bc_single_source held to a float64
+             Brandes written with scipy (rtol 1e-4), one K8 launch a level
+             forward and back, and at rmat13 to the serial oracle. Every
+             count is set to 0 just before each solver and read just after.
+             Then bfs and bfs_frontier on grid2d(512), a directed rmat13
+             through bfs_host's push route, ``cli analytics
+             bfs|sssp|pr|cc|tc|bc|kcore`` in seven processes on a dataset
+             written by the port's save_graph, and ``cli info`` on it.
+             Prints its seconds.
+9. result  — a JSON line of the twelve kernels, then the last line
              {"ok": true, "device": {...}}.
 """
 
@@ -118,12 +133,16 @@ import numpy as np
 import torch
 
 from graphaibench_tpu_torch import GnnDataset, rmat
+from graphaibench_tpu_torch.analytics import bc as BCM
 from graphaibench_tpu_torch.analytics import cc as CCM
+from graphaibench_tpu_torch.analytics import kcore as KCM
 from graphaibench_tpu_torch.analytics import pr as PRM
+from graphaibench_tpu_torch.analytics import tc as TCM
 from graphaibench_tpu_torch.analytics import traversal as TR
+from graphaibench_tpu_torch.analytics import verifiers
 from graphaibench_tpu_torch.graph.generators import grid2d
 from graphaibench_tpu_torch.graph.io import save_graph
-from graphaibench_tpu_torch.graph.transforms import is_symmetric
+from graphaibench_tpu_torch.graph.transforms import is_symmetric, orientation
 from graphaibench_tpu_torch.nn import Model, make_config
 from graphaibench_tpu_torch.nn.layers import apply_model
 from graphaibench_tpu_torch.nn.losses import masked_softmax_loss
@@ -133,7 +152,9 @@ from graphaibench_tpu_torch.ops import ell_edge as EE
 from graphaibench_tpu_torch.ops import ell_pull as K8
 from graphaibench_tpu_torch.ops import ell_spmm as K1
 from graphaibench_tpu_torch.ops import fused_gat as FG
+from graphaibench_tpu_torch.ops import hindex as K10
 from graphaibench_tpu_torch.ops import math as gmath
+from graphaibench_tpu_torch.ops import tc_count as K9
 from graphaibench_tpu_torch.ops.device_graph import pack_edge_values, to_device_graph
 from graphaibench_tpu_torch.ops.segment import segment_softmax
 from graphaibench_tpu_torch.ops.spmm import sddmm_add, spmm
@@ -212,7 +233,15 @@ SSSP_RTOL = 1e-5                   # run_benchmark's tolerance
 PR_L1 = 1e-4                       # the solver's epsilon
 GRID_SIDE = 512
 DIRECTED_SCALE = 13
-CLI_KERNELS = ("bfs", "sssp", "pr", "cc")
+CLI_KERNELS = ("bfs", "sssp", "pr", "cc", "tc", "bc", "kcore")
+# the CLI's dataset: rmat(13, 8), within the 200,000 edges up to which
+# run_benchmark checks a triangle count against the serial count
+CLI_EDGE_FACTOR = 8
+TC_REPLACES = "graphaibench_tpu/analytics/tc.py:64"
+HINDEX_REPLACES = "graphaibench_tpu/analytics/kcore.py:66"
+TC_RMAT19 = 19_736_616     # scipy's count on rmat(19, 16, seed=0)
+# BC against the float64 reference: sigma and delta are float32 sums
+BC_RTOL, BC_ATOL = 1e-4, 1e-6
 
 
 def phase_device() -> str:
@@ -265,10 +294,13 @@ def _batch_ms(fn, calls: int = TIMED_CALLS,
     return statistics.median(times)
 
 
-def _kernel_device_ms(fn, kernel: str, calls: int = TIMED_CALLS):
+def _kernel_device_ms(fn, kernel: str, calls: int = TIMED_CALLS,
+                      per_call: bool = False):
     """Device time of one launch of the kernel whose name contains
     ``kernel``: the mean over ``calls`` calls of ``fn`` under
-    torch.profiler. ``_batch_ms`` reads the host's enqueue instead where a
+    torch.profiler (with ``per_call``, the device time of every kernel
+    whose name contains ``kernel`` over ``calls``: one call's, where a call
+    launches several). ``_batch_ms`` reads the host's enqueue instead where a
     call's host work (allocating and initialising outputs, the ctypes
     call) outlasts a short kernel. The profiler now and then hands back
     no device event for so short a trace, so it is asked up to three
@@ -286,7 +318,7 @@ def _kernel_device_ms(fn, kernel: str, calls: int = TIMED_CALLS):
               if e.device_type == torch.autograd.DeviceType.CUDA
               and kernel in e.name]
         if us:
-            return statistics.mean(us) / 1e3
+            return (sum(us) / calls if per_call else statistics.mean(us)) / 1e3
     return None
 
 
@@ -904,14 +936,15 @@ def phase_small_trainer() -> None:
 
 def _zero_counts() -> None:
     K1.LAUNCHES = 0
-    for counts in (FG.LAUNCHES, EE.LAUNCHES, K8.LAUNCHES):
+    for counts in (FG.LAUNCHES, EE.LAUNCHES, K8.LAUNCHES, K9.LAUNCHES,
+                   K10.LAUNCHES):
         for name in counts:
             counts[name] = 0
 
 
 def _counts() -> dict[str, int]:
     return {"ell_spmm": K1.LAUNCHES, **FG.LAUNCHES, **EE.LAUNCHES,
-            **K8.LAUNCHES}
+            **K8.LAUNCHES, **K9.LAUNCHES, **K10.LAUNCHES}
 
 
 def _drive(g, cfg, want_train: dict, want_eval: dict):
@@ -1336,12 +1369,12 @@ class _sweeps:
             self.n += 1
             return K8.neighbor_reduce(*args, **kw)
 
-        for module in (TR, PRM, CCM):
+        for module in (TR, PRM, CCM, BCM, KCM):
             module.neighbor_reduce = counted
         return self
 
     def __exit__(self, *exc):
-        for module in (TR, PRM, CCM):
+        for module in (TR, PRM, CCM, BCM, KCM):
             module.neighbor_reduce = K8.neighbor_reduce
 
 
@@ -1394,6 +1427,19 @@ def _pagerank_ref(g) -> tuple[np.ndarray, int]:
     return s, it
 
 
+def _solve_seconds(fn, solves: int = SOLVES) -> float:
+    """Median host-clock seconds of ``solves`` calls, each ending in a
+    sync."""
+    times = []
+    for _ in range(solves):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return statistics.median(times)
+
+
 def _solve(tag: str, ne: int | None, fn, check, solves: int = SOLVES) -> dict:
     """One solve held to its reference by ``check`` (which raises, or
     returns what to print), with its sweeps and neighbor_reduce launches;
@@ -1408,14 +1454,7 @@ def _solve(tag: str, ne: int | None, fn, check, solves: int = SOLVES) -> dict:
     if launches != sw.n:
         raise RuntimeError(f"[analytics] {tag}: {launches} neighbor_reduce "
                            f"launches in {sw.n} pull sweeps")
-    times = []
-    for _ in range(solves):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-    s = statistics.median(times)
+    s = _solve_seconds(fn, solves)
     info.update(s_per_solve=s, edges_x_sweeps_per_s=(
         None if ne is None else ne * sw.n / s))
     print(f"[analytics] {json.dumps(info)}")
@@ -1540,18 +1579,19 @@ def phase_grid_and_directed() -> None:
 
 def phase_analytics_cli() -> None:
     """``python -m graphaibench_tpu_torch.cli analytics <k> <dir> 0`` for
-    the four solvers on a small dataset written by the port's save_graph,
+    the seven solvers on a small dataset written by the port's save_graph,
     without --device, side by side: each must print ``device = cuda`` and
-    ``Correct`` and exit 0."""
+    ``Correct`` and exit 0. Then ``cli info <dir>``."""
     root = os.path.dirname(os.path.abspath(__file__))
     env = {k: v for k, v in os.environ.items() if k != "GAB_SHARDS"}
+    cli = [sys.executable, "-m", "graphaibench_tpu_torch.cli"]
     with tempfile.TemporaryDirectory() as tmp:
-        save_graph(rmat(PULL_DIRTY_SCALE, EDGE_FACTOR, seed=0), tmp)
+        save_graph(rmat(PULL_DIRTY_SCALE, CLI_EDGE_FACTOR, seed=0), tmp)
         t0 = time.perf_counter()
         procs = {k: subprocess.Popen(
-            [sys.executable, "-m", "graphaibench_tpu_torch.cli", "analytics",
-             k, tmp, "0"], cwd=root, env=env, stdout=subprocess.PIPE,
-            stderr=subprocess.PIPE, text=True) for k in CLI_KERNELS}
+            [*cli, "analytics", k, tmp, "0"], cwd=root, env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            for k in CLI_KERNELS}
         try:
             outs = {k: p.communicate(timeout=600) for k, p in procs.items()}
         finally:
@@ -1559,6 +1599,9 @@ def phase_analytics_cli() -> None:
                 if p.poll() is None:
                     p.kill()
                     p.wait()
+        dt = time.perf_counter() - t0
+        info = subprocess.run([*cli, "info", tmp], cwd=root, env=env,
+                              capture_output=True, text=True, timeout=300)
     for k, (out, err) in outs.items():
         lines = out.splitlines()
         if (procs[k].returncode != 0 or "device = cuda" not in lines
@@ -1566,15 +1609,289 @@ def phase_analytics_cli() -> None:
             raise RuntimeError(f"cli analytics {k}: exit {procs[k].returncode}"
                                f"\n{out}\n{err[-3000:]}")
         runtime = next(l for l in lines if l.startswith("runtime"))
-        print(f"[analytics] cli analytics {k} rmat{PULL_DIRTY_SCALE}: "
-              f"device = cuda, Correct, {runtime}")
-    print(f"[analytics] the four CLI runs side by side in "
+        print(f"[analytics] cli analytics {k} rmat({PULL_DIRTY_SCALE}, "
+              f"{CLI_EDGE_FACTOR}): device = cuda, Correct, {runtime}")
+    print(f"[analytics] the {len(CLI_KERNELS)} CLI runs side by side in "
+          f"{dt:.2f} s")
+    lines = info.stdout.splitlines()
+    if info.returncode != 0 or not lines or not lines[0].startswith("|V| "):
+        raise RuntimeError(f"cli info: exit {info.returncode}\n{info.stdout}"
+                           f"\n{info.stderr[-3000:]}")
+    print(f"[analytics] cli info: {' / '.join(lines)}")
+
+
+def _dirty(n: int) -> None:
+    """Fill the allocator's free block of ``n`` floats with NaN, so that
+    a value a kernel does not write shows."""
+    junk = torch.full((n,), float("nan"), device="cuda")
+    del junk
+
+
+def _tc_bound(dag) -> tuple[float, str, int]:
+    """The least time the card could take for one count, in ms, what bounds
+    it, and the bytes: the DAG's row pointers and ids and the counted edge
+    list read once, the total written once; against the compares the binary
+    searches of these edges need (for each edge, the shorter row's length
+    times the steps of a search of the longer: the data's count), over the
+    float32 rate (int32 at that rate too: the card's int32 rate is not in
+    the data sheet)."""
+    rp = dag.row_ptr.long()
+    deg = rp[1:] - rp[:-1]
+    a, b = deg[dag.src.long()], deg[dag.dst.long()]
+    steps = torch.ceil(torch.log2(torch.maximum(a, b).double() + 1))
+    ops = float((torch.minimum(a, b).double() * steps).sum())
+    nbytes = 4 * (dag.nv + 1) + 4 * dag.ne + 8 * dag.src.numel() + 8
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_ops = ops / F32_FLOP_PER_S * 1e3
+    return (max(by_bytes, by_ops),
+            "bytes" if by_bytes >= by_ops else "operations", nbytes)
+
+
+def _scipy_triangles(g) -> int:
+    """Triangles of an undirected graph from its degree-ordered DAG's
+    adjacency L: (L @ L) .* L summed, exact in int64."""
+    from scipy.sparse import csr_matrix
+
+    dag = orientation(g)
+    lo = csr_matrix((np.ones(dag.ne, np.int64), dag.col_idx, dag.row_ptr),
+                    shape=(dag.nv, dag.nv))
+    return int((lo @ lo).multiply(lo).sum())
+
+
+def phase_tc(g) -> dict:
+    """K9 against its plain version at the analytics size (timed beside its
+    bound) and at rmat13 behind the dirtied allocator; then
+    triangle_count, every count set to 0 just before it, held to scipy's
+    count (and to the known total at rmat(19, 16, seed=0)), one cold solve
+    (orientation, sorting, the device layout) and warm ones. Returns K9's
+    entry data."""
+    t0 = time.perf_counter()
+    want = _scipy_triangles(g)
+    print(f"[analytics] scipy counts {want} triangles in "
           f"{time.perf_counter() - t0:.2f} s")
+    if ANALYTICS_SCALE == 19 and want != TC_RMAT19:
+        raise RuntimeError(f"[analytics] scipy counts {want} triangles on "
+                           f"rmat(19, 16), not {TC_RMAT19}")
+    TCM._TC_CACHE.clear()
+    _zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    n = TCM.triangle_count(g, device="cuda")
+    cold = time.perf_counter() - t0
+    launches = _counts()
+    _assert_counts("[analytics] triangle_count", launches, {"tc_count": 1})
+    if n != want:
+        raise RuntimeError(f"[analytics] triangle_count {n}, scipy {want}")
+    warm = _solve_seconds(lambda: TCM.triangle_count(g, device="cuda"))
+    dag = TCM._tc_device_state(g, "cuda")
+    got = K9.tc_count(dag)
+    plain = K9.tc_count_plain(dag)
+    if int(got) != int(plain):
+        raise RuntimeError(f"[analytics] tc_count {int(got)}, plain "
+                           f"{int(plain)}")
+    small = rmat(PULL_DIRTY_SCALE, EDGE_FACTOR, seed=0)
+    sdag = TCM._tc_device_state(small, "cuda")
+    _dirty(2)             # the block the kernel's 8-byte total comes from
+    got_s, plain_s = int(K9.tc_count(sdag)), int(K9.tc_count_plain(sdag))
+    if got_s != plain_s or got_s != _scipy_triangles(small):
+        raise RuntimeError(f"[analytics] rmat{PULL_DIRTY_SCALE}: tc_count "
+                           f"{got_s}, plain {plain_s}")
+    bound_ms, bound_by, nbytes = _tc_bound(dag)
+    ms = _batch_ms(lambda: K9.tc_count(dag))
+    info = {
+        "triangles": n, "scipy": want, "launches_per_solve":
+        launches["tc_count"], "cold_s": cold, "warm_s_per_solve": warm,
+        "dag_edges": dag.ne, "counted_edges": int(dag.src.numel()),
+        "group_start": list(dag.group_start), "ms": ms,
+        "device_ms": _kernel_device_ms(lambda: K9.tc_count(dag),
+                                       "tc_count_kernel"),
+        "plain_ms": _batch_ms(lambda: K9.tc_count_plain(dag), calls=1,
+                              batches=3),
+        "bound_ms": bound_ms, "bound_by": bound_by, "bound_bytes": nbytes,
+        "share_of_bound": bound_ms / ms, f"rmat{PULL_DIRTY_SCALE}": got_s}
+    print(f"[analytics] tc_count {json.dumps(info)}")
+    return dict(info, launches=launches["tc_count"], max_abs_err=0)
 
 
-def phase_analytics() -> dict:
-    """K8 and the analytics solvers. Returns K8's entry data: its timed
-    cases, its largest error and the launches of the solvers' path."""
+def _hindex_bound(layout, core) -> tuple[float, str, int]:
+    """The least time the card could take for one sweep, in ms, what bounds
+    it, and the bytes: row pointers, ids, the row order and core read once,
+    the new values and the count written once; against a compare a slot
+    for each step of the row's search on [0, min(deg, core)] (the data's
+    count), over the float32 rate (int32 at that rate too)."""
+    rp = layout.row_ptr.long()
+    deg = rp[1:] - rp[:-1]
+    steps = torch.ceil(torch.log2(torch.minimum(deg, core.long()).double()
+                                  + 1))
+    ops = float((deg.double() * steps).sum())
+    nbytes = 4 * (layout.nv + 1) + 4 * layout.ne + 12 * layout.nv + 4
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_ops = ops / F32_FLOP_PER_S * 1e3
+    return (max(by_bytes, by_ops),
+            "bytes" if by_bytes >= by_ops else "operations", nbytes)
+
+
+def _hindex_compare(layout, core, what: str) -> None:
+    new, changed = K10.hindex_sweep(layout, core)
+    want, want_changed = K10.hindex_sweep_plain(layout, core)
+    torch.cuda.synchronize()
+    if not torch.equal(new, want) or int(changed) != int(want_changed):
+        raise RuntimeError(f"[analytics] {what}: hindex_sweep differs from "
+                           f"plain in {int((new != want).sum())} rows, "
+                           f"changed {int(changed)} against "
+                           f"{int(want_changed)}")
+
+
+class _hsweeps:
+    """While active, counts k_core_hindex's sweeps."""
+
+    def __enter__(self):
+        self.n = 0
+        self.saved = KCM._hindex_sweep
+
+        def counted(core, layout):
+            self.n += 1
+            return self.saved(core, layout)
+
+        KCM._hindex_sweep = counted
+        return self
+
+    def __exit__(self, *exc):
+        KCM._hindex_sweep = self.saved
+
+
+def phase_kcore(g, dg) -> dict:
+    """K10 against its plain version on one sweep from the degrees at the
+    analytics size (timed beside its bound) and at rmat13 behind the
+    dirtied allocator; then k_core_hindex and k_core_peel, every count set
+    to 0 just before each, held to the serial oracle exactly. Returns
+    K10's entry data."""
+    t0 = time.perf_counter()
+    want = verifiers.kcore_serial(g)
+    print(f"[analytics] kcore_serial in {time.perf_counter() - t0:.2f} s: "
+          f"max coreness {want.max()}")
+    layout = KCM.hindex_state(g, device="cuda", with_plain=True)
+    deg = dg.deg.clone()
+    _hindex_compare(layout, deg, f"rmat{ANALYTICS_SCALE}")
+    small = rmat(PULL_DIRTY_SCALE, EDGE_FACTOR, seed=0)
+    slay = KCM.hindex_state(small, device="cuda", with_plain=True)
+    score = torch.from_numpy(small.degrees().astype(np.int32)).cuda()
+    _dirty(small.nv)      # the block the sweep's output comes from
+    _hindex_compare(slay, score, f"rmat{PULL_DIRTY_SCALE}")
+    print(f"[analytics] hindex_sweep from the degrees equals plain at "
+          f"rmat{ANALYTICS_SCALE} (classes {list(layout.class_start)}, widest "
+          f"hub {layout.hub_width}) and at rmat{PULL_DIRTY_SCALE} behind a "
+          f"NaN-dirtied allocator")
+    _zero_counts()
+    with _hsweeps() as sw:
+        core = KCM.k_core_hindex(g, device="cuda")
+        torch.cuda.synchronize()
+    launches = _counts()
+    _assert_counts("[analytics] k_core_hindex", launches,
+                   {"hindex_sweep": sw.n})
+    _exact(core.cpu().numpy(), want, "k_core_hindex")
+    info = {"solver": "k_core_hindex", "sweeps": sw.n,
+            "launches": launches["hindex_sweep"],
+            "s_per_solve": _solve_seconds(
+                lambda: KCM.k_core_hindex(g, device="cuda")),
+            "s_per_solve_prebuilt_layout": _solve_seconds(
+                lambda: KCM.k_core_hindex(g, layout=layout))}
+    _zero_counts()
+    with _sweeps() as pw:
+        peel = KCM.k_core_peel(dg)
+        torch.cuda.synchronize()
+    counts = _counts()
+    _assert_counts("[analytics] k_core_peel", counts,
+                   {"neighbor_reduce": pw.n})
+    _exact(peel.cpu().numpy(), want, "k_core_peel")
+    peel_s = _solve_seconds(lambda: KCM.k_core_peel(dg), solves=1)
+    bound_ms, bound_by, nbytes = _hindex_bound(layout, deg)
+    ms = _batch_ms(lambda: K10.hindex_sweep(layout, deg))
+    info.update(
+        max_coreness=int(want.max()), peel_neighbor_reduce=pw.n,
+        peel_s=peel_s, ms=ms,
+        device_ms=_kernel_device_ms(lambda: K10.hindex_sweep(layout, deg),
+                                    "hindex_", per_call=True),
+        plain_ms=_batch_ms(lambda: K10.hindex_sweep_plain(layout, deg),
+                           calls=1, batches=3),
+        bound_ms=bound_ms, bound_by=bound_by, bound_bytes=nbytes,
+        share_of_bound=bound_ms / ms)
+    print(f"[analytics] k-core {json.dumps(info)}")
+    return dict(info, max_abs_err=0)
+
+
+def _brandes_f64(g, source: int) -> tuple[np.ndarray, int]:
+    """Level-synchronous Brandes in float64 with scipy on a symmetric
+    graph: path counts by frontier SpMVs, dependencies level by level
+    back. Returns (delta, levels)."""
+    a = _scipy_csr(g)
+    nv = g.nv
+    dist = np.full(nv, -1, np.int64)
+    dist[source] = 0
+    sigma = np.zeros(nv)
+    sigma[source] = 1.0
+    frontier = dist == 0
+    lvl = 0
+    while frontier.any():
+        reach = a @ np.where(frontier, sigma, 0.0)
+        frontier = (reach > 0) & (dist < 0)
+        sigma[frontier] = reach[frontier]
+        dist[frontier] = lvl + 1
+        lvl += 1
+    delta = np.zeros(nv)
+    for k in range(lvl - 1, 0, -1):
+        on = (dist == k) & (sigma > 0)
+        acc = a @ np.where(on, (1.0 + delta) / np.where(on, sigma, 1.0), 0.0)
+        delta += np.where(dist == k - 1, sigma * acc, 0.0)
+    delta[source] = 0.0
+    return delta, lvl - 1
+
+
+def _bc_close(got: np.ndarray, want: np.ndarray, what: str) -> float:
+    err = float(np.abs(got - want).max())
+    if not np.allclose(got, want, rtol=BC_RTOL, atol=BC_ATOL):
+        raise RuntimeError(f"[analytics] {what}: max |diff| {err} beyond "
+                           f"rtol {BC_RTOL}, atol {BC_ATOL}")
+    return err
+
+
+def phase_bc(g, dg) -> dict:
+    """bc_single_source from vertex 0 at the analytics size, every count
+    set to 0 just before it, held to a float64 Brandes written with scipy,
+    with its levels and neighbor_reduce launches (one a level, forward and
+    back); at rmat13 held to the serial oracle."""
+    ref, levels = _brandes_f64(g, 0)
+    _zero_counts()
+    with _sweeps() as sw:
+        got = BCM.bc_single_source(dg, 0)
+        torch.cuda.synchronize()
+    counts = _counts()
+    _assert_counts("[analytics] bc_single_source", counts,
+                   {"neighbor_reduce": sw.n})
+    # forward: a sweep a level and one that finds nothing; back: one a level
+    # below the deepest
+    if sw.n != 2 * levels + 1:
+        raise RuntimeError(f"[analytics] bc_single_source: {sw.n} sweeps for "
+                           f"{levels} levels")
+    err = _bc_close(got.cpu().numpy(), ref, f"bc rmat{ANALYTICS_SCALE}")
+    small = rmat(PULL_DIRTY_SCALE, EDGE_FACTOR, seed=0)
+    sdg = to_device_graph(small, device="cuda", with_transpose=False)
+    err_s = _bc_close(BCM.bc_single_source(sdg, 0).cpu().numpy(),
+                      verifiers.bc_serial(small, [0]),
+                      f"bc rmat{PULL_DIRTY_SCALE} against bc_serial")
+    info = {"solver": "bc_single_source", "levels": levels, "sweeps": sw.n,
+            "launches": counts["neighbor_reduce"], "max_abs_err": err,
+            f"rmat{PULL_DIRTY_SCALE}_max_abs_err": err_s,
+            "s_per_solve": _solve_seconds(
+                lambda: BCM.bc_single_source(dg, 0))}
+    print(f"[analytics] {json.dumps(info)}")
+    return info
+
+
+def phase_analytics() -> tuple[dict, dict, dict]:
+    """K8, K9, K10 and the analytics solvers. Returns the kernels' entry
+    data: K8's timed cases, its largest error and the launches of the pull
+    solvers' path; K9's and K10's from their phases."""
     t0 = time.perf_counter()
     g = rmat(ANALYTICS_SCALE, EDGE_FACTOR, seed=0)
     t1 = time.perf_counter()
@@ -1586,10 +1903,13 @@ def phase_analytics() -> dict:
         raise RuntimeError("the analytics graph must be symmetric")
     pull = phase_pull_kernel(dg)
     launches = phase_solvers(g, dg)
+    tc = phase_tc(g)
+    kcore = phase_kcore(g, dg)
+    phase_bc(g, dg)
     phase_grid_and_directed()
     phase_analytics_cli()
     print(f"[analytics] phase took {time.perf_counter() - t0:.2f} s")
-    return dict(pull, launches=launches)
+    return dict(pull, launches=launches), tc, kcore
 
 
 def main() -> None:
@@ -1611,7 +1931,7 @@ def main() -> None:
         phase_profile(model.cfg.arch,
                       lambda n, m=model: m.train(n, verbose=False),
                       PROFILED_EPOCHS, phase_epochs(model))
-    pull = phase_analytics()
+    pull, tc, kcore = phase_analytics()
     head = cases[0]
     kernels = [{
         "name": "ell_spmm",
@@ -1679,6 +1999,25 @@ def main() -> None:
         "library_ms": head["library_ms"],
         "cases": pull["cases"],
     })
+    for kname, source, replaces, res in (
+            ("tc_count", "tc_count.cu", TC_REPLACES, tc),
+            ("hindex_sweep", "kcore_hindex.cu", HINDEX_REPLACES, kcore)):
+        kernels.append({
+            "name": kname,
+            "route": "cuda",
+            "source": f"graphaibench_tpu_torch/csrc/{source}",
+            "replaces": replaces,
+            "launches": res["launches"],
+            "max_abs_err": res["max_abs_err"],
+            "ms": res["ms"],
+            "plain_ms": res["plain_ms"],
+            "bound_ms": res["bound_ms"],
+            "bound_by": res["bound_by"],
+            # no one PyTorch call computes a DAG intersection count or an
+            # h-index sweep
+            "library_ms": None,
+            "device_ms": res["device_ms"],
+        })
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

@@ -4,10 +4,12 @@ prints Correct/Wrong like the reference binaries' main.cc.
 
 Counterpart of ``graphaibench_tpu/analytics/``: the pull-mode solvers BFS,
 SSSP, PageRank and CC, whose sweeps run the kernel ``neighbor_reduce``
-(``ops/ell_pull.py``) on a CUDA graph. The other solvers (``tc``,
-``kcore``, ``bc``: ROADMAP P12b; the rest: P15), the compressed-graph
-prefixes (P13a) and ``GAB_SHARDS`` (P14b) are not ported yet: asked for,
-``run_benchmark`` exits with code 2 and names the item.
+(``ops/ell_pull.py``) on a CUDA graph; triangle counting on the kernel
+``tc_count`` (``ops/tc_count.py``); k-core on the kernel ``hindex_sweep``
+(``ops/hindex.py``), or on ``neighbor_reduce`` by peeling; betweenness
+centrality on ``neighbor_reduce``. The other solvers (ROADMAP P15), the
+compressed-graph prefixes (P13a) and ``GAB_SHARDS`` (P14b) are not ported
+yet: asked for, ``run_benchmark`` exits with code 2 and names the item.
 """
 
 from __future__ import annotations
@@ -19,11 +21,21 @@ import time
 import numpy as np
 
 from graphaibench_tpu_torch.analytics import verifiers  # noqa: F401
+from graphaibench_tpu_torch.analytics.bc import (  # noqa: F401
+    bc_single_source,
+    betweenness_centrality,
+)
 from graphaibench_tpu_torch.analytics.cc import (  # noqa: F401
     connected_components,
     connected_components_afforest,
 )
+from graphaibench_tpu_torch.analytics.kcore import (  # noqa: F401
+    k_core,
+    k_core_hindex,
+    k_core_peel,
+)
 from graphaibench_tpu_torch.analytics.pr import pagerank  # noqa: F401
+from graphaibench_tpu_torch.analytics.tc import triangle_count  # noqa: F401
 from graphaibench_tpu_torch.analytics.traversal import (  # noqa: F401
     bfs,
     bfs_frontier,
@@ -32,13 +44,11 @@ from graphaibench_tpu_torch.analytics.traversal import (  # noqa: F401
     sssp_delta_stepping,
 )
 
-PORTED = ("bfs", "sssp", "pr", "cc")
+PORTED = ("tc", "bfs", "sssp", "pr", "cc", "bc", "kcore")
 # the JAX package's other analytics kernels, by the ROADMAP item that ports
 # them
-NOT_PORTED = {
-    **dict.fromkeys(("tc", "bc", "kcore"), "P12b"),
-    **dict.fromkeys(("color", "cf", "motif", "fsm", "embed", "sample"), "P15"),
-}
+NOT_PORTED = dict.fromkeys(
+    ("color", "cf", "motif", "fsm", "embed", "sample"), "P15")
 
 
 def _refuse(msg: str) -> int:
@@ -53,7 +63,7 @@ def run_benchmark(kernel: str, dataset_path: str, args: list[str], *,
     import torch
 
     from graphaibench_tpu_torch.graph.io import load_graph
-    from graphaibench_tpu_torch.graph.transforms import is_symmetric
+    from graphaibench_tpu_torch.graph.transforms import is_symmetric, orientation
     from graphaibench_tpu_torch.ops.device_graph import to_device_graph
 
     if kernel in NOT_PORTED:
@@ -74,13 +84,20 @@ def run_benchmark(kernel: str, dataset_path: str, args: list[str], *,
     # pull-mode frontier kernels (neighbor_reduce over row buckets) assume
     # a structurally symmetric graph; directed inputs keep the scatter push
     # formulation, which stays correct
-    pull_ok = is_symmetric(g)
-    if not pull_ok:
+    pull_ok = kernel != "tc" and is_symmetric(g)
+    if kernel != "tc" and not pull_ok:
         print("directed input: push/scatter kernels (no pull ELL)")
     source = int(args[0]) if args else 0
     t0 = time.perf_counter()
+    ok = None
 
-    if kernel == "bfs":
+    if kernel == "tc":
+        n = triangle_count(g, device=device)
+        dt = time.perf_counter() - t0
+        print(f"total_num_triangles = {n}")
+        if g.ne <= 200_000:
+            ok = n == verifiers.triangle_count_serial(orientation(g))
+    elif kernel == "bfs":
         dg = to_device_graph(g, device=device, with_transpose=False,
                              with_ell=pull_ok)
         dist = bfs(dg, source).cpu().numpy()
@@ -109,7 +126,7 @@ def run_benchmark(kernel: str, dataset_path: str, args: list[str], *,
         print(f"iterations = {iters}")
         ref = verifiers.pagerank_serial(g, g)
         ok = np.allclose(scores, ref, atol=1e-4)
-    else:  # cc
+    elif kernel == "cc":
         if pull_ok:
             # Afforest sampling shortcut (omp_afforest.cc): first-k link
             # rounds + giant-component contraction; symmetric inputs only
@@ -121,7 +138,26 @@ def run_benchmark(kernel: str, dataset_path: str, args: list[str], *,
         dt = time.perf_counter() - t0
         print(f"num_components = {len(np.unique(comp))}")
         ok = np.array_equal(comp, verifiers.cc_serial(g))
+    elif kernel == "bc":
+        dg = to_device_graph(g, device=device, with_transpose=False,
+                             with_ell=pull_ok)
+        scores = bc_single_source(dg, source).cpu().numpy()
+        dt = time.perf_counter() - t0
+        ok = np.allclose(scores, verifiers.bc_serial(g, [source]), rtol=1e-4)
+    else:  # kcore
+        if pull_ok:
+            # the h-index fixpoint
+            core = k_core(None, host=g, device=device).cpu().numpy()
+        else:
+            dg = to_device_graph(g, device=device, with_transpose=False,
+                                 with_ell=False)
+            core = k_core(dg).cpu().numpy()
+        dt = time.perf_counter() - t0
+        print(f"max_coreness = {core.max()}")
+        ok = np.array_equal(core, verifiers.kcore_serial(g))
 
     print(f"runtime = {dt:.4f} sec")
+    if ok is None:      # a triangle count above the serial check's size
+        return 0
     print("Correct" if ok else "Wrong")
     return 0 if ok else 1

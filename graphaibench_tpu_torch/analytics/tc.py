@@ -1,0 +1,61 @@
+"""Triangle counting: DAG orientation + per-edge sorted intersection.
+
+Counterpart of ``graphaibench_tpu/analytics/tc.py``. The reference counts the
+sum over DAG edges (u, v) of |N(u) ∩ N(v)| with AVX/warp merge or galloping
+intersections (src/triangle/omp_base.cc:5-26, intersect.cc,
+bs_warp_edge.cuh). The degree-ordered orientation bounds the out-degree
+(135 on rmat(19, 16)), and the intersections are the kernel K9
+(``ops/tc_count.py``): on a CUDA device one launch a count, a group of
+lanes an edge binary-searching the longer row, the reference's GPU shape.
+
+The DAG goes to the device once and is cached for the next call on the
+same graph. K9 needs sorted rows: a DAG whose rows are not sorted (the
+input's were not) has them sorted on the host first, a step the JAX
+package's compare-all does not need; the count is the same.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from graphaibench_tpu_torch.graph import transforms as T
+from graphaibench_tpu_torch.graph.csr import CSRGraph, from_edges
+from graphaibench_tpu_torch.ops import tc_count as K9
+
+
+def _pack_padded(g: CSRGraph, sentinel: int):
+    """(nv, W) neighbour matrix padded with ``sentinel`` (> any id) and the
+    degrees, in numpy: the plain version's layout (``K9.pack_padded``)."""
+    nbr, deg = K9.pack_padded(torch.from_numpy(np.asarray(g.row_ptr)),
+                              torch.from_numpy(np.asarray(g.col_idx)), sentinel)
+    return nbr.numpy(), deg.numpy()
+
+
+# device-resident TC state of one graph (the reference's analog: the graph
+# is uploaded once per process, graph_gpu.h init). One entry only — TC is
+# typically called repeatedly on one graph. The cached CSRGraph is held
+# strongly and compared by identity: an id()-keyed cache would serve stale
+# state when CPython reuses a freed object's address.
+_TC_CACHE: dict = {}
+
+
+def _tc_device_state(g: CSRGraph, device) -> K9.DagEdges:
+    if _TC_CACHE.get("graph") is g and _TC_CACHE.get("device") == str(device):
+        return _TC_CACHE["state"]
+    dag = T.orientation(g)
+    if not dag.has_sorted_neighbors():
+        src, dst = dag.coo()
+        dag = from_edges(src, dst, dag.nv)
+    state = K9.dag_edges(dag.row_ptr, dag.col_idx, device=device)
+    _TC_CACHE.update(graph=g, device=str(device), state=state)
+    return state
+
+
+def triangle_count(g: CSRGraph, *, device="cuda") -> int:
+    """Exact triangle count of an undirected graph (golden values in
+    src/triangle/README.md:50-63, e.g. citeseer = 1166), counted on
+    ``device``. The total is a Python int."""
+    if g.ne == 0:
+        return 0
+    return int(K9.tc_count(_tc_device_state(g, device)))

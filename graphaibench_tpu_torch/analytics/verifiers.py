@@ -4,8 +4,7 @@ src/link_analysis/verifier.cc, ...) as reusable functions for both pytest
 and the CLI's Correct/Wrong print.
 
 The port's own copy of ``graphaibench_tpu/analytics/verifiers.py`` (same
-names, same results), without ``kcore_serial``, which comes with the k-core
-solver (ROADMAP P12b).
+names, same results).
 """
 
 from __future__ import annotations
@@ -139,3 +138,9 @@ def cf_rmse(g: CSRGraph, ratings: np.ndarray, latents: np.ndarray) -> float:
     src, dst = g.coo()
     est = np.einsum("ek,ek->e", latents[src], latents[dst])
     return float(np.sqrt(np.sum((ratings - est) ** 2) / g.ne))
+
+
+def kcore_serial(g: CSRGraph) -> np.ndarray:
+    from graphaibench_tpu_torch.graph.transforms import k_core_decomposition
+
+    return k_core_decomposition(g)

@@ -13,11 +13,17 @@ and ``--profile=DIR`` (a torch.profiler Chrome trace of the whole run in
 ``DIR/trace.json``). The multi-device routes (``GAB_SHARDS``, ``GAB_DP``)
 are not ported yet: they exit with code 2 and name their ROADMAP item.
 
-``python -m graphaibench_tpu_torch.cli analytics bfs|sssp|pr|cc <dataset>
-[source] [--device=cuda|cpu]`` runs the JAX CLI's ``analytics`` route for
-the pull-mode solvers (``analytics.run_benchmark``), with the same default
-device and no fallback; the other analytics kernels, compressed-graph
-prefixes and ``GAB_SHARDS`` exit with code 2 and name their ROADMAP item.
+``python -m graphaibench_tpu_torch.cli analytics
+tc|bfs|sssp|pr|cc|bc|kcore <dataset> [source] [--device=cuda|cpu]`` runs the
+JAX CLI's ``analytics`` route for those solvers (``analytics.run_benchmark``),
+with the same default device and no fallback; the other analytics kernels,
+compressed-graph prefixes and ``GAB_SHARDS`` exit with code 2 and name their
+ROADMAP item.
+
+``python -m graphaibench_tpu_torch.cli info <dataset>`` prints the JAX
+CLI's ``info`` lines (sizes, degrees, labels, mask ranges, a pow2 degree
+histogram) on the host; a compressed-graph prefix exits with code 2 and
+names its ROADMAP item.
 
 Dataset resolution: an existing directory (or compressed-graph prefix) is
 used directly; otherwise ``$DATASET_PATH/<name>`` (configs.h:5).
@@ -47,8 +53,8 @@ def resolve_dataset(name: str) -> str:
     raise SystemExit(f"dataset '{name}' not found (set DATASET_PATH)")
 
 
-ANALYTICS_USAGE = ("usage: analytics bfs|sssp|pr|cc <dataset> [source=0] "
-                   "[--device=cuda|cpu]")
+ANALYTICS_USAGE = ("usage: analytics tc|bfs|sssp|pr|cc|bc|kcore <dataset> "
+                   "[source=0] [--device=cuda|cpu]")
 
 
 def _refuse(msg: str) -> int:
@@ -170,11 +176,51 @@ def cmd_analytics(argv: list[str]) -> int:
                          device=device)
 
 
+def cmd_info(argv: list[str]) -> int:
+    """<dataset> — print meta + degree stats (query_graph_info analog)."""
+    if not argv:
+        print("usage: info <dataset>")
+        return 2
+    import numpy as np
+
+    from graphaibench_tpu_torch.graph.io import load_graph, read_meta
+
+    path = resolve_dataset(argv[0])
+    if os.path.exists(path + ".meta.json"):
+        return _refuse("compressed-graph prefixes are not ported yet "
+                       "(ROADMAP queue 1, P13a)")
+    meta = read_meta(path)
+    g = load_graph(path, with_vlabels=True, mmap=True)
+    deg = g.degrees()
+    print(f"|V| {g.nv} |E| {g.ne}")
+    print(f"max_degree {deg.max()}  avg_degree {deg.mean():.2f}  "
+          f"min_degree {deg.min()}")
+    if g.is_bipartite():
+        print(f"bipartite: {g.n_left} x {g.n_right}")
+    if meta.feat_len:
+        print(f"feat_len {meta.feat_len}")
+    if meta.num_vertex_classes:
+        print(f"vertex classes {meta.num_vertex_classes}")
+    if g.vlabels is not None:
+        print(f"vlabels present ({len(np.unique(np.asarray(g.vlabels)))} "
+              f"distinct)")
+    for name, rng in (("train", meta.train), ("val", meta.val),
+                      ("test", meta.test)):
+        if rng:
+            print(f"{name}_range [{rng[0]}, {rng[1]}) count {rng[2]}")
+    # short degree histogram (pow2 bins, GraphT::degree_histogram)
+    bins = np.bincount(np.ceil(np.log2(np.maximum(deg, 1) + 1)).astype(int))
+    hist = " ".join(f"2^{i}:{c}" for i, c in enumerate(bins) if c)
+    print(f"degree histogram {hist}")
+    return 0
+
+
 def main() -> int:
-    commands = {"train": cmd_train, "analytics": cmd_analytics}
+    commands = {"train": cmd_train, "analytics": cmd_analytics,
+                "info": cmd_info}
     if len(sys.argv) < 2 or sys.argv[1] not in commands:
-        print("usage: graphaibench_tpu_torch.cli train|analytics ... "
-              "(compress, partition and info: ROADMAP queue 1)")
+        print("usage: graphaibench_tpu_torch.cli train|analytics|info ... "
+              "(compress and partition: ROADMAP queue 1)")
         return 2
     return commands[sys.argv[1]](sys.argv[2:])
 

@@ -8,6 +8,7 @@ a mutating method of the reference graph classes but returns a fresh
   add_selfloop        — lgraph.h:185-218
   symmetrize          — graph.cc:397 (Converter symmetrization)
   is_symmetric        — the gate of the pull-mode analytics solvers
+  orientation         — graph.cc:615-700 (degree-ordered DAG)
   reverse             — graph.cc:511-560 (incoming-edge graph)
   sort_and_clean      — graph.cc:237-280 (sort, dedup, strip selfloops)
   gcn_vertex_norms    — lgraph.cpp:22-34 (1/sqrt(deg))
@@ -15,9 +16,11 @@ a mutating method of the reference graph classes but returns a fresh
   sage_edge_norms     — sage_aggregator.cpp:14-28 (1/deg)
   masked_subgraph     — lgraph.h:231-272 (inductive training graph)
   induced_subgraph    — sampler.cpp:69-95 (GraphSAINT reindexing)
+  degree_histogram    — graph.cc:587
+  k_core_decomposition — graph.cc:1126 (serial peeling, k-core's oracle)
 
-The reorderings and the orientation of the JAX package's module come with
-the slices that need them (ROADMAP P12b, P15).
+The reorderings of the JAX package's module come with the slice that needs
+them (ROADMAP P15).
 """
 
 from __future__ import annotations
@@ -58,6 +61,21 @@ def is_symmetric(g: CSRGraph) -> bool:
     fwd = src.astype(np.int64) * g.nv + dst
     rev = dst.astype(np.int64) * g.nv + src
     return np.array_equal(np.sort(fwd), np.sort(rev))
+
+
+def orientation(g: CSRGraph) -> CSRGraph:
+    """Degree-ordered DAG orientation: keep edge (u, v) iff
+    deg(v) > deg(u) or (deg(v) == deg(u) and v > u) — graph.cc:628-631.
+    Halves the edges of an undirected graph. Rows keep their input order
+    on both routes (native at 2^18 edges and more, numpy below)."""
+    if g.ne >= 1 << 18:
+        res = native.orientation(g.row_ptr, g.col_idx)
+        if res is not None:
+            return CSRGraph(row_ptr=res[0], col_idx=res[1])
+    deg = g.degrees()
+    src, dst = g.coo()
+    keep = (deg[dst] > deg[src]) | ((deg[dst] == deg[src]) & (dst > src))
+    return from_edges(src[keep], dst[keep], g.nv, sort_neighbors=False)
 
 
 def reverse(g: CSRGraph) -> CSRGraph:
@@ -144,3 +162,33 @@ def sage_edge_norms(g: CSRGraph) -> np.ndarray:
         w = 1.0 / deg[src]
     w[~np.isfinite(w)] = 0.0
     return w.astype(np.float32)
+
+
+def degree_histogram(g: CSRGraph, num_bins: int = 0) -> np.ndarray:
+    """Degree histogram (graph.cc:587)."""
+    deg = g.degrees()
+    return np.bincount(deg, minlength=num_bins)
+
+
+def k_core_decomposition(g: CSRGraph) -> np.ndarray:
+    """Coreness of every vertex via iterative peeling (serial oracle,
+    graph.cc:1126 / src/coreness)."""
+    deg = g.degrees().astype(np.int64)
+    core = np.zeros(g.nv, dtype=np.int32)
+    alive = np.ones(g.nv, dtype=bool)
+    k = 0
+    n_alive = g.nv
+    while n_alive > 0:
+        while True:
+            peel = alive & (deg <= k)
+            if not peel.any():
+                break
+            for v in np.nonzero(peel)[0]:
+                alive[v] = False
+                core[v] = k
+                n_alive -= 1
+                nbrs = g.neighbors(v)
+                live_nbrs = nbrs[alive[nbrs]]
+                np.subtract.at(deg, live_nbrs, 1)
+        k += 1
+    return core

@@ -1,8 +1,9 @@
 """Native (C++) host kernels with build-on-first-use ctypes bindings.
 
 Counterpart of ``graphaibench_tpu/native``: the host-side hot loops that
-feed the device path (CSR building, the stable key sort behind the
-transpose permutation, ELL packing, the GraphSAINT frontier sampler). The port keeps its own copy of the
+feed the device path (CSR building, the DAG orientation of triangle
+counting, the stable key sort behind the transpose permutation, ELL
+packing, the GraphSAINT frontier sampler). The port keeps its own copy of the
 source (``src/gab_native.cpp``) and compiles it once with ``g++`` into
 ``build/native/`` of the checkout, keyed by a hash of the source. Every
 wrapper returns ``None`` when there is no toolchain, and its caller then
@@ -66,6 +67,11 @@ def get_lib():
     lib.build_csr.restype = ctypes.c_int
     lib.build_csr.argtypes = [i64, p_i64, p_i64, i64, p_i64, p_i32, ctypes.c_int]
 
+    lib.orient_count.restype = i64
+    lib.orient_count.argtypes = [i64, p_i64, p_i32, p_i64]
+    lib.orient_fill.restype = None
+    lib.orient_fill.argtypes = [i64, p_i64, p_i32, p_i64, p_i32]
+
     lib.stable_key_sort.restype = ctypes.c_int
     lib.stable_key_sort.argtypes = [i64, p_i32, i64, p_i32]
 
@@ -101,6 +107,22 @@ def build_csr(src: np.ndarray, dst: np.ndarray, nv: int, *,
     col_idx = np.zeros(len(src), dtype=np.int32)
     lib.build_csr(len(src), src, dst, nv, row_ptr, col_idx, int(sort_neighbors))
     return row_ptr, col_idx
+
+
+def orientation(row_ptr: np.ndarray, col_idx: np.ndarray):
+    """The degree-ordered DAG of a CSR graph as (row_ptr int64, col_idx
+    int32), rows in their input order, or None without the toolchain."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    row_ptr = np.ascontiguousarray(row_ptr, np.int64)
+    col_idx = np.ascontiguousarray(col_idx, np.int32)
+    nv = len(row_ptr) - 1
+    new_rp = np.zeros(nv + 1, dtype=np.int64)
+    ne = lib.orient_count(nv, row_ptr, col_idx, new_rp)
+    new_ci = np.zeros(ne, dtype=np.int32)
+    lib.orient_fill(nv, row_ptr, col_idx, new_rp, new_ci)
+    return new_rp, new_ci
 
 
 def stable_key_sort(keys: np.ndarray, nkeys: int):

@@ -5,6 +5,7 @@
 // which these functions are taken unchanged so that both packages build
 // bit-equal graphs:
 //   * CSR construction from edge lists (counting sort)
+//   * degree-ordered DAG orientation (triangle counting)
 //   * stable counting sort by key (the transpose-edge permutation)
 //   * degree-bucketed ELL packing
 //   * the GraphSAINT frontier sampler
@@ -41,6 +42,44 @@ int build_csr(int64_t ne, const int64_t* src, const int64_t* dst,
       std::sort(col_idx + row_ptr[v], col_idx + row_ptr[v + 1]);
   }
   return 0;
+}
+
+// ---------------------------------------------------------------------
+// DAG orientation (graph.cc:615-700 semantics): keep (u,v) iff
+// deg(v) > deg(u) or (== and v > u). Two-pass: count then fill.
+int64_t orient_count(int64_t nv, const int64_t* row_ptr, const int32_t* col_idx,
+                     int64_t* new_row_ptr /*nv+1*/) {
+  std::vector<int64_t> deg(nv);
+#pragma omp parallel for
+  for (int64_t v = 0; v < nv; v++) deg[v] = row_ptr[v + 1] - row_ptr[v];
+  std::vector<int64_t> nd(nv, 0);
+#pragma omp parallel for schedule(dynamic, 64)
+  for (int64_t u = 0; u < nv; u++) {
+    int64_t c = 0;
+    for (int64_t e = row_ptr[u]; e < row_ptr[u + 1]; e++) {
+      int64_t v = col_idx[e];
+      if (deg[v] > deg[u] || (deg[v] == deg[u] && v > u)) c++;
+    }
+    nd[u] = c;
+  }
+  new_row_ptr[0] = 0;
+  for (int64_t v = 0; v < nv; v++) new_row_ptr[v + 1] = new_row_ptr[v] + nd[v];
+  return new_row_ptr[nv];
+}
+
+void orient_fill(int64_t nv, const int64_t* row_ptr, const int32_t* col_idx,
+                 const int64_t* new_row_ptr, int32_t* new_col_idx) {
+  std::vector<int64_t> deg(nv);
+#pragma omp parallel for
+  for (int64_t v = 0; v < nv; v++) deg[v] = row_ptr[v + 1] - row_ptr[v];
+#pragma omp parallel for schedule(dynamic, 64)
+  for (int64_t u = 0; u < nv; u++) {
+    int64_t w = new_row_ptr[u];
+    for (int64_t e = row_ptr[u]; e < row_ptr[u + 1]; e++) {
+      int64_t v = col_idx[e];
+      if (deg[v] > deg[u] || (deg[v] == deg[u] && v > u)) new_col_idx[w++] = (int32_t)v;
+    }
+  }
 }
 
 // ---------------------------------------------------------------------

@@ -25,7 +25,8 @@ from pathlib import Path
 import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("ell_spmm.cu", "fused_gat.cu", "ell_edge.cu", "ell_pull.cu")
+SOURCES = ("ell_spmm.cu", "fused_gat.cu", "ell_edge.cu", "ell_pull.cu",
+           "tc_count.cu", "kcore_hindex.cu")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 # No --use_fast_math: it flushes subnormals to zero and swaps expf for
 # __expf; the GAT passes rely on a normal 1e-30 floor and on expf.
@@ -63,6 +64,16 @@ _SIGNATURES = {
         # dtype, device, stream
         "gab_neighbor_reduce": _GAT_TABLE + [_vp, _vpp, _vp, _vp, _int, _int,
                                              _int, _vp],
+    },
+    "tc_count": {
+        # row_ptr, col_idx, src, dst, group_start (host), total, device,
+        # stream
+        "gab_tc_count": [_vp] * 4 + [_i64p, _vp, _int, _vp],
+    },
+    "kcore_hindex": {
+        # row_ptr, col_idx, core, rows, class_start (host), hub_width, out,
+        # changed, device, stream
+        "gab_hindex_sweep": [_vp] * 4 + [_i64p, _i64, _vp, _vp, _int, _vp],
     },
 }
 

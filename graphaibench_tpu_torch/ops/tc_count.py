@@ -1,0 +1,166 @@
+"""The DAG intersection count of triangle counting: the hand-written CUDA
+kernel K9 (``csrc/tc_count.cu``) with its plain PyTorch version.
+
+Counterpart of ``graphaibench_tpu/analytics/tc.py::_count_group``, an XLA
+program of the JAX package:
+
+    total = sum over the DAG edges (u, v) of |N+(u) ∩ N+(v)|
+
+over the degree-ordered DAG of an undirected graph (each triangle once),
+an id repeated in a row counted with its multiplicity, as compare-all
+counts it.
+
+``dag_edges`` moves a DAG to the device once, in the layout the kernel
+reads: the CSR (rows sorted, which the caller ensures) and the edges whose
+rows are both non-empty, ordered by the lane group that takes them (4, 8,
+16 or 32 lanes an edge, by the shorter row's length). ``tc_count`` takes
+the plain version for tensors on the CPU and launches the kernel, once per
+call, for tensors on a CUDA device, or raises; ``LAUNCHES`` counts the
+launches. Both return the total as a 0-d int64 tensor on the DAG's device.
+The plain version is the JAX package's compare-all over a sentinel-padded
+neighbour matrix (``pack_padded``), edges grouped by the pow2 out-degree of
+their source, in chunks of a bounded number of compares.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+
+import numpy as np
+import torch
+
+from graphaibench_tpu_torch import native
+from graphaibench_tpu_torch.ops import _build
+from graphaibench_tpu_torch.ops._ell_launch import _launch_tail, _raise_on
+
+LAUNCHES = {"tc_count": 0}
+
+# The kernel's lane groups: an edge whose shorter row has at most
+# GROUP_WIDTHS[g] ids takes 4 << g lanes (the last group every longer row).
+GROUP_WIDTHS = (4, 8, 16)
+PLAIN_COMPARES = 1 << 25      # compares of one chunk of the plain version
+
+
+@dataclasses.dataclass(frozen=True)
+class DagEdges:
+    """A DAG on the device, as K9 reads it."""
+
+    row_ptr: torch.Tensor      # (nv + 1,) int32
+    col_idx: torch.Tensor      # (ne,) int32, rows sorted ascending
+    src: torch.Tensor          # (P,) int32 — the edges to count, by group
+    dst: torch.Tensor          # (P,) int32
+    group_start: tuple         # 5 ints: group g is [group_start[g], [g + 1])
+    nv: int
+    ne: int
+
+
+def dag_edges(row_ptr: np.ndarray, col_idx: np.ndarray, *, device) -> DagEdges:
+    """The kernel's layout of a host DAG (CSR with sorted rows): its edges
+    with both rows non-empty (the others close no triangle), ordered
+    stably by lane group."""
+    row_ptr = np.asarray(row_ptr, np.int64)
+    col_idx = np.asarray(col_idx, np.int32)
+    nv, ne = len(row_ptr) - 1, len(col_idx)
+    if ne >= 2**31:
+        raise ValueError("the DAG's edge count must fit int32")
+    deg = np.diff(row_ptr)
+    src = np.repeat(np.arange(nv, dtype=np.int32), deg)
+    shorter = np.minimum(deg[src], deg[col_idx])
+    keep = shorter > 0
+    src, dst = src[keep], col_idx[keep]
+    group = np.searchsorted(np.asarray(GROUP_WIDTHS), shorter[keep],
+                            side="left").astype(np.int32)
+    order = native.stable_key_sort(group, len(GROUP_WIDTHS) + 1)
+    if order is None:
+        order = np.argsort(group, kind="stable")
+    counts = np.bincount(group, minlength=len(GROUP_WIDTHS) + 1)
+    start = np.concatenate([[0], np.cumsum(counts)])
+
+    def to(a):
+        return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(device)
+
+    return DagEdges(row_ptr=to(row_ptr), col_idx=to(col_idx),
+                    src=to(src[order]), dst=to(dst[order]),
+                    group_start=tuple(int(s) for s in start), nv=nv, ne=ne)
+
+
+# ---- plain PyTorch version -------------------------------------------------
+
+def pack_padded(row_ptr: torch.Tensor, col_idx: torch.Tensor,
+                sentinel: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """(nv, W) int32 neighbour matrix padded with ``sentinel`` (> any id),
+    W the largest degree (at least 1), and the (nv,) int64 degrees."""
+    rp = row_ptr.long()
+    deg = rp[1:] - rp[:-1]
+    width = max(int(deg.max()) if deg.numel() else 0, 1)
+    offs = torch.arange(width, device=rp.device)[None, :]
+    in_row = offs < deg[:, None]
+    nbr = torch.full(in_row.shape, sentinel, dtype=torch.int32,
+                     device=rp.device)
+    if col_idx.numel():
+        pos = torch.where(in_row, rp[:-1, None] + offs, 0)
+        nbr = torch.where(in_row, col_idx[pos], nbr)
+    return nbr, deg
+
+
+def count_group_plain(nbr: torch.Tensor, src_c: torch.Tensor,
+                      dst_c: torch.Tensor, valid_c: torch.Tensor,
+                      wa: int) -> torch.Tensor:
+    """The JAX package's ``_count_group``: over a chunk of DAG edges whose
+    sources have out-degree <= ``wa``, the sum of |N(src) ∩ N(dst)| by
+    compare-all, the invalid edges of the chunk left out. Returns a 0-d
+    int64 tensor."""
+    a = nbr[src_c.long()][:, :wa]
+    b = nbr[dst_c.long()]
+    sent = nbr.shape[0]           # real ids are < nv; the sentinel is not
+    eq = (a[:, :, None] == b[:, None, :]) & (a < sent)[:, :, None]
+    return (eq & valid_c[:, None, None]).sum()
+
+
+def tc_count_plain(dag: DagEdges) -> torch.Tensor:
+    """The total by compare-all, edges grouped by the pow2 out-degree of
+    their source (at least 8), as the JAX package groups them."""
+    total = torch.zeros((), dtype=torch.int64, device=dag.src.device)
+    if dag.src.numel() == 0:
+        return total
+    nbr, deg = pack_padded(dag.row_ptr, dag.col_idx, dag.nv + 1)
+    width = nbr.shape[1]
+    src, dst = dag.src.long(), dag.dst.long()
+    group = torch.ceil(torch.log2(deg[src].clamp(min=8).double())).long()
+    for gid in torch.unique(group).tolist():
+        sel = group == gid
+        s_g, d_g = src[sel], dst[sel]
+        wa = min(1 << gid, width)
+        csize = max(1, PLAIN_COMPARES // (wa * width))
+        for lo in range(0, s_g.numel(), csize):
+            s_c, d_c = s_g[lo:lo + csize], d_g[lo:lo + csize]
+            valid = torch.ones(s_c.numel(), dtype=torch.bool,
+                               device=s_c.device)
+            total += count_group_plain(nbr, s_c, d_c, valid, wa)
+    return total
+
+
+# ---- the kernel's wrapper --------------------------------------------------
+
+def tc_count(dag: DagEdges) -> torch.Tensor:
+    """The DAG's intersection total as a 0-d int64 tensor on its device:
+    the plain version on the CPU, the kernel on a CUDA device."""
+    dev = dag.src.device
+    for t in (dag.row_ptr, dag.col_idx, dag.src, dag.dst):
+        if t.dtype != torch.int32 or not t.is_contiguous() or t.device != dev:
+            raise ValueError("the DAG's arrays must be contiguous int32 on "
+                             "one device")
+    if dev.type == "cpu":
+        return tc_count_plain(dag)
+    if dev.type != "cuda":
+        raise ValueError(f"tc_count runs on cpu or cuda, not {dev}")
+    lib = _build.load_library("tc_count")
+    total = torch.empty((), dtype=torch.int64, device=dev)
+    starts = (ctypes.c_int64 * len(dag.group_start))(*dag.group_start)
+    rc = lib.gab_tc_count(dag.row_ptr.data_ptr(), dag.col_idx.data_ptr(),
+                          dag.src.data_ptr(), dag.dst.data_ptr(), starts,
+                          total.data_ptr(), *_launch_tail(dag.src))
+    _raise_on(rc, lib, "tc_count", f"{dag.src.numel()} edges")
+    LAUNCHES["tc_count"] += 1
+    return total

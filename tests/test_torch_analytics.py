@@ -331,7 +331,8 @@ def test_verifiers_bit_equal(name):
     ratings = np.ones(g.ne, np.float32)
     if g.ne:
         assert TV.cf_rmse(g, ratings, lat) == JV.cf_rmse(jg, ratings, lat)
-    assert not hasattr(TV, "kcore_serial")       # comes with P12b
+    a, b = TV.kcore_serial(g), JV.kcore_serial(jg)
+    assert a.dtype == b.dtype and np.array_equal(a, b)
 
 
 # ---- run_benchmark and the CLI ---------------------------------------------
@@ -365,7 +366,8 @@ def _lines(out: str) -> list[str]:
 
 
 @pytest.mark.parametrize("ds", ["sym", "dir"])
-@pytest.mark.parametrize("kernel", ["bfs", "sssp", "pr", "cc"])
+@pytest.mark.parametrize("kernel", ["bfs", "sssp", "pr", "cc", "tc", "bc",
+                                    "kcore"])
 def test_cli_analytics_prints_what_the_jax_route_prints(datasets, kernel, ds,
                                                        capsys):
     """``cli analytics <k> <dir> 0 --device=cpu``: exit 0 with ``Correct``
@@ -391,7 +393,7 @@ def test_run_benchmark_in_process(datasets, capsys):
 
 
 @pytest.mark.parametrize("case,item", [
-    ("tc", "P12b"), ("kcore", "P12b"), ("bc", "P12b"), ("color", "P15"),
+    ("cf", "P15"), ("motif", "P15"), ("sample", "P15"), ("color", "P15"),
     ("compressed", "P13a"), ("shards", "P14b")])
 def test_unported_routes_exit_2_and_name_their_item(datasets, tmp_path, case,
                                                     item):
@@ -405,6 +407,39 @@ def test_unported_routes_exit_2_and_name_their_item(datasets, tmp_path, case,
     assert r.returncode == 2
     assert item in r.stderr and "ROADMAP" in r.stderr
     assert "Correct" not in r.stdout
+
+
+@pytest.mark.parametrize("ds", ["sym", "dir", "labelled"])
+def test_cli_info_prints_what_the_jax_cli_prints(datasets, ds, tmp_path,
+                                                 capsys):
+    """``cli info <dir>``: the JAX CLI's lines, exit 0; on a dataset with
+    vertex labels, features and mask ranges too."""
+    from graphaibench_tpu import cli as jcli
+
+    path = datasets.get(ds)
+    if ds == "labelled":
+        g = tgen.rmat(8, 6, seed=4)
+        g = tcsr.CSRGraph(row_ptr=g.row_ptr, col_idx=g.col_idx,
+                          vlabels=(np.arange(g.nv) % 5).astype(np.uint8))
+        path = str(tmp_path / "labelled")
+        tio.save_graph(g, path, meta=tio.Meta(
+            nv=g.nv, ne=g.ne, feat_len=12, num_vertex_classes=5,
+            train=(0, 100, 100), val=(100, 150, 50), test=(150, 256, 106)))
+    r = _cli("info", path)
+    assert r.returncode == 0, r.stderr
+    capsys.readouterr()
+    assert jcli.cmd_info([path]) == 0
+    assert r.stdout.splitlines() == capsys.readouterr().out.splitlines()
+    assert r.stdout.startswith("|V| ")
+
+
+def test_cli_info_refuses_a_compressed_prefix(tmp_path):
+    (tmp_path / "packed.meta.json").write_text("{}")
+    r = _cli("info", str(tmp_path / "packed"))
+    assert r.returncode == 2
+    assert "P13a" in r.stderr and "ROADMAP" in r.stderr
+    r = _cli("info")
+    assert r.returncode == 2 and "usage: info" in r.stdout
 
 
 def test_cli_analytics_refusals(datasets):
