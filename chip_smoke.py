@@ -10,13 +10,14 @@ non-zero exit code and no result line:
 
 1. device  — requires a CUDA device; prints the nvidia-smi name and power
              limit line and torch's device name.
-2. build   — compiles the six sources of ``graphaibench_tpu_torch/csrc``
+2. build   — compiles the seven sources of ``graphaibench_tpu_torch/csrc``
              (``ell_spmm.cu``: K1; ``fused_gat.cu``: the five passes of
              the fused GAT attention v2; ``ell_edge.cu``: the three passes
              over per-edge values that v1 runs on; ``ell_pull.cu``: K8,
              ``neighbor_reduce``, the analytics' pull step; ``tc_count.cu``:
              K9, triangle counting's DAG intersection count;
-             ``kcore_hindex.cu``: K10, k-core's h-index sweep) with nvcc,
+             ``kcore_hindex.cu``: K10, k-core's h-index sweep;
+             ``cgr_decode.cu``: K12, the four CGR decode passes) with nvcc,
              side by side, and loads them; prints the build seconds and
              the compiler's register report for each kernel.
 3. kernel  — K1: on rmat(17, 16) with self-loops, for F in {128, 16} and both
@@ -115,7 +116,29 @@ non-zero exit code and no result line:
              bfs|sssp|pr|cc|tc|bc|kcore`` in seven processes on a dataset
              written by the port's save_graph, and ``cli info`` on it.
              Prints its seconds.
-9. result  — a JSON line of the twelve kernels, then the last line
+9. compress — the analytics graph through sort_and_clean, encoded in CGR
+             (zeta_k 2, res_seg_len 256, bit-aligned; then with intervals
+             in 64-bit interval segments) by the native encoder, with the
+             encode seconds, bytes and ratio; with the reference's 32-bit
+             interval segments, whose items outgrow their slots on this
+             graph, the device route must refuse the stream (ValueError)
+             and the host decode it exactly; each stream decoded on the card by cgr_device_prep and
+             cgr_device_run, every count set to 0 just before them, equal to
+             the CSR exactly, with prep and run seconds, decoded edges/s and
+             the K12 launches (2 cgr_gamma and 1 cgr_residual; with
+             intervals 4 cgr_gamma, 1 cgr_interval, 1 cgr_residual, 1
+             cgr_merge). Each K12 kernel against its plain version on the
+             same lanes at rmat19 (timed beside its bound) and at rmat13
+             behind the dirtied allocator. triangle_count of the decoded
+             graph (19,736,616), triangle_count_streaming equal to it (its
+             seconds, blocks, K9 launches and peak memory beside the CSR's
+             bytes), bfs_streaming equal to bfs from vertex 0. Then the CLI
+             on rmat(13, 8): ``compress`` in the four schemes and CGR with
+             ``-a word -p``, ``verify`` and ``decompress`` of each, ``info``
+             on the CGR prefix, ``analytics tc`` and ``bfs`` on it, and
+             ``GAB_TC_STREAM=1 analytics tc``, each Correct on the card, and
+             ``analytics tc`` on the StreamVByte prefix, exit 2.
+10. result — a JSON line of the sixteen kernels, then the last line
              {"ok": true, "device": {...}}.
 """
 
@@ -132,22 +155,30 @@ import time
 import numpy as np
 import torch
 
-from graphaibench_tpu_torch import GnnDataset, rmat
+from graphaibench_tpu_torch import GnnDataset, native, rmat
 from graphaibench_tpu_torch.analytics import bc as BCM
 from graphaibench_tpu_torch.analytics import cc as CCM
 from graphaibench_tpu_torch.analytics import kcore as KCM
 from graphaibench_tpu_torch.analytics import pr as PRM
 from graphaibench_tpu_torch.analytics import tc as TCM
+from graphaibench_tpu_torch.analytics import tc_stream as TS
 from graphaibench_tpu_torch.analytics import traversal as TR
 from graphaibench_tpu_torch.analytics import verifiers
+from graphaibench_tpu_torch.compress import cgr as CGR
+from graphaibench_tpu_torch.compress import cgr_device as CD
 from graphaibench_tpu_torch.graph.generators import grid2d
 from graphaibench_tpu_torch.graph.io import save_graph
-from graphaibench_tpu_torch.graph.transforms import is_symmetric, orientation
+from graphaibench_tpu_torch.graph.transforms import (
+    is_symmetric,
+    orientation,
+    sort_and_clean,
+)
 from graphaibench_tpu_torch.nn import Model, make_config
 from graphaibench_tpu_torch.nn.layers import apply_model
 from graphaibench_tpu_torch.nn.losses import masked_softmax_loss
 from graphaibench_tpu_torch.nn.model import aggregation_weights, prepare_graph
 from graphaibench_tpu_torch.ops import _build
+from graphaibench_tpu_torch.ops import cgr_decode as K12
 from graphaibench_tpu_torch.ops import ell_edge as EE
 from graphaibench_tpu_torch.ops import ell_pull as K8
 from graphaibench_tpu_torch.ops import ell_spmm as K1
@@ -242,6 +273,36 @@ HINDEX_REPLACES = "graphaibench_tpu/analytics/kcore.py:66"
 TC_RMAT19 = 19_736_616     # scipy's count on rmat(19, 16, seed=0)
 # BC against the float64 reference: sigma and delta are float32 sums
 BC_RTOL, BC_ATOL = 1e-4, 1e-6
+# The compress phase: the analytics graph in CGR, plain and with intervals,
+# decoded through K12 (name -> the JAX program it replaces); each decode's
+# launches (prep and run); the CLI's dataset and schemes.
+CGR_KERNELS = {
+    "cgr_gamma": "graphaibench_tpu/compress/cgr_device.py:139",
+    "cgr_interval": "graphaibench_tpu/compress/cgr_device.py:163",
+    "cgr_residual": "graphaibench_tpu/compress/cgr_device.py:221",
+    "cgr_merge": "graphaibench_tpu/compress/cgr_device.py:198",
+}
+CGR_DECODE_LAUNCHES = {
+    False: {"cgr_gamma": 2, "cgr_residual": 1},
+    True: {"cgr_gamma": 4, "cgr_interval": 1, "cgr_residual": 1,
+           "cgr_merge": 1}}
+# the default config, the same with intervals in 64-bit interval segments,
+# and with the reference's 32-bit ones, which the device route refuses on
+# this graph (an interval item outgrows its slot) and the host decodes
+CGR_STREAMS = {
+    "plain": CGR.CgrConfig(),
+    "interval": CGR.CgrConfig(use_interval=True, itv_seg_len=64),
+    "interval_seg32": CGR.CgrConfig(use_interval=True),
+}
+# integer operations a decoded code takes (leading zeros, two window shifts,
+# the value's shift, the bias, nat2int or the gap, the store's address, the
+# advance), over the float32 rate: the card's int32 rate is not in the data
+# sheet
+OPS_PER_CODE = 8
+CLI_SCHEMES = {"cgr": ("-s", "cgr"), "cgr_word_p": ("-s", "cgr", "-a", "word",
+                                                    "-p"),
+               "streamvbyte": ("-s", "streamvbyte"),
+               "varintgb": ("-s", "varintgb"), "hybrid": ("-s", "hybrid")}
 
 
 def phase_device() -> str:
@@ -937,14 +998,14 @@ def phase_small_trainer() -> None:
 def _zero_counts() -> None:
     K1.LAUNCHES = 0
     for counts in (FG.LAUNCHES, EE.LAUNCHES, K8.LAUNCHES, K9.LAUNCHES,
-                   K10.LAUNCHES):
+                   K10.LAUNCHES, K12.LAUNCHES):
         for name in counts:
             counts[name] = 0
 
 
 def _counts() -> dict[str, int]:
     return {"ell_spmm": K1.LAUNCHES, **FG.LAUNCHES, **EE.LAUNCHES,
-            **K8.LAUNCHES, **K9.LAUNCHES, **K10.LAUNCHES}
+            **K8.LAUNCHES, **K9.LAUNCHES, **K10.LAUNCHES, **K12.LAUNCHES}
 
 
 def _drive(g, cfg, want_train: dict, want_eval: dict):
@@ -1888,10 +1949,11 @@ def phase_bc(g, dg) -> dict:
     return info
 
 
-def phase_analytics() -> tuple[dict, dict, dict]:
+def phase_analytics() -> tuple[dict, dict, dict, object, object]:
     """K8, K9, K10 and the analytics solvers. Returns the kernels' entry
     data: K8's timed cases, its largest error and the launches of the pull
-    solvers' path; K9's and K10's from their phases."""
+    solvers' path; K9's and K10's from their phases; and the graph, on the
+    host and on the card, for the compress phase."""
     t0 = time.perf_counter()
     g = rmat(ANALYTICS_SCALE, EDGE_FACTOR, seed=0)
     t1 = time.perf_counter()
@@ -1909,7 +1971,347 @@ def phase_analytics() -> tuple[dict, dict, dict]:
     phase_grid_and_directed()
     phase_analytics_cli()
     print(f"[analytics] phase took {time.perf_counter() - t0:.2f} s")
-    return dict(pull, launches=launches), tc, kcore
+    return dict(pull, launches=launches), tc, kcore, g, dg
+
+
+# ---- the compress phase ----------------------------------------------------
+
+def _bound_of(nbytes: float, ops: float) -> tuple[float, str, float]:
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_ops = ops / F32_FLOP_PER_S * 1e3
+    return (max(by_bytes, by_ops),
+            "bytes" if by_bytes >= by_ops else "operations", nbytes)
+
+
+def _k12_cases(plain_prep, itv_prep, tag: str, timed: bool) -> dict:
+    """Each K12 kernel against its plain version on the lanes of the two
+    streams' preps: cgr_gamma on every residual segment's count (and the
+    vertices' headers), cgr_residual on the plain stream's lanes (where
+    they cover every slot), cgr_interval on the interval stream's interval
+    lanes, cgr_merge on that stream's residual buffer. Exact, int32. With
+    ``timed``, each beside its bound: the bytes the data needs (positions
+    and lane tables read, outputs written, the stream bits decoded) and
+    OPS_PER_CODE a code. Untimed, each output block is dirtied with NaN
+    first."""
+    out = {}
+    stream = plain_prep["stream"]
+
+    def check(name, got, want):
+        for a, b in zip(got, want):
+            if not torch.equal(a, b):
+                raise RuntimeError(f"[compress] {tag}: {name} differs from "
+                                   f"plain in {int((a != b).sum())} of "
+                                   f"{a.numel()}")
+
+    def run(name, fn, plain, n_out, nbytes, codes):
+        if not timed:
+            _dirty(n_out)
+        got = fn()
+        torch.cuda.synchronize()
+        check(name, got if isinstance(got, tuple) else (got,),
+              plain() if isinstance(got, tuple) else (plain(),))
+        if not timed:
+            return
+        bound_ms, bound_by, nb = _bound_of(nbytes, codes * OPS_PER_CODE)
+        ms = _batch_ms(fn)
+        out[name] = {"case": f"{name} {tag}", "ms": ms,
+                     "device_ms": _kernel_device_ms(fn, f"{name}_kernel"),
+                     "plain_ms": _batch_ms(plain, calls=1, batches=3),
+                     "bound_ms": bound_ms, "bound_by": bound_by,
+                     "bound_bytes": nb, "share_of_bound": bound_ms / ms}
+        print(f"[compress] {json.dumps(out[name])}")
+
+    seg = torch.from_numpy(plain_prep["seg_start"].astype(np.int32)).cuda()
+    _, nxt = K12.cgr_gamma(stream, seg, K12.COUNT)
+    bits = float((nxt.long() - seg.long()).sum())
+    run("cgr_gamma", lambda: K12.cgr_gamma(stream, seg, K12.COUNT),
+        lambda: K12.cgr_gamma_plain(stream, seg, K12.COUNT), 2 * seg.numel(),
+        12 * seg.numel() + bits / 8, seg.numel())
+    bit_off = plain_prep["bit_off"]
+    got = K12.cgr_gamma(stream, bit_off, K12.HEADER)
+    check("cgr_gamma header", got,
+          K12.cgr_gamma_plain(stream, bit_off, K12.HEADER))
+    lanes = [plain_prep[k] for k in ("data_p", "counts", "lane_v_d", "base")]
+    ne, k = plain_prep["ne"], plain_prep["zeta_k"]
+    _, pfin = K12.cgr_residual(stream, *lanes, ne, k)
+    bits = float((pfin.long() - lanes[0].long()).sum())
+    n_l = lanes[0].numel()
+    run("cgr_residual", lambda: K12.cgr_residual(stream, *lanes, ne, k),
+        lambda: K12.cgr_residual_plain(stream, *lanes, ne, k), ne + n_l,
+        20 * n_l + 4 * ne + bits / 8, ne)
+    istream = itv_prep["stream"]
+    ilanes = itv_prep["itv_lanes"]
+    n_itv, m = int(itv_prep["left"].numel()), itv_prep["min_itv_len"]
+    _, _, ipfin = K12.cgr_interval(istream, *ilanes, n_itv, m)
+    bits = float((ipfin.long() - ilanes[0].long()).sum())
+    n_i = ilanes[0].numel()
+    run("cgr_interval", lambda: K12.cgr_interval(istream, *ilanes, n_itv, m),
+        lambda: K12.cgr_interval_plain(istream, *ilanes, n_itv, m),
+        2 * n_itv + n_i, 20 * n_i + 8 * n_itv + bits / 8, 2 * n_itv)
+    ilanes_r = [itv_prep[k] for k in ("data_p", "counts", "lane_v_d", "base")]
+    res, _ = K12.cgr_residual(istream, *ilanes_r, itv_prep["ne"],
+                              itv_prep["zeta_k"])
+    margs = (res, itv_prep["row_ptr_d"], itv_prep["nres"], itv_prep["itv_ptr"],
+             itv_prep["left"], itv_prep["length"], itv_prep["itv_pre"])
+    nv, ne_i = itv_prep["nv"], itv_prep["ne"]
+    nres = float(itv_prep["nres"].long().sum())
+    run("cgr_merge", lambda: K12.cgr_merge(*margs),
+        lambda: K12.cgr_merge_plain(*margs), ne_i,
+        4 * nres + 12 * nv + 8 + 12 * n_itv + 4 + 4 * ne_i, ne_i / 8)
+    return out
+
+
+def _refused(cg, gs) -> None:
+    """The interval stream at the reference's itv_seg_len of 32 holds
+    interval segments whose one item outgrows the slot (a left 2^19 away
+    takes a 39-bit gamma): the device route must refuse it with ValueError,
+    before any decode pass, and the host must decode it exactly."""
+    _zero_counts()
+    try:
+        CD.cgr_device_prep(cg, device="cuda")
+    except ValueError as e:
+        reason = str(e)
+    else:
+        raise RuntimeError("[compress] the device route took an interval "
+                           "stream with oversized 32-bit segments")
+    launches = {k: v for k, v in _counts().items() if v}
+    if set(launches) - {"cgr_gamma"}:
+        raise RuntimeError(f"[compress] refused after {launches}")
+    t0 = time.perf_counter()
+    host = CGR.decode_graph(cg, degrees=gs.degrees())
+    if not np.array_equal(host.col_idx, gs.col_idx):
+        raise RuntimeError("[compress] the host decode of the refused "
+                           "stream differs from the CSR")
+    print(f"[compress] interval_seg32: the device route refuses it ({reason};"
+          f" launches {launches}); the native host decode equals the CSR, "
+          f"{time.perf_counter() - t0:.2f} s")
+
+
+def _decode(cg, gs, col_ref, tag: str) -> tuple[dict, dict]:
+    """cgr_device_prep and cgr_device_run on the card, every count set to 0
+    just before them: the CSR must come out exactly, through the kernels
+    the stream's shape needs. Returns (prep, info)."""
+    itv = cg.cfg.use_interval
+    _zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    prep = CD.cgr_device_prep(cg, device="cuda")
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    row_ptr, col = CD.cgr_device_run(prep)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    launches = _counts()
+    want = CGR_DECODE_LAUNCHES[itv]
+    _assert_counts(f"[compress] {tag} decode", launches, want)
+    if not np.array_equal(row_ptr, gs.row_ptr) or not torch.equal(col,
+                                                                   col_ref):
+        raise RuntimeError(f"[compress] {tag}: the device decode differs from "
+                           f"the CSR")
+    warm = _solve_seconds(lambda: CD.cgr_device_run(prep))
+    info = {"stream": tag, "bytes": cg.nbytes,
+            "ratio": cg.compression_ratio(), "prep_s": t1 - t0,
+            "run_s": t2 - t1, "warm_run_s": warm,
+            "decoded_edges_per_s": gs.ne / warm, "launches": want,
+            "intervals": prep["n_itv"], "lanes": int(prep["data_p"].numel())}
+    print(f"[compress] {json.dumps(info)}")
+    return prep, info
+
+
+def _run_cli(cli, root, env, args_list) -> list:
+    """(exit code, stdout, stderr) of each argv of ``args_list``, run side
+    by side."""
+    procs = [subprocess.Popen([*cli, *a], cwd=root, env=env,
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True) for a in args_list]
+    try:
+        outs = [p.communicate(timeout=600) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return [(p.returncode, o, e) for p, (o, e) in zip(procs, outs)]
+
+
+def phase_compress_cli() -> None:
+    """The port's CLI on rmat(13, 8), in processes side by side: ``compress``
+    in the four schemes and CGR with ``-a word -p``; ``verify`` and
+    ``decompress`` of each; ``info`` on the CGR prefix; ``analytics tc`` and
+    ``bfs`` on it (decoded on the card, Correct), ``GAB_TC_STREAM=1
+    analytics tc`` (streamed, Correct) and ``analytics tc`` on the
+    StreamVByte prefix (exit 2, K11 named)."""
+    from graphaibench_tpu_torch.graph.io import load_graph
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("GAB_SHARDS", "GAB_TC_STREAM")}
+    cli = [sys.executable, "-m", "graphaibench_tpu_torch.cli"]
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        ds = os.path.join(tmp, "ds")
+        g = rmat(PULL_DIRTY_SCALE, CLI_EDGE_FACTOR, seed=0)
+        save_graph(g, ds)
+        pre = {k: os.path.join(tmp, k, "g") for k in CLI_SCHEMES}
+        for (rc, out, err), k in zip(_run_cli(cli, root, env, [
+                ("compress", "compress", ds, pre[k], *f)
+                for k, f in CLI_SCHEMES.items()]), CLI_SCHEMES):
+            if rc != 0 or not out.startswith(f"|V| {g.nv} |E| {g.ne} "):
+                raise RuntimeError(f"cli compress {k}: exit {rc}\n{out}\n"
+                                   f"{err[-3000:]}")
+            print(f"[compress] cli compress {k}: {out.strip()}")
+        runs = [("compress", "verify", ds, pre[k]) for k in CLI_SCHEMES]
+        runs += [("compress", "decompress", pre[k],
+                  os.path.join(tmp, f"{k}_out")) for k in CLI_SCHEMES]
+        res = _run_cli(cli, root, env, runs)
+        for (rc, out, err), a in zip(res, runs):
+            if rc != 0 or (a[1] == "verify" and out.strip() != "Correct"):
+                raise RuntimeError(f"cli {' '.join(a[:2])} {a[-1]}: exit {rc}"
+                                   f"\n{out}\n{err[-3000:]}")
+        for k in CLI_SCHEMES:
+            back = load_graph(os.path.join(tmp, f"{k}_out"))
+            if not (np.array_equal(back.row_ptr, g.row_ptr)
+                    and np.array_equal(back.col_idx, g.col_idx)):
+                raise RuntimeError(f"cli decompress {k}: another graph")
+        print(f"[compress] cli verify: Correct x {len(CLI_SCHEMES)}; "
+              f"decompress: the graph x {len(CLI_SCHEMES)}")
+        stream_env = dict(env, GAB_TC_STREAM="1")
+        runs = [("info", pre["cgr"]), ("analytics", "tc", pre["cgr"]),
+                ("analytics", "bfs", pre["cgr"], "0"),
+                ("analytics", "tc", pre["streamvbyte"])]
+        res = _run_cli(cli, root, env, runs)
+        res += _run_cli(cli, root, stream_env,
+                        [("analytics", "tc", pre["cgr_word_p"])])
+    rc, out, err = res[0]
+    if rc != 0 or out.splitlines()[0] != (f"(compressed prefix, decoded) "
+                                          f"|V| {g.nv} |E| {g.ne}"):
+        raise RuntimeError(f"cli info on a prefix: exit {rc}\n{out}\n{err}")
+    print(f"[compress] cli info: {' / '.join(out.splitlines())}")
+    for (rc, out, err), want in zip(res[1:3], ("tc", "bfs")):
+        lines = out.splitlines()
+        if (rc != 0 or "decoded cgr on device cuda" not in lines
+                or "device = cuda" not in lines or "Correct" not in lines):
+            raise RuntimeError(f"cli analytics {want} on a CGR prefix: exit "
+                               f"{rc}\n{out}\n{err[-3000:]}")
+        runtime = next(l for l in lines if l.startswith("runtime"))
+        print(f"[compress] cli analytics {want} on the CGR prefix: decoded "
+              f"on the card, Correct, {runtime}")
+    rc, out, err = res[3]
+    if rc != 2 or "K11" not in err:
+        raise RuntimeError(f"cli analytics tc on a StreamVByte prefix: exit "
+                           f"{rc}\n{out}\n{err[-3000:]}")
+    print(f"[compress] cli analytics tc on the StreamVByte prefix: exit 2, "
+          f"{err.strip()}")
+    rc, out, err = res[4]
+    lines = out.splitlines()
+    if (rc != 0 or "Correct" not in lines
+            or not any("(streaming, " in l for l in lines)):
+        raise RuntimeError(f"GAB_TC_STREAM=1 cli analytics tc: exit {rc}\n"
+                           f"{out}\n{err[-3000:]}")
+    print(f"[compress] GAB_TC_STREAM=1 cli analytics tc (-a word -p prefix): "
+          f"{' / '.join(l for l in lines if 'streaming' in l)}, Correct")
+    print(f"[compress] the CLI runs in {time.perf_counter() - t0:.2f} s")
+
+
+def phase_compress(g, dg) -> dict:
+    """The analytics graph through sort_and_clean, encoded in CGR (the
+    default config, then with intervals in 64-bit interval segments) by the
+    native encoder, decoded on the card through K12 exactly (with the
+    reference's 32-bit interval segments the stream is refused by the
+    device route and decoded on the host); each K12 kernel against its
+    plain version at this size (timed beside its bound) and at rmat13
+    behind a dirtied allocator; triangle_count of the decoded graph and the
+    streaming count equal to the known total; bfs_streaming equal to bfs;
+    then the CLI. Returns K12's entry data."""
+    t0 = time.perf_counter()
+    gs = sort_and_clean(g)
+    same = (np.array_equal(gs.row_ptr, g.row_ptr)
+            and np.array_equal(gs.col_idx, g.col_idx))
+    print(f"[compress] sort_and_clean of rmat({ANALYTICS_SCALE}, "
+          f"{EDGE_FACTOR}) in {time.perf_counter() - t0:.2f} s (the graph "
+          f"{'unchanged' if same else 'changed'}: nv {gs.nv}, ne {gs.ne})")
+    if not native.available():
+        raise RuntimeError("[compress] the native CGR encoder did not build")
+    col_ref = torch.from_numpy(gs.col_idx).cuda()
+    preps, decodes = {}, {}
+    for tag, cfg in CGR_STREAMS.items():
+        t1 = time.perf_counter()
+        cg = CGR.encode_graph(gs, cfg)
+        enc = time.perf_counter() - t1
+        print(f"[compress] CGR {tag} ({cfg}): native encode {enc:.2f} s, "
+              f"{cg.nbytes} bytes, ratio {cg.compression_ratio():.4f}x")
+        if tag == "interval_seg32":
+            _refused(cg, gs)
+            continue
+        preps[tag], decodes[tag] = _decode(cg, gs, col_ref, tag)
+        decodes[tag]["encode_s"] = enc
+        if tag == "plain":
+            plain_cg = cg
+    cases = _k12_cases(preps["plain"], preps["interval"],
+                       f"rmat{ANALYTICS_SCALE}", timed=True)
+    small = sort_and_clean(rmat(PULL_DIRTY_SCALE, EDGE_FACTOR, seed=0))
+    sp = {tag: CD.cgr_device_prep(CGR.encode_graph(
+        small, CGR_STREAMS[tag]), device="cuda")
+        for tag in ("plain", "interval")}
+    _k12_cases(sp["plain"], sp["interval"], f"rmat{PULL_DIRTY_SCALE}",
+               timed=False)
+    print(f"[compress] every K12 kernel equals its plain version at "
+          f"rmat{ANALYTICS_SCALE} and at rmat{PULL_DIRTY_SCALE} behind a "
+          f"NaN-dirtied allocator")
+    del preps
+    # the solvers on the compressed graph
+    dec = CD.cgr_decode_device(plain_cg, device="cuda")
+    TCM._TC_CACHE.clear()
+    n = TCM.triangle_count(dec, device="cuda")
+    TCM._TC_CACHE.clear()
+    if ANALYTICS_SCALE == 19 and n != TC_RMAT19:
+        raise RuntimeError(f"[compress] triangle_count of the decoded graph "
+                           f"{n}, not {TC_RMAT19}")
+    csr_bytes = gs.row_ptr.nbytes + gs.col_idx.nbytes
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    t1 = time.perf_counter()
+    ns, stats = TS.triangle_count_streaming(plain_cg, device="cuda")
+    torch.cuda.synchronize()
+    stream_s = time.perf_counter() - t1
+    launches = _counts()
+    peak = torch.cuda.max_memory_allocated() - base
+    if ns != n:
+        raise RuntimeError(f"[compress] triangle_count_streaming {ns}, the "
+                           f"decoded graph's count {n}")
+    if (launches["tc_count"] != stats["pairs"]
+            or launches["cgr_residual"] < stats["blocks"]):
+        raise RuntimeError(f"[compress] streaming launches {launches} for "
+                           f"{stats}")
+    stream_info = {"triangles": ns, "seconds": stream_s, **stats,
+                   "tc_count_launches": launches["tc_count"],
+                   "cgr_residual_launches": launches["cgr_residual"],
+                   "peak_bytes_over_baseline": peak, "csr_bytes": csr_bytes,
+                   "stream_bytes": plain_cg.nbytes}
+    print(f"[compress] streaming TC {json.dumps(stream_info)}")
+    _zero_counts()
+    t1 = time.perf_counter()
+    dist = TS.bfs_streaming(plain_cg, 0, device="cuda")
+    torch.cuda.synchronize()
+    bfs_s = time.perf_counter() - t1
+    blaunch = _counts()["cgr_residual"]
+    want = TR.bfs(dg, 0)
+    if not torch.equal(dist, want):
+        raise RuntimeError(f"[compress] bfs_streaming differs from bfs in "
+                           f"{int((dist != want).sum())} vertices")
+    print(f"[compress] bfs_streaming from 0 equals bfs: depth "
+          f"{int(dist.max())}, {blaunch} cgr_residual launches, "
+          f"{bfs_s:.4f} s")
+    phase_compress_cli()
+    print(f"[compress] phase took {time.perf_counter() - t0:.2f} s")
+    launches = {}
+    for info in decodes.values():
+        for name, c in info["launches"].items():
+            launches[name] = launches.get(name, 0) + c
+    return {"cases": cases, "launches": launches, "decodes": decodes,
+            "streaming": stream_info}
 
 
 def main() -> None:
@@ -1931,7 +2333,8 @@ def main() -> None:
         phase_profile(model.cfg.arch,
                       lambda n, m=model: m.train(n, verbose=False),
                       PROFILED_EPOCHS, phase_epochs(model))
-    pull, tc, kcore = phase_analytics()
+    pull, tc, kcore, ag, adg = phase_analytics()
+    k12 = phase_compress(ag, adg)
     head = cases[0]
     kernels = [{
         "name": "ell_spmm",
@@ -2015,6 +2418,23 @@ def main() -> None:
             "bound_by": res["bound_by"],
             # no one PyTorch call computes a DAG intersection count or an
             # h-index sweep
+            "library_ms": None,
+            "device_ms": res["device_ms"],
+        })
+    for kname, replaces in CGR_KERNELS.items():
+        res = k12["cases"][kname]
+        kernels.append({
+            "name": kname,
+            "route": "cuda",
+            "source": "graphaibench_tpu_torch/csrc/cgr_decode.cu",
+            "replaces": replaces,
+            "launches": k12["launches"][kname],
+            "max_abs_err": 0,
+            "ms": res["ms"],
+            "plain_ms": res["plain_ms"],
+            "bound_ms": res["bound_ms"],
+            "bound_by": res["bound_by"],
+            # no PyTorch call decodes a CGR stream
             "library_ms": None,
             "device_ms": res["device_ms"],
         })

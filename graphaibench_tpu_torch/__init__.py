@@ -13,22 +13,27 @@ package's, bit for bit.
 Subpackages
 -----------
 native  C++ host kernels (CSR build, stable key sort, ELL packing, the
-      GraphSAINT sampler), built with g++ at first use; numpy routes
-      without a toolchain
+      GraphSAINT sampler, the CGR codec), built with g++ at first use;
+      numpy routes without a toolchain
 graph CSR container, transforms, generators, dataset readers
 ops   device graph (degree-bucketed ELL), the kernels (CUDA C++ in
       ``csrc/``: the ELL SpMM, the fused GAT attention's passes, the
-      passes over per-edge values, the analytics' neighbour reduction)
-      with their plain PyTorch versions, SpMM and attention autograd,
-      segment ops, math
+      passes over per-edge values, the analytics' neighbour reduction,
+      the triangle count, the h-index sweep, the CGR decode) with their
+      plain PyTorch versions, SpMM and attention autograd, segment ops,
+      math
 nn    layers of the four architectures, losses, the reference's
       optimizers, the GraphSAINT sampler, the training Model
-analytics  the pull-mode solvers (BFS, SSSP, PageRank, CC) with their
-      serial verifiers and ``run_benchmark``
+analytics  the solvers (BFS, SSSP, PageRank, CC, triangles, k-core,
+      betweenness; triangles and BFS also streamed off a CGR stream) with
+      their serial verifiers and ``run_benchmark``
+compress  the compressed-graph codecs (CGR, StreamVByte, VarintGB,
+      hybrid), their files, and CGR's decode on the device
 utils stage timers, profiler capture, checkpoints
 entry ``entry()``: the flagship model's forward function and arguments
-cli   ``python -m graphaibench_tpu_torch.cli train <arch> <dataset> ...``
-      and ``... cli analytics bfs|sssp|pr|cc <dataset> [source]``
+cli   ``python -m graphaibench_tpu_torch.cli train <arch> <dataset> ...``,
+      ``... cli analytics <kernel> <dataset> [source]``, ``... cli info``
+      and ``... cli compress compress|decompress|verify|info ...``
 """
 
 __version__ = "0.1.0"

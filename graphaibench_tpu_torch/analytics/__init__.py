@@ -7,9 +7,14 @@ SSSP, PageRank and CC, whose sweeps run the kernel ``neighbor_reduce``
 (``ops/ell_pull.py``) on a CUDA graph; triangle counting on the kernel
 ``tc_count`` (``ops/tc_count.py``); k-core on the kernel ``hindex_sweep``
 (``ops/hindex.py``), or on ``neighbor_reduce`` by peeling; betweenness
-centrality on ``neighbor_reduce``. The other solvers (ROADMAP P15), the
-compressed-graph prefixes (P13a) and ``GAB_SHARDS`` (P14b) are not ported
-yet: asked for, ``run_benchmark`` exits with code 2 and names the item.
+centrality on ``neighbor_reduce``. A compressed-graph prefix in the CGR
+scheme decodes on the device through the kernels K12
+(``compress/cgr_device.py``), or on the host where the device route refuses
+the stream's shape; with ``GAB_TC_STREAM=1`` triangles are counted block by
+block off the stream (``tc_stream.py``). The other solvers (ROADMAP P15),
+the device decode of StreamVByte, VarintGB and hybrid prefixes (K11) and
+``GAB_SHARDS`` (P14b) are not ported yet: asked for, ``run_benchmark``
+exits with code 2 and names the item.
 """
 
 from __future__ import annotations
@@ -36,6 +41,10 @@ from graphaibench_tpu_torch.analytics.kcore import (  # noqa: F401
 )
 from graphaibench_tpu_torch.analytics.pr import pagerank  # noqa: F401
 from graphaibench_tpu_torch.analytics.tc import triangle_count  # noqa: F401
+from graphaibench_tpu_torch.analytics.tc_stream import (  # noqa: F401
+    bfs_streaming,
+    triangle_count_streaming,
+)
 from graphaibench_tpu_torch.analytics.traversal import (  # noqa: F401
     bfs,
     bfs_frontier,
@@ -56,6 +65,54 @@ def _refuse(msg: str) -> int:
     return 2
 
 
+def _load_compressed(kernel: str, prefix: str, device):
+    """The graph of a compressed prefix, decoded on ``device`` (a CGR
+    stream, through K12) or on the host where the device route refuses the
+    stream's shape; or an exit code: the streaming count's, or 2 for a
+    scheme whose device decode is not ported yet."""
+    from graphaibench_tpu_torch.compress.cgr import CompressedGraph
+    from graphaibench_tpu_torch.compress.cgr_device import (
+        StreamRefused,
+        cgr_decode_device,
+    )
+    from graphaibench_tpu_torch.compress.cli import decode_any, load_compressed
+
+    cg = load_compressed(prefix)
+    if not isinstance(cg, CompressedGraph):
+        scheme = getattr(cg, "scheme", "hybrid")
+        return _refuse(f"the device decode of {scheme} prefixes is not "
+                       f"ported yet (ROADMAP queue 2, K11)")
+    if kernel == "tc" and os.environ.get("GAB_TC_STREAM", "") == "1":
+        # triangles straight off the compressed adjacency, block pair by
+        # block pair (tc_omp_compressed.cc): the whole CSR never exists
+        print(f"device = {device}")
+        t0 = time.perf_counter()
+        try:
+            n, stats = triangle_count_streaming(cg, device=device)
+        except StreamRefused as e:      # interval or unary streams
+            print(f"streaming unsupported ({e}); decode-then-count")
+        else:
+            dt = time.perf_counter() - t0
+            print(f"total_num_triangles = {n} (streaming, "
+                  f"{stats['blocks']} blocks)")
+            print(f"runtime = {dt:.4f} sec")
+            if cg.ne > 200_000:
+                return 0
+            from graphaibench_tpu_torch.graph.transforms import orientation
+
+            ok = n == verifiers.triangle_count_serial(
+                orientation(decode_any(cg)))
+            print("Correct" if ok else "Wrong")
+            return 0 if ok else 1
+    try:
+        g = cgr_decode_device(cg, device=device)
+        print(f"decoded cgr on device {device}")
+    except StreamRefused as e:      # a stream shape the device route refuses
+        g = decode_any(cg)
+        print(f"decoded on host ({e})")
+    return g
+
+
 def run_benchmark(kernel: str, dataset_path: str, args: list[str], *,
                   device="cuda") -> int:
     """The CLI route: load, solve on ``device``, verify, print Correct/Wrong
@@ -73,9 +130,11 @@ def run_benchmark(kernel: str, dataset_path: str, args: list[str], *,
         print(f"unknown kernel {kernel!r}")
         return 2
     if os.path.exists(dataset_path + ".meta.json"):
-        return _refuse("compressed-graph prefixes are not ported yet "
-                       "(ROADMAP queue 1, P13a)")
-    g = load_graph(dataset_path)
+        g = _load_compressed(kernel, dataset_path, device)
+        if isinstance(g, int):
+            return g
+    else:
+        g = load_graph(dataset_path)
     print(f"|V| {g.nv} |E| {g.ne}")
     if os.environ.get("GAB_SHARDS", ""):
         return _refuse("GAB_SHARDS: the distributed analytics are not "

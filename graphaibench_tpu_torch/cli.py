@@ -16,14 +16,20 @@ are not ported yet: they exit with code 2 and name their ROADMAP item.
 ``python -m graphaibench_tpu_torch.cli analytics
 tc|bfs|sssp|pr|cc|bc|kcore <dataset> [source] [--device=cuda|cpu]`` runs the
 JAX CLI's ``analytics`` route for those solvers (``analytics.run_benchmark``),
-with the same default device and no fallback; the other analytics kernels,
-compressed-graph prefixes and ``GAB_SHARDS`` exit with code 2 and name their
-ROADMAP item.
+with the same default device and no fallback; a compressed-graph prefix in
+the CGR scheme decodes on that device (``GAB_TC_STREAM=1`` counts triangles
+off the stream); the other analytics kernels, the other schemes' prefixes
+and ``GAB_SHARDS`` exit with code 2 and name their ROADMAP item.
 
 ``python -m graphaibench_tpu_torch.cli info <dataset>`` prints the JAX
 CLI's ``info`` lines (sizes, degrees, labels, mask ranges, a pow2 degree
-histogram) on the host; a compressed-graph prefix exits with code 2 and
-names its ROADMAP item.
+histogram) on the host; for a compressed-graph prefix, decoded on the host,
+its sizes and degrees.
+
+``python -m graphaibench_tpu_torch.cli compress
+compress|decompress|verify|info ...`` is the JAX CLI's ``compress`` route
+(``compress/cli.py``: the four schemes, ``-p`` byte permutation), on the
+host.
 
 Dataset resolution: an existing directory (or compressed-graph prefix) is
 used directly; otherwise ``$DATASET_PATH/<name>`` (configs.h:5).
@@ -187,8 +193,19 @@ def cmd_info(argv: list[str]) -> int:
 
     path = resolve_dataset(argv[0])
     if os.path.exists(path + ".meta.json"):
-        return _refuse("compressed-graph prefixes are not ported yet "
-                       "(ROADMAP queue 1, P13a)")
+        from graphaibench_tpu_torch.compress.cli import (
+            decode_any,
+            load_compressed,
+        )
+
+        try:
+            g = decode_any(load_compressed(path))
+        except (KeyError, ValueError, OSError) as e:
+            return _refuse(f"not a compressed-graph prefix: {path} ({e!r})")
+        deg = g.degrees()
+        print(f"(compressed prefix, decoded) |V| {g.nv} |E| {g.ne}")
+        print(f"max_degree {deg.max()}  avg_degree {deg.mean():.2f}")
+        return 0
     meta = read_meta(path)
     g = load_graph(path, with_vlabels=True, mmap=True)
     deg = g.degrees()
@@ -215,12 +232,19 @@ def cmd_info(argv: list[str]) -> int:
     return 0
 
 
+def cmd_compress(argv: list[str]) -> int:
+    """compress|decompress|verify|info ... — the compressed-graph codecs."""
+    from graphaibench_tpu_torch.compress.cli import main as compress_main
+
+    return compress_main(argv)
+
+
 def main() -> int:
     commands = {"train": cmd_train, "analytics": cmd_analytics,
-                "info": cmd_info}
+                "info": cmd_info, "compress": cmd_compress}
     if len(sys.argv) < 2 or sys.argv[1] not in commands:
-        print("usage: graphaibench_tpu_torch.cli train|analytics|info ... "
-              "(compress and partition: ROADMAP queue 1)")
+        print("usage: graphaibench_tpu_torch.cli "
+              "train|analytics|info|compress ... (partition: ROADMAP queue 1)")
         return 2
     return commands[sys.argv[1]](sys.argv[2:])
 

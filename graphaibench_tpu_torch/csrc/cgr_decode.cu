@@ -1,0 +1,371 @@
+// K12, the decode of a CGR bit stream on the card, for Hopper (built for
+// sm_90a by graphaibench_tpu_torch/ops/_build.py and bound with ctypes; the
+// wrappers and the plain PyTorch versions are in
+// graphaibench_tpu_torch/ops/cgr_decode.py).
+//
+// It replaces the XLA programs of graphaibench_tpu/compress/cgr_device.py:
+//
+//   cgr_gamma     _headers (:139) and _counts (:156), via _read_gamma (:82)
+//   cgr_interval  _interval_pass (:163)
+//   cgr_residual  _residual_pass (:221), via _read_code_quad (:106) and
+//                 _nat2int (:133)
+//   cgr_merge     _expand_intervals (:198) and the row sort of
+//                 cgr_device_run (:440-442)
+//
+// A CGR stream is a run of Elias gamma and zeta_k codes, most significant
+// bit first (gamma(x): with y = x + 1 and h = floor(log2 y), h zeros, then
+// y in h + 1 bits; zeta_k(x): h = floor(log2 y) / k, h zeros and a one, then
+// y in (h + 1) k bits). Every closed segment of a vertex's residuals (or
+// intervals) is padded to a fixed number of bits, so segment j of a vertex
+// starts at a position the host computes from the vertex's header: a
+// (vertex, segment) lane decodes its codes alone.
+//
+// What the design does (it computes what the JAX passes compute, not in
+// their shape): the JAX package buckets lanes by code count and pads them
+// to powers of two because a lax.scan needs static lengths; here a thread
+// is a lane and loops over its own count, and one launch covers every lane.
+// The count of a segment is bounded by the segment's length (about
+// 2 res_seg_len / 3 codes in the merged last segment), so the lanes of a
+// warp stay within a small factor of each other. The merge of a row's
+// sorted residuals with its intervals is one warp a row: a lane a residual
+// or an interval, each finding its place by a binary search in the other
+// sorted run, so no sort of the edge array is needed.
+//
+// A 64-bit window at bit p is three big-endian words: the stream is read as
+// 32-bit words, byte-swapped with __byte_perm (the bytes are MSB-first),
+// and shifted together with __funnelshift_l, which shifts by p & 31 with no
+// case for 0 (a C++ shift by 32 is undefined). The host pads the stream by
+// 16 bytes, and the word index is clamped to the stream, so no position
+// reads outside it; positions advance in 64 bits. A valid code is at most
+// 63 bits; on a stream that does not parse (which the host detects after
+// the pass, from the final positions, and refuses) the leading-zero count
+// is capped at 31 and a code's value bits at 63, so every shift stays
+// defined and the plain version, which does the same, gives the same
+// values.
+//
+// Bounds: every pass reads its lanes' stream bits once and writes its
+// outputs once; the host's lane tables make every write land inside its
+// output (the slots of a lane are base .. base + count - 1, prefix sums of
+// the counts; the host refuses a parse with a negative count or an
+// interval shorter than min_itv_len, so the rows' slots lie in order).
+
+#include <cstdint>
+
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kWarpsPerBlock = kThreads / 32;
+
+// Kinds of cgr_gamma (ops/cgr_decode.py: COUNT, HEADER, HEADER_DEG).
+constexpr int kCount = 0;
+constexpr int kHeader = 1;
+constexpr int kHeaderDeg = 2;
+
+struct Stream {
+  const uint32_t* words;  // raw 32-bit loads of the MSB-first bytes
+  int64_t nwords;         // at least 4 (the padding)
+};
+
+__device__ __forceinline__ uint32_t be_word(const Stream& s, int64_t i) {
+  return __byte_perm(__ldg(s.words + i), 0, 0x0123);
+}
+
+// Bits [p, p + 64) as hi:lo.
+__device__ __forceinline__ void window(const Stream& s, int64_t p,
+                                       uint32_t& hi, uint32_t& lo) {
+  int64_t wi = p >> 5;
+  wi = wi < 0 ? 0 : (wi > s.nwords - 3 ? s.nwords - 3 : wi);
+  const uint32_t w0 = be_word(s, wi);
+  const uint32_t w1 = be_word(s, wi + 1);
+  const uint32_t w2 = be_word(s, wi + 2);
+  const unsigned sh = static_cast<unsigned>(p & 31);
+  hi = __funnelshift_l(w1, w0, sh);
+  lo = __funnelshift_l(w2, w1, sh);
+}
+
+// The first nb (1..63) bits of hi:lo.
+__device__ __forceinline__ int64_t first_bits(uint32_t hi, uint32_t lo,
+                                              int nb) {
+  const uint64_t win = (static_cast<uint64_t>(hi) << 32) | lo;
+  return static_cast<int64_t>(win >> (64 - nb));
+}
+
+// The zeta_k code (gamma for k = 1) at p: its value, and its length in nb.
+__device__ __forceinline__ int64_t read_code(const Stream& s, int64_t p,
+                                             int k, int& nbits) {
+  uint32_t hi, lo;
+  window(s, p, hi, lo);
+  int h = __clz(hi);
+  h = h > 31 ? 31 : h;
+  if (k == 1) {
+    const int nb = 2 * h + 1;
+    nbits = nb;
+    return first_bits(hi, lo, nb) - 1;
+  }
+  int nb = (h + 1) * k;
+  nb = nb > 63 ? 63 : nb;
+  uint32_t hi2, lo2;
+  window(s, p + h + 1, hi2, lo2);
+  nbits = h + 1 + nb;
+  return first_bits(hi2, lo2, nb) - 1;
+}
+
+__device__ __forceinline__ int64_t nat2int(int64_t x) {
+  return (x & 1) ? -((x + 1) >> 1) : (x >> 1);
+}
+
+__global__ void __launch_bounds__(kThreads)
+cgr_gamma_kernel(const Stream s, const int32_t* __restrict__ pos, int64_t n,
+                 int kind, int32_t* __restrict__ value,
+                 int32_t* __restrict__ next) {
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+  if (i >= n) return;
+  const int64_t p = __ldg(pos + i);
+  int nb;
+  const int64_t x = read_code(s, p, 1, nb);
+  if (kind == kCount) {
+    value[i] = static_cast<int32_t>(x);
+    next[i] = static_cast<int32_t>(p + nb);
+  } else if (kind == kHeader) {
+    value[i] = static_cast<int32_t>(x + 1);
+    next[i] = static_cast<int32_t>(p + nb);
+  } else {
+    const int64_t p2 = p + nb;
+    int nb2;
+    const int64_t ns = read_code(s, p2, 1, nb2);
+    value[i] = static_cast<int32_t>(x == 0 ? 0 : ns + 1);
+    next[i] = static_cast<int32_t>(x == 0 ? p2 : p2 + nb2);
+  }
+}
+
+__global__ void __launch_bounds__(kThreads)
+cgr_residual_kernel(const Stream s, const int32_t* __restrict__ data_p,
+                    const int32_t* __restrict__ counts,
+                    const int32_t* __restrict__ lane_v,
+                    const int32_t* __restrict__ base, int64_t lanes, int k,
+                    int32_t* __restrict__ col, int32_t* __restrict__ pfin) {
+  const int64_t l = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+  if (l >= lanes) return;
+  int64_t p = __ldg(data_p + l);
+  const int32_t n = __ldg(counts + l);
+  const int64_t v = __ldg(lane_v + l);
+  int32_t* out = col + static_cast<int64_t>(__ldg(base + l));
+  int32_t prev = 0;
+  for (int32_t i = 0; i < n; ++i) {
+    int nb;
+    const int64_t x = read_code(s, p, k, nb);
+    const int32_t val = static_cast<int32_t>(
+        i == 0 ? v + nat2int(x) : static_cast<int64_t>(prev) + x + 1);
+    out[i] = val;
+    prev = val;
+    p += nb;
+  }
+  pfin[l] = static_cast<int32_t>(p);
+}
+
+__global__ void __launch_bounds__(kThreads)
+cgr_interval_kernel(const Stream s, const int32_t* __restrict__ data_p,
+                    const int32_t* __restrict__ counts,
+                    const int32_t* __restrict__ lane_v,
+                    const int32_t* __restrict__ base, int64_t lanes,
+                    int min_itv_len, int32_t* __restrict__ left,
+                    int32_t* __restrict__ length,
+                    int32_t* __restrict__ pfin) {
+  const int64_t l = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+  if (l >= lanes) return;
+  int64_t p = __ldg(data_p + l);
+  const int32_t n = __ldg(counts + l);
+  const int64_t v = __ldg(lane_v + l);
+  const int64_t b = __ldg(base + l);
+  int32_t prev_left = 0;
+  int32_t prev_len = 0;
+  for (int32_t i = 0; i < n; ++i) {
+    int nb1, nb2;
+    const int64_t x1 = read_code(s, p, 1, nb1);
+    const int64_t x2 = read_code(s, p + nb1, 1, nb2);
+    const int32_t lf = static_cast<int32_t>(
+        i == 0 ? v + nat2int(x1)
+               : static_cast<int64_t>(prev_left) + prev_len + 1 + x1);
+    const int32_t ln = static_cast<int32_t>(x2 + min_itv_len);
+    left[b + i] = lf;
+    length[b + i] = ln;
+    prev_left = lf;
+    prev_len = ln;
+    p += nb1 + nb2;
+  }
+  pfin[l] = static_cast<int32_t>(p);
+}
+
+// The number of ids of the sorted run a[0, n) below x.
+__device__ __forceinline__ int32_t count_below(const int32_t* __restrict__ a,
+                                               int32_t n, int32_t x) {
+  int32_t lo = 0;
+  int32_t hi = n;
+  while (lo < hi) {
+    const int32_t mid = (lo + hi) >> 1;
+    if (__ldg(a + mid) < x) {
+      lo = mid + 1;
+    } else {
+      hi = mid;
+    }
+  }
+  return lo;
+}
+
+__global__ void __launch_bounds__(kThreads)
+cgr_merge_kernel(const int32_t* __restrict__ res,
+                 const int32_t* __restrict__ row_ptr,
+                 const int32_t* __restrict__ nres,
+                 const int32_t* __restrict__ itv_ptr,
+                 const int32_t* __restrict__ left,
+                 const int32_t* __restrict__ length,
+                 const int32_t* __restrict__ itv_pre, int64_t nv,
+                 int32_t* __restrict__ col) {
+  const int64_t v =
+      static_cast<int64_t>(blockIdx.x) * kWarpsPerBlock + (threadIdx.x >> 5);
+  if (v >= nv) return;
+  const int lane = threadIdx.x & 31;
+  const int64_t rb = __ldg(row_ptr + v);
+  const int32_t nr = __ldg(nres + v);
+  const int32_t ib = __ldg(itv_ptr + v);
+  const int32_t ni = __ldg(itv_ptr + v + 1) - ib;
+  const int32_t pb = __ldg(itv_pre + ib);
+  const int32_t* run = res + rb;
+  int32_t* out = col + rb;
+  for (int32_t i = lane; i < nr; i += 32) {
+    const int32_t r = __ldg(run + i);
+    const int32_t j = count_below(left + ib, ni, r);
+    out[i + __ldg(itv_pre + ib + j) - pb] = r;
+  }
+  for (int32_t j = lane; j < ni; j += 32) {
+    const int32_t lf = __ldg(left + ib + j);
+    const int32_t ln = __ldg(length + ib + j);
+    int32_t* dst = out + (__ldg(itv_pre + ib + j) - pb) +
+                   count_below(run, nr, lf);
+    for (int32_t t = 0; t < ln; ++t) dst[t] = lf + t;
+  }
+}
+
+unsigned blocks_for(int64_t n, int64_t per_block) {
+  return static_cast<unsigned>((n + per_block - 1) / per_block);
+}
+
+bool bad_grid(int64_t n, int64_t per_block) {
+  return n < 0 || (n + per_block - 1) / per_block > 0x7fffffff;
+}
+
+}  // namespace
+
+// Common to every entry: the stream is `words` (nwords 32-bit words of the
+// MSB-first bytes, padded, 16-byte aligned as torch allocates), every other
+// array int32, all on CUDA device `device`; `stream` a cudaStream_t of that
+// device. The library links its own CUDA runtime, so each entry selects
+// `device` before launching. Each returns the first CUDA error (0 on
+// success), allocates nothing and does not synchronise; with no lanes it
+// launches nothing.
+
+// value, next (n,) = the gamma code(s) at pos (n,): kind 0 one count, 1 a
+// header's nsegs, 2 a degree and then the header (nsegs 0 for degree 0).
+extern "C" int gab_cgr_gamma(const void* words, int64_t nwords,
+                             const void* pos, int64_t n, int kind,
+                             void* value, void* next, int device,
+                             void* stream) {
+  if (nwords < 4 || bad_grid(n, kThreads) || kind < kCount ||
+      kind > kHeaderDeg) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (n > 0) {
+    cgr_gamma_kernel<<<blocks_for(n, kThreads), kThreads, 0,
+                       static_cast<cudaStream_t>(stream)>>>(
+        Stream{static_cast<const uint32_t*>(words), nwords},
+        static_cast<const int32_t*>(pos), n, kind,
+        static_cast<int32_t*>(value), static_cast<int32_t*>(next));
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// col[base[l] + i] for i < counts[l]: the residuals of lane l, whose codes
+// start at bit data_p[l], decoded against its vertex lane_v[l]; pfin (lanes,)
+// the bit after each lane's last code.
+extern "C" int gab_cgr_residual(const void* words, int64_t nwords,
+                                const void* data_p, const void* counts,
+                                const void* lane_v, const void* base,
+                                int64_t lanes, int k, void* col, void* pfin,
+                                int device, void* stream) {
+  if (nwords < 4 || bad_grid(lanes, kThreads) || k < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (lanes > 0) {
+    cgr_residual_kernel<<<blocks_for(lanes, kThreads), kThreads, 0,
+                          static_cast<cudaStream_t>(stream)>>>(
+        Stream{static_cast<const uint32_t*>(words), nwords},
+        static_cast<const int32_t*>(data_p),
+        static_cast<const int32_t*>(counts),
+        static_cast<const int32_t*>(lane_v),
+        static_cast<const int32_t*>(base), lanes, k,
+        static_cast<int32_t*>(col), static_cast<int32_t*>(pfin));
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// left, length [base[l] + i] for i < counts[l]: the intervals of lane l;
+// pfin (lanes,) the bit after each lane's last code.
+extern "C" int gab_cgr_interval(const void* words, int64_t nwords,
+                                const void* data_p, const void* counts,
+                                const void* lane_v, const void* base,
+                                int64_t lanes, int min_itv_len, void* left,
+                                void* length, void* pfin, int device,
+                                void* stream) {
+  if (nwords < 4 || bad_grid(lanes, kThreads)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (lanes > 0) {
+    cgr_interval_kernel<<<blocks_for(lanes, kThreads), kThreads, 0,
+                          static_cast<cudaStream_t>(stream)>>>(
+        Stream{static_cast<const uint32_t*>(words), nwords},
+        static_cast<const int32_t*>(data_p),
+        static_cast<const int32_t*>(counts),
+        static_cast<const int32_t*>(lane_v),
+        static_cast<const int32_t*>(base), lanes, min_itv_len,
+        static_cast<int32_t*>(left), static_cast<int32_t*>(length),
+        static_cast<int32_t*>(pfin));
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// col (ne,): row v's sorted residuals res[row_ptr[v], + nres[v]) merged with
+// its intervals itv_ptr[v] .. itv_ptr[v + 1] (left, length; itv_pre the
+// prefix of the lengths, n_itv + 1 entries), expanded, in the row's slots.
+extern "C" int gab_cgr_merge(const void* res, const void* row_ptr,
+                             const void* nres, const void* itv_ptr,
+                             const void* left, const void* length,
+                             const void* itv_pre, int64_t nv, void* col,
+                             int device, void* stream) {
+  if (bad_grid(nv, kWarpsPerBlock)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (nv > 0) {
+    cgr_merge_kernel<<<blocks_for(nv, kWarpsPerBlock), kThreads, 0,
+                       static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const int32_t*>(res), static_cast<const int32_t*>(row_ptr),
+        static_cast<const int32_t*>(nres),
+        static_cast<const int32_t*>(itv_ptr),
+        static_cast<const int32_t*>(left), static_cast<const int32_t*>(length),
+        static_cast<const int32_t*>(itv_pre), nv, static_cast<int32_t*>(col));
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" const char* gab_cuda_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}

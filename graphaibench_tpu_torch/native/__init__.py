@@ -3,7 +3,7 @@
 Counterpart of ``graphaibench_tpu/native``: the host-side hot loops that
 feed the device path (CSR building, the DAG orientation of triangle
 counting, the stable key sort behind the transpose permutation, ELL
-packing, the GraphSAINT frontier sampler). The port keeps its own copy of the
+packing, the GraphSAINT frontier sampler, the CGR codec). The port keeps its own copy of the
 source (``src/gab_native.cpp``) and compiles it once with ``g++`` into
 ``build/native/`` of the checkout, keyed by a hash of the source. Every
 wrapper returns ``None`` when there is no toolchain, and its caller then
@@ -63,6 +63,8 @@ def get_lib():
     i64 = ctypes.c_int64
     p_i64 = np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS")
     p_i32 = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
+    p_u8 = np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS")
+    c_int = ctypes.c_int
 
     lib.build_csr.restype = ctypes.c_int
     lib.build_csr.argtypes = [i64, p_i64, p_i64, i64, p_i64, p_i32, ctypes.c_int]
@@ -85,6 +87,16 @@ def get_lib():
     lib.ell_pack_fill.argtypes = [
         i64, p_i32, p_i64, p_i64, p_i32, ctypes.c_void_p, i64, p_i32,
         ctypes.c_int, i64, p_i32, p_i32, p_i32, p_i64, p_i64,
+    ]
+    lib.cgr_encode_graph.restype = i64
+    lib.cgr_encode_graph.argtypes = [
+        i64, p_i64, p_i32, c_int, c_int, c_int, c_int, c_int, c_int, c_int,
+        p_i64, ctypes.c_void_p, i64,
+    ]
+    lib.cgr_decode_graph.restype = i64
+    lib.cgr_decode_graph.argtypes = [
+        i64, p_u8, p_i64, p_i64, ctypes.c_void_p, c_int, c_int, c_int, c_int,
+        c_int, c_int, c_int, p_i32,
     ]
     _LIB = lib
     return lib
@@ -123,6 +135,47 @@ def orientation(row_ptr: np.ndarray, col_idx: np.ndarray):
     new_ci = np.zeros(ne, dtype=np.int32)
     lib.orient_fill(nv, row_ptr, col_idx, new_rp, new_ci)
     return new_rp, new_ci
+
+
+def cgr_encode(row_ptr, col_idx, cfg):
+    """(offsets int64 in ``cfg``'s alignment units, stream bytes) of a CSR
+    graph with strictly increasing rows, or None without the toolchain."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    nv = len(row_ptr) - 1
+    offsets = np.zeros(nv + 1, dtype=np.int64)
+    args = (nv, np.ascontiguousarray(row_ptr, np.int64),
+            np.ascontiguousarray(col_idx, np.int32), cfg.zeta_k,
+            int(cfg.use_interval), cfg.min_itv_len, cfg.itv_seg_len,
+            cfg.res_seg_len, int(cfg.add_degree), cfg.unit_bits, offsets)
+    nbytes = lib.cgr_encode_graph(*args, None, 0)
+    out = np.zeros(nbytes, dtype=np.uint8)
+    lib.cgr_encode_graph(*args, out.ctypes.data_as(ctypes.c_void_p), nbytes)
+    return offsets, out.tobytes()
+
+
+def cgr_decode(nv, data: bytes, offsets, row_ptr_out, degrees, cfg):
+    """col_idx (int32) of a CGR stream decoded into the rows of
+    ``row_ptr_out``, or None without the toolchain; raises ValueError when
+    a row decodes to another length than ``degrees`` gives it."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    buf = np.frombuffer(data, dtype=np.uint8)
+    col_out = np.zeros(int(row_ptr_out[-1]), dtype=np.int32)
+    deg_ptr = None
+    if degrees is not None:
+        degrees = np.ascontiguousarray(degrees, np.int64)
+        deg_ptr = degrees.ctypes.data_as(ctypes.c_void_p)
+    bad = lib.cgr_decode_graph(
+        nv, buf, np.ascontiguousarray(offsets, np.int64),
+        np.ascontiguousarray(row_ptr_out, np.int64), deg_ptr, cfg.zeta_k,
+        int(cfg.use_interval), cfg.min_itv_len, cfg.itv_seg_len,
+        cfg.res_seg_len, int(cfg.add_degree), cfg.unit_bits, col_out)
+    if bad:
+        raise ValueError(f"{bad} vertices decoded with another degree")
+    return col_out
 
 
 def stable_key_sort(keys: np.ndarray, nkeys: int):

@@ -26,7 +26,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("ell_spmm.cu", "fused_gat.cu", "ell_edge.cu", "ell_pull.cu",
-           "tc_count.cu", "kcore_hindex.cu")
+           "tc_count.cu", "kcore_hindex.cu", "cgr_decode.cu")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 # No --use_fast_math: it flushes subnormals to zero and swaps expf for
 # __expf; the GAT passes rely on a normal 1e-30 floor and on expf.
@@ -74,6 +74,17 @@ _SIGNATURES = {
         # row_ptr, col_idx, core, rows, class_start (host), hub_width, out,
         # changed, device, stream
         "gab_hindex_sweep": [_vp] * 4 + [_i64p, _i64, _vp, _vp, _int, _vp],
+    },
+    "cgr_decode": {
+        # words, nwords, then per entry: positions or lanes, their count, the
+        # kind / zeta_k / min_itv_len, the outputs; device, stream
+        "gab_cgr_gamma": [_vp, _i64, _vp, _i64, _int, _vp, _vp, _int, _vp],
+        "gab_cgr_residual": [_vp, _i64] + [_vp] * 4 + [_i64, _int, _vp, _vp,
+                                                       _int, _vp],
+        "gab_cgr_interval": [_vp, _i64] + [_vp] * 4 + [_i64, _int, _vp, _vp,
+                                                       _vp, _int, _vp],
+        # res, row_ptr, nres, itv_ptr, left, length, itv_pre, nv, col
+        "gab_cgr_merge": [_vp] * 7 + [_i64, _vp, _int, _vp],
     },
 }
 

@@ -10,10 +10,14 @@ over the degree-ordered DAG of an undirected graph (each triangle once),
 an id repeated in a row counted with its multiplicity, as compare-all
 counts it.
 
-``dag_edges`` moves a DAG to the device once, in the layout the kernel
-reads: the CSR (rows sorted, which the caller ensures) and the edges whose
-rows are both non-empty, ordered by the lane group that takes them (4, 8,
-16 or 32 lanes an edge, by the shorter row's length). ``tc_count`` takes
+``edges_between`` lays out, on the device, what the kernel reads: the CSR
+(rows sorted, which the caller ensures) and the edges to count whose rows
+are both non-empty, ordered by the lane group that takes them (4, 8, 16 or
+32 lanes an edge, by the shorter row's length). The edges are given apart
+from the rows and their ids need not be row numbers: the streaming count
+(``analytics/tc_stream.py``) counts a pair of vertex blocks so, the rows
+holding global ids and the edges naming local rows. ``dag_edges`` moves a
+host DAG to the device once and lays out all its edges so. ``tc_count`` takes
 the plain version for tensors on the CPU and launches the kernel, once per
 call, for tensors on a CUDA device, or raises; ``LAUNCHES`` counts the
 launches. Both return the total as a 0-d int64 tensor on the DAG's device.
@@ -30,7 +34,6 @@ import dataclasses
 import numpy as np
 import torch
 
-from graphaibench_tpu_torch import native
 from graphaibench_tpu_torch.ops import _build
 from graphaibench_tpu_torch.ops._ell_launch import _launch_tail, _raise_on
 
@@ -53,36 +56,50 @@ class DagEdges:
     group_start: tuple         # 5 ints: group g is [group_start[g], [g + 1])
     nv: int
     ne: int
+    sentinel: int              # the plain version's pad, above every id
 
 
 def dag_edges(row_ptr: np.ndarray, col_idx: np.ndarray, *, device) -> DagEdges:
-    """The kernel's layout of a host DAG (CSR with sorted rows): its edges
-    with both rows non-empty (the others close no triangle), ordered
-    stably by lane group."""
+    """The kernel's layout of a host DAG (CSR with sorted rows): the CSR
+    moved to ``device`` and every edge laid out there by
+    ``edges_between``."""
     row_ptr = np.asarray(row_ptr, np.int64)
-    col_idx = np.asarray(col_idx, np.int32)
     nv, ne = len(row_ptr) - 1, len(col_idx)
     if ne >= 2**31:
         raise ValueError("the DAG's edge count must fit int32")
-    deg = np.diff(row_ptr)
-    src = np.repeat(np.arange(nv, dtype=np.int32), deg)
-    shorter = np.minimum(deg[src], deg[col_idx])
+    rp = torch.from_numpy(row_ptr.astype(np.int32)).to(device)
+    col = torch.from_numpy(np.ascontiguousarray(col_idx, np.int32)).to(device)
+    src = torch.repeat_interleave(torch.arange(nv, device=rp.device),
+                                  (rp[1:] - rp[:-1]).long(), output_size=ne)
+    return edges_between(rp, col, src, col, id_bound=nv)
+
+
+def edges_between(row_ptr: torch.Tensor, col_idx: torch.Tensor,
+                  src: torch.Tensor, dst: torch.Tensor, *,
+                  id_bound: int) -> DagEdges:
+    """The kernel's layout, built on the tensors' device, of the edges
+    (src, dst) between rows of a CSR already there (int32, rows sorted,
+    every id below ``id_bound``): those with both rows non-empty (the
+    others close no triangle), ordered stably by lane group. One host
+    sync, for the group bounds."""
+    rp = row_ptr.long()
+    deg = rp[1:] - rp[:-1]
+    shorter = torch.minimum(deg[src.long()], deg[dst.long()])
     keep = shorter > 0
-    src, dst = src[keep], col_idx[keep]
-    group = np.searchsorted(np.asarray(GROUP_WIDTHS), shorter[keep],
-                            side="left").astype(np.int32)
-    order = native.stable_key_sort(group, len(GROUP_WIDTHS) + 1)
-    if order is None:
-        order = np.argsort(group, kind="stable")
-    counts = np.bincount(group, minlength=len(GROUP_WIDTHS) + 1)
-    start = np.concatenate([[0], np.cumsum(counts)])
-
-    def to(a):
-        return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(device)
-
-    return DagEdges(row_ptr=to(row_ptr), col_idx=to(col_idx),
-                    src=to(src[order]), dst=to(dst[order]),
-                    group_start=tuple(int(s) for s in start), nv=nv, ne=ne)
+    src, dst, shorter = src[keep], dst[keep], shorter[keep]
+    widths = torch.tensor(GROUP_WIDTHS, dtype=shorter.dtype,
+                          device=shorter.device)
+    group = torch.bucketize(shorter, widths)      # widths below the length
+    order = torch.argsort(group, stable=True)
+    counts = torch.bincount(group, minlength=len(GROUP_WIDTHS) + 1)
+    start = [0] + torch.cumsum(counts, 0).tolist()
+    return DagEdges(row_ptr=row_ptr.to(torch.int32).contiguous(),
+                    col_idx=col_idx.to(torch.int32).contiguous(),
+                    src=src[order].to(torch.int32).contiguous(),
+                    dst=dst[order].to(torch.int32).contiguous(),
+                    group_start=tuple(int(x) for x in start),
+                    nv=row_ptr.numel() - 1, ne=col_idx.numel(),
+                    sentinel=id_bound + 1)
 
 
 # ---- plain PyTorch version -------------------------------------------------
@@ -106,14 +123,16 @@ def pack_padded(row_ptr: torch.Tensor, col_idx: torch.Tensor,
 
 def count_group_plain(nbr: torch.Tensor, src_c: torch.Tensor,
                       dst_c: torch.Tensor, valid_c: torch.Tensor,
-                      wa: int) -> torch.Tensor:
+                      wa: int, sent: int | None = None) -> torch.Tensor:
     """The JAX package's ``_count_group``: over a chunk of DAG edges whose
     sources have out-degree <= ``wa``, the sum of |N(src) ∩ N(dst)| by
-    compare-all, the invalid edges of the chunk left out. Returns a 0-d
-    int64 tensor."""
+    compare-all, the invalid edges of the chunk left out. Real ids are
+    below ``sent`` (default: the rows' count) and the padding is not.
+    Returns a 0-d int64 tensor."""
     a = nbr[src_c.long()][:, :wa]
     b = nbr[dst_c.long()]
-    sent = nbr.shape[0]           # real ids are < nv; the sentinel is not
+    if sent is None:
+        sent = nbr.shape[0]
     eq = (a[:, :, None] == b[:, None, :]) & (a < sent)[:, :, None]
     return (eq & valid_c[:, None, None]).sum()
 
@@ -124,7 +143,7 @@ def tc_count_plain(dag: DagEdges) -> torch.Tensor:
     total = torch.zeros((), dtype=torch.int64, device=dag.src.device)
     if dag.src.numel() == 0:
         return total
-    nbr, deg = pack_padded(dag.row_ptr, dag.col_idx, dag.nv + 1)
+    nbr, deg = pack_padded(dag.row_ptr, dag.col_idx, dag.sentinel)
     width = nbr.shape[1]
     src, dst = dag.src.long(), dag.dst.long()
     group = torch.ceil(torch.log2(deg[src].clamp(min=8).double())).long()
@@ -137,7 +156,8 @@ def tc_count_plain(dag: DagEdges) -> torch.Tensor:
             s_c, d_c = s_g[lo:lo + csize], d_g[lo:lo + csize]
             valid = torch.ones(s_c.numel(), dtype=torch.bool,
                                device=s_c.device)
-            total += count_group_plain(nbr, s_c, d_c, valid, wa)
+            total += count_group_plain(nbr, s_c, d_c, valid, wa,
+                                       dag.sentinel)
     return total
 
 

@@ -394,13 +394,18 @@ def test_run_benchmark_in_process(datasets, capsys):
 
 @pytest.mark.parametrize("case,item", [
     ("cf", "P15"), ("motif", "P15"), ("sample", "P15"), ("color", "P15"),
-    ("compressed", "P13a"), ("shards", "P14b")])
+    ("compressed", "K11"), ("shards", "P14b")])
 def test_unported_routes_exit_2_and_name_their_item(datasets, tmp_path, case,
                                                     item):
     env, path, kernel = {}, datasets["sym"], case
     if case == "compressed":
-        (tmp_path / "packed.meta.json").write_text("{}")
+        # a StreamVByte prefix: its device decode is K11's
+        from graphaibench_tpu_torch.compress import cli as tccli
+        from graphaibench_tpu_torch.compress import vbyte as tvbyte
+
         path, kernel = str(tmp_path / "packed"), "bfs"
+        tccli.save_compressed(tvbyte.encode_graph(
+            tio.load_graph(datasets["sym"]), "streamvbyte"), path)
     elif case == "shards":
         env, kernel = {"GAB_SHARDS": "2"}, "bfs"
     r = _cli("analytics", kernel, path, "--device=cpu", **env)
@@ -434,10 +439,22 @@ def test_cli_info_prints_what_the_jax_cli_prints(datasets, ds, tmp_path,
 
 
 def test_cli_info_refuses_a_compressed_prefix(tmp_path):
+    """A prefix whose files are not a compressed graph is refused; a CGR
+    prefix prints the JAX CLI's two lines (tests/test_torch_compress.py
+    holds them equal)."""
     (tmp_path / "packed.meta.json").write_text("{}")
     r = _cli("info", str(tmp_path / "packed"))
     assert r.returncode == 2
-    assert "P13a" in r.stderr and "ROADMAP" in r.stderr
+    assert "not a compressed-graph prefix" in r.stderr
+    from graphaibench_tpu_torch.compress import cgr as tcgr
+    from graphaibench_tpu_torch.compress import cli as tccli
+
+    g = T.sort_and_clean(tgen.rmat(8, 6, seed=4))
+    tccli.save_compressed(tcgr.encode_graph(g), str(tmp_path / "cgr"))
+    r = _cli("info", str(tmp_path / "cgr"))
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.splitlines()[0] == (f"(compressed prefix, decoded) |V| "
+                                        f"{g.nv} |E| {g.ne}")
     r = _cli("info")
     assert r.returncode == 2 and "usage: info" in r.stdout
 

@@ -1,0 +1,541 @@
+"""The port's CGR decode on the device (``graphaibench_tpu_torch/compress/
+cgr_device.py``, the kernels K12 of ``csrc/cgr_decode.cu`` with their
+wrappers and plain versions in ``ops/cgr_decode.py``), held against the JAX
+package's ``cgr_device.py`` and the original CSR on the CPU.
+
+All of it is int32 and must be exact. On the CPU each wrapper takes its
+plain version; each plain pass is held against the JAX pass it replaces on
+the same lanes (``_headers``, ``_counts``, ``_residual_pass``,
+``_interval_pass``), and the whole decode against JAX's
+``cgr_decode_device`` (jit on the JAX CPU backend) and the graph. The
+kernels' source is compiled here with g++ against a header that emulates
+the CUDA intrinsics it uses and runs its blocks one thread after another,
+and held against the plain versions; the kernels themselves run on the card
+in the test marked ``cuda`` and in ``chip_smoke.py``'s ``compress`` phase.
+The graphs and configurations are those of ``tests/test_compress.py``
+(:392-545).
+"""
+
+import ctypes
+import re
+import shutil
+import subprocess
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from graphaibench_tpu.compress import cgr as jcgr
+from graphaibench_tpu.compress import cgr_device as JCD
+from graphaibench_tpu.graph import csr as jcsr
+from graphaibench_tpu.graph import generators as jgen
+from graphaibench_tpu.graph import transforms as JT
+from graphaibench_tpu_torch.compress import cgr as tcgr
+from graphaibench_tpu_torch.compress import cgr_device as CD
+from graphaibench_tpu_torch.compress.unary import (
+    BitWriter,
+    int_2_nat,
+    write_gamma,
+)
+from graphaibench_tpu_torch.graph import csr as tcsr
+from graphaibench_tpu_torch.graph import generators as tgen
+from graphaibench_tpu_torch.graph import transforms as T
+from graphaibench_tpu_torch.ops import _build
+from graphaibench_tpu_torch.ops import cgr_decode as K12
+from test_torch_compress import _runs
+
+torch.set_num_threads(2)
+
+GRAPHS = {
+    "rmat9": lambda gen, tr, csr: tr.sort_and_clean(gen.rmat(9, 8, seed=1)),
+    "uniform": lambda gen, tr, csr: tr.sort_and_clean(
+        gen.uniform_random(200, 600, seed=2)),
+    "runs": _runs,
+    "small": lambda gen, tr, csr: tr.sort_and_clean(
+        gen.uniform_random(60, 180, seed=3)),
+}
+# tests/test_compress.py:406-407 and :450-451
+PLAIN_CONFIGS = {"default": {}, "zeta3": dict(zeta_k=3),
+                 "byte": dict(alignment="byte"), "word": dict(alignment="word"),
+                 "add_degree": dict(add_degree=True),
+                 "seg64": dict(res_seg_len=64), "zeta1": dict(zeta_k=1)}
+INTERVAL_CONFIGS = {"itv64": {}, "add_degree": dict(add_degree=True),
+                    "itv128": dict(itv_seg_len=128),
+                    "min2": dict(min_itv_len=2), "zeta3": dict(zeta_k=3),
+                    "byte": dict(alignment="byte")}
+_CACHE = {}
+
+
+def _pair(name):
+    if name not in _CACHE:
+        t = GRAPHS[name](tgen, T, tcsr)
+        j = GRAPHS[name](jgen, JT, jcsr)
+        assert np.array_equal(t.col_idx, j.col_idx)
+        _CACHE[name] = (t, j)
+    return _CACHE[name]
+
+
+def _cfg(kw, interval=False):
+    kw = ({"use_interval": True, "itv_seg_len": 64, **kw} if interval
+          else {"use_interval": False, **kw})
+    return tcgr.CgrConfig(**kw), jcgr.CgrConfig(**kw)
+
+
+def _streams(name, kw, interval=False):
+    g, jg = _pair(name)
+    tc, jc = _cfg(kw, interval)
+    t, j = tcgr.encode_graph(g, tc), jcgr.encode_graph(jg, jc)
+    assert t.data == j.data
+    return g, t, j
+
+
+def _same(got, g, what=""):
+    np.testing.assert_array_equal(got.row_ptr, g.row_ptr, err_msg=what)
+    np.testing.assert_array_equal(got.col_idx, g.col_idx, err_msg=what)
+
+
+# ---- the whole decode ------------------------------------------------------
+
+@pytest.mark.parametrize("cfg", sorted(PLAIN_CONFIGS))
+@pytest.mark.parametrize("name", ["rmat9", "uniform"])
+def test_decode_equals_the_graph(name, cfg):
+    g, t, _ = _streams(name, PLAIN_CONFIGS[cfg])
+    got = CD.cgr_decode_device(t, device="cpu")
+    _same(got, g, cfg)
+    assert got.col_idx.dtype == np.int32 and got.row_ptr.dtype == np.int64
+
+
+@pytest.mark.parametrize("cfg", sorted(INTERVAL_CONFIGS))
+@pytest.mark.parametrize("name", ["runs", "rmat9"])
+def test_interval_decode_equals_the_graph(name, cfg):
+    g, t, _ = _streams(name, INTERVAL_CONFIGS[cfg], interval=True)
+    prep = CD.cgr_device_prep(t, device="cpu")
+    if name == "runs":
+        assert prep["n_itv"] > 0
+    row_ptr, col = CD.cgr_device_run(prep)
+    assert isinstance(col, torch.Tensor) and col.device.type == "cpu"
+    _same(tcsr.CSRGraph(row_ptr=row_ptr, col_idx=col.numpy()), g, cfg)
+
+
+@pytest.mark.parametrize("name,cfg,interval", [
+    ("rmat9", "default", False), ("uniform", "zeta3", False),
+    ("rmat9", "add_degree", False), ("runs", "itv64", True),
+    ("runs", "zeta3", True)])
+def test_decode_equals_jax_device_decode(name, cfg, interval):
+    configs = INTERVAL_CONFIGS if interval else PLAIN_CONFIGS
+    g, t, j = _streams(name, configs[cfg], interval)
+    got = CD.cgr_decode_device(t, device="cpu")
+    want = JCD.cgr_decode_device(j)
+    _same(got, g)
+    np.testing.assert_array_equal(got.row_ptr, np.asarray(want.row_ptr))
+    np.testing.assert_array_equal(got.col_idx, np.asarray(want.col_idx))
+
+
+def test_small_segments_decode_or_raise_as_jax():
+    """res_seg_len 32 and 64 and itv_seg_len 32 decode on the small-id
+    graph (every code fits its slot); tests/test_compress.py:501-545."""
+    g, _ = _pair("small")
+    for kw in (dict(res_seg_len=32), dict(res_seg_len=64),
+               dict(use_interval=True, itv_seg_len=32)):
+        cg = tcgr.encode_graph(g, tcgr.CgrConfig(**kw))
+        _same(CD.cgr_decode_device(cg, device="cpu"), g, str(kw))
+
+
+def _oversized(gen, tr, csr):
+    """Vertex 0's three residuals each need a gamma of 17 bits or more,
+    over a 16-bit slot: each forms a segment, and the first, closed, spans
+    two slots (tests/test_compress.py:531-545 at a smaller scale)."""
+    src = np.asarray([0, 0, 0])
+    dst = np.asarray([1 << 9, (1 << 9) + (1 << 8), 1 << 10])
+    return tr.sort_and_clean(csr.from_edges(src, dst, 1 << 11))
+
+
+OVERSIZED = dict(res_seg_len=16, zeta_k=1)
+
+
+def test_oversized_multi_slot_segment_raises_in_both():
+    g, jg = _oversized(tgen, T, tcsr), _oversized(jgen, JT, jcsr)
+    cfg = OVERSIZED
+    t = tcgr.encode_graph(g, tcgr.CgrConfig(**cfg))
+    j = jcgr.encode_graph(jg, jcgr.CgrConfig(**cfg))
+    assert t.data == j.data
+    _same(tcgr.decode_graph(t), g, "host decode stays exact")
+    with pytest.raises(CD.StreamRefused, match="device CGR decode"):
+        CD.cgr_decode_device(t, device="cpu")
+    with pytest.raises(ValueError):
+        JCD.cgr_decode_device(j)
+
+
+def test_closed_segment_check_ignores_the_last_segment():
+    """A closed segment (not a vertex's last) whose codes ran past its slot
+    is refused; the last segment, unpadded, may run on."""
+    seg_start = np.asarray([0, 32, 100], np.int64)
+    lane_k = np.asarray([0, 1, 0], np.int64)
+    lane_v = np.asarray([0, 0, 1])
+    nsegs = np.asarray([2, 1])
+    fits = np.asarray([32, 90, 300])
+    CD._check_closed_segments_fit(fits, seg_start, lane_k, nsegs, lane_v, 32,
+                                  "residual")
+    with pytest.raises(CD.StreamRefused,
+                       match="oversized multi-slot residual"):
+        CD._check_closed_segments_fit(fits + [1, 0, 0], seg_start, lane_k,
+                                      nsegs, lane_v, 32, "residual")
+
+
+@pytest.mark.parametrize("kw", [dict(res_seg_len=0), dict(res_seg_len=3)])
+def test_refused_streams_raise_in_both(kw):
+    g = T.sort_and_clean(tgen.uniform_random(50, 150, seed=0))
+    jg = JT.sort_and_clean(jgen.uniform_random(50, 150, seed=0))
+    t = tcgr.encode_graph(g, tcgr.CgrConfig(**kw))
+    j = jcgr.encode_graph(jg, jcgr.CgrConfig(**kw))
+    with pytest.raises(CD.StreamRefused, match="device CGR decode"):
+        CD.cgr_decode_device(t, device="cpu")
+    with pytest.raises(ValueError):
+        JCD.cgr_decode_device(j)
+
+
+def test_positions_past_int32_are_refused():
+    g, _ = _pair("small")
+    cg = tcgr.encode_graph(g)
+    big = tcgr.CompressedGraph(nv=cg.nv, ne=cg.ne,
+                               offsets=cg.offsets + (1 << 31), data=cg.data,
+                               cfg=cg.cfg)
+    with pytest.raises(CD.StreamRefused, match="int32"):
+        CD.cgr_device_prep(big, device="cpu")
+
+
+def test_interval_lengths_below_the_minimum_are_refused():
+    """A crafted interval stream: two vertices, one interval each, whose
+    lengths still sum to ne but the first wraps to -4 in int32 (a 63-bit
+    gamma code). The prep refuses it before any pass writes: its rows'
+    slots would run backwards and out of ``col``."""
+    cfg = tcgr.CgrConfig(use_interval=True)
+    w, offsets = BitWriter(), [0]
+    for v, (left, x) in enumerate([(1, (1 << 32) - 8), (2, 8)]):
+        # one interval segment of one (left, len - min_itv_len) pair, then
+        # one residual segment of count 0
+        for val in (0, 1, int_2_nat(left - v), x, 0, 0):
+            write_gamma(w, val)
+        offsets.append(w.bit_length)
+    cg = tcgr.CompressedGraph(nv=2, ne=8, cfg=cfg, data=w.getvalue(),
+                              offsets=np.asarray(offsets, np.int64))
+    with pytest.raises(CD.StreamRefused, match="interval below 4 ids"):
+        CD.cgr_device_prep(cg, device="cpu")
+
+
+@pytest.mark.parametrize("interval", [False, True])
+def test_empty_graph_decodes_to_the_empty_csr(interval):
+    empty = tcsr.CSRGraph(row_ptr=np.zeros(9, np.int64),
+                          col_idx=np.zeros(0, np.int32))
+    cg = tcgr.encode_graph(empty, tcgr.CgrConfig(use_interval=interval,
+                                                 add_degree=True))
+    got = CD.cgr_decode_device(cg, device="cpu")
+    assert got.nv == 8 and got.ne == 0
+
+
+# ---- each plain pass against the JAX pass ----------------------------------
+
+def _jax_views(data: bytes):
+    pad = (-len(data)) % 4 + 16
+    words = jnp.asarray(np.frombuffer(data + b"\x00" * pad, dtype=">u4")
+                        .astype(np.uint32))
+    return JCD._pairs(words), JCD._quads(words)
+
+
+def _i32(a):
+    return torch.from_numpy(np.ascontiguousarray(a, np.int32))
+
+
+@pytest.mark.parametrize("name,cfg", [("rmat9", "default"),
+                                      ("rmat9", "add_degree"),
+                                      ("runs", "zeta1")])
+def test_header_and_count_passes_equal_jax(name, cfg):
+    """``cgr_gamma`` (HEADER or HEADER_DEG; COUNT) against ``_headers`` and
+    ``_counts`` on every vertex and every segment."""
+    _, t, _ = _streams(name, PLAIN_CONFIGS[cfg])
+    pairs, _ = _jax_views(t.data)
+    stream = K12.stream_tensor(t.data, "cpu")
+    bit_off = (np.asarray(t.offsets[:t.nv]) * t.cfg.unit_bits).astype(np.int32)
+    kind = K12.HEADER_DEG if t.cfg.add_degree else K12.HEADER
+    ns, base = K12.cgr_gamma(stream, _i32(bit_off), kind)
+    jns, jbase = JCD._headers(pairs, jnp.asarray(bit_off), t.cfg.add_degree)
+    assert np.array_equal(ns.numpy(), np.asarray(jns))
+    assert np.array_equal(base.numpy(), np.asarray(jbase))
+    _, _, seg_start = CD._lanes(ns.numpy().astype(np.int64), base.numpy(),
+                                t.cfg.res_seg_len)
+    cnt, nxt = K12.cgr_gamma(stream, _i32(seg_start), K12.COUNT)
+    jcnt, jnxt = JCD._counts(pairs, jnp.asarray(seg_start.astype(np.int32)),
+                             jnp.ones(len(seg_start), bool))
+    assert np.array_equal(cnt.numpy(), np.asarray(jcnt))
+    assert np.array_equal(nxt.numpy(), np.asarray(jnxt))
+
+
+@pytest.mark.parametrize("name,cfg", [("rmat9", "default"),
+                                      ("rmat9", "zeta3"), ("uniform", "zeta1")])
+def test_residual_pass_equals_jax(name, cfg):
+    _, t, _ = _streams(name, PLAIN_CONFIGS[cfg])
+    prep = CD.cgr_device_prep(t, device="cpu")
+    _, quads = _jax_views(t.data)
+    lanes = [prep[k] for k in ("data_p", "counts", "lane_v_d", "base")]
+    col, pfin = K12.cgr_residual(prep["stream"], *lanes, t.ne, t.cfg.zeta_k)
+    jcol, jpfin = JCD._residual_pass(
+        quads, *(jnp.asarray(x.numpy()) for x in lanes),
+        jnp.zeros(t.ne, jnp.int32), t.cfg.zeta_k,
+        int(prep["counts"].max()), t.ne)
+    assert np.array_equal(col.numpy(), np.asarray(jcol))
+    assert np.array_equal(pfin.numpy(), np.asarray(jpfin))
+
+
+@pytest.mark.parametrize("cfg", ["itv64", "min2", "add_degree"])
+def test_interval_pass_equals_jax(cfg):
+    _, t, _ = _streams("runs", INTERVAL_CONFIGS[cfg], interval=True)
+    _, quads = _jax_views(t.data)
+    stream = K12.stream_tensor(t.data, "cpu")
+    bit_off = (np.asarray(t.offsets[:t.nv]) * t.cfg.unit_bits).astype(np.int32)
+    kind = K12.HEADER_DEG if t.cfg.add_degree else K12.HEADER
+    ns, base = K12.cgr_gamma(stream, _i32(bit_off), kind)
+    lane_v, _, seg_start = CD._lanes(ns.numpy().astype(np.int64),
+                                     base.numpy(), t.cfg.itv_seg_len)
+    cnt, data_p = K12.cgr_gamma(stream, _i32(seg_start), K12.COUNT)
+    ibase = np.cumsum(cnt.numpy()) - cnt.numpy()
+    n_itv = int(cnt.sum())
+    lanes = (data_p, cnt, _i32(lane_v), _i32(ibase))
+    left, length, pfin = K12.cgr_interval(stream, *lanes, n_itv,
+                                          t.cfg.min_itv_len)
+    jleft, jlen, jpfin = JCD._interval_pass(
+        quads, *(jnp.asarray(x.numpy()) for x in lanes),
+        jnp.zeros(n_itv, jnp.int32), jnp.zeros(n_itv, jnp.int32),
+        t.cfg.min_itv_len, int(cnt.max()), n_itv)
+    assert n_itv > 0
+    assert np.array_equal(left.numpy(), np.asarray(jleft))
+    assert np.array_equal(length.numpy(), np.asarray(jlen))
+    assert np.array_equal(pfin.numpy(), np.asarray(jpfin))
+
+
+def test_merge_plain_places_runs_between_residuals():
+    """Two rows: [1, 9] with the interval 4..6, and [] with 10..11 and
+    20..22; the residual buffer holds each row's residuals first."""
+    res = _i32([1, 9, -1, -1, -1, -1, -1, -1, -1, -1])
+    row_ptr = _i32([0, 5, 10])
+    nres = _i32([2, 0])
+    itv_ptr = _i32([0, 1, 3])
+    left, length = _i32([4, 10, 20]), _i32([3, 2, 3])
+    pre = _i32([0, 3, 5, 8])
+    col = K12.cgr_merge(res, row_ptr, nres, itv_ptr, left, length, pre)
+    assert col.tolist() == [1, 4, 5, 6, 9, 10, 11, 20, 21, 22]
+
+
+def test_wrappers_refuse_bad_operands():
+    stream = K12.stream_tensor(b"\xff" * 8, "cpu")
+    pos = torch.zeros(3, dtype=torch.int32)
+    with pytest.raises(ValueError, match="int32"):
+        K12.cgr_gamma(stream, pos.long(), K12.COUNT)
+    with pytest.raises(ValueError, match="uint8"):
+        K12.cgr_gamma(stream[:-3], pos, K12.COUNT)
+    with pytest.raises(ValueError, match="kind"):
+        K12.cgr_gamma(stream, pos, 7)
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        K12.cgr_gamma(stream.to("meta"), pos.to("meta"), K12.COUNT)
+    with pytest.raises(ValueError, match="different lengths"):
+        K12.cgr_residual(stream, pos, pos, pos, pos[:2], 4, 2)
+    assert stream.numel() % 4 == 0 and stream.numel() >= 8 + 16
+
+
+# ---- the kernels' source, emulated on the host -----------------------------
+
+EMULATION = r"""
+#pragma once
+#include <cstdint>
+#include <functional>
+#define __global__
+#define __device__
+#define __forceinline__ inline
+#define __restrict__
+#define __launch_bounds__(x)
+typedef int cudaError_t;
+typedef void* cudaStream_t;
+enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
+struct dim3 { unsigned x = 0; };
+static dim3 blockIdx, threadIdx;
+inline cudaError_t cudaSetDevice(int) { return cudaSuccess; }
+inline cudaError_t cudaGetLastError() { return cudaSuccess; }
+inline const char* cudaGetErrorString(cudaError_t) { return ""; }
+template <class T> inline T __ldg(const T* p) { return *p; }
+inline unsigned __byte_perm(unsigned a, unsigned b, unsigned s) {
+  const unsigned long long x = ((unsigned long long)b << 32) | a;
+  unsigned r = 0;
+  for (int i = 0; i < 4; ++i)
+    r |= (unsigned)((x >> (8 * ((s >> (4 * i)) & 7))) & 0xff) << (8 * i);
+  return r;
+}
+inline unsigned __funnelshift_l(unsigned lo, unsigned hi, unsigned s) {
+  const unsigned long long x = ((unsigned long long)hi << 32) | lo;
+  return (unsigned)((x << (s & 31)) >> 32);
+}
+inline int __clz(unsigned x) { return x ? __builtin_clz(x) : 32; }
+inline void emulate(unsigned grid, unsigned block, std::function<void()> f) {
+  for (unsigned b = 0; b < grid; ++b)
+    for (unsigned t = 0; t < block; ++t) {
+      blockIdx.x = b;
+      threadIdx.x = t;
+      f();
+    }
+}
+"""
+
+
+@pytest.fixture(scope="module")
+def emulated(tmp_path_factory):
+    """The library of ``csrc/cgr_decode.cu`` built by g++ for the host,
+    each launch ``k<<<grid, block, 0, s>>>(args)`` run as a loop over the
+    grid's threads."""
+    if shutil.which("g++") is None:
+        pytest.skip("no g++ on this host")
+    d = tmp_path_factory.mktemp("cgr_emulated")
+    (d / "cuda_runtime.h").write_text(EMULATION)
+    src = (_build.CSRC / "cgr_decode.cu").read_text()
+    src, n = re.subn(r"(\w+)<<<(.*?),\s*(\w+),\s*0,\s*(.*?)>>>\((.*?)\);",
+                     r"emulate(\2, \3, [&] { \1(\5); });", src,
+                     flags=re.S)
+    assert n == 4
+    (d / "k.cpp").write_text(src)
+    subprocess.run(["g++", "-O1", "-std=c++17", "-shared", "-fPIC",
+                    f"-I{d}", str(d / "k.cpp"), "-o", str(d / "k.so")],
+                   check=True, capture_output=True, timeout=300)
+    lib = ctypes.CDLL(str(d / "k.so"))
+    for fn, argtypes in _build._SIGNATURES["cgr_decode"].items():
+        getattr(lib, fn).argtypes = argtypes
+        getattr(lib, fn).restype = ctypes.c_int
+    return lib
+
+
+def _emulated_passes(lib, monkeypatch):
+    """Route every wrapper through the emulated library and hold each call
+    against the plain version on the same inputs."""
+    words = lambda s: s.numel() // 4   # noqa: E731
+    calls = {}
+
+    def gamma(stream, pos, kind):
+        v, n = torch.empty_like(pos), torch.empty_like(pos)
+        assert lib.gab_cgr_gamma(stream.data_ptr(), words(stream),
+                                 pos.data_ptr(), pos.numel(), kind,
+                                 v.data_ptr(), n.data_ptr(), 0, None) == 0
+        return v, n
+
+    def residual(stream, dp, c, lv, b, ne, k):
+        col, pf = torch.zeros(ne, dtype=torch.int32), torch.empty_like(dp)
+        assert lib.gab_cgr_residual(stream.data_ptr(), words(stream),
+                                    dp.data_ptr(), c.data_ptr(), lv.data_ptr(),
+                                    b.data_ptr(), dp.numel(), k,
+                                    col.data_ptr(), pf.data_ptr(), 0,
+                                    None) == 0
+        return col, pf
+
+    def interval(stream, dp, c, lv, b, n_itv, m):
+        lf = torch.empty(n_itv, dtype=torch.int32)
+        ln, pf = torch.empty_like(lf), torch.empty_like(dp)
+        assert lib.gab_cgr_interval(stream.data_ptr(), words(stream),
+                                    dp.data_ptr(), c.data_ptr(), lv.data_ptr(),
+                                    b.data_ptr(), dp.numel(), m,
+                                    lf.data_ptr(), ln.data_ptr(),
+                                    pf.data_ptr(), 0, None) == 0
+        return lf, ln, pf
+
+    def merge(*args):
+        col = torch.full_like(args[0], -1)
+        assert lib.gab_cgr_merge(*(t.data_ptr() for t in args),
+                                 args[2].numel(), col.data_ptr(), 0,
+                                 None) == 0
+        return col
+
+    def checked(name, emu, plain):
+        def run(*args):
+            got, want = emu(*args), plain(*args)
+            for a, b in zip(got if isinstance(got, tuple) else (got,),
+                            want if isinstance(want, tuple) else (want,)):
+                assert torch.equal(a, b), name
+            calls[name] = calls.get(name, 0) + 1
+            return got
+        return run
+
+    for name, emu in (("cgr_gamma", gamma), ("cgr_residual", residual),
+                      ("cgr_interval", interval), ("cgr_merge", merge)):
+        monkeypatch.setattr(K12, name, checked(
+            name, emu, getattr(K12, f"{name}_plain")))
+    return calls
+
+
+@pytest.mark.parametrize("name,cfg,interval", [
+    ("rmat9", "default", False), ("rmat9", "zeta1", False),
+    ("uniform", "word", False), ("rmat9", "add_degree", False),
+    ("runs", "itv64", True), ("runs", "zeta3", True),
+    ("runs", "add_degree", True)])
+def test_kernel_source_emulated_equals_plain(emulated, monkeypatch, name,
+                                             cfg, interval):
+    """Every launch of a decode through the emulated kernels equals the
+    plain version on the same inputs, and the decode gives the graph."""
+    calls = _emulated_passes(emulated, monkeypatch)
+    configs = INTERVAL_CONFIGS if interval else PLAIN_CONFIGS
+    g, t, _ = _streams(name, configs[cfg], interval)
+    _same(CD.cgr_decode_device(t, device="cpu"), g, cfg)
+    assert calls["cgr_residual"] == 1
+    assert calls.get("cgr_merge", 0) == (1 if interval else 0)
+
+
+def test_kernel_source_emulated_on_a_stream_that_does_not_parse(emulated,
+                                                                monkeypatch):
+    """Reads at the wrong places (the oversized segment) stay inside the
+    stream and give the plain version's values."""
+    calls = _emulated_passes(emulated, monkeypatch)
+    g = _oversized(tgen, T, tcsr)
+    for kw in (OVERSIZED, dict(OVERSIZED, use_interval=True, itv_seg_len=16)):
+        cg = tcgr.encode_graph(g, tcgr.CgrConfig(**kw))
+        with pytest.raises(CD.StreamRefused, match="device CGR decode"):
+            CD.cgr_decode_device(cg, device="cpu")
+    assert calls["cgr_gamma"] >= 4
+
+
+# ---- on the card -----------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,cfg,interval", [
+    ("rmat9", "default", False), ("uniform", "zeta1", False),
+    ("runs", "itv64", True), ("runs", "add_degree", True)])
+def test_kernels_match_plain_on_cuda(name, cfg, interval):
+    """Each K12 kernel against its plain version on the prep's lanes on the
+    card, exactly, and the whole decode against the graph."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels of csrc/cgr_decode.cu "
+                    "have no CPU route")
+    configs = INTERVAL_CONFIGS if interval else PLAIN_CONFIGS
+    g, t, _ = _streams(name, configs[cfg], interval)
+    prep = CD.cgr_device_prep(t, device="cuda")
+    stream = prep["stream"]
+
+    def same(got, want):
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+
+    seg = _i32(prep["seg_start"]).cuda()
+    same(K12.cgr_gamma(stream, seg, K12.COUNT),
+         K12.cgr_gamma_plain(stream, seg, K12.COUNT))
+    kind = K12.HEADER_DEG if t.cfg.add_degree else K12.HEADER
+    same(K12.cgr_gamma(stream, prep["bit_off"], kind),
+         K12.cgr_gamma_plain(stream, prep["bit_off"], kind))
+    lanes = [prep[k] for k in ("data_p", "counts", "lane_v_d", "base")]
+    col, pfin = K12.cgr_residual(stream, *lanes, t.ne, t.cfg.zeta_k)
+    pcol, ppfin = K12.cgr_residual_plain(stream, *lanes, t.ne, t.cfg.zeta_k)
+    assert torch.equal(pfin, ppfin)
+    if interval:
+        ilanes = prep["itv_lanes"]
+        n_itv = prep["left"].numel()
+        same(K12.cgr_interval(stream, *ilanes, n_itv, t.cfg.min_itv_len),
+             K12.cgr_interval_plain(stream, *ilanes, n_itv,
+                                    t.cfg.min_itv_len))
+        margs = (col, prep["row_ptr_d"], prep["nres"], prep["itv_ptr"],
+                 prep["left"], prep["length"], prep["itv_pre"])
+        assert torch.equal(K12.cgr_merge(*margs), K12.cgr_merge_plain(*margs))
+    else:
+        assert torch.equal(col, pcol)
+    _same(CD.cgr_decode_device(t, device="cuda"), g, cfg)

@@ -159,7 +159,9 @@ def test_state_cache_is_keyed_by_identity_and_device():
     sa = TC._tc_device_state(a, "cpu")
     assert TC._tc_device_state(a, "cpu") is sa
     assert TC._tc_device_state(b, "cpu") is not sa
-    assert TC._tc_device_state(a, "meta") is not sa
+    # another device, by its name: the layout is built on the device, so
+    # the name is one that runs here
+    assert TC._tc_device_state(a, "cpu:0") is not sa
 
 
 # ---- the plain version against the JAX program -----------------------------

@@ -1,0 +1,254 @@
+"""The port's triangle counting and BFS on a CGR stream
+(``graphaibench_tpu_torch/analytics/tc_stream.py``: blocks decoded by K12's
+``cgr_residual``, block pairs counted by K9's ``tc_count`` through
+``ops/tc_count.py::edges_between``), the compressed-prefix routes of
+``run_benchmark``, held against the JAX package's ``tc_stream.py`` and the
+port's uncompressed solvers on the CPU.
+
+Counts and depths are integers and must be equal. ``block_bytes`` is small
+enough that every graph here splits into several blocks.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from graphaibench_tpu.analytics import tc_stream as JS
+from graphaibench_tpu.compress import cgr as jcgr
+from graphaibench_tpu.graph import csr as jcsr
+from graphaibench_tpu.graph import generators as jgen
+from graphaibench_tpu.graph import transforms as JT
+from graphaibench_tpu_torch.analytics import bfs, run_benchmark, triangle_count
+from graphaibench_tpu_torch.analytics import tc_stream as TS
+from graphaibench_tpu_torch.analytics import verifiers as TV
+from graphaibench_tpu_torch.compress import cgr as tcgr
+from graphaibench_tpu_torch.compress import cgr_device as CD
+from graphaibench_tpu_torch.compress import cli as tccli
+from graphaibench_tpu_torch.compress import hybrid as thybrid
+from graphaibench_tpu_torch.compress import vbyte as tvbyte
+from graphaibench_tpu_torch.graph import csr as tcsr
+from graphaibench_tpu_torch.graph import generators as tgen
+from graphaibench_tpu_torch.graph import transforms as T
+from graphaibench_tpu_torch.ops import cgr_decode as K12
+from graphaibench_tpu_torch.ops import tc_count as K9
+from graphaibench_tpu_torch.ops.device_graph import to_device_graph
+
+torch.set_num_threads(2)
+
+BLOCK_BYTES = 1 << 14          # 4,096 edges a block: the floor
+GRAPHS = {
+    "rmat10": lambda gen, tr, csr: tr.sort_and_clean(gen.rmat(10, 8, seed=2)),
+    "uniform": lambda gen, tr, csr: gen.uniform_random(600, 6000, seed=5),
+    "rmat11": lambda gen, tr, csr: tr.sort_and_clean(gen.rmat(11, 8, seed=3)),
+    "grid": lambda gen, tr, csr: gen.grid2d(70),
+    "edgeless": lambda gen, tr, csr: csr.from_edges([], [], 9),
+}
+_CACHE = {}
+
+
+def _pair(name):
+    if name not in _CACHE:
+        t = GRAPHS[name](tgen, T, tcsr)
+        j = GRAPHS[name](jgen, JT, jcsr)
+        assert np.array_equal(t.col_idx, j.col_idx)
+        _CACHE[name] = (t, j, tcgr.encode_graph(t), jcgr.encode_graph(j))
+    return _CACHE[name]
+
+
+@pytest.mark.parametrize("name", ["rmat10"])
+def test_streaming_count_equals_jax(name):
+    g, _, cg, jc = _pair(name)
+    n, stats = TS.triangle_count_streaming(cg, block_bytes=BLOCK_BYTES,
+                                           device="cpu")
+    jn, jstats = JS.triangle_count_streaming(jc, block_bytes=BLOCK_BYTES)
+    assert n == jn == triangle_count(g, device="cpu")
+    assert stats["blocks"] >= 3 and stats["blocks"] == jstats["blocks"]
+    assert stats["pairs"] >= stats["blocks"]
+
+
+@pytest.mark.parametrize("name", ["rmat10", "uniform", "rmat11", "grid",
+                                  "edgeless"])
+def test_streaming_count_equals_the_uncompressed_count(name):
+    g, _, cg, _ = _pair(name)
+    n, stats = TS.triangle_count_streaming(cg, block_bytes=BLOCK_BYTES,
+                                           device="cpu")
+    assert n == triangle_count(g, device="cpu")
+    assert n == TV.triangle_count_serial(T.orientation(g))
+    assert stats["nv"] == g.nv and stats["ne"] == g.ne
+
+
+def test_streaming_count_with_other_configs():
+    g, *_ = _pair("rmat11")
+    want = triangle_count(g, device="cpu")
+    for kw in (dict(zeta_k=3, alignment="word"), dict(add_degree=True),
+               dict(res_seg_len=64, zeta_k=1)):
+        cg = tcgr.encode_graph(g, tcgr.CgrConfig(**kw))
+        n, _ = TS.triangle_count_streaming(cg, block_bytes=1 << 15,
+                                           device="cpu")
+        assert n == want, kw
+
+
+@pytest.mark.parametrize("name", ["rmat10"])
+def test_streaming_bfs_equals_jax(name):
+    g, _, cg, jc = _pair(name)
+    got = TS.bfs_streaming(cg, 0, block_bytes=BLOCK_BYTES, device="cpu")
+    assert got.dtype == torch.int32
+    assert np.array_equal(got.numpy(), JS.bfs_streaming(
+        jc, 0, block_bytes=BLOCK_BYTES))
+
+
+@pytest.mark.parametrize("name,source", [("rmat10", 0), ("uniform", 5),
+                                         ("rmat11", 17), ("grid", 0)])
+def test_streaming_bfs_equals_bfs(name, source):
+    g, _, cg, _ = _pair(name)
+    got = TS.bfs_streaming(cg, source, block_bytes=BLOCK_BYTES,
+                           device="cpu").numpy()
+    dg = to_device_graph(g, device="cpu", with_transpose=False)
+    assert np.array_equal(got, bfs(dg, source).numpy())
+    assert np.array_equal(got, TV.bfs_serial(g, source))
+
+
+def test_interval_and_unary_streams_raise_in_both():
+    g, jg, _, _ = _pair("rmat10")
+    for kw in (dict(use_interval=True), dict(res_seg_len=0)):
+        t = tcgr.encode_graph(g, tcgr.CgrConfig(**kw))
+        j = jcgr.encode_graph(jg, jcgr.CgrConfig(**kw))
+        with pytest.raises(CD.StreamRefused, match="streaming"):
+            TS.triangle_count_streaming(t, device="cpu")
+        with pytest.raises(CD.StreamRefused, match="streaming"):
+            TS.bfs_streaming(t, 0, device="cpu")
+        with pytest.raises(ValueError):
+            JS.triangle_count_streaming(j)
+
+
+def test_oversized_segment_raises_on_the_block_decode():
+    src = np.asarray([0, 0, 0, 1 << 9, (1 << 9) + (1 << 8), 1 << 10])
+    dst = np.r_[src[3:], np.zeros(3, np.int64)]
+    g = T.sort_and_clean(tcsr.from_edges(src, dst, 1 << 11))
+    cg = tcgr.encode_graph(g, tcgr.CgrConfig(res_seg_len=16, zeta_k=1))
+    with pytest.raises(CD.StreamRefused, match="oversized|parse mismatch"):
+        TS.triangle_count_streaming(cg, device="cpu")
+
+
+def test_block_bounds_cover_the_vertices_in_order():
+    g, _, cg, _ = _pair("rmat11")
+    st = TS.open_cgr_stream(cg, device="cpu")
+    bounds = TS.block_bounds(st, BLOCK_BYTES)
+    assert bounds[0][0] == 0 and bounds[-1][1] == g.nv
+    assert all(a[1] == b[0] for a, b in zip(bounds, bounds[1:]))
+    # a block ends at the first vertex that takes it to the target
+    target = max(BLOCK_BYTES // 8, 1 << 12)
+    assert all(g.row_ptr[hi - 1] - g.row_ptr[lo] < target
+               for lo, hi in bounds)
+    assert all(g.row_ptr[hi] - g.row_ptr[lo] >= target
+               for lo, hi in bounds[:-1])
+    lo, hi = bounds[1]
+    col = TS.decode_block(st, lo, hi)
+    assert np.array_equal(col.numpy(),
+                          g.col_idx[g.row_ptr[lo]:g.row_ptr[hi]])
+
+
+def test_edges_between_lays_out_the_kernels_groups():
+    """A block pair's layout, built on the device, against the grouping
+    written out in numpy: the edges with both rows non-empty, stably by
+    the shorter row's lane group; the pair's count equals the count of
+    its edges over the global ids."""
+    g, _, cg, _ = _pair("rmat11")
+    st = TS.open_cgr_stream(cg, device="cpu")
+    (ilo, ihi), (jlo, jhi) = TS.block_bounds(st, BLOCK_BYTES)[:2]
+    rp_i, col_i, u_i = TS.dag_block(st, ilo, ihi)
+    rp_j, col_j, _ = TS.dag_block(st, jlo, jhi)
+    sel = (col_i >= jlo) & (col_i < jhi)
+    n_i = ihi - ilo
+    rp = torch.cat([rp_i, rp_j[1:] + rp_i[-1]])
+    col = torch.cat([col_i, col_j])
+    src, dst = u_i[sel], n_i + col_i[sel].long() - jlo
+    got = K9.edges_between(rp, col, src, dst, id_bound=g.nv)
+    deg = np.diff(rp.numpy())
+    s_np, d_np = src.numpy(), dst.numpy()
+    shorter = np.minimum(deg[s_np], deg[d_np])
+    keep = shorter > 0
+    group = np.searchsorted(np.asarray(K9.GROUP_WIDTHS), shorter[keep])
+    order = np.argsort(group, kind="stable")
+    assert np.array_equal(got.src.numpy(), s_np[keep][order])
+    assert np.array_equal(got.dst.numpy(), d_np[keep][order])
+    starts = np.r_[0, np.cumsum(np.bincount(
+        group, minlength=len(K9.GROUP_WIDTHS) + 1))]
+    assert got.group_start == tuple(int(x) for x in starts)
+    assert got.sentinel == g.nv + 1 and got.nv == n_i + jhi - jlo
+    rows = [set(col[rp[r]:rp[r + 1]].tolist()) for r in range(got.nv)]
+    want = sum(len(rows[a] & rows[b]) for a, b in zip(s_np, d_np))
+    assert want > 0 and int(K9.tc_count(got)) == want
+
+
+def _save(tmp_path, obj, name):
+    prefix = str(tmp_path / name / "g")
+    tccli.save_compressed(obj, prefix)
+    return prefix
+
+
+def test_run_benchmark_on_a_cgr_prefix(tmp_path, capsys, monkeypatch):
+    g, _, cg, _ = _pair("rmat10")
+    prefix = _save(tmp_path, cg, "cgr")
+    for kernel in ("tc", "bfs", "cc"):
+        assert run_benchmark(kernel, prefix, ["0"], device="cpu") == 0
+        out = capsys.readouterr().out.splitlines()
+        assert "decoded cgr on device cpu" in out
+        assert f"|V| {g.nv} |E| {g.ne}" in out
+        assert "device = cpu" in out and "Correct" in out
+    monkeypatch.setenv("GAB_TC_STREAM", "1")
+    assert run_benchmark("tc", prefix, [], device="cpu") == 0
+    out = capsys.readouterr().out.splitlines()
+    want = triangle_count(g, device="cpu")
+    assert f"total_num_triangles = {want} (streaming, 1 blocks)" in out
+    assert "Correct" in out
+
+
+def test_run_benchmark_decodes_on_the_host_where_the_device_refuses(
+        tmp_path, capsys, monkeypatch):
+    g, *_ = _pair("rmat10")
+    prefix = _save(tmp_path, tcgr.encode_graph(
+        g, tcgr.CgrConfig(res_seg_len=0)), "unary")
+    assert run_benchmark("bfs", prefix, ["0"], device="cpu") == 0
+    out = capsys.readouterr().out.splitlines()
+    assert any(line.startswith("decoded on host (device CGR decode: "
+                               "unsegmented") for line in out)
+    assert "Correct" in out
+    # the streaming route refuses an interval stream and counts decoded
+    monkeypatch.setenv("GAB_TC_STREAM", "1")
+    prefix = _save(tmp_path, tcgr.encode_graph(
+        g, tcgr.CgrConfig(use_interval=True)), "itv")
+    assert run_benchmark("tc", prefix, [], device="cpu") == 0
+    out = capsys.readouterr().out.splitlines()
+    assert any(line.startswith("streaming unsupported") for line in out)
+    assert "decoded cgr on device cpu" in out and "Correct" in out
+
+
+def test_run_benchmark_raises_a_wrappers_fault(tmp_path, monkeypatch):
+    """Only the stream shapes the device route refuses go to the host: a
+    K12 wrapper's ValueError for its operands (here a stream of the wrong
+    type) raises out of run_benchmark, on both routes."""
+    g, _, cg, _ = _pair("rmat10")
+    prefix = _save(tmp_path, cg, "cgr")
+    stream_tensor = K12.stream_tensor
+    monkeypatch.setattr(K12, "stream_tensor", lambda data, device:
+                        stream_tensor(data, device).to(torch.int16))
+    with pytest.raises(ValueError, match="uint8") as e:
+        run_benchmark("bfs", prefix, ["0"], device="cpu")
+    assert not isinstance(e.value, CD.StreamRefused)
+    monkeypatch.setenv("GAB_TC_STREAM", "1")
+    with pytest.raises(ValueError, match="uint8") as e:
+        run_benchmark("tc", prefix, [], device="cpu")
+    assert not isinstance(e.value, CD.StreamRefused)
+
+
+@pytest.mark.parametrize("scheme", ["streamvbyte", "varintgb", "hybrid"])
+def test_run_benchmark_refuses_the_other_schemes(scheme, tmp_path, capsys):
+    g, *_ = _pair("rmat10")
+    obj = (thybrid.encode_graph(g) if scheme == "hybrid"
+           else tvbyte.encode_graph(g, scheme))
+    prefix = _save(tmp_path, obj, scheme)
+    assert run_benchmark("tc", prefix, [], device="cpu") == 2
+    captured = capsys.readouterr()
+    assert "K11" in captured.err and "ROADMAP" in captured.err
+    assert "Correct" not in captured.out

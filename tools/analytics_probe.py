@@ -14,27 +14,46 @@ K8 launch a level) and ``phase_analytics_cli``, each timed; a phase that
 fails prints its traceback and the next one runs. The exit code is 1 if any
 phase failed. A quicker look at the analytics' new kernels than the whole
 ``chip_smoke.py``; needs a CUDA device and nvcc.
+
+``--tc-cold`` times cold ``triangle_count`` solves instead, split into the
+host's orientation, the device layout (``ops/tc_count.py::dag_edges``, its
+upload included) and the K9 count, each part ending in a sync:
+
+    python3 tools/analytics_probe.py --tc-cold [--parent DIR] [--scale 19]
+
+Each turn is a process of its own that builds K9 alone, makes a cold solve
+of rmat(10) first (the first use of the CUDA ops it runs), then
+``TC_COLD_SOLVES`` cold solves of the graph, each after the device state's
+cache is cleared. With ``--parent DIR`` the turns are parent, change,
+change, parent (the change is the checkout this script lies in; make the
+parent's with ``git archive <commit> graphaibench_tpu_torch | tar -x -C
+build/parent``), on one graph written once. The card's name and power
+limit first, then one ``TC_COLD {json}`` line a turn.
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import os
+import subprocess
 import sys
+import tempfile
 import time
 import traceback
 
-sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+import numpy as np
 
-import chip_smoke as C  # noqa: E402
-from graphaibench_tpu_torch import rmat  # noqa: E402
-from graphaibench_tpu_torch.ops.device_graph import to_device_graph  # noqa: E402
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+TC_COLD_SOLVES = 3
 
 
-def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--scale", type=int, default=17)
-    scale = ap.parse_args().scale
+def phases(scale: int) -> int:
+    sys.path.insert(0, ROOT)
+    import chip_smoke as C
+    from graphaibench_tpu_torch import rmat
+    from graphaibench_tpu_torch.ops.device_graph import to_device_graph
+
     C.ANALYTICS_SCALE = scale
     C.phase_device()
     C.phase_build()
@@ -56,6 +75,102 @@ def main() -> int:
             failed.append(name)
         print(f"phase {name} {time.perf_counter() - t0:.2f} s")
     return 1 if failed else 0
+
+
+def tc_cold_worker(tree: str, graph_npz: str) -> None:
+    """One turn of ``--tc-cold``: cold solves of the checkout at ``tree``
+    on the graph in ``graph_npz``."""
+    sys.path.insert(0, os.path.abspath(tree))
+    import torch
+
+    from graphaibench_tpu_torch import CSRGraph, rmat
+    from graphaibench_tpu_torch.analytics import tc as TC
+    from graphaibench_tpu_torch.graph import transforms as T
+    from graphaibench_tpu_torch.ops import _build
+    from graphaibench_tpu_torch.ops import tc_count as K9
+
+    import graphaibench_tpu_torch
+    assert graphaibench_tpu_torch.__file__.startswith(os.path.abspath(tree))
+    t0 = time.perf_counter()
+    _build.load_library("tc_count")
+    build_s = time.perf_counter() - t0
+
+    def cold(g) -> dict:
+        TC._TC_CACHE.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        n = TC.triangle_count(g, device="cuda")
+        t1 = time.perf_counter()
+        # the same solve again, by its parts
+        dag = T.orientation(g)
+        t2 = time.perf_counter()
+        state = K9.dag_edges(dag.row_ptr, dag.col_idx, device="cuda")
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        m = int(K9.tc_count(state))
+        t4 = time.perf_counter()
+        assert n == m and dag.has_sorted_neighbors()
+        return {"triangles": n, "cold_s": t1 - t0, "orientation_s": t2 - t1,
+                "dag_edges_s": t3 - t2, "count_s": t4 - t3}
+
+    cold(rmat(10, 16, seed=0, cache=False))
+    z = np.load(graph_npz)
+    g = CSRGraph(row_ptr=z["row_ptr"], col_idx=z["col_idx"])
+    solves = [cold(g) for _ in range(TC_COLD_SOLVES)]
+    print("TC_COLD " + json.dumps({"tree": tree, "build_s": build_s,
+                                   "solves": solves}))
+
+
+def tc_cold(parent: str | None, scale: int) -> None:
+    sys.path.insert(0, ROOT)
+    import chip_smoke as C
+    from graphaibench_tpu_torch import rmat
+
+    C.phase_device()         # the card's name and power limit
+    order = [("change", ROOT)]
+    if parent:
+        order = [("parent", parent), ("change", ROOT), ("change", ROOT),
+                 ("parent", parent)]
+    with tempfile.TemporaryDirectory() as tmp:
+        npz = os.path.join(tmp, "graph.npz")
+        g = rmat(scale, 16, seed=0, cache=False)
+        np.savez(npz, row_ptr=g.row_ptr, col_idx=g.col_idx)
+        for name, tree in order:
+            r = subprocess.run(
+                [sys.executable, os.path.abspath(__file__),
+                 "--tc-cold-worker", tree, npz],
+                capture_output=True, text=True, timeout=600)
+            lines = [ln for ln in r.stdout.splitlines()
+                     if ln.startswith("TC_COLD ")]
+            if r.returncode != 0 or not lines:
+                print(r.stdout[-4000:], r.stderr[-8000:], sep="\n",
+                      file=sys.stderr)
+                raise SystemExit(f"the {name} turn failed with code "
+                                 f"{r.returncode}")
+            res = json.loads(lines[-1][len("TC_COLD "):])
+            res["turn"] = name
+            print("TC_COLD " + json.dumps(res))
+            sys.stdout.flush()
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--scale", type=int, default=None,
+                    help="rmat scale (17; 19 with --tc-cold)")
+    ap.add_argument("--tc-cold", action="store_true",
+                    help="cold triangle_count solves, by their parts")
+    ap.add_argument("--parent", help="with --tc-cold: root of the parent "
+                    "commit's checkout")
+    ap.add_argument("--tc-cold-worker", nargs=2, metavar=("TREE", "NPZ"),
+                    help=argparse.SUPPRESS)
+    args = ap.parse_args()
+    if args.tc_cold_worker:
+        tc_cold_worker(*args.tc_cold_worker)
+        return 0
+    if args.tc_cold:
+        tc_cold(args.parent, args.scale or 19)
+        return 0
+    return phases(args.scale or 17)
 
 
 if __name__ == "__main__":
