@@ -10,14 +10,16 @@ non-zero exit code and no result line:
 
 1. device  — requires a CUDA device; prints the nvidia-smi name and power
              limit line and torch's device name.
-2. build   — compiles the seven sources of ``graphaibench_tpu_torch/csrc``
+2. build   — compiles the eight sources of ``graphaibench_tpu_torch/csrc``
              (``ell_spmm.cu``: K1; ``fused_gat.cu``: the five passes of
              the fused GAT attention v2; ``ell_edge.cu``: the three passes
              over per-edge values that v1 runs on; ``ell_pull.cu``: K8,
              ``neighbor_reduce``, the analytics' pull step; ``tc_count.cu``:
              K9, triangle counting's DAG intersection count;
              ``kcore_hindex.cu``: K10, k-core's h-index sweep;
-             ``cgr_decode.cu``: K12, the four CGR decode passes) with nvcc,
+             ``cgr_decode.cu``: K12, the four CGR decode passes;
+             ``vbyte_decode.cu``: K11, the byte codecs' three decode
+             passes) with nvcc,
              side by side, and loads them; prints the build seconds and
              the compiler's register report for each kernel.
 3. kernel  — K1: on rmat(17, 16) with self-loops, for F in {128, 16} and both
@@ -129,16 +131,27 @@ non-zero exit code and no result line:
              intervals 4 cgr_gamma, 1 cgr_interval, 1 cgr_residual, 1
              cgr_merge). Each K12 kernel against its plain version on the
              same lanes at rmat19 (timed beside its bound) and at rmat13
-             behind the dirtied allocator. triangle_count of the decoded
-             graph (19,736,616), triangle_count_streaming equal to it (its
-             seconds, blocks, K9 launches and peak memory beside the CSR's
-             bytes), bfs_streaming equal to bfs from vertex 0. Then the CLI
-             on rmat(13, 8): ``compress`` in the four schemes and CGR with
-             ``-a word -p``, ``verify`` and ``decompress`` of each, ``info``
-             on the CGR prefix, ``analytics tc`` and ``bfs`` on it, and
-             ``GAB_TC_STREAM=1 analytics tc``, each Correct on the card, and
-             ``analytics tc`` on the StreamVByte prefix, exit 2.
-10. result — a JSON line of the sixteen kernels, then the last line
+             behind the dirtied allocator. The same graph in StreamVByte,
+             VarintGB and hybrid (threshold 32, StreamVByte chunks) by the
+             host encoders (seconds, bytes, ratio), each decoded on the card
+             by its prep and run, every count set to 0 just before them,
+             equal to the CSR exactly, with prep and run seconds, decoded
+             edges/s and the launches (1 svb_decode; 1 vgb_tags and 1
+             vgb_values; for hybrid 1 cgr_residual and 1 svb_decode); each
+             K11 kernel against its plain version at rmat19 (timed beside its
+             bound) and at rmat13 behind the dirtied allocator.
+             triangle_count of the decoded graph (19,736,616),
+             triangle_count_streaming equal to it, with its seconds, blocks,
+             pairs and K9 launches (one a pair), and its peak memory over the
+             baseline, which must stay below the CSR's bytes; bfs_streaming
+             equal to bfs from vertex 0, with its peak beside the CSR's
+             bytes. Then the CLI on rmat(13, 8): ``compress`` in the four
+             schemes and CGR with ``-a word -p``, ``verify`` and
+             ``decompress`` of each, ``info`` on the CGR prefix,
+             ``analytics tc`` and ``bfs`` on the CGR, VarintGB and hybrid
+             prefixes, ``analytics tc`` on the StreamVByte one (each decoded
+             on the card) and ``GAB_TC_STREAM=1 analytics tc``, each Correct.
+10. result — a JSON line of the nineteen kernels, then the last line
              {"ok": true, "device": {...}}.
 """
 
@@ -166,6 +179,9 @@ from graphaibench_tpu_torch.analytics import traversal as TR
 from graphaibench_tpu_torch.analytics import verifiers
 from graphaibench_tpu_torch.compress import cgr as CGR
 from graphaibench_tpu_torch.compress import cgr_device as CD
+from graphaibench_tpu_torch.compress import device_decode as DD
+from graphaibench_tpu_torch.compress import hybrid as HYB
+from graphaibench_tpu_torch.compress import vbyte as VB
 from graphaibench_tpu_torch.graph.generators import grid2d
 from graphaibench_tpu_torch.graph.io import save_graph
 from graphaibench_tpu_torch.graph.transforms import (
@@ -186,6 +202,7 @@ from graphaibench_tpu_torch.ops import fused_gat as FG
 from graphaibench_tpu_torch.ops import hindex as K10
 from graphaibench_tpu_torch.ops import math as gmath
 from graphaibench_tpu_torch.ops import tc_count as K9
+from graphaibench_tpu_torch.ops import vbyte_decode as K11
 from graphaibench_tpu_torch.ops.device_graph import pack_edge_values, to_device_graph
 from graphaibench_tpu_torch.ops.segment import segment_softmax
 from graphaibench_tpu_torch.ops.spmm import sddmm_add, spmm
@@ -299,6 +316,24 @@ CGR_STREAMS = {
 # advance), over the float32 rate: the card's int32 rate is not in the data
 # sheet
 OPS_PER_CODE = 8
+# the byte codecs decoded through K11 (name -> the JAX program it replaces),
+# each decode's launches (the hybrid's low-degree rows go through K12's
+# cgr_residual), and the integer operations a decoded value takes (its
+# length, its offset, its bytes, the mask, the gap's sum, the store)
+VBYTE_KERNELS = {
+    "svb_decode": "graphaibench_tpu/compress/device_decode.py:47",
+    "vgb_tags": "graphaibench_tpu/compress/device_decode.py:207",
+    "vgb_values": "graphaibench_tpu/compress/device_decode.py:249",
+}
+VBYTE_DECODE_LAUNCHES = {
+    "streamvbyte": {"svb_decode": 1},
+    "varintgb": {"vgb_tags": 1, "vgb_values": 1},
+    "hybrid": {"cgr_residual": 1, "svb_decode": 1},
+}
+OPS_PER_VALUE = 8
+# the CLI's analytics on each scheme's prefix, decoded on the card
+CLI_DECODED = {"cgr": ("tc", "bfs"), "streamvbyte": ("tc",),
+               "varintgb": ("tc", "bfs"), "hybrid": ("tc", "bfs")}
 CLI_SCHEMES = {"cgr": ("-s", "cgr"), "cgr_word_p": ("-s", "cgr", "-a", "word",
                                                     "-p"),
                "streamvbyte": ("-s", "streamvbyte"),
@@ -998,14 +1033,15 @@ def phase_small_trainer() -> None:
 def _zero_counts() -> None:
     K1.LAUNCHES = 0
     for counts in (FG.LAUNCHES, EE.LAUNCHES, K8.LAUNCHES, K9.LAUNCHES,
-                   K10.LAUNCHES, K12.LAUNCHES):
+                   K10.LAUNCHES, K12.LAUNCHES, K11.LAUNCHES):
         for name in counts:
             counts[name] = 0
 
 
 def _counts() -> dict[str, int]:
     return {"ell_spmm": K1.LAUNCHES, **FG.LAUNCHES, **EE.LAUNCHES,
-            **K8.LAUNCHES, **K9.LAUNCHES, **K10.LAUNCHES, **K12.LAUNCHES}
+            **K8.LAUNCHES, **K9.LAUNCHES, **K10.LAUNCHES, **K12.LAUNCHES,
+            **K11.LAUNCHES}
 
 
 def _drive(g, cfg, want_train: dict, want_eval: dict):
@@ -2118,6 +2154,114 @@ def _decode(cg, gs, col_ref, tag: str) -> tuple[dict, dict]:
     return prep, info
 
 
+# the prep (host work and uploads) and the run (the kernels) of each byte
+# codec's device decode
+VBYTE_ROUTES = {
+    "streamvbyte": (DD.streamvbyte_device_prep, DD.streamvbyte_device_run),
+    "varintgb": (DD.varintgb_device_prep, DD.varintgb_device_run),
+    "hybrid": (DD.hybrid_device_prep, DD.hybrid_device_run),
+}
+
+
+def _vbyte_encode(gs) -> dict:
+    """The graph in StreamVByte, VarintGB and hybrid (threshold 32,
+    StreamVByte chunks) by the host encoders, with each encode's seconds,
+    bytes and ratio."""
+    out = {}
+    for scheme in VBYTE_ROUTES:
+        t0 = time.perf_counter()
+        obj = (HYB.encode_graph(gs) if scheme == "hybrid"
+               else VB.encode_graph(gs, scheme))
+        out[scheme] = (obj, time.perf_counter() - t0)
+        print(f"[compress] {scheme}: host encode {out[scheme][1]:.2f} s, "
+              f"{len(obj.data)} bytes, ratio {obj.compression_ratio():.4f}x")
+    return out
+
+
+def _vbyte_decode(scheme: str, obj, gs, col_ref) -> tuple[dict, dict]:
+    """The scheme's device prep and run on the card, every count set to 0
+    just before them: the CSR must come out exactly, through the kernels
+    the scheme needs. Returns (prep, info)."""
+    prep_fn, run_fn = VBYTE_ROUTES[scheme]
+    _zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    prep = prep_fn(obj, device="cuda")
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    col = run_fn(prep)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    want = VBYTE_DECODE_LAUNCHES[scheme]
+    _assert_counts(f"[compress] {scheme} decode", _counts(), want)
+    if not np.array_equal(prep["row_ptr"], gs.row_ptr) or not torch.equal(
+            col, col_ref):
+        raise RuntimeError(f"[compress] {scheme}: the device decode differs "
+                           f"from the CSR")
+    del col
+    warm = _solve_seconds(lambda: run_fn(prep))
+    info = {"stream": scheme, "bytes": len(obj.data),
+            "ratio": obj.compression_ratio(), "prep_s": t1 - t0,
+            "run_s": t2 - t1, "warm_run_s": warm,
+            "decoded_edges_per_s": gs.ne / warm, "launches": want}
+    print(f"[compress] {json.dumps(info)}")
+    return prep, info
+
+
+def _col(ne: int) -> torch.Tensor:
+    return torch.empty(ne, dtype=torch.int32, device="cuda")
+
+
+def _k11_cases(svb, vgb, tag: str, timed: bool) -> dict:
+    """Each K11 kernel against its plain version on the rows of the
+    StreamVByte and VarintGB preps: svb_decode on every row, vgb_tags on
+    every row's tag chain, vgb_values on the tag positions. Exact, int32.
+    With ``timed``, each beside its bound: the stream read once, the row
+    tables (and the tag positions) read once, the output written once, over
+    the memory rate, against OPS_PER_VALUE a value over the float32 rate.
+    Untimed, each output block is dirtied with NaN first."""
+    out = {}
+
+    def run(name, fn, plain, n_out, nbytes, values):
+        if not timed:
+            _dirty(n_out)
+        got = fn()
+        torch.cuda.synchronize()
+        want = plain()
+        if not torch.equal(got, want):
+            raise RuntimeError(f"[compress] {tag}: {name} differs from plain "
+                               f"in {int((got != want).sum())} of "
+                               f"{got.numel()}")
+        if not timed:
+            return
+        bound_ms, bound_by, nb = _bound_of(nbytes, values * OPS_PER_VALUE)
+        ms = _batch_ms(fn)
+        out[name] = {"case": f"{name} {tag}", "ms": ms,
+                     "device_ms": _kernel_device_ms(fn, f"{name}_kernel"),
+                     "plain_ms": _batch_ms(plain, calls=1, batches=3),
+                     "bound_ms": bound_ms, "bound_by": bound_by,
+                     "bound_bytes": nb, "share_of_bound": bound_ms / ms}
+        print(f"[compress] {json.dumps(out[name])}")
+
+    stream, ne, nv = svb["stream"], svb["ne"], svb["nv"]
+    rows = (svb["word_offsets"][:nv] * 4 + 4, svb["degrees"],
+            torch.cumsum(svb["degrees"], 0, dtype=torch.int32) - svb["degrees"])
+    run("svb_decode", lambda: K11.svb_decode(stream, *rows, _col(ne)),
+        lambda: K11.svb_decode_plain(stream, *rows, _col(ne)),
+        ne, stream.numel() + 12 * nv + 4 * ne, ne)
+    stream, ne, nv, n_g = vgb["stream"], vgb["ne"], vgb["nv"], vgb["n_g"]
+    chain = (vgb["pos"], vgb["ngroups"], vgb["gbase"])
+    run("vgb_tags", lambda: K11.vgb_tags(stream, *chain, n_g),
+        lambda: K11.vgb_tags_plain(stream, *chain, n_g), n_g,
+        stream.numel() + 12 * nv + 4 * n_g, n_g)
+    tagpos = K11.vgb_tags_plain(stream, *chain, n_g)
+    rows = (vgb["gbase"], vgb["counts"], vgb["out_slot"])
+    run("vgb_values", lambda: K11.vgb_values(stream, tagpos, *rows, _col(ne)),
+        lambda: K11.vgb_values_plain(stream, tagpos, *rows, _col(ne)),
+        ne, stream.numel() + 4 * n_g + 12 * nv + 4 * ne, ne)
+    return out
+
+
 def _run_cli(cli, root, env, args_list) -> list:
     """(exit code, stdout, stderr) of each argv of ``args_list``, run side
     by side."""
@@ -2138,9 +2282,9 @@ def phase_compress_cli() -> None:
     """The port's CLI on rmat(13, 8), in processes side by side: ``compress``
     in the four schemes and CGR with ``-a word -p``; ``verify`` and
     ``decompress`` of each; ``info`` on the CGR prefix; ``analytics tc`` and
-    ``bfs`` on it (decoded on the card, Correct), ``GAB_TC_STREAM=1
-    analytics tc`` (streamed, Correct) and ``analytics tc`` on the
-    StreamVByte prefix (exit 2, K11 named)."""
+    ``bfs`` on the CGR, VarintGB and hybrid prefixes and ``analytics tc`` on
+    the StreamVByte one (each decoded on the card, Correct), and
+    ``GAB_TC_STREAM=1 analytics tc`` (streamed, Correct)."""
     from graphaibench_tpu_torch.graph.io import load_graph
 
     root = os.path.dirname(os.path.abspath(__file__))
@@ -2176,9 +2320,12 @@ def phase_compress_cli() -> None:
         print(f"[compress] cli verify: Correct x {len(CLI_SCHEMES)}; "
               f"decompress: the graph x {len(CLI_SCHEMES)}")
         stream_env = dict(env, GAB_TC_STREAM="1")
-        runs = [("info", pre["cgr"]), ("analytics", "tc", pre["cgr"]),
-                ("analytics", "bfs", pre["cgr"], "0"),
-                ("analytics", "tc", pre["streamvbyte"])]
+        decoded = [(scheme, kernel) for scheme in CLI_DECODED
+                   for kernel in CLI_DECODED[scheme]]
+        runs = [("info", pre["cgr"])] + [
+            ("analytics", kernel, pre[scheme], *(("0",) if kernel == "bfs"
+                                                 else ()))
+            for scheme, kernel in decoded]
         res = _run_cli(cli, root, env, runs)
         res += _run_cli(cli, root, stream_env,
                         [("analytics", "tc", pre["cgr_word_p"])])
@@ -2187,22 +2334,16 @@ def phase_compress_cli() -> None:
                                           f"|V| {g.nv} |E| {g.ne}"):
         raise RuntimeError(f"cli info on a prefix: exit {rc}\n{out}\n{err}")
     print(f"[compress] cli info: {' / '.join(out.splitlines())}")
-    for (rc, out, err), want in zip(res[1:3], ("tc", "bfs")):
+    for (rc, out, err), (scheme, kernel) in zip(res[1:-1], decoded):
         lines = out.splitlines()
-        if (rc != 0 or "decoded cgr on device cuda" not in lines
+        if (rc != 0 or f"decoded {scheme} on device cuda" not in lines
                 or "device = cuda" not in lines or "Correct" not in lines):
-            raise RuntimeError(f"cli analytics {want} on a CGR prefix: exit "
-                               f"{rc}\n{out}\n{err[-3000:]}")
+            raise RuntimeError(f"cli analytics {kernel} on a {scheme} prefix: "
+                               f"exit {rc}\n{out}\n{err[-3000:]}")
         runtime = next(l for l in lines if l.startswith("runtime"))
-        print(f"[compress] cli analytics {want} on the CGR prefix: decoded "
-              f"on the card, Correct, {runtime}")
-    rc, out, err = res[3]
-    if rc != 2 or "K11" not in err:
-        raise RuntimeError(f"cli analytics tc on a StreamVByte prefix: exit "
-                           f"{rc}\n{out}\n{err[-3000:]}")
-    print(f"[compress] cli analytics tc on the StreamVByte prefix: exit 2, "
-          f"{err.strip()}")
-    rc, out, err = res[4]
+        print(f"[compress] cli analytics {kernel} on the {scheme} prefix: "
+              f"decoded on the card, Correct, {runtime}")
+    rc, out, err = res[-1]
     lines = out.splitlines()
     if (rc != 0 or "Correct" not in lines
             or not any("(streaming, " in l for l in lines)):
@@ -2220,9 +2361,11 @@ def phase_compress(g, dg) -> dict:
     reference's 32-bit interval segments the stream is refused by the
     device route and decoded on the host); each K12 kernel against its
     plain version at this size (timed beside its bound) and at rmat13
-    behind a dirtied allocator; triangle_count of the decoded graph and the
-    streaming count equal to the known total; bfs_streaming equal to bfs;
-    then the CLI. Returns K12's entry data."""
+    behind a dirtied allocator; the same for StreamVByte, VarintGB and
+    hybrid through K11; triangle_count of the decoded graph and the
+    streaming count equal to the known total, its peak under the CSR's
+    bytes; bfs_streaming equal to bfs; then the CLI. Returns K12's and
+    K11's entry data."""
     t0 = time.perf_counter()
     gs = sort_and_clean(g)
     same = (np.array_equal(gs.row_ptr, g.row_ptr)
@@ -2258,7 +2401,23 @@ def phase_compress(g, dg) -> dict:
     print(f"[compress] every K12 kernel equals its plain version at "
           f"rmat{ANALYTICS_SCALE} and at rmat{PULL_DIRTY_SCALE} behind a "
           f"NaN-dirtied allocator")
-    del preps
+    del preps, sp
+    # the byte codecs, decoded through K11
+    vpreps = {}
+    for scheme, (obj, enc) in _vbyte_encode(gs).items():
+        vpreps[scheme], decodes[scheme] = _vbyte_decode(scheme, obj, gs,
+                                                        col_ref)
+        decodes[scheme]["encode_s"] = enc
+    k11 = _k11_cases(vpreps["streamvbyte"], vpreps["varintgb"],
+                     f"rmat{ANALYTICS_SCALE}", timed=True)
+    sv = {s: VBYTE_ROUTES[s][0](VB.encode_graph(small, s), device="cuda")
+          for s in ("streamvbyte", "varintgb")}
+    _k11_cases(sv["streamvbyte"], sv["varintgb"], f"rmat{PULL_DIRTY_SCALE}",
+               timed=False)
+    print(f"[compress] every K11 kernel equals its plain version at "
+          f"rmat{ANALYTICS_SCALE} and at rmat{PULL_DIRTY_SCALE} behind a "
+          f"NaN-dirtied allocator")
+    del vpreps, sv
     # the solvers on the compressed graph
     dec = CD.cgr_decode_device(plain_cg, device="cuda")
     TCM._TC_CACHE.clear()
@@ -2281,6 +2440,9 @@ def phase_compress(g, dg) -> dict:
     if ns != n:
         raise RuntimeError(f"[compress] triangle_count_streaming {ns}, the "
                            f"decoded graph's count {n}")
+    if peak >= csr_bytes:
+        raise RuntimeError(f"[compress] triangle_count_streaming held {peak} "
+                           f"bytes over the baseline, the CSR {csr_bytes}")
     if (launches["tc_count"] != stats["pairs"]
             or launches["cgr_residual"] < stats["blocks"]):
         raise RuntimeError(f"[compress] streaming launches {launches} for "
@@ -2291,27 +2453,31 @@ def phase_compress(g, dg) -> dict:
                    "peak_bytes_over_baseline": peak, "csr_bytes": csr_bytes,
                    "stream_bytes": plain_cg.nbytes}
     print(f"[compress] streaming TC {json.dumps(stream_info)}")
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
     _zero_counts()
     t1 = time.perf_counter()
     dist = TS.bfs_streaming(plain_cg, 0, device="cuda")
     torch.cuda.synchronize()
     bfs_s = time.perf_counter() - t1
     blaunch = _counts()["cgr_residual"]
+    bfs_peak = torch.cuda.max_memory_allocated() - base
     want = TR.bfs(dg, 0)
     if not torch.equal(dist, want):
         raise RuntimeError(f"[compress] bfs_streaming differs from bfs in "
                            f"{int((dist != want).sum())} vertices")
     print(f"[compress] bfs_streaming from 0 equals bfs: depth "
           f"{int(dist.max())}, {blaunch} cgr_residual launches, "
-          f"{bfs_s:.4f} s")
+          f"{bfs_s:.4f} s, peak {bfs_peak} bytes over the baseline (the CSR "
+          f"{csr_bytes})")
     phase_compress_cli()
     print(f"[compress] phase took {time.perf_counter() - t0:.2f} s")
     launches = {}
     for info in decodes.values():
         for name, c in info["launches"].items():
             launches[name] = launches.get(name, 0) + c
-    return {"cases": cases, "launches": launches, "decodes": decodes,
-            "streaming": stream_info}
+    return {"cases": {**cases, **k11}, "launches": launches,
+            "decodes": decodes, "streaming": stream_info}
 
 
 def main() -> None:
@@ -2421,12 +2587,14 @@ def main() -> None:
             "library_ms": None,
             "device_ms": res["device_ms"],
         })
-    for kname, replaces in CGR_KERNELS.items():
+    for kname, source, replaces in (
+            *((k, "cgr_decode.cu", r) for k, r in CGR_KERNELS.items()),
+            *((k, "vbyte_decode.cu", r) for k, r in VBYTE_KERNELS.items())):
         res = k12["cases"][kname]
         kernels.append({
             "name": kname,
             "route": "cuda",
-            "source": "graphaibench_tpu_torch/csrc/cgr_decode.cu",
+            "source": f"graphaibench_tpu_torch/csrc/{source}",
             "replaces": replaces,
             "launches": k12["launches"][kname],
             "max_abs_err": 0,
@@ -2434,7 +2602,7 @@ def main() -> None:
             "plain_ms": res["plain_ms"],
             "bound_ms": res["bound_ms"],
             "bound_by": res["bound_by"],
-            # no PyTorch call decodes a CGR stream
+            # no PyTorch call decodes a CGR stream or a varint
             "library_ms": None,
             "device_ms": res["device_ms"],
         })

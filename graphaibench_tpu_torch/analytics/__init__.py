@@ -7,13 +7,14 @@ SSSP, PageRank and CC, whose sweeps run the kernel ``neighbor_reduce``
 (``ops/ell_pull.py``) on a CUDA graph; triangle counting on the kernel
 ``tc_count`` (``ops/tc_count.py``); k-core on the kernel ``hindex_sweep``
 (``ops/hindex.py``), or on ``neighbor_reduce`` by peeling; betweenness
-centrality on ``neighbor_reduce``. A compressed-graph prefix in the CGR
-scheme decodes on the device through the kernels K12
-(``compress/cgr_device.py``), or on the host where the device route refuses
-the stream's shape; with ``GAB_TC_STREAM=1`` triangles are counted block by
-block off the stream (``tc_stream.py``). The other solvers (ROADMAP P15),
-the device decode of StreamVByte, VarintGB and hybrid prefixes (K11) and
-``GAB_SHARDS`` (P14b) are not ported yet: asked for, ``run_benchmark``
+centrality on ``neighbor_reduce``. A compressed-graph prefix decodes on
+the device: CGR through the kernels K12 (``compress/cgr_device.py``),
+StreamVByte, VarintGB and hybrids of StreamVByte chunks through K11
+(``compress/device_decode.py``); on the host where the device route refuses
+the stream's shape (a hybrid of VarintGB chunks, for one). With
+``GAB_TC_STREAM=1`` the triangles of a CGR prefix are counted block by
+block off the stream (``tc_stream.py``). The other solvers (ROADMAP P15)
+and ``GAB_SHARDS`` (P14b) are not ported yet: asked for, ``run_benchmark``
 exits with code 2 and names the item.
 """
 
@@ -66,23 +67,24 @@ def _refuse(msg: str) -> int:
 
 
 def _load_compressed(kernel: str, prefix: str, device):
-    """The graph of a compressed prefix, decoded on ``device`` (a CGR
-    stream, through K12) or on the host where the device route refuses the
-    stream's shape; or an exit code: the streaming count's, or 2 for a
-    scheme whose device decode is not ported yet."""
+    """The graph of a compressed prefix, decoded on ``device`` (CGR through
+    K12, StreamVByte, VarintGB and StreamVByte hybrids through K11) or on
+    the host where the device route refuses the stream's shape
+    (``StreamRefused``); or the streaming count's exit code."""
     from graphaibench_tpu_torch.compress.cgr import CompressedGraph
     from graphaibench_tpu_torch.compress.cgr_device import (
         StreamRefused,
         cgr_decode_device,
     )
     from graphaibench_tpu_torch.compress.cli import decode_any, load_compressed
+    from graphaibench_tpu_torch.compress.device_decode import (
+        decode_graph_device,
+        decode_hybrid_device,
+    )
 
     cg = load_compressed(prefix)
-    if not isinstance(cg, CompressedGraph):
-        scheme = getattr(cg, "scheme", "hybrid")
-        return _refuse(f"the device decode of {scheme} prefixes is not "
-                       f"ported yet (ROADMAP queue 2, K11)")
-    if kernel == "tc" and os.environ.get("GAB_TC_STREAM", "") == "1":
+    if (kernel == "tc" and os.environ.get("GAB_TC_STREAM", "") == "1"
+            and isinstance(cg, CompressedGraph)):
         # triangles straight off the compressed adjacency, block pair by
         # block pair (tc_omp_compressed.cc): the whole CSR never exists
         print(f"device = {device}")
@@ -104,9 +106,15 @@ def _load_compressed(kernel: str, prefix: str, device):
                 orientation(decode_any(cg)))
             print("Correct" if ok else "Wrong")
             return 0 if ok else 1
+    if isinstance(cg, CompressedGraph):
+        scheme, decode = "cgr", cgr_decode_device
+    elif hasattr(cg, "vbyte_scheme"):
+        scheme, decode = "hybrid", decode_hybrid_device
+    else:
+        scheme, decode = cg.scheme, decode_graph_device
     try:
-        g = cgr_decode_device(cg, device=device)
-        print(f"decoded cgr on device {device}")
+        g = decode(cg, device=device)
+        print(f"decoded {scheme} on device {device}")
     except StreamRefused as e:      # a stream shape the device route refuses
         g = decode_any(cg)
         print(f"decoded on host ({e})")

@@ -5,32 +5,35 @@ Counterpart of ``graphaibench_tpu/analytics/tc_stream.py``. The reference
 iterates compressed neighbourhoods on the fly (the ``N_cgr`` accessors,
 graph.h:213-238; tc_omp_compressed.cc; bfs_gcgt_cta.cuh). Here:
 
-- the compressed stream stays on the device, with its residual lanes built
-  once from the header and count passes (``cgr_gamma``; O(segments), never
-  O(edges));
+- the compressed stream stays on the device; its residual lanes are found
+  once by the header and count passes (``cgr_gamma``) and their tables kept
+  on the host, so the device holds the stream and O(nv) beside it;
 - a block of consecutive vertices decodes through ``cgr_residual`` over its
-  own lanes only, into a buffer the size of its edges (per-vertex offsets
-  give random access);
-- each decoded block is DAG-filtered by a few tensor ops (degree-then-id
-  rank, the orientation of ``graph/transforms.py``: any total order counts
-  each triangle once) and stays sorted, since CGR lists are strictly
-  increasing;
+  own lanes only, uploaded at its decode, into a buffer the size of its
+  edges (per-vertex offsets give random access);
+- each decoded block is DAG-filtered by a few int32 tensor ops
+  (degree-then-id rank, the orientation of ``graph/transforms.py``: any
+  total order counts each triangle once) and stays sorted, since CGR lists
+  are strictly increasing;
 - the triangles of a block pair (I, J) are K9's count (``ops/tc_count.py``)
   over a local CSR whose rows are I's DAG rows and then J's, the edges
-  going from u in I to ``nI + (v - jlo)``, the rows holding global ids.
+  going from u in I to ``nI + (v - jlo)``, the rows holding global ids; a
+  pair with no DAG edge from I into J is skipped before J is decoded.
 
 The JAX package's dense packing (``_dag_pack``) and compare-all
 (``_count_edges``) exist for the TPU and are not carried; so are not its
-block splits, which bound that dense matrix: the port's blocks are the
-equal-edge ranges of ``block_bytes / 8`` edges. Device memory holds the
-stream, its lane tables, and two blocks' decoded and DAG rows with one
-pair's edge list, and besides them each ``dag_block``'s int64 temporaries
-(the rows, ids and degrees of a whole block): at rmat(19, 16), in 4
-blocks, the peak was 4.9 times the CSR's bytes on an H100, so this route
-does not yet hold less than the CSR. Plain (non-interval) segmented
-streams only: the others raise ``StreamRefused`` and the caller decodes,
-then counts. Each block is checked once, on its first decode, for an
-oversized segment, which raises ``StreamRefused`` too.
+block splits, which bound that dense matrix. ``block_bytes`` means another
+thing here: the device bytes of one block pair's work, beside the stream
+and the O(nv) tables. A block edge takes about ``BLOCK_EDGE_BYTES`` at the
+pair's peak (the decoded ids, the rows, the rank compare, the kept
+indices, the pair's layout), so a block is the equal-edge range of
+``block_bytes / BLOCK_EDGE_BYTES`` edges, where JAX's holds ``block_bytes /
+8``; the default is 16 MiB, where JAX's is 32 MiB. Every array of a block
+is int32 but the kept edges' and the sort's indices, and no tensor of a
+pair lives into the next. Plain (non-interval) segmented streams only: the
+others raise ``StreamRefused`` and the caller decodes, then counts. Each
+block is checked once, on its first decode, for an oversized segment, which
+raises ``StreamRefused`` too.
 """
 
 from __future__ import annotations
@@ -44,13 +47,14 @@ from graphaibench_tpu_torch.compress import cgr_device as CD
 from graphaibench_tpu_torch.ops import cgr_decode as K12
 from graphaibench_tpu_torch.ops import tc_count as K9
 
-DEFAULT_BLOCK_BYTES = 32 << 20
+DEFAULT_BLOCK_BYTES = 16 << 20
+BLOCK_EDGE_BYTES = 32
 
 
 @dataclasses.dataclass
 class CgrStream:
-    """A compressed stream on the device and its residual lanes (built once
-    from the header and count passes)."""
+    """A compressed stream on the device, with its residual lanes (found
+    once by the header and count passes) in host tables."""
 
     nv: int
     ne: int
@@ -61,14 +65,13 @@ class CgrStream:
     deg_d: torch.Tensor        # (nv,) int32 on the device (rank compares)
     row_ptr: np.ndarray        # (nv + 1,) int64
     lane_start: np.ndarray     # (nv + 1,) first lane of each vertex
-    lane_v: np.ndarray         # (L,) owning vertex (host, for the check)
+    lane_v: np.ndarray         # (L,) owning vertex (for the check)
     lane_k: np.ndarray         # (L,) segment index within its vertex
     seg_start: np.ndarray      # (L,) int64 first bit of the segment
     nsegs: np.ndarray          # (nv,) segments of each vertex
-    data_p: torch.Tensor       # (L,) int32 bit after the count
-    counts: torch.Tensor       # (L,) int32 residuals in the lane
-    lane_v_d: torch.Tensor     # (L,) int32
-    base: torch.Tensor         # (L,) int32 first slot in the whole CSR
+    # (4, L) int32: the bit after each lane's count, the count, the vertex,
+    # the first slot in the whole CSR; uploaded a block at a time
+    lanes: np.ndarray
     checked: set = dataclasses.field(default_factory=set)
 
 
@@ -82,8 +85,11 @@ def open_cgr_stream(cg, *, device="cuda") -> CgrStream:
     nv, ne = cg.nv, cg.ne
     stream, bit_off = CD.open_stream(cg, device)
     nsegs, segs_base = CD.headers(stream, bit_off, cfg.add_degree)
+    del bit_off
     lanes = CD.residual_lanes(stream, nsegs, segs_base, cfg.res_seg_len,
                               device)
+    data_p = lanes.pop("data_p").cpu().numpy()
+    del lanes["counts_d"]
     counts = lanes["counts"]
     deg = np.bincount(lanes["lane_v"], weights=counts,
                       minlength=nv).astype(np.int64)
@@ -98,17 +104,18 @@ def open_cgr_stream(cg, *, device="cuda") -> CgrStream:
         row_ptr=row_ptr,
         lane_start=np.concatenate([[0], np.cumsum(nsegs)]).astype(np.int64),
         lane_v=lane_v, lane_k=lanes["lane_k"],
-        seg_start=lanes["seg_start"], nsegs=nsegs, data_p=lanes["data_p"],
-        counts=lanes["counts_d"], lane_v_d=CD.int32_on(lane_v, device),
-        base=CD.int32_on(CD.lane_bases(counts, lane_v, row_ptr), device))
+        seg_start=lanes["seg_start"], nsegs=nsegs,
+        lanes=np.stack([data_p, counts, lane_v,
+                        CD.lane_bases(counts, lane_v, row_ptr)]).astype(
+                            np.int32))
 
 
 def block_bounds(st: CgrStream, block_bytes: int) -> list[tuple[int, int]]:
     """Consecutive vertex ranges, each ending at the first vertex that
-    takes it to ``block_bytes / 8`` edges (at least 4,096), as the JAX
-    package's first cut."""
+    takes it to ``block_bytes / BLOCK_EDGE_BYTES`` edges (at least 4,096),
+    as the JAX package's first cut does with ``block_bytes / 8``."""
     cum = st.row_ptr
-    target = max(block_bytes // 8, 1 << 12)
+    target = max(block_bytes // BLOCK_EDGE_BYTES, 1 << 12)
     out, lo = [], 0
     while lo < st.nv:
         hi = int(np.searchsorted(cum, cum[lo] + target, "left"))
@@ -119,14 +126,17 @@ def block_bounds(st: CgrStream, block_bytes: int) -> list[tuple[int, int]]:
 
 
 def decode_block(st: CgrStream, vlo: int, vhi: int) -> torch.Tensor:
-    """The neighbour ids (global) of vertices [vlo, vhi), rows in order, as
-    one ``cgr_residual`` launch over the block's lanes; the rows' bounds
-    are ``st.row_ptr[vlo:vhi + 1] - st.row_ptr[vlo]``."""
+    """The neighbour ids (global, int32) of vertices [vlo, vhi), rows in
+    order, as one ``cgr_residual`` launch over the block's lanes, whose
+    tables are uploaded for it; the rows' bounds are
+    ``st.row_ptr[vlo:vhi + 1] - st.row_ptr[vlo]``."""
     l0, l1 = int(st.lane_start[vlo]), int(st.lane_start[vhi])
     off = int(st.row_ptr[vlo])
-    col, pfin = K12.cgr_residual(
-        st.stream, st.data_p[l0:l1], st.counts[l0:l1], st.lane_v_d[l0:l1],
-        st.base[l0:l1] - off, int(st.row_ptr[vhi]) - off, st.zeta_k)
+    tab = st.lanes[:, l0:l1].copy()
+    tab[3] -= off
+    data_p, counts, lane_v, base = torch.from_numpy(tab).to(st.stream.device)
+    col, pfin = K12.cgr_residual(st.stream, data_p, counts, lane_v, base,
+                                 int(st.row_ptr[vhi]) - off, st.zeta_k)
     if (vlo, vhi) not in st.checked:
         CD._check_closed_segments_fit(
             pfin.cpu().numpy(), st.seg_start[l0:l1], st.lane_k[l0:l1],
@@ -136,27 +146,32 @@ def decode_block(st: CgrStream, vlo: int, vhi: int) -> torch.Tensor:
 
 
 def _rows(st: CgrStream, vlo: int, vhi: int) -> torch.Tensor:
-    """The local row of every edge of the block."""
-    dev = st.deg_d.device
+    """The local row (int32) of every edge of the block."""
     return torch.repeat_interleave(
-        torch.arange(vhi - vlo, device=dev), st.deg_d[vlo:vhi].long(),
-        output_size=int(st.row_ptr[vhi] - st.row_ptr[vlo]))
+        st.deg_d[vlo:vhi], output_size=int(st.row_ptr[vhi] - st.row_ptr[vlo]))
 
 
 def dag_block(st: CgrStream, vlo: int, vhi: int):
-    """The block's DAG rows: (row_ptr (n + 1,) int32, ids (m,) int32 global,
-    sorted in each row, the local row of each kept edge (m,) int64). An
-    edge u -> v is kept iff (deg u, u) < (deg v, v)."""
+    """The block's DAG rows: (row_ptr (n + 1,), ids (m,) global, sorted in
+    each row, the local row of each kept edge (m,)), all int32. An edge
+    u -> v is kept iff (deg u, u) < (deg v, v)."""
     col = decode_block(st, vlo, vhi)
-    dev = col.device
-    u = _rows(st, vlo, vhi) + vlo
-    v = col.long()
-    du, dv = st.deg_d[u], st.deg_d[v]
-    keep = (du < dv) | ((du == dv) & (u < v))
-    u_loc = u[keep] - vlo
-    rp = torch.zeros(vhi - vlo + 1, dtype=torch.int64, device=dev)
-    rp[1:] = torch.cumsum(torch.bincount(u_loc, minlength=vhi - vlo), 0)
-    return rp.to(torch.int32), col[keep], u_loc
+    rows = _rows(st, vlo, vhi)
+    u_lt_v = rows < col - vlo
+    # deg v - deg u, in place of two (m,) gathers held side by side
+    diff = st.deg_d.index_select(0, col)
+    diff -= st.deg_d[vlo:vhi].index_select(0, rows)
+    keep = (diff > 0) | ((diff == 0) & u_lt_v)
+    del u_lt_v, diff
+    kept = keep.nonzero().squeeze(1)
+    del keep
+    u_loc = rows.index_select(0, kept)
+    col = col.index_select(0, kept)
+    del rows, kept
+    n = vhi - vlo
+    rp = torch.zeros(n + 1, dtype=torch.int32, device=col.device)
+    rp[1:] = torch.cumsum(torch.bincount(u_loc, minlength=n), 0)
+    return rp, col, u_loc
 
 
 def triangle_count_streaming(cg, *, block_bytes: int = DEFAULT_BLOCK_BYTES,
@@ -168,27 +183,38 @@ def triangle_count_streaming(cg, *, block_bytes: int = DEFAULT_BLOCK_BYTES,
     st = open_cgr_stream(cg, device=device)
     bounds = block_bounds(st, block_bytes)
     stats = {"blocks": len(bounds), "pairs": 0, "nv": st.nv, "ne": st.ne}
+    starts = torch.tensor([hi for _, hi in bounds[:-1]], dtype=torch.int32,
+                          device=device)
     total = torch.zeros((), dtype=torch.int64, device=device)
     for ilo, ihi in bounds:
         rp_i, col_i, u_i = dag_block(st, ilo, ihi)
-        v_i = col_i.long()
         n_i = ihi - ilo
-        for jlo, jhi in bounds:
-            sel = (v_i >= jlo) & (v_i < jhi)
-            src = u_i[sel]
-            if src.numel() == 0:
+        # the DAG edges of I into each block: a pair without any is skipped
+        into = torch.bincount(torch.bucketize(col_i, starts, right=True,
+                                              out_int32=True),
+                              minlength=len(bounds)).tolist()
+        for (jlo, jhi), n_into in zip(bounds, into):
+            if n_into == 0:
                 continue
             if (jlo, jhi) == (ilo, ihi):
-                rp, col, dst = rp_i, col_i, v_i[sel] - ilo
+                rp, col, first_j = rp_i, col_i, 0
             else:
-                rp_j, col_j, _ = dag_block(st, jlo, jhi)
+                rp_j, col_j = dag_block(st, jlo, jhi)[:2]
                 rp = torch.cat([rp_i, rp_j[1:] + rp_i[-1]])
                 col = torch.cat([col_i, col_j])
-                dst = n_i + v_i[sel] - jlo
+                first_j = n_i
+                del rp_j, col_j
+            kept = ((col_i >= jlo) & (col_i < jhi)).nonzero().squeeze(1)
+            src, dst = u_i.index_select(0, kept), col_i.index_select(0, kept)
+            del kept
+            dst += first_j - jlo
             pair = K9.edges_between(rp, col, src, dst, id_bound=st.nv)
+            del rp, col, src, dst
             if pair.src.numel():
                 total += K9.tc_count(pair)
                 stats["pairs"] += 1
+            del pair
+        del rp_i, col_i, u_i
     return int(total), stats
 
 
@@ -209,11 +235,12 @@ def bfs_streaming(cg, source: int, *, block_bytes: int = DEFAULT_BLOCK_BYTES,
         moved = torch.zeros((), dtype=torch.bool, device=device)
         for vlo, vhi in bounds:
             col = decode_block(st, vlo, vhi)
-            hit = (dist[col.long()] == level).to(torch.int32)
+            hit = (dist.index_select(0, col) == level).to(torch.int32)
+            del col
             reached = torch.zeros(vhi - vlo, dtype=torch.int32,
                                   device=device)
-            reached.scatter_reduce_(0, _rows(st, vlo, vhi), hit,
-                                    "amax")
+            reached.index_add_(0, _rows(st, vlo, vhi), hit)
+            del hit
             seg = dist[vlo:vhi]
             upd = (reached > 0) & (seg < 0)
             new[vlo:vhi] = torch.where(upd, level + 1, seg)

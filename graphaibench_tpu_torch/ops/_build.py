@@ -26,7 +26,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("ell_spmm.cu", "fused_gat.cu", "ell_edge.cu", "ell_pull.cu",
-           "tc_count.cu", "kcore_hindex.cu", "cgr_decode.cu")
+           "tc_count.cu", "kcore_hindex.cu", "cgr_decode.cu",
+           "vbyte_decode.cu")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 # No --use_fast_math: it flushes subnormals to zero and swaps expf for
 # __expf; the GAT passes rely on a normal 1e-30 floor and on expf.
@@ -85,6 +86,17 @@ _SIGNATURES = {
                                                        _vp, _int, _vp],
         # res, row_ptr, nres, itv_ptr, left, length, itv_pre, nv, col
         "gab_cgr_merge": [_vp] * 7 + [_i64, _vp, _int, _vp],
+    },
+    "vbyte_decode": {
+        # bytes, nbytes, then the row arrays, their count, the output and its
+        # length; device, stream
+        "gab_svb_decode": [_vp, _i64] + [_vp] * 3 + [_i64, _vp, _i64, _int,
+                                                     _vp],
+        "gab_vgb_tags": [_vp, _i64] + [_vp] * 3 + [_i64, _vp, _i64, _int, _vp],
+        # bytes, nbytes, tagpos, n_g, gbase, counts, out_slot, rows, col, ncol
+        "gab_vgb_values": [_vp, _i64, _vp, _i64] + [_vp] * 3 + [_i64, _vp,
+                                                               _i64, _int,
+                                                               _vp],
     },
 }
 

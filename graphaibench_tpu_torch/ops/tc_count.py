@@ -69,8 +69,7 @@ def dag_edges(row_ptr: np.ndarray, col_idx: np.ndarray, *, device) -> DagEdges:
         raise ValueError("the DAG's edge count must fit int32")
     rp = torch.from_numpy(row_ptr.astype(np.int32)).to(device)
     col = torch.from_numpy(np.ascontiguousarray(col_idx, np.int32)).to(device)
-    src = torch.repeat_interleave(torch.arange(nv, device=rp.device),
-                                  (rp[1:] - rp[:-1]).long(), output_size=ne)
+    src = torch.repeat_interleave(rp[1:] - rp[:-1], output_size=ne)
     return edges_between(rp, col, src, col, id_bound=nv)
 
 
@@ -80,23 +79,29 @@ def edges_between(row_ptr: torch.Tensor, col_idx: torch.Tensor,
     """The kernel's layout, built on the tensors' device, of the edges
     (src, dst) between rows of a CSR already there (int32, rows sorted,
     every id below ``id_bound``): those with both rows non-empty (the
-    others close no triangle), ordered stably by lane group. One host
-    sync, for the group bounds."""
-    rp = row_ptr.long()
+    others close no triangle), ordered stably by lane group. Every array
+    is int32 but the sort's order; two host syncs, for the kept edges and
+    the group bounds."""
+    rp = row_ptr.to(torch.int32)
     deg = rp[1:] - rp[:-1]
-    shorter = torch.minimum(deg[src.long()], deg[dst.long()])
-    keep = shorter > 0
-    src, dst, shorter = src[keep], dst[keep], shorter[keep]
-    widths = torch.tensor(GROUP_WIDTHS, dtype=shorter.dtype,
+    src, dst = src.to(torch.int32), dst.to(torch.int32)
+    shorter = torch.minimum(deg.index_select(0, src), deg.index_select(0, dst))
+    keep = (shorter > 0).nonzero().squeeze(1)
+    src, dst = src.index_select(0, keep), dst.index_select(0, keep)
+    shorter = shorter.index_select(0, keep)
+    del keep
+    widths = torch.tensor(GROUP_WIDTHS, dtype=torch.int32,
                           device=shorter.device)
-    group = torch.bucketize(shorter, widths)      # widths below the length
+    # the count of widths below the length
+    group = torch.bucketize(shorter, widths, out_int32=True)
+    del shorter
     order = torch.argsort(group, stable=True)
     counts = torch.bincount(group, minlength=len(GROUP_WIDTHS) + 1)
     start = [0] + torch.cumsum(counts, 0).tolist()
-    return DagEdges(row_ptr=row_ptr.to(torch.int32).contiguous(),
+    return DagEdges(row_ptr=rp.contiguous(),
                     col_idx=col_idx.to(torch.int32).contiguous(),
-                    src=src[order].to(torch.int32).contiguous(),
-                    dst=dst[order].to(torch.int32).contiguous(),
+                    src=src.index_select(0, order),
+                    dst=dst.index_select(0, order),
                     group_start=tuple(int(x) for x in start),
                     nv=row_ptr.numel() - 1, ne=col_idx.numel(),
                     sentinel=id_bound + 1)

@@ -1,0 +1,219 @@
+"""The byte codecs' decode passes: the hand-written CUDA kernels K11
+(``csrc/vbyte_decode.cu``) with their plain PyTorch versions.
+
+Counterpart of the XLA programs of
+``graphaibench_tpu/compress/device_decode.py`` (``streamvbyte_decode_device``,
+``_vgb_tag_chain``, ``_vgb_flat_values``). The stream is a uint8 tensor
+(``ops/cgr_decode.py::stream_tensor``, the same upload as CGR's); every pass
+works on rows given by int32 arrays:
+
+- ``svb_decode``: a StreamVByte row of ``counts[r]`` ids whose key bytes start
+  at byte ``key_start[r]`` (the values follow the ``ceil(count / 4)`` key
+  bytes) writes its ids at ``col[out_slot[r] + i]``: each value's length from
+  its 2-bit code, its byte offset by an exclusive prefix of the lengths, 1 to 4
+  bytes little-endian, the ids by an inclusive prefix of the gaps.
+- ``vgb_tags``: a VarintGB row of ``ngroups[r]`` groups whose first tag is at
+  byte ``pos[r]`` writes each group's tag position at ``tagpos[gbase[r] + j]``,
+  the next tag ``5 + (the tag's four codes)`` bytes on (``VGB_GLEN``).
+- ``vgb_values``: a VarintGB row of ``counts[r]`` ids in the groups
+  ``gbase[r] ..`` reads each group's tag and four values (a prefix within the
+  group), a prefix of the group sums across the row, and writes the row's ids
+  at ``col[out_slot[r] + i]``; the padding of the last group is dropped.
+
+The arithmetic is the same in both versions, garbage included: byte reads
+clamped to the stream, sums modulo 2^32 stored as int32, a slot outside the
+output not written, a group index outside ``tagpos`` read as position 0. Each
+wrapper takes the plain version for tensors on the CPU and launches its
+kernel, once, for tensors on a CUDA device, or raises; ``LAUNCHES`` counts the
+launches. ``svb_decode`` and ``vgb_values`` write into the ``col`` they are
+given and return it; the slots no row covers keep what they held.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from graphaibench_tpu_torch.ops import _build
+from graphaibench_tpu_torch.ops._ell_launch import _launch_tail, _raise_on
+
+LAUNCHES = {"svb_decode": 0, "vgb_tags": 0, "vgb_values": 0}
+
+# a VarintGB group's byte length from its tag alone: the tag byte and the
+# four values' (code + 1) bytes
+VGB_GLEN = np.array(
+    [5 + sum((t >> (2 * k)) & 3 for k in range(4)) for t in range(256)],
+    dtype=np.int32)
+
+
+def _check(stream: torch.Tensor, rows, outs) -> torch.device:
+    dev = stream.device
+    if (stream.dtype != torch.uint8 or stream.dim() != 1
+            or stream.numel() < 1 or not stream.is_contiguous()):
+        raise ValueError("the stream must be a non-empty contiguous 1-D uint8 "
+                         "tensor (stream_tensor)")
+    for t in (*rows, *outs):
+        if (t.dtype != torch.int32 or t.dim() != 1 or not t.is_contiguous()
+                or t.device != dev):
+            raise ValueError("row arrays and outputs must be contiguous 1-D "
+                             "int32 on the stream's device")
+    if any(t.numel() != rows[0].numel() for t in rows):
+        raise ValueError("row arrays of different lengths")
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"the K11 passes run on cpu or cuda, not {dev}")
+    return dev
+
+
+# ---- plain PyTorch versions ------------------------------------------------
+
+def _byte(stream: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
+    """The stream's bytes at int64 positions ``i``, clamped to it, as int64."""
+    return stream[i.clamp(0, stream.numel() - 1)].long()
+
+
+def _read_le(stream, o, length):
+    """The little-endian value of ``length`` (0..4) bytes at ``o``, int64."""
+    v = torch.zeros_like(o)
+    for k in range(4):
+        v |= torch.where(length > k, _byte(stream, o + k), 0) << (8 * k)
+    return v
+
+
+def _wrap32(x: torch.Tensor) -> torch.Tensor:
+    """int64 -> int32 by its low 32 bits."""
+    return (((x + 2**31) & 0xFFFFFFFF) - 2**31).to(torch.int32)
+
+
+def _items(n: torch.Tensor):
+    """(the row of every item, its index in the row, the row's first item)
+    for rows of ``n`` (int64, clamped at 0) items, in row order."""
+    n = n.clamp(min=0)
+    total = int(n.sum())
+    row = torch.repeat_interleave(torch.arange(n.numel(), device=n.device), n,
+                                  output_size=total)
+    first = torch.cumsum(n, 0) - n
+    return row, torch.arange(total, device=n.device) - first[row], first
+
+
+def _in_row_prefix(x, row, first, inclusive: bool):
+    """The prefix of ``x`` (int64) within each row, over items in row
+    order."""
+    c = torch.cumsum(x, 0)
+    return (c if inclusive else c - x) - (c - x)[first[row]]
+
+
+def _store(col, slot, vals, keep=None):
+    """col[slot] = vals where ``keep`` and the slot lies inside ``col``."""
+    inside = (slot >= 0) & (slot < col.numel())
+    keep = inside if keep is None else keep & inside
+    col[slot[keep]] = _wrap32(vals[keep])
+    return col
+
+
+def svb_decode_plain(stream, key_start, counts, out_slot, col):
+    n = counts.long()
+    row, i, first = _items(n)
+    ks = key_start.long()[row]
+    code = (_byte(stream, ks + (i >> 2)) >> ((i & 3) * 2)) & 3
+    length = code + 1
+    data = ks + ((n[row] + 3) >> 2)
+    o = data + _in_row_prefix(length, row, first, inclusive=False)
+    gaps = _read_le(stream, o, length)
+    ids = _in_row_prefix(gaps, row, first, inclusive=True)
+    return _store(col, out_slot.long()[row] + i, ids)
+
+
+def vgb_tags_plain(stream, pos, ngroups, gbase, n_g: int):
+    tagpos = torch.zeros(n_g, dtype=torch.int32, device=stream.device)
+    ng = ngroups.long()
+    order = torch.argsort(ng, descending=True, stable=True)
+    ng = ng[order]
+    p = pos.long()[order]
+    g0 = gbase.long()[order]
+    glen = torch.from_numpy(VGB_GLEN).long().to(stream.device)
+    steps = int(ng[0]) if ng.numel() else 0
+    for j in range(steps):
+        n = int((ng > j).sum())
+        slot = g0[:n] + j
+        ok = (slot >= 0) & (slot < n_g)
+        tagpos[slot[ok]] = _wrap32(p[:n][ok])
+        p[:n] += glen[_byte(stream, p[:n])]
+    return tagpos
+
+
+def vgb_values_plain(stream, tagpos, gbase, counts, out_slot, col):
+    n = counts.long()
+    grow, j, gfirst = _items((n + 3) >> 2)
+    gi = gbase.long()[grow] + j
+    o = torch.zeros_like(gi)
+    if tagpos.numel():
+        inside = (gi >= 0) & (gi < tagpos.numel())
+        o = torch.where(inside, tagpos.long()[gi.clamp(0, tagpos.numel() - 1)],
+                        0)
+    tag = _byte(stream, o)
+    o = o + 1
+    within = []
+    acc = torch.zeros_like(o)
+    for k in range(4):
+        length = ((tag >> (2 * k)) & 3) + 1
+        acc = acc + _read_le(stream, o, length)
+        o = o + length
+        within.append(acc)
+    within = torch.stack(within, 1)                         # (G, 4)
+    base = _in_row_prefix(within[:, 3], grow, gfirst, inclusive=False)
+    e = 4 * j[:, None] + torch.arange(4, device=o.device)[None, :]
+    slot = out_slot.long()[grow][:, None] + e
+    return _store(col, slot.reshape(-1), (base[:, None] + within).reshape(-1),
+                  (e < n[grow][:, None]).reshape(-1))
+
+
+# ---- the kernels' wrappers -------------------------------------------------
+
+def svb_decode(stream, key_start, counts, out_slot, col):
+    """``col`` with every row's ids written at ``col[out_slot[r] + i]``."""
+    dev = _check(stream, (key_start, counts, out_slot), (col,))
+    if dev.type == "cpu":
+        return svb_decode_plain(stream, key_start, counts, out_slot, col)
+    lib = _build.load_library("vbyte_decode")
+    rc = lib.gab_svb_decode(stream.data_ptr(), stream.numel(),
+                            key_start.data_ptr(), counts.data_ptr(),
+                            out_slot.data_ptr(), key_start.numel(),
+                            col.data_ptr(), col.numel(), *_launch_tail(stream))
+    _raise_on(rc, lib, "svb_decode", f"{key_start.numel()} rows")
+    LAUNCHES["svb_decode"] += 1
+    return col
+
+
+def vgb_tags(stream, pos, ngroups, gbase, n_g: int):
+    """(n_g,) int32: the byte of every group's tag, row r's at
+    ``gbase[r] ..``; slots no row covers are undefined on the card (0 in the
+    plain version)."""
+    dev = _check(stream, (pos, ngroups, gbase), ())
+    if n_g >= 2**31:
+        raise ValueError("vgb_tags: group count past int32")
+    if dev.type == "cpu":
+        return vgb_tags_plain(stream, pos, ngroups, gbase, n_g)
+    lib = _build.load_library("vbyte_decode")
+    tagpos = torch.empty(n_g, dtype=torch.int32, device=dev)
+    rc = lib.gab_vgb_tags(stream.data_ptr(), stream.numel(), pos.data_ptr(),
+                          ngroups.data_ptr(), gbase.data_ptr(), pos.numel(),
+                          tagpos.data_ptr(), n_g, *_launch_tail(stream))
+    _raise_on(rc, lib, "vgb_tags", f"{pos.numel()} rows")
+    LAUNCHES["vgb_tags"] += 1
+    return tagpos
+
+
+def vgb_values(stream, tagpos, gbase, counts, out_slot, col):
+    """``col`` with every row's ids written at ``col[out_slot[r] + i]``."""
+    dev = _check(stream, (gbase, counts, out_slot), (tagpos, col))
+    if dev.type == "cpu":
+        return vgb_values_plain(stream, tagpos, gbase, counts, out_slot, col)
+    lib = _build.load_library("vbyte_decode")
+    rc = lib.gab_vgb_values(stream.data_ptr(), stream.numel(),
+                            tagpos.data_ptr(), tagpos.numel(),
+                            gbase.data_ptr(), counts.data_ptr(),
+                            out_slot.data_ptr(), gbase.numel(), col.data_ptr(),
+                            col.numel(), *_launch_tail(stream))
+    _raise_on(rc, lib, "vgb_values", f"{gbase.numel()} rows")
+    LAUNCHES["vgb_values"] += 1
+    return col

@@ -394,24 +394,31 @@ def test_run_benchmark_in_process(datasets, capsys):
 
 @pytest.mark.parametrize("case,item", [
     ("cf", "P15"), ("motif", "P15"), ("sample", "P15"), ("color", "P15"),
-    ("compressed", "K11"), ("shards", "P14b")])
-def test_unported_routes_exit_2_and_name_their_item(datasets, tmp_path, case,
-                                                    item):
-    env, path, kernel = {}, datasets["sym"], case
-    if case == "compressed":
-        # a StreamVByte prefix: its device decode is K11's
-        from graphaibench_tpu_torch.compress import cli as tccli
-        from graphaibench_tpu_torch.compress import vbyte as tvbyte
-
-        path, kernel = str(tmp_path / "packed"), "bfs"
-        tccli.save_compressed(tvbyte.encode_graph(
-            tio.load_graph(datasets["sym"]), "streamvbyte"), path)
-    elif case == "shards":
+    ("shards", "P14b")])
+def test_unported_routes_exit_2_and_name_their_item(datasets, case, item):
+    env, kernel = {}, case
+    if case == "shards":
         env, kernel = {"GAB_SHARDS": "2"}, "bfs"
-    r = _cli("analytics", kernel, path, "--device=cpu", **env)
+    r = _cli("analytics", kernel, datasets["sym"], "--device=cpu", **env)
     assert r.returncode == 2
     assert item in r.stderr and "ROADMAP" in r.stderr
     assert "Correct" not in r.stdout
+
+
+def test_cli_analytics_decodes_a_streamvbyte_prefix(datasets, tmp_path):
+    """A StreamVByte prefix decodes through the device route (K11; its plain
+    versions with ``--device=cpu``) and the solve is Correct."""
+    from graphaibench_tpu_torch.compress import cli as tccli
+    from graphaibench_tpu_torch.compress import vbyte as tvbyte
+
+    g = tio.load_graph(datasets["sym"])
+    path = str(tmp_path / "packed")
+    tccli.save_compressed(tvbyte.encode_graph(g, "streamvbyte"), path)
+    r = _cli("analytics", "bfs", path, "--device=cpu")
+    assert r.returncode == 0, r.stderr
+    lines = r.stdout.splitlines()
+    assert "decoded streamvbyte on device cpu" in lines
+    assert f"|V| {g.nv} |E| {g.ne}" in lines and "Correct" in lines
 
 
 @pytest.mark.parametrize("ds", ["sym", "dir", "labelled"])

@@ -1,0 +1,561 @@
+"""The port's decode of the byte codecs on the device
+(``graphaibench_tpu_torch/compress/device_decode.py``, the kernels K11 of
+``csrc/vbyte_decode.cu`` with their wrappers and plain versions in
+``ops/vbyte_decode.py``), held against the JAX package's
+``compress/device_decode.py`` and the host decoders on the CPU.
+
+All of it is int32 and must be exact. On the CPU each wrapper takes its
+plain version: each plain pass is held against the JAX program it replaces
+on the same inputs (``streamvbyte_decode_device``, ``_vgb_tag_chain``'s tag
+positions, ``_vgb_flat_values``), and each whole decode against JAX's
+device decoder (jit on the JAX CPU backend), the host decoder and the
+graph, on rmat9-10 and on the handmade graphs of ``tests/test_compress.py``
+(:158-227): zero-degree rows, ids of 1 to 4 bytes, 4-byte lanes from ids of
+2^24 and up, partial final groups, tags at every in-word alignment, a hub.
+``vgb_tags``, which uses no warp intrinsic, is also compiled here with g++
+against a header that emulates the CUDA it uses and runs its blocks one
+thread after another, and held against its plain version. The kernels
+themselves run on the card in the tests marked ``cuda`` and in
+``chip_smoke.py``'s ``compress`` phase.
+"""
+
+import ctypes
+import re
+import shutil
+import subprocess
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from graphaibench_tpu.compress import device_decode as JDD
+from graphaibench_tpu.compress import hybrid as jhybrid
+from graphaibench_tpu.compress import vbyte as jvbyte
+from graphaibench_tpu_torch.analytics import run_benchmark
+from graphaibench_tpu_torch.compress import cli as tccli
+from graphaibench_tpu_torch.compress import device_decode as DD
+from graphaibench_tpu_torch.compress import hybrid as thybrid
+from graphaibench_tpu_torch.compress import vbyte as tvbyte
+from graphaibench_tpu_torch.compress.cgr_device import StreamRefused
+from graphaibench_tpu_torch.graph import csr as tcsr
+from graphaibench_tpu_torch.graph import generators as tgen
+from graphaibench_tpu_torch.graph import transforms as T
+from graphaibench_tpu_torch.ops import _build
+from graphaibench_tpu_torch.ops import cgr_decode as K12
+from graphaibench_tpu_torch.ops import vbyte_decode as K11
+
+torch.set_num_threads(2)
+
+
+def _sym(n, src, dst):
+    src, dst = np.asarray(src), np.asarray(dst)
+    return tcsr.from_edges(np.r_[src, dst], np.r_[dst, src], n)
+
+
+def _svb_cases():
+    """tests/test_compress.py:169-183: zero-degree rows, 1-vertex rows, ids
+    needing 1 to 3 bytes."""
+    return _sym(70000, [0, 0, 0, 5, 5, 69999, 3], [1, 300, 69999, 6, 70, 0, 3])
+
+
+def _vgb_cases():
+    """tests/test_compress.py:201-217: multi-byte lanes at every in-word tag
+    alignment, zero-degree rows, partial final groups, a row of 40."""
+    hub = 17
+    return _sym(70000, [0, 0, 0, 5, 5, 69999] + [hub] * 40,
+                [1, 300, 69999, 6, 70, 0] + list(range(40000, 40040)))
+
+
+def _wide():
+    """tests/test_compress.py:220-234: ids of 2^24 and up (4-byte lanes),
+    for both the absolute ids and the wide gaps."""
+    n = (1 << 24) + 64
+    big = n - 2
+    return _sym(n, [0, 0, 0, 3, 3, big], [1, 2, big, 5, big - 1, big - 3])
+
+
+GRAPHS = {
+    "rmat9": lambda: T.sort_and_clean(tgen.rmat(9, 8, seed=1)),
+    "rmat10": lambda: T.sort_and_clean(tgen.rmat(10, 8, seed=2)),
+    "svb_cases": _svb_cases,
+    "vgb_cases": _vgb_cases,
+    "wide": _wide,
+}
+_CACHE = {}
+
+
+def _fast_vbyte(g, scheme):
+    """The port's ``vbyte.encode_graph`` bytes, with the empty rows' count
+    words laid out by numpy (the wide graph has 2^24 rows)."""
+    enc = tvbyte._CODECS[scheme][0]
+    deg = g.degrees()
+    words = np.ones(g.nv, np.int64)
+    chunks = {}
+    for v in np.nonzero(deg)[0]:
+        chunks[v] = enc(g.neighbors(v))
+        words[v] = len(chunks[v]) // 4
+    offsets = np.r_[0, np.cumsum(words)]
+    data = np.zeros(offsets[-1] * 4, np.uint8)
+    for v, b in chunks.items():
+        data[offsets[v] * 4:offsets[v] * 4 + len(b)] = np.frombuffer(b,
+                                                                     np.uint8)
+    return tvbyte.VbyteGraph(nv=g.nv, ne=g.ne, scheme=scheme, offsets=offsets,
+                             data=data.tobytes(), degrees=deg)
+
+
+def _graph(name):
+    if name not in _CACHE:
+        _CACHE[name] = GRAPHS[name]()
+    return _CACHE[name]
+
+
+def _encoded(name, scheme):
+    key = (name, scheme)
+    if key not in _CACHE:
+        g = _graph(name)
+        _CACHE[key] = (_fast_vbyte(g, scheme) if name == "wide"
+                       else tvbyte.encode_graph(g, scheme))
+    return _CACHE[key]
+
+
+def _jax_vbyte(vg):
+    return jvbyte.VbyteGraph(nv=vg.nv, ne=vg.ne, scheme=vg.scheme,
+                             offsets=vg.offsets, data=vg.data,
+                             degrees=vg.degrees)
+
+
+def _jax_hybrid(hg):
+    return jhybrid.HybridGraph(
+        nv=hg.nv, ne=hg.ne, threshold=hg.threshold, zeta_k=hg.zeta_k,
+        vbyte_scheme=hg.vbyte_scheme, offsets=hg.offsets, data=hg.data,
+        degrees=hg.degrees)
+
+
+def _same(got, g):
+    np.testing.assert_array_equal(got.row_ptr, g.row_ptr)
+    np.testing.assert_array_equal(got.col_idx, g.col_idx)
+    assert got.col_idx.dtype == np.int32
+
+
+def test_the_fast_encoder_writes_the_encoders_bytes():
+    g = _graph("svb_cases")
+    for scheme in ("streamvbyte", "varintgb"):
+        a, b = _fast_vbyte(g, scheme), tvbyte.encode_graph(g, scheme)
+        assert a.data == b.data
+        np.testing.assert_array_equal(a.offsets, b.offsets)
+
+
+# ---- the whole decodes -----------------------------------------------------
+
+@pytest.mark.parametrize("name", ["rmat9", "rmat10", "svb_cases", "wide"])
+def test_streamvbyte_equals_jax_and_the_host(name):
+    g, vg = _graph(name), _encoded(name, "streamvbyte")
+    got = DD.decode_graph_device(vg, device="cpu")
+    _same(got, g)
+    want = JDD.decode_graph_device(_jax_vbyte(vg))
+    np.testing.assert_array_equal(got.row_ptr, want.row_ptr)
+    np.testing.assert_array_equal(got.col_idx, want.col_idx)
+    if name != "wide":
+        _same(tvbyte.decode_graph(vg), g)
+
+
+@pytest.mark.parametrize("name", ["rmat9", "rmat10", "vgb_cases", "wide"])
+def test_varintgb_equals_jax_and_the_host(name):
+    g, vg = _graph(name), _encoded(name, "varintgb")
+    got = DD.decode_graph_device(vg, device="cpu")
+    _same(got, g)
+    _same(DD.varintgb_decode_device(vg, device="cpu"), g)
+    want = JDD.varintgb_decode_device(_jax_vbyte(vg))
+    np.testing.assert_array_equal(got.col_idx, want.col_idx)
+    if name != "wide":
+        _same(tvbyte.decode_graph(vg), g)
+
+
+@pytest.mark.parametrize("name,threshold", [
+    ("rmat9", 32), ("rmat10", 8), ("rmat10", 64), ("vgb_cases", 2),
+    ("svb_cases", 2)])
+def test_hybrid_equals_jax_and_the_host(name, threshold):
+    g = _graph(name)
+    hg = thybrid.encode_graph(g, threshold=threshold)
+    got = DD.decode_hybrid_device(hg, device="cpu")
+    _same(got, g)
+    want = JDD.decode_hybrid_device(_jax_hybrid(hg))
+    np.testing.assert_array_equal(got.col_idx, want.col_idx)
+    _same(thybrid.decode_graph(hg), g)
+
+
+def test_hybrid_decode_takes_the_two_kernels_once(monkeypatch):
+    """The low-degree rows are one cgr_residual call, a lane a row from the
+    bit after its gamma degree; the high-degree rows one svb_decode call
+    into the same col."""
+    calls = []
+    for mod, name in ((K12, "cgr_residual"), (K11, "svb_decode")):
+        fn = getattr(mod, name)
+        monkeypatch.setattr(mod, name, lambda *a, _f=fn, _n=name: (
+            calls.append(_n), _f(*a))[1])
+    g = _graph("rmat10")
+    hg = thybrid.encode_graph(g)
+    prep = DD.hybrid_device_prep(hg, device="cpu")
+    deg = g.degrees()
+    low = np.nonzero((deg > 0) & (deg < hg.threshold))[0]
+    assert prep["low"][2].tolist() == low.tolist()
+    assert prep["high"][0].numel() == int((deg >= hg.threshold).sum()) > 0
+    col = DD.hybrid_device_run(prep)
+    assert calls == ["cgr_residual", "svb_decode"]
+    np.testing.assert_array_equal(col.numpy(), g.col_idx)
+
+
+# ---- the plain passes against the JAX programs ----------------------------
+
+def _jax_words(data: bytes, pad: int):
+    return jnp.asarray(np.frombuffer(data + b"\x00" * pad, dtype=np.uint32))
+
+
+@pytest.mark.parametrize("name", ["rmat10", "svb_cases"])
+def test_svb_plain_equals_jax_streamvbyte_decode_device(name):
+    """Whole-graph rows (a count word before the keys) and the hybrid's
+    count-word-free chunks at byte offsets."""
+    vg = _encoded(name, "streamvbyte")
+    stream = K12.stream_tensor(vg.data, "cpu")
+    woff = torch.from_numpy(vg.offsets.astype(np.int32))
+    deg = torch.from_numpy(vg.degrees.astype(np.int32))
+    rp, col = DD.streamvbyte_decode_device(stream, woff, deg, nv=vg.nv,
+                                           ne=vg.ne)
+    jrp, jcol = JDD.streamvbyte_decode_device(
+        _jax_words(vg.data, (-len(vg.data)) % 4 + 8),
+        jnp.asarray(woff.numpy()), jnp.asarray(deg.numpy()), nv=vg.nv,
+        ne=vg.ne)
+    np.testing.assert_array_equal(rp.numpy(), np.asarray(jrp))
+    np.testing.assert_array_equal(col.numpy(), np.asarray(jcol))
+    hg = thybrid.encode_graph(_graph(name), threshold=3)
+    high = np.nonzero(hg.degrees >= 3)[0]
+    stream = K12.stream_tensor(hg.data, "cpu")
+    off = hg.offsets[high].astype(np.int32)
+    hdeg = hg.degrees[high].astype(np.int32)
+    _, col = DD.streamvbyte_decode_device(
+        stream, torch.from_numpy(np.r_[off, 0].astype(np.int32)),
+        torch.from_numpy(hdeg), nv=len(high), ne=int(hdeg.sum()),
+        count_word=False)
+    _, jcol = JDD.streamvbyte_decode_device(
+        _jax_words(hg.data, (-len(hg.data)) % 4 + 16), jnp.asarray(off),
+        jnp.asarray(hdeg), nv=len(high), ne=int(hdeg.sum()), count_word=False)
+    np.testing.assert_array_equal(col.numpy(), np.asarray(jcol))
+
+
+def _jax_tagpos(vg):
+    """JAX's tag positions of a VarintGB graph: its prep's buckets through
+    ``_vgb_tag_chain``, the (n_g,) positions."""
+    prep = JDD.varintgb_device_prep(_jax_vbyte(vg))
+    tagpos = jnp.zeros((max(prep["n_g"], 1) + 1,), jnp.int32)
+    for bk in prep["buckets"]:
+        tagpos = JDD._vgb_tag_chain(prep["blocks"], prep["lut"], bk["pos"],
+                                    bk["ngl"], bk["gbase"], tagpos, bk["trip"])
+    return prep, np.asarray(tagpos)[:prep["n_g"]]
+
+
+@pytest.mark.parametrize("name", ["rmat9", "rmat10", "vgb_cases"])
+def test_vgb_plain_passes_equal_jax_tag_chain_and_flat_values(name):
+    vg = _encoded(name, "varintgb")
+    jprep, jtags = _jax_tagpos(vg)
+    prep = DD.varintgb_device_prep(vg, device="cpu")
+    assert prep["n_g"] == jprep["n_g"]
+    tags = K11.vgb_tags(prep["stream"], prep["pos"], prep["ngroups"],
+                        prep["gbase"], prep["n_g"])
+    np.testing.assert_array_equal(tags.numpy(), jtags)
+    col = K11.vgb_values(prep["stream"], tags, prep["gbase"], prep["counts"],
+                         prep["out_slot"], torch.zeros(vg.ne,
+                                                       dtype=torch.int32))
+    jcol = JDD._vgb_flat_values(
+        jprep["words"], jnp.asarray(np.r_[jtags, 0].astype(np.int32)),
+        jprep["group_ptr_d"], jprep["row_ptr_d"], jprep["deg_d"], nv=vg.nv,
+        ne=vg.ne, n_g=jprep["n_g"])
+    np.testing.assert_array_equal(col.numpy(), np.asarray(jcol))
+
+
+def test_vgb_glen_is_jaxs():
+    np.testing.assert_array_equal(K11.VGB_GLEN, JDD._VGB_GLEN)
+
+
+# ---- hubs past JAX's trip grids --------------------------------------------
+
+def test_a_varintgb_hub_past_jaxs_trip_grid_decodes():
+    """JAX refuses a row past 4 * _VGB_SUBS * 4096 values; the port's
+    kernels loop over the row's own count (tests/test_compress.py:237-270)."""
+    limit = 4 * JDD._VGB_SUBS * JDD._VGB_TRIP_GRID[-1]
+    hub = limit + 4
+    g = _sym(limit + 8, np.zeros(hub, np.int64), np.arange(1, hub + 1))
+    vg = _fast_vbyte(g, "varintgb")
+    with pytest.raises(ValueError, match="trip grid"):
+        JDD.varintgb_decode_device(_jax_vbyte(vg))
+    _same(DD.varintgb_decode_device(vg, device="cpu"), g)
+
+
+def test_a_hybrid_hub_under_a_large_threshold_decodes():
+    """A hub of degree 2,500 under threshold 3,000 goes down the low-degree
+    lanes, past JAX's hybrid grid (tests/test_compress.py:273-296)."""
+    hub = 2500
+    g = _sym(hub + 1, np.zeros(hub, np.int64), np.arange(1, hub + 1))
+    hg = thybrid.encode_graph(g, threshold=3000)
+    with pytest.raises(ValueError, match="hybrid trip grid"):
+        JDD.decode_hybrid_device(_jax_hybrid(hg))
+    _same(DD.decode_hybrid_device(hg, device="cpu"), g)
+
+
+# ---- refusals and faults ---------------------------------------------------
+
+class _Len(bytes):
+    """Bytes that report another length (a stream too large to build)."""
+
+    def __new__(cls, n):
+        obj = super().__new__(cls, b"\x00" * 8)
+        obj.n = n
+        return obj
+
+    def __len__(self):
+        return self.n
+
+
+def _refused(fn, obj, match):
+    with pytest.raises(StreamRefused, match=match):
+        fn(obj, device="cpu")
+
+
+@pytest.mark.parametrize("scheme", ["streamvbyte", "varintgb", "hybrid"])
+def test_streams_the_device_route_refuses(scheme):
+    g = _graph("rmat9")
+    if scheme == "hybrid":
+        obj, fn = thybrid.encode_graph(g), DD.decode_hybrid_device
+        n_off = len(obj.data)
+    else:
+        obj, fn = tvbyte.encode_graph(g, scheme), DD.decode_graph_device
+        n_off = len(obj.data) // 4
+    deg = obj.degrees.copy()
+    deg[3] += 1
+    _refused(fn, _replace(obj, degrees=deg), "summing")
+    deg = obj.degrees.copy()
+    deg[3], deg[4] = -1, deg[4] + deg[3] + 1
+    _refused(fn, _replace(obj, degrees=deg), "non-negative")
+    off = obj.offsets.copy()
+    v = int(np.nonzero(g.degrees())[0][-1])
+    off[v] = n_off + 64
+    _refused(fn, _replace(obj, offsets=off), "past the padded")
+    _refused(fn, _replace(obj, data=_Len(2**31 if scheme != "hybrid"
+                                         else 2**28)), "int32")
+
+
+def _replace(obj, **kw):
+    import dataclasses
+    return dataclasses.replace(obj, **kw)
+
+
+def test_a_varintgb_hybrid_is_refused_and_decoded_on_the_host(tmp_path,
+                                                              capsys):
+    g = _graph("rmat10")
+    hg = thybrid.encode_graph(g, vbyte_scheme="varintgb")
+    _refused(DD.decode_hybrid_device, hg, "varintgb chunks")
+    prefix = str(tmp_path / "hyb" / "g")
+    tccli.save_compressed(hg, prefix)
+    assert run_benchmark("tc", prefix, [], device="cpu") == 0
+    out = capsys.readouterr().out.splitlines()
+    assert any(line.startswith("decoded on host (device hybrid decode: "
+                               "varintgb chunks") for line in out)
+    assert "Correct" in out
+
+
+def test_wrappers_refuse_bad_operands():
+    stream = K12.stream_tensor(b"\xff" * 8, "cpu")
+    rows = torch.zeros(3, dtype=torch.int32)
+    col = torch.zeros(4, dtype=torch.int32)
+    with pytest.raises(ValueError, match="int32") as e:
+        K11.svb_decode(stream, rows.long(), rows, rows, col)
+    assert not isinstance(e.value, StreamRefused)
+    with pytest.raises(ValueError, match="uint8"):
+        K11.svb_decode(stream.to(torch.int16), rows, rows, rows, col)
+    with pytest.raises(ValueError, match="different lengths"):
+        K11.vgb_tags(stream, rows, rows, rows[:2], 4)
+    with pytest.raises(ValueError, match="int32"):
+        K11.vgb_values(stream, col.float(), rows, rows, rows, col)
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        K11.vgb_tags(stream.to("meta"), *(rows.to("meta"),) * 3, 4)
+    with pytest.raises(ValueError, match="expected streamvbyte"):
+        DD.streamvbyte_device_prep(_encoded("rmat9", "varintgb"),
+                                   device="cpu")
+
+
+def test_a_stream_that_does_not_parse_reads_inside_it():
+    """Random bytes under valid tables: every read is clamped to the stream,
+    every write lands in its slot, the result is what the arithmetic gives
+    (the kernels, on the card, must give the same)."""
+    rng = np.random.default_rng(0)
+    data = rng.integers(0, 256, 64, dtype=np.uint8).tobytes()
+    stream = K12.stream_tensor(data, "cpu")
+    counts = torch.tensor([7, 0, 40, 3], dtype=torch.int32)
+    start = torch.tensor([60, 5, 50, 70], dtype=torch.int32)
+    slot = torch.cumsum(counts, 0, dtype=torch.int32) - counts
+    col = K11.svb_decode(stream, start, counts, slot,
+                         torch.full((50,), -7, dtype=torch.int32))
+    assert (col != -7).all()
+    ng = (counts + 3) // 4
+    gb = torch.cumsum(ng, 0, dtype=torch.int32) - ng
+    tags = K11.vgb_tags(stream, start, ng, gb, int(ng.sum()))
+    assert tags.numel() == 13
+    col = K11.vgb_values(stream, tags, gb, counts, slot,
+                         torch.full((50,), -7, dtype=torch.int32))
+    assert (col != -7).all()
+
+
+# ---- vgb_tags' source, emulated on the host --------------------------------
+
+EMULATION = r"""
+#pragma once
+#include <cstdint>
+#include <cstdlib>
+#include <functional>
+#define __global__
+#define __device__
+#define __forceinline__ inline
+#define __restrict__
+#define __launch_bounds__(x)
+typedef int cudaError_t;
+typedef void* cudaStream_t;
+enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
+struct dim3 { unsigned x = 0; };
+static dim3 blockIdx, threadIdx;
+inline cudaError_t cudaSetDevice(int) { return cudaSuccess; }
+inline cudaError_t cudaGetLastError() { return cudaSuccess; }
+inline const char* cudaGetErrorString(cudaError_t) { return ""; }
+template <class T> inline T __ldg(const T* p) { return *p; }
+// the warp passes are not emulated: a thread at a time cannot shuffle
+inline unsigned __shfl_up_sync(unsigned, unsigned, int) { std::abort(); }
+inline unsigned __shfl_sync(unsigned, unsigned, int) { std::abort(); }
+inline void emulate(unsigned grid, unsigned block, std::function<void()> f) {
+  for (unsigned b = 0; b < grid; ++b)
+    for (unsigned t = 0; t < block; ++t) {
+      blockIdx.x = b;
+      threadIdx.x = t;
+      f();
+    }
+}
+"""
+
+
+@pytest.fixture(scope="module")
+def emulated(tmp_path_factory):
+    """The library of ``csrc/vbyte_decode.cu`` built by g++ for the host,
+    each launch ``k<<<grid, block, 0, s>>>(args)`` run as a loop over the
+    grid's threads; only ``gab_vgb_tags`` is called."""
+    if shutil.which("g++") is None:
+        pytest.skip("no g++ on this host")
+    d = tmp_path_factory.mktemp("vbyte_emulated")
+    (d / "cuda_runtime.h").write_text(EMULATION)
+    src = (_build.CSRC / "vbyte_decode.cu").read_text()
+    src, n = re.subn(r"(\w+)<<<(.*?),\s*(\w+),\s*0,\s*(.*?)>>>\((.*?)\);",
+                     r"emulate(\2, \3, [&] { \1(\5); });", src,
+                     flags=re.S)
+    assert n == 3
+    (d / "k.cpp").write_text(src)
+    subprocess.run(["g++", "-O1", "-std=c++17", "-shared", "-fPIC",
+                    f"-I{d}", str(d / "k.cpp"), "-o", str(d / "k.so")],
+                   check=True, capture_output=True, timeout=300)
+    lib = ctypes.CDLL(str(d / "k.so"))
+    for fn, argtypes in _build._SIGNATURES["vbyte_decode"].items():
+        getattr(lib, fn).argtypes = argtypes
+        getattr(lib, fn).restype = ctypes.c_int
+    return lib
+
+
+def _emulated_tags(lib, stream, pos, ngroups, gbase, n_g):
+    tagpos = torch.full((n_g,), -1, dtype=torch.int32)
+    assert lib.gab_vgb_tags(stream.data_ptr(), stream.numel(), pos.data_ptr(),
+                            ngroups.data_ptr(), gbase.data_ptr(), pos.numel(),
+                            tagpos.data_ptr(), n_g, 0, None) == 0
+    return tagpos
+
+
+@pytest.mark.parametrize("name", ["rmat9", "vgb_cases", "garbage"])
+def test_vgb_tags_source_emulated_equals_plain(emulated, name):
+    if name == "garbage":
+        rng = np.random.default_rng(1)
+        stream = K12.stream_tensor(
+            rng.integers(0, 256, 100, dtype=np.uint8).tobytes(), "cpu")
+        ngroups = torch.tensor([3, 0, 9, 40], dtype=torch.int32)
+        pos = torch.tensor([0, 7, 90, 200], dtype=torch.int32)
+        gbase = torch.cumsum(ngroups, 0, dtype=torch.int32) - ngroups
+        n_g = int(ngroups.sum())
+    else:
+        prep = DD.varintgb_device_prep(_encoded(name, "varintgb"),
+                                       device="cpu")
+        stream, pos, ngroups, gbase, n_g = (
+            prep["stream"], prep["pos"], prep["ngroups"], prep["gbase"],
+            prep["n_g"])
+    got = _emulated_tags(emulated, stream, pos, ngroups, gbase, n_g)
+    want = K11.vgb_tags_plain(stream, pos, ngroups, gbase, n_g)
+    assert torch.equal(got, want)
+
+
+# ---- on the card -----------------------------------------------------------
+
+def _need_cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels of csrc/vbyte_decode.cu "
+                    "have no CPU route")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["rmat10", "svb_cases", "vgb_cases"])
+def test_kernels_match_plain_on_cuda(name):
+    """Each K11 kernel against its plain version on the preps' rows on the
+    card, exactly, and the three decodes against the graph."""
+    _need_cuda()
+    g = _graph(name)
+    svb = DD.streamvbyte_device_prep(_encoded(name, "streamvbyte"),
+                                     device="cuda")
+    rows = (svb["word_offsets"][:g.nv] * 4 + 4, svb["degrees"],
+            torch.cumsum(svb["degrees"], 0, dtype=torch.int32)
+            - svb["degrees"])
+    got = K11.svb_decode(svb["stream"], *rows, torch.full(
+        (g.ne,), -1, dtype=torch.int32, device="cuda"))
+    assert torch.equal(got, K11.svb_decode_plain(
+        svb["stream"], *rows, torch.zeros_like(got)))
+    vgb = DD.varintgb_device_prep(_encoded(name, "varintgb"), device="cuda")
+    chain = (vgb["pos"], vgb["ngroups"], vgb["gbase"], vgb["n_g"])
+    tags = K11.vgb_tags(vgb["stream"], *chain)
+    assert torch.equal(tags, K11.vgb_tags_plain(vgb["stream"], *chain))
+    rows = (vgb["gbase"], vgb["counts"], vgb["out_slot"])
+    got = K11.vgb_values(vgb["stream"], tags, *rows, torch.full(
+        (g.ne,), -1, dtype=torch.int32, device="cuda"))
+    assert torch.equal(got, K11.vgb_values_plain(
+        vgb["stream"], tags, *rows, torch.zeros_like(got)))
+    _same(DD.decode_graph_device(_encoded(name, "streamvbyte"),
+                                 device="cuda"), g)
+    _same(DD.varintgb_decode_device(_encoded(name, "varintgb"),
+                                    device="cuda"), g)
+    _same(DD.decode_hybrid_device(thybrid.encode_graph(g, threshold=4),
+                                  device="cuda"), g)
+
+
+@pytest.mark.cuda
+def test_kernels_match_plain_on_a_stream_that_does_not_parse():
+    _need_cuda()
+    rng = np.random.default_rng(0)
+    stream = K12.stream_tensor(
+        rng.integers(0, 256, 300, dtype=np.uint8).tobytes(), "cuda")
+    counts = torch.tensor([7, 0, 40, 3, 77], dtype=torch.int32, device="cuda")
+    start = torch.tensor([60, 5, 250, 70, -3], dtype=torch.int32,
+                         device="cuda")
+    slot = torch.cumsum(counts, 0, dtype=torch.int32) - counts
+    n = int(counts.sum())
+    got = K11.svb_decode(stream, start, counts, slot, torch.zeros(
+        n, dtype=torch.int32, device="cuda"))
+    assert torch.equal(got, K11.svb_decode_plain(
+        stream, start, counts, slot, torch.zeros_like(got)))
+    ng = (counts + 3) // 4
+    gb = torch.cumsum(ng, 0, dtype=torch.int32) - ng
+    tags = K11.vgb_tags(stream, start, ng, gb, int(ng.sum()))
+    assert torch.equal(tags, K11.vgb_tags_plain(stream, start, ng, gb,
+                                                int(ng.sum())))
+    got = K11.vgb_values(stream, tags, gb, counts, slot, torch.zeros(
+        n, dtype=torch.int32, device="cuda"))
+    assert torch.equal(got, K11.vgb_values_plain(
+        stream, tags, gb, counts, slot, torch.zeros_like(got)))

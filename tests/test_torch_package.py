@@ -33,7 +33,8 @@ def test_port_imports_leave_jax_out():
         "for new in ('nn.sampler', 'utils.timers', 'utils.checkpoint', 'entry', 'ops.ell_edge', 'ops._ell_launch',\n"
         "            'ops.ell_pull', 'analytics', 'analytics.verifiers', 'analytics.traversal', 'analytics.pr', 'analytics.cc',\n"
         "            'compress', 'compress.unary', 'compress.vbyte', 'compress.cgr', 'compress.hybrid', 'compress.cli',\n"
-        "            'compress.cgr_device', 'ops.cgr_decode', 'analytics.tc_stream'):\n"
+        "            'compress.cgr_device', 'ops.cgr_decode', 'analytics.tc_stream',\n"
+        "            'compress.device_decode', 'ops.vbyte_decode'):\n"
         "    assert 'graphaibench_tpu_torch.' + new in names, new\n"
         "for n in names:\n"
         "    importlib.import_module(n)\n"

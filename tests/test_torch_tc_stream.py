@@ -40,6 +40,7 @@ GRAPHS = {
     "rmat10": lambda gen, tr, csr: tr.sort_and_clean(gen.rmat(10, 8, seed=2)),
     "uniform": lambda gen, tr, csr: gen.uniform_random(600, 6000, seed=5),
     "rmat11": lambda gen, tr, csr: tr.sort_and_clean(gen.rmat(11, 8, seed=3)),
+    "rmat12": lambda gen, tr, csr: tr.sort_and_clean(gen.rmat(12, 8, seed=4)),
     "grid": lambda gen, tr, csr: gen.grid2d(70),
     "edgeless": lambda gen, tr, csr: csr.from_edges([], [], 9),
 }
@@ -137,7 +138,7 @@ def test_block_bounds_cover_the_vertices_in_order():
     assert bounds[0][0] == 0 and bounds[-1][1] == g.nv
     assert all(a[1] == b[0] for a, b in zip(bounds, bounds[1:]))
     # a block ends at the first vertex that takes it to the target
-    target = max(BLOCK_BYTES // 8, 1 << 12)
+    target = max(BLOCK_BYTES // TS.BLOCK_EDGE_BYTES, 1 << 12)
     assert all(g.row_ptr[hi - 1] - g.row_ptr[lo] < target
                for lo, hi in bounds)
     assert all(g.row_ptr[hi] - g.row_ptr[lo] >= target
@@ -243,12 +244,99 @@ def test_run_benchmark_raises_a_wrappers_fault(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("scheme", ["streamvbyte", "varintgb", "hybrid"])
-def test_run_benchmark_refuses_the_other_schemes(scheme, tmp_path, capsys):
+def test_run_benchmark_decodes_the_other_schemes(scheme, tmp_path, capsys):
+    """StreamVByte, VarintGB and StreamVByte-hybrid prefixes decode through
+    the device route (K11), on the CPU here, and count Correct."""
     g, *_ = _pair("rmat10")
     obj = (thybrid.encode_graph(g) if scheme == "hybrid"
            else tvbyte.encode_graph(g, scheme))
     prefix = _save(tmp_path, obj, scheme)
-    assert run_benchmark("tc", prefix, [], device="cpu") == 2
-    captured = capsys.readouterr()
-    assert "K11" in captured.err and "ROADMAP" in captured.err
-    assert "Correct" not in captured.out
+    assert run_benchmark("tc", prefix, [], device="cpu") == 0
+    out = capsys.readouterr().out.splitlines()
+    assert f"decoded {scheme} on device cpu" in out
+    assert f"|V| {g.nv} |E| {g.ne}" in out
+    assert f"total_num_triangles = {triangle_count(g, device='cpu')}" in out
+    assert "Correct" in out
+
+
+def test_run_benchmark_decodes_a_varintgb_hybrid_on_the_host(tmp_path,
+                                                             capsys):
+    """The device route takes StreamVByte chunks only: a hybrid of VarintGB
+    chunks is refused (StreamRefused) and decoded on the host, as JAX's
+    route does."""
+    g, *_ = _pair("rmat10")
+    prefix = _save(tmp_path, thybrid.encode_graph(g, vbyte_scheme="varintgb"),
+                   "hybrid_vgb")
+    assert run_benchmark("bfs", prefix, ["0"], device="cpu") == 0
+    out = capsys.readouterr().out.splitlines()
+    assert "decoded on host (device hybrid decode: varintgb chunks (the " \
+        "device decode takes streamvbyte chunks))" in out
+    assert "Correct" in out
+
+
+# ---- what the streamed count holds on the device --------------------------
+
+def test_streaming_count_in_eight_blocks_or_more_equals_jax():
+    """At a block_bytes that cuts rmat12 into at least 8 blocks, the count
+    equals JAX's streamed count and the uncompressed count; every block
+    pair with a DAG edge between them is counted once."""
+    g, jg, cg, jc = _pair("rmat12")
+    want = triangle_count(g, device="cpu")
+    n, stats = TS.triangle_count_streaming(cg, block_bytes=1 << 10,
+                                           device="cpu")
+    assert stats["blocks"] >= 8
+    # JAX's count in its own (default) blocks: it compiles per block shape
+    jn, _ = JS.triangle_count_streaming(jc)
+    assert n == jn == want == TV.triangle_count_serial(T.orientation(g))
+    assert stats["blocks"] <= stats["pairs"] <= stats["blocks"] ** 2
+
+
+def test_dag_block_and_rows_are_int32():
+    g, _, cg, _ = _pair("rmat11")
+    st = TS.open_cgr_stream(cg, device="cpu")
+    assert st.lanes.dtype == np.int32 and st.lanes.shape[0] == 4
+    # on the device: the stream and O(nv) beside it
+    assert not any(isinstance(v, torch.Tensor) and v.numel() > g.nv + 1
+                   for k, v in vars(st).items() if k != "stream")
+    (lo, hi), _ = TS.block_bounds(st, BLOCK_BYTES)[:2]
+    rows = TS._rows(st, lo, hi)
+    assert rows.dtype == torch.int32
+    np.testing.assert_array_equal(
+        rows.numpy(), np.repeat(np.arange(hi - lo), g.degrees()[lo:hi]))
+    rp, col, u = TS.dag_block(st, lo, hi)
+    assert rp.dtype == col.dtype == u.dtype == torch.int32
+    # the block's DAG rows are the orientation's
+    dag = T.orientation(g)
+    np.testing.assert_array_equal(rp.numpy(), dag.row_ptr[lo:hi + 1]
+                                  - dag.row_ptr[lo])
+    np.testing.assert_array_equal(
+        col.numpy(), dag.col_idx[dag.row_ptr[lo]:dag.row_ptr[hi]])
+    np.testing.assert_array_equal(u.numpy(), np.repeat(
+        np.arange(hi - lo), np.diff(dag.row_ptr[lo:hi + 1])))
+
+
+def test_block_bytes_is_a_working_set_budget():
+    """The stated difference from JAX: ``block_bytes`` bounds a block pair's
+    device work at BLOCK_EDGE_BYTES (32) a block edge, so a block holds
+    block_bytes / 32 edges where JAX's holds block_bytes / 8, and the
+    default is 16 MiB, where JAX's is 32 MiB (524,288 edges a block against
+    4,194,304)."""
+    import inspect
+
+    assert TS.BLOCK_EDGE_BYTES == 32
+    assert TS.DEFAULT_BLOCK_BYTES == 16 << 20
+    jdefault = inspect.signature(
+        JS.triangle_count_streaming).parameters["block_bytes"].default
+    assert jdefault == 32 << 20
+    g, _, cg, jc = _pair("rmat11")
+    st = TS.open_cgr_stream(cg, device="cpu")
+    budget = 1 << 18                 # 8,192 port edges, 32,768 JAX edges
+    bounds = TS.block_bounds(st, budget)
+    sizes = [g.row_ptr[hi] - g.row_ptr[lo] for lo, hi in bounds]
+    assert all(s >= budget // 32 for s in sizes[:-1])
+    assert all(g.row_ptr[hi - 1] - g.row_ptr[lo] < budget // 32
+               for lo, hi in bounds)
+    _, stats = TS.triangle_count_streaming(cg, block_bytes=budget,
+                                           device="cpu")
+    _, jstats = JS.triangle_count_streaming(jc, block_bytes=budget)
+    assert stats["blocks"] == len(bounds) >= 3 > jstats["blocks"]
