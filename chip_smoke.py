@@ -151,7 +151,31 @@ non-zero exit code and no result line:
              ``analytics tc`` and ``bfs`` on the CGR, VarintGB and hybrid
              prefixes, ``analytics tc`` on the StreamVByte one (each decoded
              on the card) and ``GAB_TC_STREAM=1 analytics tc``, each Correct.
-10. result — a JSON line of the nineteen kernels, then the last line
+10. sharded — the sharded trainer (``parallel/``) on rmat17 at the main
+             path's widths, GCN and GAT (2 layers, 128/128/16): (a) in this
+             process as the one rank of an nccl group, 5 steps, losses
+             within rtol 1e-4 and weights within atol 1e-4 (GCN) and
+             5e-4 (GAT: Model's own run-to-run spread is 1.7e-4, the
+             sharded trainer's from Model up to 3.2e-4) of Model's,
+             beside the spread of a second Model run,
+             the launches per step Model's (K1 3 for GCN; for GAT
+             gat_rowmax and gat_v2_fwd 2, gat_v2_bwd, gat_v2_bwd_sl and
+             gat_v2_bwd_h 1), device time per step under the profiler
+             beside Model's, and the peak memory of each trainer's set-up
+             and of its steps, each over what was allocated just before
+             it; (b) two ranks
+             spawned on the one card over gloo (the halo exchange
+             host-staged), 3 steps, each rank's loss and the summed
+             weights held to Model's alike, both ranks equal, with
+             halo_counts, h_max, the launches per step (K1 6: own and halo
+             tables, forward and adjoint) and halo_probe's seconds; (c)
+             each rank's rectangular tables at P = 2, of rmat17 (those
+             (b) trains on) at F = 128 and 16 and of rmat13 at F = 128,
+             16 and 7: K1 on the own, halo and unified tables and their
+             transposes, the five GAT passes on the unified table and its
+             transpose, each against its plain version behind a dirtied
+             allocator.
+11. result — a JSON line of the nineteen kernels, then the last line
              {"ok": true, "device": {...}}.
 """
 
@@ -169,6 +193,7 @@ import numpy as np
 import torch
 
 from graphaibench_tpu_torch import GnnDataset, native, rmat
+from graphaibench_tpu_torch import parallel as PAR
 from graphaibench_tpu_torch.analytics import bc as BCM
 from graphaibench_tpu_torch.analytics import cc as CCM
 from graphaibench_tpu_torch.analytics import kcore as KCM
@@ -190,9 +215,10 @@ from graphaibench_tpu_torch.graph.transforms import (
     sort_and_clean,
 )
 from graphaibench_tpu_torch.nn import Model, make_config
-from graphaibench_tpu_torch.nn.layers import apply_model
+from graphaibench_tpu_torch.nn.layers import apply_model, init_params
 from graphaibench_tpu_torch.nn.losses import masked_softmax_loss
 from graphaibench_tpu_torch.nn.model import aggregation_weights, prepare_graph
+from graphaibench_tpu_torch.nn.optim import OPTIMIZERS
 from graphaibench_tpu_torch.ops import _build
 from graphaibench_tpu_torch.ops import cgr_decode as K12
 from graphaibench_tpu_torch.ops import ell_edge as EE
@@ -206,6 +232,7 @@ from graphaibench_tpu_torch.ops import vbyte_decode as K11
 from graphaibench_tpu_torch.ops.device_graph import pack_edge_values, to_device_graph
 from graphaibench_tpu_torch.ops.segment import segment_softmax
 from graphaibench_tpu_torch.ops.spmm import sddmm_add, spmm
+from graphaibench_tpu_torch.parallel import shard_ell as SE
 from graphaibench_tpu_torch.utils.timers import OP_EVAL, OP_SAMPLE, OP_STEP, OpTimers
 
 SCALE, EDGE_FACTOR = 17, 16
@@ -331,6 +358,34 @@ VBYTE_DECODE_LAUNCHES = {
     "hybrid": {"cgr_residual": 1, "svb_decode": 1},
 }
 OPS_PER_VALUE = 8
+# The sharded phase: GCN and GAT of the main path through the sharded
+# trainer, one rank (nccl) for SHARDED_STEPS steps and two ranks on the one
+# card (gloo, the exchange host-staged) for SHARDED_STEPS_TWO, held to
+# Model's losses (rtol) and weights (atol); the launches per step on each
+# rank: at P = 1 the halo tables are empty and the counts are Model's; at
+# P = 2 K1 runs on the own and the halo table, forward (both layers) and
+# adjoint (layer 2). Then each rank's rectangular tables, kernel against
+# plain behind a dirtied allocator: those the two-rank run trains on
+# (rmat17, P = 2, F = 128 and 16) and those of rmat13, P = 2.
+SHARDED_STEPS = 5
+SHARDED_STEPS_TWO = 3
+SHARDED_RTOL = 1e-4
+# Weights after the steps: atomics add split rows' pieces (and the single
+# backward pass's d_sl) in an order that changes from run to run, and
+# Adam's first steps turn the noise of a gradient near 0 into up to about
+# lr / sqrt(eps) times it. Two runs of Model itself differ by up to
+# 1.3e-5 (GCN) and 1.7e-4 (GAT) after 5 steps on an H100, the sharded
+# trainer from Model by up to 3.2e-4 (GAT; tools/sharded_probe.py,
+# PERF.md): GCN is held to 1e-4, GAT to 5e-4, and the phase prints
+# Model's own spread beside each error.
+SHARDED_ATOL = {"gcn": 1e-4, "gat": 5e-4}
+SHARDED_STEP_LAUNCHES = {"gcn": {"ell_spmm": SPMMS_PER_STEP},
+                         "gat": GAT_STEP_LAUNCHES}
+SHARDED_TWO_RANK_LAUNCHES = {"gcn": {"ell_spmm": 6}, "gat": GAT_STEP_LAUNCHES}
+SHARDED_RECT_SCALE = 13
+SHARDED_RECT_WIDTHS = (128, 16, 7)
+SHARDED_MAIN_RECT_WIDTHS = (128, 16)
+SHARDED_SPAWN_TIMEOUT_S = 600
 # the CLI's analytics on each scheme's prefix, decoded on the card
 CLI_DECODED = {"cgr": ("tc", "bfs"), "streamvbyte": ("tc",),
                "varintgb": ("tc", "bfs"), "hybrid": ("tc", "bfs")}
@@ -2480,6 +2535,346 @@ def phase_compress(g, dg) -> dict:
             "decodes": decodes, "streaming": stream_info}
 
 
+# ---- the sharded phase -----------------------------------------------------
+
+def _sharded_cfgs() -> dict:
+    """The main path's GCN and GAT at full width (2 layers, 128/128/16)."""
+    return {
+        "gcn": make_config("gcn", 2, FEAT, HIDDEN, CLASSES, lr=0.01),
+        "gat": make_config("gat", GAT_LAYERS, FEAT, HIDDEN, CLASSES, lr=0.01,
+                           use_l2norm=False, use_dense=False)}
+
+
+def _sharded_setup(g, cfg, n: int, device):
+    """This rank's trainer over ``n`` shards of ``g``, with fresh weights
+    and optimizer."""
+    ds = _dataset(g, cfg.dim_init, cfg.num_cls)
+    gp = prepare_graph(g, cfg.arch)
+    sg = PAR.build_sharded_graph(gp, aggregation_weights(gp, cfg.arch), n)
+    trainer = PAR.make_sharded_trainer(cfg, sg, ds.feats, ds.labels,
+                                       ds.train_range, ds.train_mask,
+                                       device=device)
+    params = init_params(cfg, device=device)
+    opt = OPTIMIZERS[cfg.optimizer](params.parameters(), lr=cfg.lr)
+    return sg, trainer, params, opt
+
+
+def _mark() -> int:
+    """Device memory allocated now, with the peak reset to it."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    return torch.cuda.memory_allocated()
+
+
+def _peak_gib(base: int) -> float:
+    """The peak since ``_mark`` returned ``base``, over it, in GiB."""
+    torch.cuda.synchronize()
+    return (torch.cuda.max_memory_allocated() - base) / 2**30
+
+
+def _params_by_name(params) -> dict:
+    return {k: p.detach().cpu().numpy().copy()
+            for k, p in params.named_parameters()}
+
+
+def _sharded_steps(trainer, params, opt, steps: int):
+    """``steps`` steps with every count set to 0 just before them:
+    (losses, launches, host ms of each step)."""
+    torch.cuda.synchronize()
+    _zero_counts()
+    losses, ms = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        losses.append(float(trainer.train_step(params, opt)))
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return losses, _counts(), ms
+
+
+def _sharded_rank(rank: int, n: int, row_ptr, col_idx, steps: int) -> dict:
+    """One rank of the 2-rank run on one card (gloo): GCN and GAT,
+    ``steps`` steps each; what the parent holds against ``Model``."""
+    from graphaibench_tpu_torch import CSRGraph
+    from graphaibench_tpu_torch.parallel.multihost import rank_device
+
+    g = CSRGraph(row_ptr=row_ptr, col_idx=col_idx)
+    dev = rank_device(rank, "cuda")
+    out = {}
+    for arch, cfg in _sharded_cfgs().items():
+        sg, trainer, params, opt = _sharded_setup(g, cfg, n, dev)
+        losses, launches, _ = _sharded_steps(trainer, params, opt, steps)
+        trainer.halo_probe()
+        out[arch] = {"losses": losses, "launches": launches,
+                     "params": _params_by_name(params),
+                     "halo_counts": sg.halo_counts.tolist(),
+                     "h_max": sg.h_max, "nv_pad": sg.nv_pad,
+                     "transport": trainer.transport,
+                     "halo_probe_s": trainer.halo_probe()}
+    return out
+
+
+def _weights_err(params: dict, want: dict) -> float:
+    return max(float(np.abs(params[k] - w).max()) for k, w in want.items())
+
+
+def _hold_to_model(tag: str, arch: str, losses, params: dict, want_losses,
+                   want_params: dict) -> float:
+    """Losses within rtol SHARDED_RTOL and weights within atol
+    SHARDED_ATOL of Model's; returns the weights' max |diff|."""
+    np.testing.assert_allclose(losses, want_losses, rtol=SHARDED_RTOL,
+                               err_msg=f"{tag} losses")
+    for k, want in want_params.items():
+        np.testing.assert_allclose(params[k], want, rtol=0,
+                                   atol=SHARDED_ATOL[arch],
+                                   err_msg=f"{tag} {k}")
+    return _weights_err(params, want_params)
+
+
+def _sharded_one_rank(g, models: dict) -> dict:
+    """(a): the trainer in this process as the one rank of an nccl group;
+    GCN and GAT held to ``Model`` and their launches per step to
+    ``Model``'s; device time per step under the profiler, beside Model's,
+    and the peak memory."""
+    res = {}
+    PAR.initialize(0, 1, port=PAR.multihost.free_port(), backend="nccl",
+                   device=torch.device("cuda", 0))
+    try:
+        for arch, cfg in _sharded_cfgs().items():
+            tag = f"[sharded {arch} P=1]"
+            ref = models[arch]
+            base = _mark()
+            sg, trainer, params, opt = _sharded_setup(g, cfg, 1, "cuda")
+            setup_peak = _peak_gib(base)
+            base = _mark()
+            losses, launches, ms = _sharded_steps(trainer, params, opt,
+                                                  SHARDED_STEPS)
+            step_peak = _peak_gib(base)
+            want = {k: v * SHARDED_STEPS for k, v in
+                    SHARDED_STEP_LAUNCHES[arch].items()}
+            _assert_counts(tag, launches, want)
+            err = _hold_to_model(tag, arch, losses, _params_by_name(params),
+                                 ref["losses"], ref["params"])
+            step_ms = statistics.median(ms[1:])
+
+            def steps(k, trainer=trainer, params=params, opt=opt):
+                for _ in range(k):
+                    trainer.train_step(params, opt)
+
+            device_ms, _ = phase_profile(f"sharded {arch} P=1", steps,
+                                         SHARDED_STEPS, step_ms, unit="step")
+            model = ref["model"]
+            model_ms, _ = phase_profile(
+                f"model {arch}", lambda k, m=model: [m.train_epoch()
+                                                     for _ in range(k)],
+                SHARDED_STEPS, ref["step_ms"], unit="step")
+            res[arch] = {"losses": losses, "model_losses": ref["losses"],
+                         "weights_max_abs_err": err,
+                         "model_spread": ref["spread"],
+                         "launches_per_step": {k: v // SHARDED_STEPS
+                                               for k, v in launches.items()
+                                               if v},
+                         "step_ms": step_ms, "device_ms": device_ms,
+                         "model_step_ms": ref["step_ms"],
+                         "model_device_ms": model_ms,
+                         "setup_peak_gib": setup_peak,
+                         "step_peak_gib": step_peak,
+                         "model_setup_peak_gib": ref["setup_peak_gib"],
+                         "model_step_peak_gib": ref["step_peak_gib"],
+                         "nv_pad": sg.nv_pad, "h_max": sg.h_max,
+                         "transport": trainer.transport}
+            print(f"{tag} {json.dumps(res[arch])}")
+    finally:
+        PAR.multihost.dist.destroy_process_group()
+    return res
+
+
+def _sharded_two_ranks(g, models: dict) -> dict:
+    """(b): 2 ranks spawned on the one card over gloo (the exchange
+    host-staged), held to ``Model`` after SHARDED_STEPS_TWO steps."""
+    t0 = time.perf_counter()
+    ranks = PAR.launch(_sharded_rank, 2, g.row_ptr, g.col_idx,
+                       SHARDED_STEPS_TWO, device="cuda", backend="gloo",
+                       timeout_s=SHARDED_SPAWN_TIMEOUT_S)
+    res = {}
+    for arch in _sharded_cfgs():
+        tag = f"[sharded {arch} P=2 gloo]"
+        ref = models[arch]
+        r0, r1 = ranks[0][arch], ranks[1][arch]
+        if r0["losses"] != r1["losses"] or any(
+                not np.array_equal(v, r1["params"][k])
+                for k, v in r0["params"].items()):
+            raise RuntimeError(f"{tag} the ranks' losses or weights differ")
+        if r0["transport"] != "host-staged":
+            raise RuntimeError(f"{tag} transport {r0['transport']}")
+        if min(r0["halo_counts"]) == 0:
+            raise RuntimeError(f"{tag} no halo: the run checks nothing")
+        err = _hold_to_model(tag, arch, r0["losses"], r0["params"],
+                             ref["losses"][:SHARDED_STEPS_TWO],
+                             ref["params_two"])
+        per_step = [{k: v // SHARDED_STEPS_TWO for k, v in r["launches"].items()
+                     if v} for r in (r0, r1)]
+        for r, counts in enumerate(per_step):
+            want = SHARDED_TWO_RANK_LAUNCHES[arch]
+            if counts != want:
+                raise RuntimeError(f"{tag} rank {r} launches per step "
+                                   f"{counts}, expected {want}")
+        res[arch] = {"losses": r0["losses"], "weights_max_abs_err": err,
+                     "model_spread": ref["spread_two"],
+                     "halo_counts": r0["halo_counts"], "h_max": r0["h_max"],
+                     "nv_pad": r0["nv_pad"],
+                     "launches_per_step": per_step,
+                     "halo_probe_s": [r0["halo_probe_s"], r1["halo_probe_s"]],
+                     "transport": r0["transport"]}
+        print(f"{tag} {json.dumps(res[arch])}")
+    print(f"[sharded] 2 ranks on one card in "
+          f"{time.perf_counter() - t0:.2f} s")
+    return res
+
+
+def _rect_compare(got, want, what: str, gat: bool) -> float:
+    if gat:
+        return _gat_close(got, want, what)
+    err = float((got - want).abs().max())
+    if not torch.allclose(got, want, rtol=KERNEL_RTOL, atol=KERNEL_ATOL):
+        raise RuntimeError(f"{what}: kernel disagrees with plain, max |diff| "
+                           f"{err}")
+    return err
+
+
+def _sharded_rect_kernels(label: str, g, widths) -> dict:
+    """(c): each rank's rectangular tables of ``g`` (self-loops added, as
+    GCN and GAT prepare it) at P = 2: K1 on the own, halo and unified
+    tables and their transposes, the five GAT passes on the unified table
+    and its transpose, at each feature width of ``widths``, each against
+    its plain version behind a NaN-dirtied allocator. Returns {kernel:
+    max |diff|}."""
+    gp = prepare_graph(g, "gat")
+    sg = PAR.build_sharded_graph(gp, np.ones(gp.ne, np.float32), 2)
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    errs = {"ell_spmm": 0.0, **{k: 0.0 for k in GAT_KERNELS}}
+    tiles = {}
+
+    def run(fn, *args, out_floats):
+        _dirty(out_floats)
+        return fn(*args)
+
+    splits = {}
+    for rank in range(2):
+        for part in ("own", "halo", "all"):
+            se = SE.build_shard_ell(sg, rank, part=part, device="cuda")
+            w = torch.rand(sg.e_max, device="cuda", generator=gen)
+            wp = SE.pack_shard_values(se, w)
+            splits[f"{rank}/{part}"] = (int(se.fwd.is_split.sum()),
+                                        int(se.trans.is_split.sum()))
+            for f in widths:
+                tiles[f"{rank}/{part} F={f}"] = [
+                    K1._tile_floats(t.n_cols, f) for t in (se.fwd, se.trans)]
+                for tab, view in ((se.fwd, wp.fwd), (se.trans, wp.t)):
+                    x = torch.randn(tab.n_cols, f, device="cuda",
+                                    generator=gen)
+                    got = run(K1.ell_spmm, tab, view, x,
+                              out_floats=tab.nv * f)
+                    errs["ell_spmm"] = max(errs["ell_spmm"], _rect_compare(
+                        got, K1.ell_spmm_plain(tab, view, x),
+                        f"ell_spmm {label} rank {rank} {part} F={f}", False))
+            if part != "all":
+                continue
+            fwd, tr = se.fwd, se.trans
+            for f in widths:
+                what = f"{label} rank {rank} F={f}"
+                sl = torch.randn(fwd.nv, device="cuda", generator=gen)
+                sr = torch.randn(fwd.n_cols, device="cuda", generator=gen)
+                h = torch.randn(fwd.n_cols, f, device="cuda", generator=gen)
+                ct = torch.randn(fwd.nv, f, device="cuda", generator=gen)
+                m0_p = FG.gat_rowmax_plain(fwd, sr)
+                m0 = run(FG.gat_rowmax, fwd, sr, out_floats=fwd.nv)
+                if not torch.equal(m0, m0_p):
+                    raise RuntimeError(f"gat_rowmax {what} differs from plain")
+                m = FG._leaky(sl + torch.where(torch.isfinite(m0_p), m0_p,
+                                               torch.zeros_like(m0_p)))
+                acc_p, z_p = FG.gat_v2_fwd_plain(fwd, sl, sr, m, h)
+                acc, z = run(FG.gat_v2_fwd, fwd, sl, sr, m, h,
+                             out_floats=fwd.nv * f)
+                zinv = 1.0 / torch.clamp(z_p, min=FG.Z_FLOOR)
+                inner = (ct * acc_p * zinv[:, None]).sum(1)
+                bwd = (sl, sr, m, zinv, inner, h, ct)
+                d_sl = run(FG.gat_v2_bwd_sl, fwd, *bwd, out_floats=fwd.nv)
+                d_h, d_sr = run(FG.gat_v2_bwd_h, tr, *bwd,
+                                out_floats=tr.nv * f)
+                one = run(FG.gat_v2_bwd, tr, *bwd, out_floats=tr.nv * f)
+                one_p = FG.gat_v2_bwd_plain(tr, *bwd)
+                d_h_p, d_sr_p = FG.gat_v2_bwd_h_plain(tr, *bwd)
+                d_sl_p = FG.gat_v2_bwd_sl_plain(fwd, *bwd)
+                # the single pass's d_sl by neighbour equals bwd_sl's by row
+                _gat_close(one_p[0], d_sl_p, f"plain d_sl {what}")
+                for name, e in (
+                        ("gat_v2_fwd", max(
+                            _rect_compare(acc, acc_p, f"acc {what}", True),
+                            _rect_compare(z, z_p, f"z {what}", True))),
+                        ("gat_v2_bwd_sl", _rect_compare(
+                            d_sl, d_sl_p, f"d_sl {what}", True)),
+                        ("gat_v2_bwd_h", max(
+                            _rect_compare(d_h, d_h_p, f"d_h {what}", True),
+                            _rect_compare(d_sr, d_sr_p, f"d_sr {what}",
+                                          True))),
+                        ("gat_v2_bwd", max(
+                            _rect_compare(a, b, f"single pass {what}", True)
+                            for a, b in zip(one, one_p)))):
+                    errs[name] = max(errs[name], e)
+    print(f"[sharded] rank tables of {label} P=2 (nv_pad {sg.nv_pad}, "
+          f"h_max {sg.h_max}, halo {sg.halo_counts.tolist()}; split rows "
+          f"fwd/transpose by rank/part {splits}; K1's column tile "
+          f"fwd/transpose {tiles}), F in {widths}, dirtied allocator: "
+          f"max_abs_err {json.dumps(errs)}")
+    return errs
+
+
+def phase_sharded(g) -> dict:
+    """The sharded trainer: (a) one rank (nccl) and (b) two ranks on the
+    one card (gloo) against Model, (c) the kernels on rectangular tables.
+    Returns what the kernels line reports of it."""
+    t0 = time.perf_counter()
+    models = {}
+    for arch, cfg in _sharded_cfgs().items():
+        runs = []
+        for _ in range(2):   # the second run: Model's own run-to-run spread
+            # peaks as the sharded trainer's: set-up (the host dataset
+            # made first), then the steps, each over what was allocated
+            # just before it
+            ds = _dataset(g, cfg.dim_init, cfg.num_cls)
+            base = _mark()
+            model = Model(cfg, ds, device="cuda")
+            setup_peak = _peak_gib(base)
+            base = _mark()
+            losses, ms, two = [], [], None
+            for step in range(SHARDED_STEPS):
+                t1 = time.perf_counter()
+                losses.append(model.train_epoch()[0])
+                ms.append((time.perf_counter() - t1) * 1e3)
+                if step + 1 == SHARDED_STEPS_TWO:
+                    two = _params_by_name(model.params)
+            runs.append({"model": model, "losses": losses,
+                         "params": _params_by_name(model.params),
+                         "params_two": two,
+                         "step_ms": statistics.median(ms[1:]),
+                         "setup_peak_gib": setup_peak,
+                         "step_peak_gib": _peak_gib(base)})
+        models[arch] = dict(
+            runs[0], spread=_weights_err(runs[1]["params"], runs[0]["params"]),
+            spread_two=_weights_err(runs[1]["params_two"],
+                                    runs[0]["params_two"]))
+        del runs
+    one = _sharded_one_rank(g, models)
+    two = _sharded_two_ranks(g, models)
+    main_rect = _sharded_rect_kernels(f"rmat{SCALE}", g,
+                                      SHARDED_MAIN_RECT_WIDTHS)
+    small = _sharded_rect_kernels(
+        f"rmat{SHARDED_RECT_SCALE}",
+        rmat(SHARDED_RECT_SCALE, EDGE_FACTOR, seed=1), SHARDED_RECT_WIDTHS)
+    rect = {k: max(v, small[k]) for k, v in main_rect.items()}
+    print(f"[sharded] phase took {time.perf_counter() - t0:.2f} s")
+    return {"one_rank": one, "two_ranks": two, "rect_err": rect}
+
+
 def main() -> None:
     name = phase_device()
     phase_build()
@@ -2501,6 +2896,20 @@ def main() -> None:
                       PROFILED_EPOCHS, phase_epochs(model))
     pull, tc, kcore, ag, adg = phase_analytics()
     k12 = phase_compress(ag, adg)
+    sharded = phase_sharded(g)
+    rect_err = sharded["rect_err"]
+
+    def sharded_launches(kname):
+        """A kernel's launches per step on the sharded main path: one rank,
+        and each of two ranks."""
+        return {"one_rank_per_step": {
+                    arch: r["launches_per_step"].get(kname, 0)
+                    for arch, r in sharded["one_rank"].items()},
+                "two_ranks_per_step": {
+                    arch: [c.get(kname, 0) for c in r["launches_per_step"]]
+                    for arch, r in sharded["two_ranks"].items()},
+                "rect_max_abs_err": rect_err[kname]}
+
     head = cases[0]
     kernels = [{
         "name": "ell_spmm",
@@ -2508,13 +2917,15 @@ def main() -> None:
         "source": "graphaibench_tpu_torch/csrc/ell_spmm.cu",
         "replaces": "graphaibench_tpu/ops/pallas_spmm.py:43",
         "launches": launches["ell_spmm"],
-        "max_abs_err": max(other_err, *(c["max_abs_err"] for c in cases)),
+        "max_abs_err": max(other_err, rect_err["ell_spmm"],
+                           *(c["max_abs_err"] for c in cases)),
         "ms": head["ms"],
         "plain_ms": head["plain_ms"],
         "bound_ms": head["bound_ms"],
         "bound_by": head["bound_by"],
         "library_ms": head["library_ms"],
         "cases": cases,
+        "sharded": sharded_launches("ell_spmm"),
     }]
     for kname, line in GAT_KERNELS.items():
         res = gat_kernels[kname]
@@ -2525,7 +2936,7 @@ def main() -> None:
             "source": "graphaibench_tpu_torch/csrc/fused_gat.cu",
             "replaces": f"graphaibench_tpu/ops/fused_gat.py:{line}",
             "launches": launches[kname],
-            "max_abs_err": res["max_abs_err"],
+            "max_abs_err": max(res["max_abs_err"], rect_err[kname]),
             "ms": head["ms"],
             "plain_ms": head["plain_ms"],
             "bound_ms": head["bound_ms"],
@@ -2533,6 +2944,7 @@ def main() -> None:
             # no single PyTorch call computes a pass of the fused attention
             "library_ms": None,
             "cases": res["cases"],
+            "sharded": sharded_launches(kname),
         })
     for kname, replaces in EDGE_KERNELS.items():
         res = edge_kernels[kname]

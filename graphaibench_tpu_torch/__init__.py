@@ -29,9 +29,13 @@ analytics  the solvers (BFS, SSSP, PageRank, CC, triangles, k-core,
       their serial verifiers and ``run_benchmark``
 compress  the compressed-graph codecs (CGR, StreamVByte, VarintGB,
       hybrid), their files, and CGR's decode on the device
+parallel  the sharded full-batch trainer: vertex partition, process
+      groups and a rank launcher, the halo exchange over
+      ``torch.distributed``, each rank's tables on the kernels
 utils stage timers, profiler capture, checkpoints
 entry ``entry()``: the flagship model's forward function and arguments
-cli   ``python -m graphaibench_tpu_torch.cli train <arch> <dataset> ...``,
+cli   ``python -m graphaibench_tpu_torch.cli train <arch> <dataset> ...``
+      (``GAB_SHARDS=<n|auto>``: the sharded trainer),
       ``... cli analytics <kernel> <dataset> [source]``, ``... cli info``
       and ``... cli compress compress|decompress|verify|info ...``
 """

@@ -10,8 +10,14 @@ one device: full-batch training, inductive training (``inductive=1``),
 GraphSAINT-sampled training (``subg_size > 0``, which turns ``inductive``
 on), ``--timers`` (the stage time breakdown after training, train.cpp:60-76)
 and ``--profile=DIR`` (a torch.profiler Chrome trace of the whole run in
-``DIR/trace.json``). The multi-device routes (``GAB_SHARDS``, ``GAB_DP``)
-are not ported yet: they exit with code 2 and name their ROADMAP item.
+``DIR/trace.json``). ``GAB_SHARDS=<n|auto>`` routes full-batch training
+onto the sharded trainer (``parallel/``): n ranks, spawned on this host,
+each holding one vertex block and exchanging its halo over
+``torch.distributed`` (nccl where each rank has a card of its own, gloo
+on the CPU and where ranks share a card); ``auto`` is one rank per
+visible card, or one rank with ``--device=cpu``. Rank 0 prints the JAX
+CLI's sharded lines. The routes not ported yet (``GAB_TP`` > 1,
+``GAB_DP`` > 1) exit with code 2 and name their ROADMAP item.
 
 ``python -m graphaibench_tpu_torch.cli analytics
 tc|bfs|sssp|pr|cc|bc|kcore <dataset> [source] [--device=cuda|cpu]`` runs the
@@ -106,30 +112,25 @@ def cmd_train(argv: list[str]) -> int:
     subg_size = arg(10, 0, int)
     val_interval = arg(11, 50, int)
     inductive = bool(arg(12, 0, int)) or subg_size > 0
-    if os.environ.get("GAB_SHARDS", "") and subg_size == 0 and not inductive:
-        # as in the JAX CLI, GAB_SHARDS routes full-batch training only
-        return _refuse("GAB_SHARDS: the sharded trainer is not ported yet "
-                       "(ROADMAP queue 1, P14)")
+    # as in the JAX CLI, GAB_SHARDS routes full-batch training only
+    shards = os.environ.get("GAB_SHARDS", "")
+    sharded = bool(shards) and subg_size == 0 and not inductive
+    if sharded and int(os.environ.get("GAB_TP", "1")) > 1:
+        return _refuse("GAB_TP: the tensor-parallel trainer is not ported "
+                       "yet (ROADMAP queue 1, P14b)")
     if subg_size > 0 and int(os.environ.get("GAB_DP", "1")) > 1:
         return _refuse("GAB_DP: data-parallel GraphSAINT is not ported yet "
-                       "(ROADMAP queue 1, P14)")
+                       "(ROADMAP queue 1, P14b)")
 
     path = resolve_dataset(argv[1])
     if os.path.exists(path + ".meta.json"):
         return _refuse("train does not accept compressed-graph prefixes; "
                        "decompress first")
-    from graphaibench_tpu_torch.graph.io import (
-        load_gnn_dataset,
-        load_gnn_dataset_csgr,
-    )
     from graphaibench_tpu_torch.nn import Model, make_config
     from graphaibench_tpu_torch.utils.timers import TIMERS, profiler_trace
 
     is_sigmoid = loss == "sigmoid"
-    if glob.glob(os.path.join(path, "*.csgr")):
-        ds = load_gnn_dataset_csgr(path, is_single_class=not is_sigmoid)
-    else:
-        ds = load_gnn_dataset(path, is_single_class=not is_sigmoid)
+    ds = _load_dataset(path, is_sigmoid)
     cfg = make_config(
         arch, layers, ds.feat_len, hidden, ds.num_classes,
         subg_size=subg_size, feat_drop=feat_drop, score_drop=score_drop,
@@ -144,6 +145,9 @@ def cmd_train(argv: list[str]) -> int:
         f"val_interval = {val_interval}, learning_rate = {lr}, "
         f"device = {device}"
     )
+    if sharded:
+        return _train_sharded(cfg, path, epochs, val_interval, shards,
+                              device, use_timers, profile_dir)
     timers = TIMERS if use_timers else None
     if timers is not None:
         timers.reset()
@@ -159,6 +163,139 @@ def cmd_train(argv: list[str]) -> int:
     if timers is not None:
         timers.print_timers()
     return 0
+
+
+def _load_dataset(path: str, is_sigmoid: bool):
+    from graphaibench_tpu_torch.graph.io import (
+        load_gnn_dataset,
+        load_gnn_dataset_csgr,
+    )
+
+    if glob.glob(os.path.join(path, "*.csgr")):
+        return load_gnn_dataset_csgr(path, is_single_class=not is_sigmoid)
+    return load_gnn_dataset(path, is_single_class=not is_sigmoid)
+
+
+def _train_sharded(cfg, path: str, epochs: int, val_interval: int,
+                   shards: str, device: str, use_timers: bool,
+                   profile_dir) -> int:
+    """Full-batch training on the sharded trainer (``parallel/train.py``)
+    in ``shards`` ranks spawned here; rank 0 prints."""
+    import torch
+
+    from graphaibench_tpu_torch.parallel.multihost import (
+        choose_backend,
+        launch,
+    )
+
+    if device == "cuda" and not torch.cuda.is_available():
+        print("GAB_SHARDS: no CUDA device (--device=cpu runs the ranks on "
+              "the CPU)", file=sys.stderr)
+        return 1
+    if shards == "auto":
+        n = torch.cuda.device_count() if device == "cuda" else 1
+    else:
+        n = int(shards)
+    if n < 1:
+        return _refuse(f"GAB_SHARDS must be a positive count or auto, not "
+                       f"{shards!r}")
+    sys.stdout.flush()
+    launch(_sharded_rank, n, cfg, path, epochs, val_interval, device,
+           use_timers, profile_dir, device=device, timeout_s=None)
+    return 0
+
+
+def _sharded_rank(rank: int, n: int, cfg, path: str, epochs: int,
+                  val_interval: int, device: str, use_timers: bool,
+                  profile_dir) -> None:
+    """One rank of ``_train_sharded``: the JAX CLI's ``_train_sharded``
+    lines, printed by rank 0."""
+    import time
+
+    import torch
+    import torch.distributed as dist
+
+    from graphaibench_tpu_torch.nn.layers import init_params
+    from graphaibench_tpu_torch.nn.model import (
+        aggregation_weights,
+        prepare_graph,
+    )
+    from graphaibench_tpu_torch.nn.optim import OPTIMIZERS
+    from graphaibench_tpu_torch.ops import math as gmath
+    from graphaibench_tpu_torch.parallel import (
+        build_sharded_graph,
+        make_sharded_trainer,
+    )
+    from graphaibench_tpu_torch.parallel.multihost import rank_device
+    from graphaibench_tpu_torch.utils import timers as utimers
+    from graphaibench_tpu_torch.utils.timers import TIMERS, profiler_trace
+
+    def say(line: str) -> None:
+        if rank == 0:
+            print(line, flush=True)
+
+    dev = rank_device(rank, device)
+    ds = _load_dataset(path, cfg.is_sigmoid)
+    prepped = prepare_graph(ds.graph, cfg.arch)
+    sg = build_sharded_graph(prepped, aggregation_weights(prepped, cfg.arch),
+                             n)
+    trainer = make_sharded_trainer(
+        cfg, sg, ds.feats, ds.labels, ds.train_range, ds.train_mask,
+        device=dev, eval_ranges={"val": (ds.val_range, ds.val_mask),
+                                 "test": (ds.test_range, ds.test_mask)})
+    say(f"sharded trainer: {n} rank(s), vertex-sharded halo exchange, "
+        f"backend {dist.get_backend()}, halo transport {trainer.transport}")
+    params = init_params(cfg, device=dev)
+    opt = OPTIMIZERS[cfg.optimizer](params.parameters(), lr=cfg.lr)
+    timers = TIMERS if use_timers and rank == 0 else None
+    if timers is not None:
+        timers.reset()
+    labels = torch.from_numpy(ds.labels).to(dev)
+
+    def masked_acc(rng_, mask) -> float:
+        logits = trainer.eval_logits(params)
+        begin, end, _ = rng_
+        idx = torch.arange(logits.shape[0], device=dev)
+        valid = ((idx >= begin) & (idx < end)
+                 & (torch.from_numpy(mask).to(dev) != 0))
+        return float(gmath.masked_f1_micro(torch.sigmoid(logits), labels,
+                                           valid))
+
+    prof = (profiler_trace(profile_dir) if profile_dir and rank == 0
+            else contextlib.nullcontext())
+    with prof:
+        t0 = time.perf_counter()
+        for epoch in range(epochs):
+            ts = time.perf_counter()
+            loss = float(trainer.train_step(params, opt))
+            line = f"Epoch {epoch:3d}: train_loss = {loss:.4f}"
+            if timers is not None:   # float(loss) above waited for the device
+                timers.add(utimers.OP_STEP, time.perf_counter() - ts)
+            if epoch % val_interval == 0 and epoch != 0:
+                te = time.perf_counter()
+                va = (masked_acc(ds.val_range, ds.val_mask) if cfg.is_sigmoid
+                      else trainer.eval_accuracy(params, "val"))
+                line += f" val_acc {va:.3f}"
+                if timers is not None:
+                    timers.add(utimers.OP_EVAL, time.perf_counter() - te)
+            say(line)
+        dt = time.perf_counter() - t0
+        say(f"time per epoch: {dt / max(epochs, 1):.4f} s")
+        te = time.perf_counter()
+        acc = (masked_acc(ds.test_range, ds.test_mask) if cfg.is_sigmoid
+               else trainer.eval_accuracy(params, "test"))
+        if timers is not None:
+            timers.add(utimers.OP_EVAL, time.perf_counter() - te)
+        if use_timers:
+            # the halo exchange alone (the step overlaps it with the own
+            # rows' aggregation), after a warm-up; every rank takes part
+            trainer.halo_probe()
+            halo_s = trainer.halo_probe()
+            if timers is not None:
+                timers.add(utimers.OP_HALO, halo_s)
+        say(f"Test accuracy: {acc:.4f}")
+    if timers is not None:
+        timers.print_timers()
 
 
 def cmd_analytics(argv: list[str]) -> int:

@@ -63,15 +63,22 @@ def _table(g: DeviceGraph) -> _Table:
 
 
 def _check(g: DeviceGraph, vectors=(), matrices=(), edges=(),
-           dtype: torch.dtype = torch.float32) -> torch.device:
+           dtype: torch.dtype = torch.float32, *, gathered=(),
+           gathered_matrices=()) -> torch.device:
     """Every operand of ``dtype``, contiguous, on the graph's device: (nv,)
-    ``vectors``, (nv, F) ``matrices`` with one F, (ne,) per-edge arrays
-    ``edges``. Returns the device."""
+    ``vectors`` and (nv, F) ``matrices`` over the output rows, (n_cols,)
+    ``gathered`` and (n_cols, F) ``gathered_matrices`` over the rows the
+    neighbour ids index (the same rows in a square graph), with one F, and
+    (ne,) per-edge arrays ``edges``. Returns the device."""
     dev = g.is_split.device
-    f = matrices[0].shape[1] if matrices and matrices[0].dim() == 2 else None
-    for t in (*vectors, *matrices, *edges):
-        shape = ((g.nv,) if any(t is v for v in vectors)
-                 else (g.ne,) if any(t is e for e in edges) else (g.nv, f))
+    mats = (*matrices, *gathered_matrices)
+    f = mats[0].shape[1] if mats and mats[0].dim() == 2 else None
+    expected = ([(t, (g.nv,)) for t in vectors]
+                + [(t, (g.n_cols,)) for t in gathered]
+                + [(t, (g.ne,)) for t in edges]
+                + [(t, (g.nv, f)) for t in matrices]
+                + [(t, (g.n_cols, f)) for t in gathered_matrices])
+    for t, shape in expected:
         if t.dtype != dtype or tuple(t.shape) != shape:
             raise ValueError(f"expected {dtype} of shape {shape}, got "
                              f"{t.dtype} {tuple(t.shape)}")
@@ -84,13 +91,14 @@ def _check(g: DeviceGraph, vectors=(), matrices=(), edges=(),
     return dev
 
 
-def _wide_shape(nv: int, f: int, *mats, tile_floats) -> tuple[int, int, int]:
+def _wide_shape(n_rows: int, f: int, *mats, tile_floats) -> tuple[int, int, int]:
     """(tile_v, vec, tiles) of a wide pass: V = float4 when F % 4 == 0
     and every matrix is aligned to 16 bytes, else float; a tile has at
-    most 32 columns of V, and ``tile_floats(nv, f)`` feature columns in
-    the float4 instantiation (each pass has its rule)."""
+    most 32 columns of V, and ``tile_floats(n_rows, f)`` feature columns
+    in the float4 instantiation (each pass has its rule; ``n_rows`` are
+    the gathered matrix's rows)."""
     vec = int(f % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in mats))
-    tile_v = (tile_floats(nv, f) // 4 if vec else min(f, _MAX_TILE_V))
+    tile_v = (tile_floats(n_rows, f) // 4 if vec else min(f, _MAX_TILE_V))
     f_v = f // 4 if vec else f
     return tile_v, vec, -(-f_v // tile_v)
 

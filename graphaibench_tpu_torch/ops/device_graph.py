@@ -22,6 +22,13 @@ on an explicit ``device``.
     with a zero weight (the GAT passes: ``exp`` of a pad is not 0) loops
     over the first ``valid`` slots only.
 
+A table may be rectangular: ``nv`` output rows gather from ``n_cols``
+rows (``n_cols`` defaults to ``nv``). The sharded trainer's per-rank
+tables are such (``local_table``): a shard's own rows gather from its own
+rows and its halo, and a table of its own, the transpose, carries the
+adjoint. Their edge ids index the shard's slot space of ``ne`` slots, and
+``ne`` is the pad slots' sentinel there too.
+
 The transpose permutation (host-built once) turns the SpMM adjoint into
 the same bucket pass on transpose-permuted weights. A caller that needs
 neither (``with_transpose=False``) or no buckets (``with_ell=False``: the
@@ -81,11 +88,17 @@ class DeviceGraph:
     zero_rows: torch.Tensor             # (K,) int64 — ids with deg 0 or deg > ELL_SPLIT
     nv: int
     ne: int
+    # rows the neighbour ids index (the gathered tables'); None: nv
+    n_cols: Optional[int] = None
     # what a kernel's wrapper derives from the graph once and keeps for
     # its later launches (its per-bucket pointer table), by wrapper name;
     # a copy made with dataclasses.replace starts with none
     launch_tables: dict = dataclasses.field(
         default_factory=dict, init=False, compare=False, repr=False)
+
+    def __post_init__(self):
+        if self.n_cols is None:
+            object.__setattr__(self, "n_cols", self.nv)
 
     @property
     def has_ell_layout(self) -> bool:
@@ -116,12 +129,15 @@ class PackedEdgeW:
 
 def pack_edge_values(g: DeviceGraph, w: torch.Tensor) -> PackedEdgeW:
     """One-time per-bucket pre-gather of static per-edge values."""
-    zero = w.new_zeros(1)
-    w_pad = torch.cat([w, zero])
-    wt_pad = torch.cat([w[g.trans_perm], zero])
-    return PackedEdgeW(raw=w,
-                       fwd=SlotWeights(w_pad[b.edge_id] for b in g.ell),
-                       t=SlotWeights(wt_pad[b.edge_id] for b in g.ell))
+    return PackedEdgeW(raw=w, fwd=pack_slot_values(g, w),
+                       t=pack_slot_values(g, w[g.trans_perm]))
+
+
+def pack_slot_values(g: DeviceGraph, w: torch.Tensor) -> SlotWeights:
+    """Per-bucket pre-gather of static values ``w`` of the graph's edge
+    ids ((ne,): a pad slot's sentinel id gathers 0)."""
+    w_pad = torch.cat([w, w.new_zeros(1)])
+    return SlotWeights(w_pad[b.edge_id] for b in g.ell)
 
 
 # Width grid and heavy-row split of the reference layout
@@ -273,3 +289,65 @@ def coo_device_graph(edge_src, col_idx, trans_perm, deg, *, nv: int,
         nv=nv,
         ne=len(col_idx),
     )
+
+
+def _run_lengths(sorted_keys):
+    """(uniq, starts, counts) of an already-sorted key array."""
+    if len(sorted_keys) == 0:
+        z = np.empty(0, np.int64)
+        return sorted_keys, z, z
+    idx = np.flatnonzero(sorted_keys[1:] != sorted_keys[:-1]) + 1
+    starts = np.concatenate([[0], idx])
+    counts = np.diff(np.concatenate([starts, [len(sorted_keys)]]))
+    return sorted_keys[starts], starts, counts
+
+
+def ell_from_coo(rows, cols, eids, sentinel: int,
+                 split: Optional[int] = None) -> list:
+    """Pack a COO edge list into degree-bucketed ELL with heavy-row
+    splitting, as ``graphaibench_tpu/ops/device_graph.py::ell_from_coo``:
+    ``rows`` are stable-sorted (edges keep their order within a row),
+    ``eids[k]`` is edge k's index into the consumer's per-edge values and
+    ``sentinel`` the pad slots' id. Returns ``[(width, row_ids, nbr,
+    edge_id), ...]`` (numpy), the format of ``native.ell_pack``."""
+    split = split or ELL_SPLIT
+    if len(rows) == 0:
+        return []
+    r_in = np.asarray(rows)
+    order = native.stable_key_sort(r_in.astype(np.int32), int(r_in.max()) + 1)
+    if order is None:
+        order = np.argsort(r_in, kind="stable")
+    r = r_in[order]
+    uniq, starts, counts = _run_lengths(r)
+    return _pack_rows(uniq.astype(np.int32), starts, counts,
+                      np.asarray(cols)[order], np.asarray(eids)[order],
+                      sentinel, _widths_for_split(split), split)
+
+
+def local_table(rows, cols, eids, *, n_rows: int, n_cols: int,
+                sentinel: int, device) -> DeviceGraph:
+    """A rectangular table on ``device``: the edges (rows[k] -> cols[k])
+    of ``n_rows`` output rows over ``n_cols`` gathered rows, packed by
+    ``ell_from_coo``, with ``is_split`` and ``zero_rows`` from the rows'
+    edge counts. Edge ids index a slot space of ``sentinel`` slots (the
+    table's ``ne``); only the ELL layout is built, so the table serves the
+    bucket passes (K1, the GAT passes) and nothing that reads COO."""
+    rows = np.asarray(rows, np.int64)
+    deg = np.bincount(rows, minlength=n_rows)
+    if len(deg) != n_rows or (len(cols) and (np.min(cols) < 0
+                                             or np.max(cols) >= n_cols)):
+        raise ValueError("an edge lies outside the table's rows or columns")
+    heavy = deg > ELL_SPLIT
+    none = torch.zeros(0, dtype=torch.int32, device=device)
+    ell = tuple(
+        EllBucket(row_ids=_to(r, device), nbr=_to(n, device),
+                  edge_id=_to(e, device), width=int(w),
+                  valid=_to(_valid_slots(e, int(w), sentinel), device))
+        for (w, r, n, e) in ell_from_coo(rows, cols, eids, sentinel))
+    return DeviceGraph(
+        row_ptr=none, col_idx=none, edge_src=none, deg=_to(deg, device),
+        trans_perm=None, ell=ell,
+        is_split=torch.from_numpy(heavy.astype(np.uint8)).to(device),
+        zero_rows=torch.from_numpy(
+            np.flatnonzero(heavy | (deg == 0)).astype(np.int64)).to(device),
+        nv=n_rows, ne=sentinel, n_cols=n_cols)

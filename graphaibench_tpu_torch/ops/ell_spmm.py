@@ -14,6 +14,9 @@ between devices. One SpMM is one kernel launch over all buckets, and
 ``LAUNCHES`` counts those launches, so a run can show that its SpMMs went
 through the kernel.
 
+The graph may be rectangular: x has ``g.n_cols`` rows (those the
+neighbour ids index), the output ``g.nv`` (those the row ids index).
+
 The kernel stores a row that has one virtual row and adds (atomics) the
 pieces of a row that is split, so the wrapper hands it an uninitialised
 output in which only ``g.zero_rows`` (degree 0, and split rows) are zero.
@@ -40,13 +43,13 @@ _VEC_WIDTHS = frozenset((4, 8, 16, 32, 64))
 _L2_TILE_BYTES = 24 << 20
 
 
-def _tile_floats(nv: int, f: int) -> int:
+def _tile_floats(n_rows: int, f: int) -> int:
     """Feature columns per tile of the vector instantiation: the widest
     of 128, 64, 32 (a lane holds one float4, a group at most 32 lanes;
-    32 floats are one 128-byte line) whose slice of x fits the budget,
-    and never wider than F."""
+    32 floats are one 128-byte line) whose slice of x (``n_rows`` rows)
+    fits the budget, and never wider than F."""
     for tile in (128, 64, 32):
-        if nv * min(tile, f) * 4 <= _L2_TILE_BYTES:
+        if n_rows * min(tile, f) * 4 <= _L2_TILE_BYTES:
             break
     return min(tile, f)
 
@@ -114,15 +117,17 @@ def _check_x(g: DeviceGraph, x: torch.Tensor) -> None:
     if x.dtype != torch.float32 or x.dim() != 2:
         raise ValueError(f"x must be a 2-D float32 tensor, got {x.dtype} "
                          f"{tuple(x.shape)}")
-    if x.shape[0] != g.nv:
-        raise ValueError(f"x has {x.shape[0]} rows, the graph {g.nv}")
+    if x.shape[0] != g.n_cols:
+        raise ValueError(f"x has {x.shape[0]} rows, the graph gathers from "
+                         f"{g.n_cols}")
     if not x.is_contiguous():
         raise ValueError("x must be contiguous")
 
 
 def ell_spmm_plain(g: DeviceGraph, w_slots, x: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch version of K1: per bucket, gather (R, W, F), weight,
-    sum over W, index_add into the output rows."""
+    """Plain PyTorch version of K1: per bucket, gather (R, W, F) from the
+    ``g.n_cols`` rows of x, weight, sum over W, index_add into the
+    ``g.nv`` output rows."""
     out = x.new_zeros((g.nv, x.shape[1]))
     for b, w in zip(g.ell, w_slots):
         nbr = b.nbr.view(b.rows, b.width)
@@ -146,7 +151,8 @@ def _ell_spmm_cuda(table: _LaunchTable, x: torch.Tensor) -> torch.Tensor:
     # of the kernel takes the rest
     vec = (table.vec_ok and f % 4 == 0 and x.data_ptr() % 16 == 0
            and out.data_ptr() % 16 == 0)
-    tile_f4 = _tile_floats(g.nv, f) // 4 if vec else 0
+    # the budget is for the slice of x a tile gathers from
+    tile_f4 = _tile_floats(g.n_cols, f) // 4 if vec else 0
     rc = lib.gab_ell_spmm(
         table.row_ids, table.nbr, table.w, table.rows, table.widths, table.n,
         g.is_split.data_ptr(), x.data_ptr(), out.data_ptr(), f, tile_f4,

@@ -33,7 +33,7 @@ def dataset(tmp_path_factory):
 
 def _cli(*args, module="graphaibench_tpu_torch.cli", **extra_env):
     env = dict(os.environ, OMP_NUM_THREADS="2", **extra_env)
-    for name in ("GAB_SHARDS", "GAB_DP"):
+    for name in ("GAB_SHARDS", "GAB_DP", "GAB_TP"):
         if name not in extra_env:
             env.pop(name, None)
     return subprocess.run(
@@ -145,11 +145,14 @@ def test_default_device_does_not_fall_back_to_the_cpu(dataset):
 
 
 def test_remaining_refusals_exit_2(dataset, tmp_path):
-    r = _cli("train", "gcn", dataset, "1", "--device=cpu", GAB_SHARDS="2")
-    assert r.returncode == 2 and "P14" in r.stderr and "ROADMAP" in r.stderr
+    # the sharded trainer runs (tests/test_torch_sharded.py); its
+    # tensor-parallel route does not
+    r = _cli("train", "gcn", dataset, "1", "--device=cpu", GAB_SHARDS="2",
+             GAB_TP="2")
+    assert r.returncode == 2 and "P14b" in r.stderr and "ROADMAP" in r.stderr
     r = _cli("train", "gcn", dataset, "1", *SAMPLED, "--device=cpu",
              GAB_DP="2")
-    assert r.returncode == 2 and "P14" in r.stderr
+    assert r.returncode == 2 and "P14b" in r.stderr
     prefix = tmp_path / "packed"
     (tmp_path / "packed.meta.json").write_text("{}")
     r = _cli("train", "gcn", str(prefix), "1", "--device=cpu")

@@ -477,6 +477,138 @@ def test_kernels_match_plain_on_cuda(name, single, monkeypatch):
         np.testing.assert_allclose(a, b, **GRAD)
 
 
+# ---- rectangular tables (the sharded trainer's) ----------------------------
+
+# name -> (output rows, gathered rows, edges, hub rows of degree 150 and 65, F)
+RECT = {
+    "wide": (40, 90, 400, False, 16),
+    "tall_f7": (90, 40, 150, False, 7),      # rows without edges
+    "hubs": (40, 90, 300, True, 16),
+    "hubs_f128": (40, 90, 300, True, 128),
+}
+
+
+def _rect(name, device="cpu"):
+    """A random rectangular table (``local_table``) and its transpose, the
+    edges' multiplicities as a dense (rows, cols) matrix, and inputs:
+    sl and ct over the output rows, sr and h over the gathered rows."""
+    n_rows, n_cols, ne, hub, f = RECT[name]
+    rng = np.random.default_rng(4)
+    rows = rng.integers(0, n_rows, ne)
+    if hub:
+        rows = np.concatenate([rows, np.full(150, 3), np.full(65, n_rows - 1)])
+    cols = rng.integers(0, n_cols, len(rows))
+    eids = np.arange(len(rows))
+    kw = dict(sentinel=len(rows), device=device)
+    fwd = tdgm.local_table(rows, cols, eids, n_rows=n_rows, n_cols=n_cols, **kw)
+    trans = tdgm.local_table(cols, rows, eids, n_rows=n_cols, n_cols=n_rows,
+                             **kw)
+    count = np.zeros((n_rows, n_cols))
+    np.add.at(count, (rows, cols), 1.0)
+    arrs = dict(sl=rng.standard_normal(n_rows).astype(np.float32),
+                sr=rng.standard_normal(n_cols).astype(np.float32),
+                h=rng.standard_normal((n_cols, f)).astype(np.float32),
+                ct=rng.standard_normal((n_rows, f)).astype(np.float32))
+    return fwd, trans, count, arrs
+
+
+def _dense_gat(count, sl, sr, h):
+    """The attention of a dense multiplicity matrix, in float64: each edge
+    (i, j) weighs exp(leaky(sl_i + sr_j) - m_i) over its row's sum."""
+    lg = tmath.leaky_relu(sl[:, None] + sr[None, :], 0.2)
+    lg = torch.where(count > 0, lg, torch.full_like(lg, float("-inf")))
+    m = lg.amax(1, keepdim=True).detach()
+    m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+    e = count * torch.exp(lg - m)
+    return (e / e.sum(1, keepdim=True).clamp(min=tfg.Z_FLOOR)) @ h
+
+
+@pytest.mark.parametrize("single", [False, True])
+@pytest.mark.parametrize("name", sorted(RECT))
+def test_rectangular_op_and_grads_match_dense(name, single, monkeypatch):
+    """The fused op on a rectangular table with its transpose table in the
+    backward's transpose role (single: the one pass, which adds d_sl by
+    neighbour; else gat_v2_bwd_sl on the forward table)."""
+    fwd, trans, count, arrs = _rect(name)
+    monkeypatch.setattr(tfg, "_single_pass", lambda nv, f: single)
+    ours = _torch_value_and_grads(
+        lambda a, b, x: tfg.gat_attention_spmm_v2(fwd, a, b, x, trans=trans),
+        arrs)
+    ins = [torch.tensor(arrs[k], dtype=torch.float64, requires_grad=True)
+           for k in ("sl", "sr", "h")]
+    want = _dense_gat(torch.from_numpy(count), *ins)
+    (want * torch.from_numpy(arrs["ct"]).double()).sum().backward()
+    np.testing.assert_allclose(ours[0], want.detach().numpy(), **VAL)
+    for mine, t, what in zip(ours[1:], ins, ("d_sl", "d_sr", "d_h")):
+        np.testing.assert_allclose(mine, t.grad.numpy(), err_msg=what, **GRAD)
+    if name.startswith("tall"):
+        assert (count.sum(1) == 0).any()     # edgeless rows: zeros, finite
+
+
+def test_table_without_edges_gives_zeros():
+    """A rank whose shard has no edge (tests/test_torch_partition.py's
+    empty shard): the op's output and gradients are zeros and nothing is
+    launched."""
+    none = np.zeros(0, np.int64)
+    fwd = tdgm.local_table(none, none, none, n_rows=8, n_cols=16, sentinel=8,
+                           device="cpu")
+    trans = tdgm.local_table(none, none, none, n_rows=16, n_cols=8,
+                             sentinel=8, device="cpu")
+    assert not fwd.has_ell_layout and fwd.zero_rows.numel() == 8
+    rng = np.random.default_rng(0)
+    arrs = dict(sl=rng.standard_normal(8).astype(np.float32),
+                sr=rng.standard_normal(16).astype(np.float32),
+                h=rng.standard_normal((16, 4)).astype(np.float32),
+                ct=rng.standard_normal((8, 4)).astype(np.float32))
+    for out in _torch_value_and_grads(
+            lambda a, b, x: tfg.gat_attention_spmm_v2(fwd, a, b, x,
+                                                      trans=trans), arrs):
+        assert (out == 0).all()
+
+
+@pytest.mark.parametrize("name", ["hubs", "rmat8"])
+def test_square_graph_is_its_own_transpose(name):
+    """Without ``trans`` the graph's buckets serve the transpose role: the
+    same values and gradients, bit for bit, as handing the graph in as its
+    own transpose."""
+    _, _, tdg, arrs = _case(name)
+    for single in (False, True):
+        rule = tfg._single_pass
+        tfg._single_pass = lambda nv, f: single
+        try:
+            a = _torch_value_and_grads(
+                lambda x, y, z: tfg.gat_attention_spmm_v2(tdg, x, y, z), arrs)
+            b = _torch_value_and_grads(
+                lambda x, y, z: tfg.gat_attention_spmm_v2(tdg, x, y, z,
+                                                          trans=tdg), arrs)
+        finally:
+            tfg._single_pass = rule
+        for u, v in zip(a, b):
+            np.testing.assert_array_equal(u, v)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("single", [False, True])
+@pytest.mark.parametrize("name", sorted(RECT))
+def test_rectangular_kernels_match_plain_on_cuda(name, single, monkeypatch):
+    """The five passes on a rectangular table and its transpose, on the
+    card, against the same op on the CPU (run at rmat13 by chip_smoke.py's
+    sharded phase on a rank's tables)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the GAT kernels have no CPU mode")
+    monkeypatch.setattr(tfg, "_single_pass", lambda nv, f: single)
+    fwd, trans, _, arrs = _rect(name, device="cuda")
+    cfwd, ctrans, _, _ = _rect(name)
+    on_card = _torch_value_and_grads(
+        lambda a, b, x: tfg.gat_attention_spmm_v2(
+            fwd, a.cuda(), b.cuda(), x.cuda(), trans=trans).cpu(), arrs)
+    on_cpu = _torch_value_and_grads(
+        lambda a, b, x: tfg.gat_attention_spmm_v2(cfwd, a, b, x,
+                                                  trans=ctrans), arrs)
+    for a, b in zip(on_card, on_cpu):
+        np.testing.assert_allclose(a, b, **GRAD)
+
+
 # ---- v1: per-edge logits and weights --------------------------------------
 
 V1_GRAPHS = {

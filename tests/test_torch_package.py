@@ -22,8 +22,9 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def test_port_imports_leave_jax_out():
-    """Importing every module of the port (and chip_smoke) in a fresh
-    interpreter loads no jax module and nothing of the JAX package;
+    """Importing every module of the port (``parallel/`` too) and
+    chip_smoke in a fresh interpreter loads no jax module and nothing of
+    the JAX package;
     conftest imports jax here, hence the subprocess."""
     code = (
         "import importlib, pkgutil, sys\n"
@@ -34,7 +35,8 @@ def test_port_imports_leave_jax_out():
         "            'ops.ell_pull', 'analytics', 'analytics.verifiers', 'analytics.traversal', 'analytics.pr', 'analytics.cc',\n"
         "            'compress', 'compress.unary', 'compress.vbyte', 'compress.cgr', 'compress.hybrid', 'compress.cli',\n"
         "            'compress.cgr_device', 'ops.cgr_decode', 'analytics.tc_stream',\n"
-        "            'compress.device_decode', 'ops.vbyte_decode'):\n"
+        "            'compress.device_decode', 'ops.vbyte_decode', 'parallel', 'parallel.partition',\n"
+        "            'parallel.multihost', 'parallel.halo', 'parallel.shard_ell', 'parallel.train'):\n"
         "    assert 'graphaibench_tpu_torch.' + new in names, new\n"
         "for n in names:\n"
         "    importlib.import_module(n)\n"

@@ -312,3 +312,101 @@ def test_launch_table_refuses_more_buckets_than_the_kernel_holds(graphs):
 def test_tile_rule(nv, f, tile):
     assert K1._tile_floats(nv, f) == tile
     assert tile % 4 == 0 and tile // 4 <= 32
+
+
+# ---- rectangular tables (the sharded trainer's) ----------------------------
+
+# name -> (output rows, gathered rows, edges, hub rows of degree 150 and 65)
+RECT = {
+    "wide": (40, 90, 400, False),
+    "tall": (90, 40, 400, False),
+    "hubs": (40, 90, 300, True),
+}
+
+
+def _rect(name, seed=0, device="cpu"):
+    """A random rectangular table and its transpose (``local_table``),
+    per-slot weights, and the dense matrix they stand for (float64)."""
+    n_rows, n_cols, ne, hub = RECT[name]
+    rng = np.random.default_rng(seed)
+    rows = rng.integers(0, n_rows, ne)
+    if hub:
+        rows = np.concatenate([rows, np.full(150, 3), np.full(65, n_rows - 1)])
+    cols = rng.integers(0, n_cols, len(rows))
+    eids = rng.permutation(len(rows))
+    w = rng.random(len(rows)).astype(np.float32)
+    kw = dict(sentinel=len(rows), device=device)
+    fwd = tdgm.local_table(rows, cols, eids, n_rows=n_rows, n_cols=n_cols, **kw)
+    trans = tdgm.local_table(cols, rows, eids, n_rows=n_cols, n_cols=n_rows,
+                             **kw)
+    a = np.zeros((n_rows, n_cols))
+    np.add.at(a, (rows, cols), w[eids])
+    return fwd, trans, torch.from_numpy(w).to(device), a
+
+
+@pytest.mark.parametrize("f", [16, 7])
+@pytest.mark.parametrize("name", sorted(RECT))
+def test_rectangular_tables_match_dense(name, f):
+    """K1's plain version and the kernel's row rule on a table of nv rows
+    over n_cols gathered rows, and on its transpose (the adjoint): A x
+    and A^T ct."""
+    fwd, trans, w, a = _rect(name)
+    if name == "hubs":
+        assert int(fwd.is_split.sum()) == 2
+    rng = np.random.default_rng(1)
+    x = rng.standard_normal((fwd.n_cols, f)).astype(np.float32)
+    ct = rng.standard_normal((fwd.nv, f)).astype(np.float32)
+    for table, inp, want in ((fwd, x, a @ x), (trans, ct, a.T @ ct)):
+        view = tdgm.pack_slot_values(table, w)
+        got = K1.ell_spmm(table, view, torch.from_numpy(inp))
+        assert got.shape == (table.nv, f)
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+        rule = _row_rule(table, view, torch.from_numpy(inp))
+        assert not torch.isnan(rule).any()
+        torch.testing.assert_close(rule, got, rtol=1e-5, atol=1e-6)
+    with pytest.raises(ValueError, match="gathers from"):
+        K1.ell_spmm(fwd, tdgm.pack_slot_values(fwd, w),
+                    torch.zeros(fwd.nv, f))
+
+
+@pytest.mark.parametrize("make", [lambda: add_selfloop(rmat(10, 8, seed=0)),
+                                  hubs_graph], ids=["rmat10", "hubs"])
+def test_square_graph_takes_the_tables_it_took_before(make):
+    """A square graph gathers from its own rows (n_cols = nv, kept by a
+    copy), and the rectangular table built from its COO list is its ELL
+    layout bucket for bucket, with the same results."""
+    g = make()
+    dg = tdgm.to_device_graph(g, device="cpu")
+    assert dg.n_cols == dg.nv == g.nv
+    assert dataclasses.replace(dg).n_cols == g.nv
+    src, dst = g.coo()
+    t = tdgm.local_table(src, dst, np.arange(g.ne), n_rows=g.nv, n_cols=g.nv,
+                         sentinel=g.ne, device="cpu")
+    assert len(t.ell) == len(dg.ell)
+    for a, b in zip(t.ell, dg.ell):
+        assert a.width == b.width
+        for k in ("row_ids", "nbr", "edge_id", "valid"):
+            assert torch.equal(getattr(a, k), getattr(b, k)), k
+    assert torch.equal(t.is_split, dg.is_split)
+    assert torch.equal(t.zero_rows, dg.zero_rows)
+    w = torch.from_numpy(np.random.default_rng(2).random(g.ne).astype(
+        np.float32))
+    x = torch.randn(g.nv, 16, generator=torch.Generator().manual_seed(0))
+    assert torch.equal(K1.ell_spmm(t, tdgm.pack_slot_values(t, w), x),
+                       K1.ell_spmm(dg, tdgm.pack_edge_values(dg, w).fwd, x))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(RECT))
+def test_rectangular_kernel_matches_plain_on_cuda(name):
+    """K1 on a rectangular table and its transpose, on the card (run by
+    chip_smoke.py's sharded phase on a rank's tables at rmat13)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: K1 has no CPU mode")
+    fwd, trans, w, _ = _rect(name, device="cuda")
+    for table in (fwd, trans):
+        view = tdgm.pack_slot_values(table, w)
+        x = torch.randn(table.n_cols, 128, device="cuda")
+        torch.testing.assert_close(K1.ell_spmm(table, view, x),
+                                   K1.ell_spmm_plain(table, view, x),
+                                   rtol=1e-4, atol=1e-4)

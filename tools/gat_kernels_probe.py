@@ -515,9 +515,9 @@ def v2_step(scale: int) -> list[dict]:
         def backward(ctx, ct):
             sl, sr, h, m, zinv, out = ctx.saved_tensors
             ct = ct.contiguous()
-            args = (ctx.g, sl, sr, m, zinv, (ct * out).sum(1), h, ct)
-            d_h, d_sr = FG.gat_v2_bwd_h(*args)
-            return None, FG.gat_v2_bwd_sl(*args), d_sr, d_h
+            args = (sl, sr, m, zinv, (ct * out).sum(1), h, ct)
+            d_h, d_sr = FG.gat_v2_bwd_h(ctx.gt, *args)
+            return None, None, FG.gat_v2_bwd_sl(ctx.g, *args), d_sr, d_h
 
     cfg = make_config("gat", chip_smoke.GAT_LAYERS, chip_smoke.FEAT,
                       chip_smoke.HIDDEN, chip_smoke.CLASSES, lr=0.01,

@@ -1,0 +1,259 @@
+#!/usr/bin/env python3
+"""Where the sharded trainer's step spends its host time, and how far two
+runs of the same training differ, on one CUDA card.
+
+Run from the root of a checkout (``PYTHONPATH=.``), on a machine with a
+card:
+
+    python3 tools/sharded_probe.py [--scale 17] [--runs 3] [--steps 10]
+    python3 tools/sharded_probe.py --ranks 4     # on a machine with 4 cards
+    python3 tools/sharded_probe.py --sensitivity
+
+For GCN and GAT of chip_smoke.py's main path (2 layers, 128/128/16 on
+rmat(scale, 16) with self-loops):
+
+1. spread: ``--runs`` fresh ``Model`` runs and ``--runs`` one-rank sharded
+   runs (an nccl group of one, in this process) of chip_smoke's
+   SHARDED_STEPS steps each; the largest |weight difference| of each from
+   the first ``Model`` run, per parameter. Atomics add in an order that
+   changes from run to run, so this is the noise a weight comparison
+   between the two trainers has to allow.
+2. host: ``--steps`` warm steps of each trainer under torch.profiler (CPU
+   and CUDA): the host clock a step, the device's busy time a step, and
+   the host ops that take the most self CPU time a step.
+
+With ``--ranks N`` instead: N ranks spawned one a card (nccl), GCN and GAT
+3 steps each (chip_smoke's ``_sharded_rank``), each rank's losses and the
+summed weights held to ``Model`` on card 0 as chip_smoke's sharded phase
+holds them, with halo_counts, h_max, the launches a step and
+``halo_probe``; then ``cli train gcn`` with ``GAB_SHARDS=auto`` on
+rmat(13, 8).
+
+With ``--sensitivity`` instead: how far a wrong GAT gradient reads
+against chip_smoke's limits. One ``Model`` run of GAT is the reference;
+then one-rank sharded runs of SHARDED_STEPS steps, each with one gradient
+of the fused attention's backward (d_sl, d_sr or d_h) scaled by a
+factor inside this process only, and a run with none; each run's losses'
+largest relative error and its weights' largest |difference| from the
+reference, beside SHARDED_RTOL and SHARDED_ATOL["gat"].
+
+Prints one JSON object per measurement, and the cards' nvidia-smi lines
+first and last.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import tempfile
+import time
+
+import numpy as np
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+import chip_smoke as cs
+from graphaibench_tpu_torch import rmat
+from graphaibench_tpu_torch.nn import Model
+
+
+def _model(g, cfg):
+    return Model(cfg, cs._dataset(g, cfg.dim_init, cfg.num_cls), device="cuda")
+
+
+def _spread(g, cfg, runs: int) -> list[dict]:
+    def trained_model():
+        m = _model(g, cfg)
+        for _ in range(cs.SHARDED_STEPS):
+            m.train_epoch()
+        return cs._params_by_name(m.params)
+
+    def trained_sharded():
+        _, trainer, params, opt = cs._sharded_setup(g, cfg, 1, "cuda")
+        for _ in range(cs.SHARDED_STEPS):
+            trainer.train_step(params, opt)
+        return cs._params_by_name(params)
+
+    ref = trained_model()
+    out = []
+    for kind, fn in (("model", trained_model), ("sharded", trained_sharded)):
+        for run in range(runs):
+            got = fn()
+            out.append({"arch": cfg.arch, "kind": kind, "run": run,
+                        "max_abs_diff": {k: float(np.abs(got[k] - v).max())
+                                         for k, v in ref.items()}})
+    return out
+
+
+GAT_GRADS = ("d_sl", "d_sr", "d_h")
+FAULTS = ((None, 1.0), ("d_sr", 0.99), ("d_sl", 0.99), ("d_h", 0.99),
+          ("d_sr", 0.999), ("d_h", 0.999))
+
+
+def _sensitivity(g) -> None:
+    from graphaibench_tpu_torch.ops import fused_gat as FG
+
+    cfg = cs._sharded_cfgs()["gat"]
+    model = _model(g, cfg)
+    want_losses = [model.train_epoch()[0] for _ in range(cs.SHARDED_STEPS)]
+    want = cs._params_by_name(model.params)
+    del model
+    backward = FG._GatV2.backward
+    try:
+        for grad, factor in FAULTS:
+            def scaled(ctx, ct, grad=grad, factor=factor):
+                out = list(backward(ctx, ct))
+                if grad is not None:
+                    k = 2 + GAT_GRADS.index(grad)
+                    out[k] = out[k] * factor
+                return tuple(out)
+
+            FG._GatV2.backward = staticmethod(scaled)
+            _, trainer, params, opt = cs._sharded_setup(g, cfg, 1, "cuda")
+            losses = [float(trainer.train_step(params, opt))
+                      for _ in range(cs.SHARDED_STEPS)]
+            got = cs._params_by_name(params)
+            print(json.dumps({
+                "arch": "gat", "grad": grad, "factor": factor,
+                "losses_max_rel_err": max(
+                    abs(a - b) / abs(b) for a, b in zip(losses, want_losses)),
+                "weights_max_abs_err": cs._weights_err(got, want),
+                "by_param": {k: float(np.abs(got[k] - v).max())
+                             for k, v in want.items()},
+                "rtol": cs.SHARDED_RTOL, "atol": cs.SHARDED_ATOL["gat"]}))
+    finally:
+        FG._GatV2.backward = backward
+
+
+def _host(tag: str, step, steps: int) -> dict:
+    for _ in range(3):
+        step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    avg = prof.key_averages()
+    host = sorted(avg, key=lambda e: -e.self_cpu_time_total)[:12]
+    dev = [e for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy, end = 0.0, float("-inf")
+    for e in sorted(dev, key=lambda e: e.time_range.start):
+        lo, hi = max(e.time_range.start, end), e.time_range.end
+        busy += max(hi - lo, 0.0)
+        end = max(end, hi)
+    return {"trainer": tag, "steps": steps,
+            "host_ms_per_step": wall / steps * 1e3,
+            "device_busy_ms_per_step": busy / steps / 1e3,
+            "top_self_cpu_ms_per_step": [
+                [e.key[:80], e.count / steps,
+                 e.self_cpu_time_total / steps / 1e3] for e in host]}
+
+
+def _multi_rank(g, n: int) -> None:
+    steps = cs.SHARDED_STEPS_TWO
+    t0 = time.perf_counter()
+    ranks = cs.PAR.launch(cs._sharded_rank, n, g.row_ptr, g.col_idx, steps,
+                          device="cuda", timeout_s=600)
+    print(json.dumps({"ranks": n, "launch_s": time.perf_counter() - t0}))
+    for arch, cfg in cs._sharded_cfgs().items():
+        model = _model(g, cfg)
+        losses = [model.train_epoch()[0] for _ in range(steps)]
+        want = cs._params_by_name(model.params)
+        r0 = ranks[0][arch]
+        for r in ranks[1:]:
+            if r[arch]["losses"] != r0["losses"] or any(
+                    not np.array_equal(v, r[arch]["params"][k])
+                    for k, v in r0["params"].items()):
+                raise RuntimeError(f"{arch}: the ranks' losses or weights "
+                                   "differ")
+        err = cs._hold_to_model(f"[{n} ranks {arch}]", arch, r0["losses"],
+                                r0["params"], losses, want)
+        print(json.dumps({
+            "arch": arch, "ranks": n, "transport": r0["transport"],
+            "losses": r0["losses"], "model_losses": losses,
+            "weights_max_abs_err": err, "halo_counts": r0["halo_counts"],
+            "h_max": r0["h_max"], "nv_pad": r0["nv_pad"],
+            "launches_per_step": [{k: v // steps for k, v in
+                                   r[arch]["launches"].items() if v}
+                                  for r in ranks],
+            "halo_probe_s": [r[arch]["halo_probe_s"] for r in ranks]}))
+    from graphaibench_tpu_torch.graph.io import Meta, save_graph
+
+    with tempfile.TemporaryDirectory() as tmp:
+        small = rmat(13, 8, seed=0)
+        nv = small.nv
+        save_graph(small, tmp, meta=Meta(
+            nv=nv, ne=small.ne, num_vertex_classes=4,
+            train=(0, nv // 2, nv // 2), val=(nv // 2, nv, nv - nv // 2),
+            test=(nv // 2, nv, nv - nv // 2)))
+        r = subprocess.run(
+            [sys.executable, "-m", "graphaibench_tpu_torch.cli", "train",
+             "gcn", tmp, "3", "0", "softmax", "16", "0", "0", "0.02", "2",
+             "0", "2", "--timers"],
+            capture_output=True, text=True, timeout=600,
+            env=dict(os.environ, GAB_SHARDS="auto"))
+        print(r.stdout[-3000:])
+        if r.returncode != 0 or f"{n} rank(s)" not in r.stdout:
+            raise RuntimeError(f"cli GAB_SHARDS=auto: exit {r.returncode}\n"
+                               f"{r.stderr[-3000:]}")
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--scale", type=int, default=cs.SCALE)
+    ap.add_argument("--runs", type=int, default=3)
+    ap.add_argument("--steps", type=int, default=10)
+    ap.add_argument("--ranks", type=int, default=0,
+                    help="spawn this many ranks, one a card (nccl)")
+    ap.add_argument("--sensitivity", action="store_true",
+                    help="GAT against Model with one gradient scaled")
+    args = ap.parse_args()
+    cards = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+    print(cards)
+    try:
+        _run(args)
+    finally:
+        print(cards)
+
+
+def _run(args) -> None:
+    cs.phase_build()
+    g = rmat(args.scale, cs.EDGE_FACTOR, seed=0)
+    if args.ranks:
+        if torch.cuda.device_count() < args.ranks:
+            raise SystemExit(f"--ranks {args.ranks}: "
+                             f"{torch.cuda.device_count()} card(s)")
+        _multi_rank(g, args.ranks)
+        return
+    cs.PAR.initialize(0, 1, port=cs.PAR.multihost.free_port(),
+                      backend="nccl", device=torch.device("cuda", 0))
+    try:
+        if args.sensitivity:
+            _sensitivity(g)
+            return
+        for cfg in cs._sharded_cfgs().values():
+            for rec in _spread(g, cfg, args.runs):
+                print(json.dumps(rec))
+            model = _model(g, cfg)
+            print(json.dumps({"arch": cfg.arch, **_host(
+                "model", model.train_epoch, args.steps)}))
+            _, trainer, params, opt = cs._sharded_setup(g, cfg, 1, "cuda")
+            print(json.dumps({"arch": cfg.arch, **_host(
+                "sharded one rank",
+                lambda: float(trainer.train_step(params, opt)),
+                args.steps)}))
+    finally:
+        cs.PAR.multihost.dist.destroy_process_group()
+
+
+if __name__ == "__main__":
+    main()
