@@ -175,12 +175,37 @@ non-zero exit code and no result line:
              transposes, the five GAT passes on the unified table and its
              transpose, each against its plain version behind a dirtied
              allocator.
-11. result — a JSON line of the nineteen kernels, then the last line
-             {"ok": true, "device": {...}}.
+11. tp_dp  — the tensor-parallel trainer, data-parallel GraphSAINT and
+             the shard files at the main path's widths on rmat17: (a) two
+             ranks on the one card over gloo (host-staged) as (1 graph x 2
+             model), GCN and GAT (l2norm and dense head, as make_config
+             gives GAT), 3 steps, each rank's losses (rtol 1e-4) and the
+             summed weights (atol as the sharded phase's) held to Model
+             on the card, the ranks equal, the launches a step a rank (K1
+             3 for GCN at F = 64 and 16; GAT's passes at F = 64, the
+             backward as one pass or two by FG._single_pass), the
+             transport, the reduce-scatter route and each rank's device
+             ms a step beside Model's; (b) four ranks as (2 x 2), GCN, 2
+             steps, held alike (K1 6 a step a rank); (c) the rank tables
+             at P = 1 and 2 at F = 64 and 5 (K1 on the own, halo and
+             unified tables and their transposes, the five GAT passes),
+             each against its plain version behind a dirtied allocator;
+             (d) two data-parallel GraphSAINT ranks (GCN, subg_size
+             32768), 3 steps: the ranks equal, the first step's averaged
+             gradients held to the serial mean of the two subgraphs'
+             gradients computed in this process (rtol 1e-4, atol 1e-6),
+             the seconds a step with the sampler's wait; (e) the (a) GCN
+             trainer rebuilt from shard files in a temporary directory:
+             its first loss that of the in-memory trainer (within rtol
+             1e-6: K1 adds a split row's pieces with atomics, in an order
+             no launch fixes).
+12. result — a JSON line of the nineteen kernels, then the last line
+             {"ok": true, "device": {...}}. Each phase prints its seconds.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import statistics
@@ -386,6 +411,28 @@ SHARDED_RECT_SCALE = 13
 SHARDED_RECT_WIDTHS = (128, 16, 7)
 SHARDED_MAIN_RECT_WIDTHS = (128, 16)
 SHARDED_SPAWN_TIMEOUT_S = 600
+# The tp_dp phase: the tensor-parallel trainer at the main path's widths,
+# (1 graph x 2 model) ranks for GCN and GAT (l2norm and dense head, as
+# make_config gives GAT) and (2 x 2) for GCN, two and four gloo ranks on
+# the one card, held to Model like the sharded phase and, on the first
+# step's summed gradients, within the gradient tolerance of the CPU tests
+# (Adam would hide a constant factor in them); the rank tables'
+# kernels at the column blocks' width (64) and a ragged one; two
+# data-parallel GraphSAINT ranks, the first step's averaged gradients held
+# to the serial mean within the gradient tolerance of the CPU tests; the
+# (1 x 2) GCN trainer rebuilt from shard files.
+TP_M = 2
+TP_STEPS = 3
+TP_HALO_STEPS = 2
+TP_KERNEL_WIDTHS = (HIDDEN // TP_M, 5)
+TP_GRAD_RTOL, TP_GRAD_ATOL = 1e-4, 1e-6
+# the file-built trainer's first loss: the same tables and weights as the
+# in-memory one's, but K1 adds the pieces of a split row with atomics, in
+# an order a launch does not fix, so its float sums may differ in the
+# last bits from run to run (the CPU tests hold it exactly)
+TP_FILE_RTOL = 1e-6
+DP_RANKS = 2
+DP_STEPS = 3
 # the CLI's analytics on each scheme's prefix, decoded on the card
 CLI_DECODED = {"cgr": ("tc", "bfs"), "streamvbyte": ("tc",),
                "varintgb": ("tc", "bfs"), "hybrid": ("tc", "bfs")}
@@ -2577,9 +2624,16 @@ def _params_by_name(params) -> dict:
             for k, p in params.named_parameters()}
 
 
-def _sharded_steps(trainer, params, opt, steps: int):
+def _grads_by_name(params) -> dict:
+    return {k: p.grad.detach().cpu().numpy().copy()
+            for k, p in params.named_parameters()}
+
+
+def _sharded_steps(trainer, params, opt, steps: int, first_grads=None):
     """``steps`` steps with every count set to 0 just before them:
-    (losses, launches, host ms of each step)."""
+    (losses, launches, host ms of each step). A dict ``first_grads``
+    receives the first step's gradients (summed over the ranks) by
+    name."""
     torch.cuda.synchronize()
     _zero_counts()
     losses, ms = [], []
@@ -2587,6 +2641,8 @@ def _sharded_steps(trainer, params, opt, steps: int):
         t0 = time.perf_counter()
         losses.append(float(trainer.train_step(params, opt)))
         ms.append((time.perf_counter() - t0) * 1e3)
+        if first_grads is not None and len(losses) == 1:
+            first_grads.update(_grads_by_name(params))
     return losses, _counts(), ms
 
 
@@ -2740,15 +2796,15 @@ def _rect_compare(got, want, what: str, gat: bool) -> float:
     return err
 
 
-def _sharded_rect_kernels(label: str, g, widths) -> dict:
+def _sharded_rect_kernels(label: str, g, widths, shards: int = 2) -> dict:
     """(c): each rank's rectangular tables of ``g`` (self-loops added, as
-    GCN and GAT prepare it) at P = 2: K1 on the own, halo and unified
-    tables and their transposes, the five GAT passes on the unified table
-    and its transpose, at each feature width of ``widths``, each against
-    its plain version behind a NaN-dirtied allocator. Returns {kernel:
-    max |diff|}."""
+    GCN and GAT prepare it) at P = ``shards``: K1 on the own, halo and
+    unified tables and their transposes, the five GAT passes on the
+    unified table and its transpose, at each feature width of ``widths``,
+    each against its plain version behind a NaN-dirtied allocator.
+    Returns {kernel: max |diff|}."""
     gp = prepare_graph(g, "gat")
-    sg = PAR.build_sharded_graph(gp, np.ones(gp.ne, np.float32), 2)
+    sg = PAR.build_sharded_graph(gp, np.ones(gp.ne, np.float32), shards)
     gen = torch.Generator(device="cuda").manual_seed(3)
     errs = {"ell_spmm": 0.0, **{k: 0.0 for k in GAT_KERNELS}}
     tiles = {}
@@ -2758,9 +2814,9 @@ def _sharded_rect_kernels(label: str, g, widths) -> dict:
         return fn(*args)
 
     splits = {}
-    for rank in range(2):
+    for rank in range(shards):
         for part in ("own", "halo", "all"):
-            se = SE.build_shard_ell(sg, rank, part=part, device="cuda")
+            se = SE.build_shard_ell(sg.shard(rank), part=part, device="cuda")
             w = torch.rand(sg.e_max, device="cuda", generator=gen)
             wp = SE.pack_shard_values(se, w)
             splits[f"{rank}/{part}"] = (int(se.fwd.is_split.sum()),
@@ -2820,7 +2876,7 @@ def _sharded_rect_kernels(label: str, g, widths) -> dict:
                             _rect_compare(a, b, f"single pass {what}", True)
                             for a, b in zip(one, one_p)))):
                     errs[name] = max(errs[name], e)
-    print(f"[sharded] rank tables of {label} P=2 (nv_pad {sg.nv_pad}, "
+    print(f"[sharded] rank tables of {label} P={shards} (nv_pad {sg.nv_pad}, "
           f"h_max {sg.h_max}, halo {sg.halo_counts.tolist()}; split rows "
           f"fwd/transpose by rank/part {splits}; K1's column tile "
           f"fwd/transpose {tiles}), F in {widths}, dirtied allocator: "
@@ -2875,39 +2931,381 @@ def phase_sharded(g) -> dict:
     return {"one_rank": one, "two_ranks": two, "rect_err": rect}
 
 
+# ---- the tp_dp phase ------------------------------------------------------
+
+def _tp_cfgs() -> dict:
+    """The main path's GCN, and GAT with its l2norm and dense head (the
+    tensor-parallel GAT needs the head), at full width."""
+    return {"gcn": make_config("gcn", 2, FEAT, HIDDEN, CLASSES, lr=0.01),
+            "gat": make_config("gat", GAT_LAYERS, FEAT, HIDDEN, CLASSES,
+                               lr=0.01)}
+
+
+def _tp_setup(g, cfg, shards: int):
+    """(cfg, sharded graph, dataset) for ``shards`` vertex blocks."""
+    ds = _dataset(g, cfg.dim_init, cfg.num_cls)
+    gp = prepare_graph(g, cfg.arch)
+    return PAR.build_sharded_graph(gp, aggregation_weights(gp, cfg.arch),
+                                   shards), ds
+
+
+def _tp_rank(rank: int, n: int, row_ptr, col_idx, shards: int, archs,
+             steps: int, prefix) -> dict:
+    """One rank of a (shards x n // shards) tensor-parallel run on one card
+    (gloo): ``steps`` steps of each arch, then its device time a step
+    under the profiler; with ``prefix``, the GCN trainer rebuilt from
+    that prefix's shard files and its first loss."""
+    from graphaibench_tpu_torch import CSRGraph
+    from graphaibench_tpu_torch.parallel.multihost import rank_device
+    from graphaibench_tpu_torch.parallel.shard_io import (
+        make_sharded_trainer_from_files,
+    )
+
+    g = CSRGraph(row_ptr=row_ptr, col_idx=col_idx)
+    dev = rank_device(rank, "cuda")
+    m = n // shards
+    out = {}
+    for arch in archs:
+        cfg = _tp_cfgs()[arch]
+        sg, ds = _tp_setup(g, cfg, shards)
+        trainer = PAR.make_tp_trainer(cfg, sg, ds.feats, ds.labels,
+                                      ds.train_range, ds.train_mask,
+                                      model_parallelism=m, device=dev)
+        params = init_params(cfg, device=dev)
+        opt = OPTIMIZERS[cfg.optimizer](params.parameters(), lr=cfg.lr)
+        grads = {}
+        losses, launches, ms = _sharded_steps(trainer, params, opt, steps,
+                                              first_grads=grads)
+        trainer.halo_probe()   # a warm-up; the second is read
+        res = {"losses": losses, "launches": launches, "grads": grads,
+               "params": _params_by_name(params),
+               "transport": trainer.transport, "nv_pad": sg.nv_pad,
+               "halo_counts": sg.halo_counts.tolist(),
+               "step_ms": statistics.median(ms[1:]),
+               "halo_probe_s": trainer.halo_probe()}
+
+        def run(k, trainer=trainer, params=params, opt=opt):
+            for _ in range(k):
+                trainer.train_step(params, opt)
+
+        res["device_ms"], _ = phase_profile(
+            f"tp {arch} ({shards}x{m}) rank {rank}", run, steps,
+            res["step_ms"], unit="step")
+        if prefix is not None and arch == "gcn":
+            t_file, _ = make_sharded_trainer_from_files(
+                prefix, model_parallelism=m, device=dev)
+            fresh = init_params(cfg, device=dev)
+            res["file_first_loss"] = float(t_file.train_step(
+                fresh, OPTIMIZERS[cfg.optimizer](fresh.parameters(),
+                                                 lr=cfg.lr)))
+        out[arch] = res
+        del trainer, params, opt
+        torch.cuda.empty_cache()
+    return out
+
+
+def _tp_want_launches(arch: str, nv_pad: int, shards: int) -> dict:
+    """A tensor-parallel step's launches on one rank: GCN's K1 3 (two
+    forward aggregations, at F / M and at the classes' width, and the
+    adjoint of the second), twice over with a halo (the own and the halo
+    table); GAT's row max and forward a layer, and per layer the backward
+    as one pass or two by ``FG._single_pass`` at the column block's
+    width."""
+    if arch == "gcn":
+        return {"ell_spmm": SPMMS_PER_STEP * (2 if shards > 1 else 1)}
+    want = {"gat_rowmax": GAT_LAYERS, "gat_v2_fwd": GAT_LAYERS}
+    for _ in range(GAT_LAYERS):
+        names = (("gat_v2_bwd",) if FG._single_pass(nv_pad, HIDDEN // TP_M)
+                 else ("gat_v2_bwd_sl", "gat_v2_bwd_h"))
+        for k in names:
+            want[k] = want.get(k, 0) + 1
+    return want
+
+
+def _tp_models(g) -> dict:
+    """Model on the card for each TP arch: losses, the first step's
+    gradients, the weights after TP_HALO_STEPS and TP_STEPS steps, the
+    host ms and the device ms of a step."""
+    out = {}
+    for arch, cfg in _tp_cfgs().items():
+        model = Model(cfg, _dataset(g, cfg.dim_init, cfg.num_cls),
+                      device="cuda")
+        losses, ms, params = [], [], {}
+        for step in range(TP_STEPS):
+            t0 = time.perf_counter()
+            losses.append(model.train_epoch()[0])
+            ms.append((time.perf_counter() - t0) * 1e3)
+            params[step + 1] = _params_by_name(model.params)
+            if step == 0:
+                grads = _grads_by_name(model.params)
+        step_ms = statistics.median(ms[1:])
+        device_ms, _ = phase_profile(
+            f"tp model {arch}", lambda k, m=model: [m.train_epoch()
+                                                     for _ in range(k)],
+            TP_STEPS, step_ms, unit="step")
+        out[arch] = {"losses": losses, "grads": grads, "params": params,
+                     "step_ms": step_ms,
+                     "device_ms": device_ms}
+        del model
+        torch.cuda.empty_cache()
+    return out
+
+
+def _tp_hold(tag: str, arch: str, ranks: list, ref: dict, steps: int,
+             shards: int, transport: str = "host-staged") -> dict:
+    """The ranks equal to each other, their collectives on ``transport``,
+    the first step's summed gradients held to Model's leaf by leaf (what
+    Adam would hide: a constant factor), the losses and weights held to
+    Model after ``steps`` steps, each with the launches a step the design
+    implies."""
+    r0 = ranks[0][arch]
+    for r, res in enumerate(ranks[1:], 1):
+        if res[arch]["losses"] != r0["losses"] or any(
+                not np.array_equal(v, res[arch][what][k])
+                for what in ("params", "grads")
+                for k, v in r0[what].items()):
+            raise RuntimeError(f"{tag} rank {r}'s losses, gradients or "
+                               "weights differ from rank 0's")
+    if set(r0["grads"]) != set(ref["grads"]):
+        raise RuntimeError(f"{tag} gradient leaves {sorted(r0['grads'])}, "
+                           f"Model's {sorted(ref['grads'])}")
+    grad_err = 0.0
+    for k, want in ref["grads"].items():
+        np.testing.assert_allclose(r0["grads"][k], want, rtol=TP_GRAD_RTOL,
+                                   atol=TP_GRAD_ATOL,
+                                   err_msg=f"{tag} gradient {k}")
+        grad_err = max(grad_err, float(np.abs(r0["grads"][k] - want).max()))
+    if r0["transport"] != transport:
+        raise RuntimeError(f"{tag} transport {r0['transport']}")
+    if shards > 1 and min(r0["halo_counts"]) == 0:
+        raise RuntimeError(f"{tag} no halo: the run checks nothing")
+    err = _hold_to_model(tag, arch, r0["losses"], r0["params"],
+                         ref["losses"][:steps], ref["params"][steps])
+    want = _tp_want_launches(arch, r0["nv_pad"], shards)
+    per_step = []
+    for r, res in enumerate(ranks):
+        counts = {k: v // steps for k, v in res[arch]["launches"].items() if v}
+        if counts != want or any(v % steps for v in
+                                 res[arch]["launches"].values()):
+            raise RuntimeError(f"{tag} rank {r} launches "
+                               f"{res[arch]['launches']} in {steps} steps, "
+                               f"expected {want} a step")
+        per_step.append(counts)
+    out = {"losses": r0["losses"], "model_losses": ref["losses"][:steps],
+           "weights_max_abs_err": err, "grad_max_abs_err": grad_err,
+           "launches_per_step": per_step,
+           "transport": r0["transport"], "reduce_scatter":
+           PAR.tp.REDUCE_SCATTER, "nv_pad": r0["nv_pad"],
+           "halo_counts": r0["halo_counts"],
+           "step_ms": [res[arch]["step_ms"] for res in ranks],
+           "device_ms": [res[arch]["device_ms"] for res in ranks],
+           "model_step_ms": ref["step_ms"],
+           "model_device_ms": ref["device_ms"],
+           "halo_probe_s": [res[arch]["halo_probe_s"] for res in ranks]}
+    print(f"{tag} {json.dumps(out)}")
+    return out
+
+
+def _dp_cfg():
+    """The sampled main path's GCN (l2norm and dense head, as sampling
+    configures it)."""
+    return make_config("gcn", 2, FEAT, HIDDEN, CLASSES, subg_size=SUBG_SIZE,
+                       lr=0.01)
+
+
+def _grads_np(model) -> list:
+    return [p.grad.detach().cpu().numpy().copy()
+            for p in model.params.parameters()]
+
+
+@contextlib.contextmanager
+def _deterministic():
+    """PyTorch's deterministic kernels inside. The sampled step's COO
+    aggregation is an ``index_add_`` whose atomics sum in no fixed order;
+    if that rounding moves an activation across ReLU's zero, a gradient
+    element moves by far more than rounding (the likely cause of one
+    element 1.4e-6 off, against atol 1e-6, on the H100). Part (d) holds
+    the averaging of the ranks' gradients, so both of its sides run
+    without atomics."""
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+
+def _dp_rank(rank: int, n: int, row_ptr, col_idx) -> dict:
+    """One data-parallel GraphSAINT rank on the card (gloo): the first
+    step's averaged gradients (deterministic kernels), then DP_STEPS - 1
+    more steps on the usual ones, with the sampler's wait and the step's
+    seconds."""
+    from graphaibench_tpu_torch import CSRGraph
+    from graphaibench_tpu_torch.parallel.multihost import rank_device
+
+    g = CSRGraph(row_ptr=row_ptr, col_idx=col_idx)
+    cfg = _dp_cfg()
+    timers = OpTimers()
+    model = Model(cfg, _dataset(g, cfg.dim_init, cfg.num_cls),
+                  device=rank_device(rank, "cuda"), inductive=True,
+                  timers=timers)
+    with _deterministic():
+        log = PAR.train_sampled_dp(model, 1, SUBG_SIZE, verbose=False)
+        grads = _grads_np(model)
+    log += PAR.train_sampled_dp(model, DP_STEPS - 1, SUBG_SIZE, seed=n,
+                                verbose=False)
+    return {"grads": grads, "log": log,
+            "params": _params_by_name(model.params),
+            "sample_s": timers.times[OP_SAMPLE] / DP_STEPS,
+            "step_s": timers.times[OP_STEP] / DP_STEPS}
+
+
+def _tp_dp_dp(g, n: int = DP_RANKS, backend: str | None = "gloo") -> dict:
+    """(d): ``n`` DP ranks (two on the one card, gloo), the first step's
+    gradients held to the serial mean of the n subgraphs' gradients
+    computed here."""
+    t0 = time.perf_counter()
+    ranks = PAR.launch(_dp_rank, n, g.row_ptr, g.col_idx, device="cuda",
+                       backend=backend, timeout_s=SHARDED_SPAWN_TIMEOUT_S)
+    tag = f"[tp_dp dp {n} ranks]"
+    r0 = ranks[0]
+    for r, res in enumerate(ranks[1:], 1):
+        if ([l[:2] for l in res["log"]] != [l[:2] for l in r0["log"]]
+                or any(not np.array_equal(v, res["params"][k])
+                       for k, v in r0["params"].items())):
+            raise RuntimeError(f"{tag} rank {r} differs from rank 0")
+    cfg = _dp_cfg()
+    model = Model(cfg, _dataset(g, cfg.dim_init, cfg.num_cls), device="cuda",
+                  inductive=True)
+    prepare, e_pad = model._subgraph_source(SUBG_SIZE)
+    grads = []
+    with _deterministic():
+        for r in range(n):   # the seeds of step 0: 0 + r
+            model._sampled_backward(prepare(r, e_pad))
+            grads.append(_grads_np(model))
+    err = 0.0
+    for l, (got, *parts) in enumerate(zip(r0["grads"], *grads)):
+        want = sum(parts[1:], parts[0]) / n
+        np.testing.assert_allclose(got, want, rtol=TP_GRAD_RTOL,
+                                   atol=TP_GRAD_ATOL,
+                                   err_msg=f"{tag} gradient leaf {l}")
+        err = max(err, float(np.abs(got - want).max()))
+    losses = [l for l, _, _ in r0["log"]]
+    if not all(np.isfinite(losses)):
+        raise RuntimeError(f"{tag} losses {losses}")
+    out = {"losses": losses, "grad_max_abs_err": err,
+           "step_s": [l[2] for l in r0["log"]],
+           "sample_wait_s": [r["sample_s"] for r in ranks],
+           "device_step_s": [r["step_s"] for r in ranks],
+           "seconds": time.perf_counter() - t0}
+    print(f"{tag} {json.dumps(out)}")
+    return out
+
+
+def phase_tp_dp(g) -> dict:
+    """The tensor-parallel trainer, data-parallel GraphSAINT and the shard
+    files on the card: (a) (1 x 2) GCN and GAT, (b) (2 x 2) GCN, each held
+    to Model; (c) the rank tables' kernels at the column blocks' widths;
+    (d) two DP ranks; (e) the (1 x 2) GCN trainer from shard files.
+    Returns what the kernels line reports of it."""
+    from graphaibench_tpu_torch.parallel.shard_io import write_trainer_shards
+
+    t0 = time.perf_counter()
+    models = _tp_models(g)
+    cfg = _tp_cfgs()["gcn"]
+    sg, ds = _tp_setup(g, cfg, 1)
+    with tempfile.TemporaryDirectory() as tmp:
+        prefix = os.path.join(tmp, "tp")
+        write_trainer_shards(prefix, cfg, sg, ds.feats, ds.labels,
+                             ds.train_range, ds.train_mask)
+        del sg, ds
+        ranks = PAR.launch(_tp_rank, TP_M, g.row_ptr, g.col_idx, 1,
+                           ("gcn", "gat"), TP_STEPS, prefix, device="cuda",
+                           backend="gloo", timeout_s=SHARDED_SPAWN_TIMEOUT_S)
+    one = {arch: _tp_hold(f"[tp_dp {arch} (1x{TP_M})]", arch, ranks,
+                          models[arch], TP_STEPS, 1)
+           for arch in ("gcn", "gat")}
+    # (e): the file-built trainer's first loss
+    mem = ranks[0]["gcn"]["losses"][0]
+    for r, res in enumerate(ranks):
+        got = res["gcn"]["file_first_loss"]
+        if abs(got - mem) > TP_FILE_RTOL * abs(mem):
+            raise RuntimeError(f"[tp_dp files] rank {r}: first loss {got} "
+                               f"from the files, {mem} in memory")
+    print(f"[tp_dp files] (1x{TP_M}) GCN rebuilt from shard files: first "
+          f"loss {ranks[0]['gcn']['file_first_loss']!r} against "
+          f"{mem!r} in memory, |diff| "
+          f"{max(abs(r['gcn']['file_first_loss'] - mem) for r in ranks)}")
+    t1 = time.perf_counter()
+    ranks = PAR.launch(_tp_rank, 2 * TP_M, g.row_ptr, g.col_idx, 2,
+                       ("gcn",), TP_HALO_STEPS, None, device="cuda",
+                       backend="gloo", timeout_s=SHARDED_SPAWN_TIMEOUT_S)
+    halo = _tp_hold(f"[tp_dp gcn (2x{TP_M})]", "gcn", ranks, models["gcn"],
+                    TP_HALO_STEPS, 2)
+    print(f"[tp_dp] (2x{TP_M}): {2 * TP_M} ranks on one card in "
+          f"{time.perf_counter() - t1:.2f} s")
+    del ranks, models
+    rect = _sharded_rect_kernels(f"rmat{SCALE}", g, TP_KERNEL_WIDTHS, 1)
+    rect2 = _sharded_rect_kernels(f"rmat{SCALE}", g, TP_KERNEL_WIDTHS, 2)
+    rect = {k: max(v, rect2[k]) for k, v in rect.items()}
+    dp = _tp_dp_dp(g)
+    print(f"[tp_dp] phase took {time.perf_counter() - t0:.2f} s")
+    return {"one": one, "halo": halo, "rect_err": rect, "dp": dp}
+
+
+def _timed(name: str, fn, *args):
+    """fn(*args), with its seconds printed."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    print(f"[seconds] {name} {time.perf_counter() - t0:.2f} s")
+    return out
+
+
 def main() -> None:
-    name = phase_device()
-    phase_build()
+    name = _timed("device", phase_device)
+    _timed("build", phase_build)
     t0 = time.perf_counter()
     g = rmat(SCALE, EDGE_FACTOR, seed=0)
     print(f"[graph] rmat({SCALE}, {EDGE_FACTOR}) generated in "
           f"{time.perf_counter() - t0:.2f} s")
-    cases, other_err = phase_kernel(g)
-    gat_kernels = phase_gat_kernels(g)
-    edge_kernels = phase_edge_kernels(g)
-    phase_small()
-    phase_small_trainer()
-    gcn, gat, launches = phase_main(g)
-    v1_launches, _ = phase_main_v1(g)
-    phase_main_sampled(g)
-    for model in (gcn, gat):
-        phase_profile(model.cfg.arch,
-                      lambda n, m=model: m.train(n, verbose=False),
-                      PROFILED_EPOCHS, phase_epochs(model))
-    pull, tc, kcore, ag, adg = phase_analytics()
-    k12 = phase_compress(ag, adg)
-    sharded = phase_sharded(g)
-    rect_err = sharded["rect_err"]
+    cases, other_err = _timed("kernel K1", phase_kernel, g)
+    gat_kernels = _timed("kernel gat", phase_gat_kernels, g)
+    edge_kernels = _timed("kernel edge", phase_edge_kernels, g)
+    _timed("small", phase_small)
+    _timed("small trainer", phase_small_trainer)
+    gcn, gat, launches = _timed("main", phase_main, g)
+    v1_launches, _ = _timed("main v1", phase_main_v1, g)
+    _timed("main sampled", phase_main_sampled, g)
+
+    def epochs_and_profile():
+        for model in (gcn, gat):
+            phase_profile(model.cfg.arch,
+                          lambda n, m=model: m.train(n, verbose=False),
+                          PROFILED_EPOCHS, phase_epochs(model))
+
+    _timed("epochs and profile", epochs_and_profile)
+    pull, tc, kcore, ag, adg = _timed("analytics", phase_analytics)
+    k12 = _timed("compress", phase_compress, ag, adg)
+    sharded = _timed("sharded", phase_sharded, g)
+    tp_dp = _timed("tp_dp", phase_tp_dp, g)
+    rect_err = {k: max(v, tp_dp["rect_err"][k])
+                for k, v in sharded["rect_err"].items()}
 
     def sharded_launches(kname):
-        """A kernel's launches per step on the sharded main path: one rank,
-        and each of two ranks."""
+        """A kernel's launches per step on the sharded main paths: one rank,
+        each of two ranks, each rank of the (1 x 2) and (2 x 2)
+        tensor-parallel runs."""
         return {"one_rank_per_step": {
                     arch: r["launches_per_step"].get(kname, 0)
                     for arch, r in sharded["one_rank"].items()},
                 "two_ranks_per_step": {
                     arch: [c.get(kname, 0) for c in r["launches_per_step"]]
                     for arch, r in sharded["two_ranks"].items()},
+                f"tp_1x{TP_M}_per_step": {
+                    arch: [c.get(kname, 0) for c in r["launches_per_step"]]
+                    for arch, r in tp_dp["one"].items()},
+                f"tp_2x{TP_M}_per_step": [
+                    c.get(kname, 0)
+                    for c in tp_dp["halo"]["launches_per_step"]],
                 "rect_max_abs_err": rect_err[kname]}
 
     head = cases[0]

@@ -14,7 +14,7 @@ StreamVByte, VarintGB and hybrids of StreamVByte chunks through K11
 the stream's shape (a hybrid of VarintGB chunks, for one). With
 ``GAB_TC_STREAM=1`` the triangles of a CGR prefix are counted block by
 block off the stream (``tc_stream.py``). The other solvers (ROADMAP P15)
-and ``GAB_SHARDS`` (P14b) are not ported yet: asked for, ``run_benchmark``
+and ``GAB_SHARDS`` (P14c) are not ported yet: asked for, ``run_benchmark``
 exits with code 2 and names the item.
 """
 
@@ -146,7 +146,7 @@ def run_benchmark(kernel: str, dataset_path: str, args: list[str], *,
     print(f"|V| {g.nv} |E| {g.ne}")
     if os.environ.get("GAB_SHARDS", ""):
         return _refuse("GAB_SHARDS: the distributed analytics are not "
-                       "ported yet (ROADMAP queue 1, P14b)")
+                       "ported yet (ROADMAP queue 1, P14c)")
     print(f"device = {device}")
     # pull-mode frontier kernels (neighbor_reduce over row buckets) assume
     # a structurally symmetric graph; directed inputs keep the scatter push

@@ -15,9 +15,18 @@ onto the sharded trainer (``parallel/``): n ranks, spawned on this host,
 each holding one vertex block and exchanging its halo over
 ``torch.distributed`` (nccl where each rank has a card of its own, gloo
 on the CPU and where ranks share a card); ``auto`` is one rank per
-visible card, or one rank with ``--device=cpu``. Rank 0 prints the JAX
-CLI's sharded lines. The routes not ported yet (``GAB_TP`` > 1,
-``GAB_DP`` > 1) exit with code 2 and name their ROADMAP item.
+visible card, or one rank with ``--device=cpu``. ``GAB_TP=m`` beside it
+lays max(n // m, 1) x m ranks out as a (graph x model) grid and splits
+the feature dimension over the m ranks of each vertex block (the
+tensor-parallel trainer; GCN, SAGE, and GAT with its dense head: GGNN
+exits with code 2). ``GAB_DP=p`` with ``subg_size > 0`` trains each step
+on p sampled subgraphs, one a rank, the gradients averaged
+(data-parallel GraphSAINT). The ranks take their backend as
+``GAB_SHARDS`` does; rank 0 prints the JAX CLI's lines.
+
+``python -m graphaibench_tpu_torch.cli partition <dataset> <num_parts>
+<out-prefix>`` writes the JAX CLI's induced partitions (``<prefix>-part<i>``
+directories, byte-equal), on the host.
 
 ``python -m graphaibench_tpu_torch.cli analytics
 tc|bfs|sssp|pr|cc|bc|kcore <dataset> [source] [--device=cuda|cpu]`` runs the
@@ -112,15 +121,12 @@ def cmd_train(argv: list[str]) -> int:
     subg_size = arg(10, 0, int)
     val_interval = arg(11, 50, int)
     inductive = bool(arg(12, 0, int)) or subg_size > 0
-    # as in the JAX CLI, GAB_SHARDS routes full-batch training only
+    # as in the JAX CLI, GAB_SHARDS routes full-batch training only, and
+    # GAB_DP sampled training only
     shards = os.environ.get("GAB_SHARDS", "")
     sharded = bool(shards) and subg_size == 0 and not inductive
-    if sharded and int(os.environ.get("GAB_TP", "1")) > 1:
-        return _refuse("GAB_TP: the tensor-parallel trainer is not ported "
-                       "yet (ROADMAP queue 1, P14b)")
-    if subg_size > 0 and int(os.environ.get("GAB_DP", "1")) > 1:
-        return _refuse("GAB_DP: data-parallel GraphSAINT is not ported yet "
-                       "(ROADMAP queue 1, P14b)")
+    tp = int(os.environ.get("GAB_TP", "1")) if sharded else 1
+    dp = int(os.environ.get("GAB_DP", "1")) if subg_size > 0 else 1
 
     path = resolve_dataset(argv[1])
     if os.path.exists(path + ".meta.json"):
@@ -145,9 +151,17 @@ def cmd_train(argv: list[str]) -> int:
         f"val_interval = {val_interval}, learning_rate = {lr}, "
         f"device = {device}"
     )
-    if sharded:
-        return _train_sharded(cfg, path, epochs, val_interval, shards,
-                              device, use_timers, profile_dir)
+    if tp > 1:
+        from graphaibench_tpu_torch.parallel.train import check_tp_config
+
+        try:   # the JAX CLI asserts here
+            check_tp_config(cfg)
+        except ValueError as e:
+            return _refuse(f"GAB_TP: {e}")
+    if sharded or dp > 1:
+        return _train_ranks(cfg, path, epochs, val_interval,
+                            shards if sharded else "", tp, dp, subg_size,
+                            device, use_timers, profile_dir)
     timers = TIMERS if use_timers else None
     if timers is not None:
         timers.reset()
@@ -176,40 +190,75 @@ def _load_dataset(path: str, is_sigmoid: bool):
     return load_gnn_dataset(path, is_single_class=not is_sigmoid)
 
 
-def _train_sharded(cfg, path: str, epochs: int, val_interval: int,
-                   shards: str, device: str, use_timers: bool,
-                   profile_dir) -> int:
-    """Full-batch training on the sharded trainer (``parallel/train.py``)
-    in ``shards`` ranks spawned here; rank 0 prints."""
+def _train_ranks(cfg, path: str, epochs: int, val_interval: int,
+                 shards: str, tp: int, dp: int, subg_size: int, device: str,
+                 use_timers: bool, profile_dir) -> int:
+    """Training in ranks spawned here, rank 0 printing: with ``GAB_SHARDS``
+    the sharded trainer (``parallel/train.py``) on n ranks, or with
+    ``GAB_TP`` = m > 1 the tensor-parallel one on max(n // m, 1) x m
+    ranks; else data-parallel GraphSAINT (``parallel/dp_saint.py``) on
+    ``GAB_DP`` ranks."""
     import torch
 
-    from graphaibench_tpu_torch.parallel.multihost import (
-        choose_backend,
-        launch,
-    )
+    from graphaibench_tpu_torch.parallel.multihost import launch
 
+    route = "GAB_SHARDS" if shards else "GAB_DP"
     if device == "cuda" and not torch.cuda.is_available():
-        print("GAB_SHARDS: no CUDA device (--device=cpu runs the ranks on "
+        print(f"{route}: no CUDA device (--device=cpu runs the ranks on "
               "the CPU)", file=sys.stderr)
         return 1
-    if shards == "auto":
+    if not shards:
+        n = dp
+    elif shards == "auto":
         n = torch.cuda.device_count() if device == "cuda" else 1
     else:
         n = int(shards)
     if n < 1:
         return _refuse(f"GAB_SHARDS must be a positive count or auto, not "
                        f"{shards!r}")
+    if tp > 1:
+        n = max(n // tp, 1) * tp
     sys.stdout.flush()
-    launch(_sharded_rank, n, cfg, path, epochs, val_interval, device,
-           use_timers, profile_dir, device=device, timeout_s=None)
+    if shards:
+        launch(_sharded_rank, n, cfg, path, epochs, val_interval, tp, device,
+               use_timers, profile_dir, device=device, timeout_s=None)
+    else:
+        launch(_dp_rank, n, cfg, path, epochs, val_interval, subg_size,
+               device, use_timers, profile_dir, device=device, timeout_s=None)
     return 0
 
 
+def _dp_rank(rank: int, n: int, cfg, path: str, epochs: int,
+             val_interval: int, subg_size: int, device: str,
+             use_timers: bool, profile_dir) -> None:
+    """One rank of ``GAB_DP``: the JAX CLI's data-parallel lines, printed
+    by rank 0, then its model's test accuracy."""
+    from graphaibench_tpu_torch.nn import Model
+    from graphaibench_tpu_torch.parallel import train_sampled_dp
+    from graphaibench_tpu_torch.parallel.multihost import rank_device
+    from graphaibench_tpu_torch.utils.timers import TIMERS, profiler_trace
+
+    timers = TIMERS if use_timers and rank == 0 else None
+    if timers is not None:
+        timers.reset()
+    prof = (profiler_trace(profile_dir) if profile_dir and rank == 0
+            else contextlib.nullcontext())
+    with prof:
+        model = Model(cfg, _load_dataset(path, cfg.is_sigmoid),
+                      device=rank_device(rank, device), inductive=True,
+                      timers=timers)
+        train_sampled_dp(model, epochs, subg_size, val_interval=val_interval)
+        if rank == 0:
+            print(f"Test accuracy: {model.evaluate('test'):.4f}", flush=True)
+    if timers is not None:
+        timers.print_timers()
+
+
 def _sharded_rank(rank: int, n: int, cfg, path: str, epochs: int,
-                  val_interval: int, device: str, use_timers: bool,
+                  val_interval: int, tp: int, device: str, use_timers: bool,
                   profile_dir) -> None:
-    """One rank of ``_train_sharded``: the JAX CLI's ``_train_sharded``
-    lines, printed by rank 0."""
+    """One rank of ``GAB_SHARDS``: the JAX CLI's ``_train_sharded`` lines,
+    printed by rank 0."""
     import time
 
     import torch
@@ -225,8 +274,10 @@ def _sharded_rank(rank: int, n: int, cfg, path: str, epochs: int,
     from graphaibench_tpu_torch.parallel import (
         build_sharded_graph,
         make_sharded_trainer,
+        make_tp_trainer,
     )
     from graphaibench_tpu_torch.parallel.multihost import rank_device
+    from graphaibench_tpu_torch.parallel.tp import REDUCE_SCATTER
     from graphaibench_tpu_torch.utils import timers as utimers
     from graphaibench_tpu_torch.utils.timers import TIMERS, profiler_trace
 
@@ -237,14 +288,24 @@ def _sharded_rank(rank: int, n: int, cfg, path: str, epochs: int,
     dev = rank_device(rank, device)
     ds = _load_dataset(path, cfg.is_sigmoid)
     prepped = prepare_graph(ds.graph, cfg.arch)
-    sg = build_sharded_graph(prepped, aggregation_weights(prepped, cfg.arch),
-                             n)
-    trainer = make_sharded_trainer(
-        cfg, sg, ds.feats, ds.labels, ds.train_range, ds.train_mask,
-        device=dev, eval_ranges={"val": (ds.val_range, ds.val_mask),
-                                 "test": (ds.test_range, ds.test_mask)})
-    say(f"sharded trainer: {n} rank(s), vertex-sharded halo exchange, "
-        f"backend {dist.get_backend()}, halo transport {trainer.transport}")
+    w = aggregation_weights(prepped, cfg.arch)
+    args = (ds.feats, ds.labels, ds.train_range, ds.train_mask)
+    kw = dict(device=dev, eval_ranges={"val": (ds.val_range, ds.val_mask),
+                                       "test": (ds.test_range, ds.test_mask)})
+    if tp > 1:
+        gdim = n // tp
+        trainer = make_tp_trainer(cfg, build_sharded_graph(prepped, w, gdim),
+                                  *args, model_parallelism=tp, **kw)
+        say(f"sharded trainer: ({gdim} graph x {tp} model) ranks, vertex "
+            f"sharding + feature-dim tensor parallelism, backend "
+            f"{dist.get_backend()}, transport {trainer.transport}, "
+            f"reduce-scatter {REDUCE_SCATTER}")
+    else:
+        trainer = make_sharded_trainer(
+            cfg, build_sharded_graph(prepped, w, n), *args, **kw)
+        say(f"sharded trainer: {n} rank(s), vertex-sharded halo exchange, "
+            f"backend {dist.get_backend()}, halo transport "
+            f"{trainer.transport}")
     params = init_params(cfg, device=dev)
     opt = OPTIMIZERS[cfg.optimizer](params.parameters(), lr=cfg.lr)
     timers = TIMERS if use_timers and rank == 0 else None
@@ -376,12 +437,33 @@ def cmd_compress(argv: list[str]) -> int:
     return compress_main(argv)
 
 
+def cmd_partition(argv: list[str]) -> int:
+    """``partition <dataset> <num_parts> <out-prefix>``: the induced
+    1-hop-halo partitions as ``<prefix>-part<i>`` binary CSR directories
+    (the reference's offline partitioner, graph_partition.cc:18-35), the
+    files byte-equal to the JAX CLI's."""
+    if len(argv) != 3:
+        print("usage: partition <dataset> <num_parts> <out-prefix>")
+        return 2
+    from graphaibench_tpu_torch.graph.io import load_graph
+    from graphaibench_tpu_torch.graph.partition import write_partitions
+
+    g = load_graph(resolve_dataset(argv[0]))
+    parts = write_partitions(g, int(argv[1]), argv[2], verbose=True)
+    for i, p in enumerate(parts):
+        print(f"subgraph[{i}]: masters {p.num_masters} "
+              f"local |V| {p.subgraph.nv} |E| {p.subgraph.ne} "
+              f"range [{p.global_range[0]}, {p.global_range[1]})")
+    return 0
+
+
 def main() -> int:
     commands = {"train": cmd_train, "analytics": cmd_analytics,
-                "info": cmd_info, "compress": cmd_compress}
+                "info": cmd_info, "compress": cmd_compress,
+                "partition": cmd_partition}
     if len(sys.argv) < 2 or sys.argv[1] not in commands:
         print("usage: graphaibench_tpu_torch.cli "
-              "train|analytics|info|compress ... (partition: ROADMAP queue 1)")
+              "train|analytics|info|compress|partition ...")
         return 2
     return commands[sys.argv[1]](sys.argv[2:])
 

@@ -239,13 +239,34 @@ class Model:
             )
         return log
 
-    def _sampled_step(self, d: dict) -> tuple[torch.Tensor, torch.Tensor]:
-        """One step on a padded subgraph (``pad_subgraph``'s arrays):
-        returns (loss, accuracy) as device scalars, both from the forward
-        pass before the update. The loss is the step's own,
-        sum of CE over the real vertices / their number, and the forward
-        draws no dropout, whatever the drop rates, as the JAX package's
-        sampled step (which hands ``apply_model`` no key)."""
+    def _subgraph_source(self, subg_size: int):
+        """(prepare, e_pad): ``prepare(seed, e_pad)`` samples a subgraph of
+        about ``subg_size`` vertices of the training graph with ``seed``
+        and pads it (``pad_subgraph``) to n_pad = subg_size rounded up to
+        8 and at least ``e_pad`` edges; the first ``e_pad`` is the
+        estimate from the training graph's average degree."""
+        sampler = SaintSampler(self.data.graph, self.training.host,
+                               self.data.train_mask)
+        n_pad = -(-subg_size // 8) * 8
+        host = self.training.host
+        avg_deg = max(host.ne // max(host.nv, 1), 1)
+        feats_np = np.asarray(self.data.feats)
+        labels_np = np.asarray(self.data.labels)
+
+        def prepare(seed: int, e_pad: int) -> dict:
+            return pad_subgraph(sampler, self.cfg.arch, subg_size, seed,
+                                n_pad, e_pad, feats_np, labels_np)
+
+        return prepare, -(-(n_pad * (avg_deg + 2)) // 64) * 64
+
+    def _sampled_backward(self, d: dict):
+        """The forward and backward of one step on a padded subgraph
+        (``pad_subgraph``'s arrays), the gradients left in the parameters'
+        ``.grad`` and no optimizer step: returns (loss, logits, labels,
+        valid mask), the loss the step's own, sum of CE over the real
+        vertices / their number. The forward draws no dropout, whatever
+        the drop rates, as the JAX package's sampled step (which hands
+        ``apply_model`` no key)."""
         dev = self.device
         n_pad = len(d["valid"])
         dg = coo_device_graph(d["es"], d["cd"], d["tp"], d["deg"], nv=n_pad,
@@ -264,10 +285,17 @@ class Model:
                          torch.zeros((), device=dev))
         loss = ce.sum() / float(d["n_real"])
         loss.backward()
+        return loss.detach(), logits.detach(), lab, valid
+
+    def _sampled_step(self, d: dict) -> tuple[torch.Tensor, torch.Tensor]:
+        """One step on a padded subgraph (``_sampled_backward``, then the
+        optimizer's step): returns (loss, accuracy) as device scalars,
+        both from the forward pass before the update."""
+        loss, logits, lab, valid = self._sampled_backward(d)
         self.opt.step()
         with torch.no_grad():
             acc = gmath.masked_accuracy_single(logits, lab, valid)
-        return loss.detach(), acc
+        return loss, acc
 
     def train_sampled(self, num_epochs: int, subg_size: int, *,
                       val_interval: int = 50, verbose: bool = True,
@@ -279,24 +307,11 @@ class Model:
         k+1's subgraph while epoch k's step runs. Returns (loss, acc,
         seconds) per epoch (a list, not the JAX ``Model.train_sampled``'s
         total seconds, which is the sum of the third entries)."""
-        sampler = SaintSampler(self.data.graph, self.training.host,
-                               self.data.train_mask)
-        n_pad = -(-subg_size // 8) * 8
-        host = self.training.host
-        avg_deg = max(host.ne // max(host.nv, 1), 1)
-        e_pad = -(-(n_pad * (avg_deg + 2)) // 64) * 64
-        feats_np = np.asarray(self.data.feats)
-        labels_np = np.asarray(self.data.labels)
-
-        def prepare(epoch, e_pad):
-            return pad_subgraph(sampler, self.cfg.arch, subg_size,
-                                seed + epoch, n_pad, e_pad, feats_np,
-                                labels_np)
-
+        prepare, e_pad = self._subgraph_source(subg_size)
         log = []
         pool = concurrent.futures.ThreadPoolExecutor(1)
         try:
-            fut = pool.submit(prepare, 0, e_pad)
+            fut = pool.submit(prepare, seed, e_pad)
             for epoch in range(num_epochs):
                 t0 = time.perf_counter()
                 d = fut.result()
@@ -306,7 +321,7 @@ class Model:
                                     time.perf_counter() - t0)
                 e_pad = d["e_pad"]
                 if epoch + 1 < num_epochs:   # double-buffer the sampler
-                    fut = pool.submit(prepare, epoch + 1, e_pad)
+                    fut = pool.submit(prepare, seed + epoch + 1, e_pad)
                 t_step = time.perf_counter()
                 loss, acc = self._sampled_step(d)
                 loss, acc = float(loss), float(acc)   # waits for the device

@@ -132,15 +132,16 @@ def static_aggregator(ga: dict, ell: dict, nv_pad: int, group=None):
     return spmm_fn
 
 
-def rank_graph_arrays(sg, rank: int, *, plain: bool, device="cpu") -> dict:
-    """``rank``'s halo plan on ``device``, with its slot arrays
-    (``edge_src``, ``col_idx``, ``edge_w``, ``edge_valid``) where the
-    plain route reads them."""
+def rank_graph_arrays(shard, *, plain: bool, device="cpu") -> dict:
+    """The rank's halo plan on ``device`` (``shard`` a
+    ``partition.RankShard``), with its slot arrays (``edge_src``,
+    ``col_idx``, ``edge_w``, ``edge_valid``) where the plain route reads
+    them."""
     names = ("send_idx", "halo_map") + (
         ("edge_src", "col_idx", "edge_w", "edge_valid") if plain else ())
     out = {}
     for k in names:
-        a = np.ascontiguousarray(getattr(sg, k)[rank])
+        a = np.ascontiguousarray(getattr(shard, k))
         t = torch.from_numpy(a).to(device)
         out[k] = t.long() if a.dtype == np.int32 else t
     return out
@@ -152,7 +153,8 @@ def make_sharded_spmm(sg, rank: int, *, group=None, device="cpu",
     ShardedGraph ``sg`` (``static_aggregator``): by default K1 over the
     own and the halo tables; with ``overlap=False`` over the unified
     table; with ``use_ell=False`` by gather and ``index_add_``."""
+    shard = sg.shard(rank)
     parts = (("own", "halo") if overlap else ("all",)) if use_ell else ()
-    ell = build_rank_tables(sg, rank, parts, with_trans=False, device=device)
-    ga = rank_graph_arrays(sg, rank, plain=not use_ell, device=device)
+    ell = build_rank_tables(shard, parts, with_trans=False, device=device)
+    ga = rank_graph_arrays(shard, plain=not use_ell, device=device)
     return static_aggregator(ga, ell, sg.nv_pad, group)

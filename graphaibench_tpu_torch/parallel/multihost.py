@@ -59,6 +59,37 @@ def transport(group=None, device=None) -> str:
     return "host-staged" if staged else "device"
 
 
+def hybrid_groups(model_parallelism: int, group=None):
+    """This rank's place in the 2-D (graph x model) layout of ``group``'s
+    ranks (the counterpart of JAX's ``hybrid_mesh``): (graph_group,
+    model_group, g). Ranks are graph-major, as JAX reshapes its
+    devices to (n // M, M): rank r is (g, m) = divmod(r, M); the graph
+    group of m is {g M + m for every g} (the ranks that exchange halos
+    on column block m), the model group of g is {g M, ..., g M + M - 1}
+    (the ranks that split the features of vertex block g).
+
+    Collective: every rank of ``group`` calls it, since every rank must
+    create every subgroup, in one order, even those it is not in."""
+    n = dist.get_world_size(group)
+    if model_parallelism < 1 or n % model_parallelism:
+        raise ValueError(f"model parallelism {model_parallelism} does not "
+                         f"divide {n} ranks")
+    ranks = dist.get_process_group_ranks(group or dist.group.WORLD)
+    me = dist.get_rank(group)
+    gdim, mdim = n // model_parallelism, model_parallelism
+    g, m = divmod(me, mdim)
+    graph_group = model_group = None
+    for j in range(mdim):
+        sub = dist.new_group([ranks[i * mdim + j] for i in range(gdim)])
+        if j == m:
+            graph_group = sub
+    for i in range(gdim):
+        sub = dist.new_group([ranks[i * mdim + j] for j in range(mdim)])
+        if i == g:
+            model_group = sub
+    return graph_group, model_group, g
+
+
 def free_port() -> int:
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))

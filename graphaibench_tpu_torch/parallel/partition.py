@@ -71,6 +71,39 @@ class ShardedGraph:
     def padded_nv(self) -> int:
         return self.num_shards * self.nv_pad
 
+    def shard(self, rank: int) -> "RankShard":
+        """``rank``'s slice: all that its tables and halo plan are built
+        from."""
+        return RankShard(
+            rank=rank, num_shards=self.num_shards, nv_pad=self.nv_pad,
+            e_max=self.e_max, h_max=self.h_max, s_max=self.s_max,
+            edge_src=self.edge_src[rank], col_idx=self.col_idx[rank],
+            edge_w=self.edge_w[rank], edge_valid=self.edge_valid[rank],
+            send_idx=self.send_idx[rank], halo_map=self.halo_map[rank],
+            halo_count=int(self.halo_counts[rank]))
+
+
+@dataclasses.dataclass
+class RankShard:
+    """One rank's slice of a ``ShardedGraph`` (the arrays without their
+    leading shard axis), the rank-local entry of ``shard_ell`` and
+    ``halo``: a rank that reads its shard from a file never sees the
+    others'."""
+
+    rank: int
+    num_shards: int
+    nv_pad: int
+    e_max: int
+    h_max: int
+    s_max: int
+    edge_src: np.ndarray    # (e_max,) int32
+    col_idx: np.ndarray     # (e_max,) int32, extended local
+    edge_w: np.ndarray      # (e_max,) f32, 0 on padding
+    edge_valid: np.ndarray  # (e_max,) bool
+    send_idx: np.ndarray    # (P, s_max) int32
+    halo_map: np.ndarray    # (h_max,) int32
+    halo_count: int         # real halo rows (h_max is padded)
+
 
 def build_sharded_graph(
     g: CSRGraph,

@@ -63,51 +63,52 @@ class ShardPackedW:
     t: Optional[SlotWeights]
 
 
-def shard_edges(sg, rank: int, part: str = "all"):
-    """(rows, cols, slot ids) of ``rank``'s real edges in ``part``:
-    "all" gathers from the extended rows (nv_pad + h_max), "own" only
-    the edges from owned rows (nv_pad gathered rows), "halo" only those
-    from halo rows, with columns shifted by -nv_pad (h_max gathered
-    rows). Returns also the gathered rows' count."""
-    n_e = int(sg.edge_valid[rank].sum())
-    rows = sg.edge_src[rank, :n_e].astype(np.int64)
-    cols = sg.col_idx[rank, :n_e].astype(np.int64)
+def shard_edges(shard, part: str = "all"):
+    """(rows, cols, slot ids) of the rank's real edges in ``part``
+    (``shard`` a ``partition.RankShard``): "all" gathers from the
+    extended rows (nv_pad + h_max), "own" only the edges from owned rows
+    (nv_pad gathered rows), "halo" only those from halo rows, with
+    columns shifted by -nv_pad (h_max gathered rows). Returns also the
+    gathered rows' count."""
+    n_e = int(shard.edge_valid.sum())
+    rows = shard.edge_src[:n_e].astype(np.int64)
+    cols = shard.col_idx[:n_e].astype(np.int64)
     eids = np.arange(n_e, dtype=np.int64)
     if part == "own":
-        sel = cols < sg.nv_pad
-        return rows[sel], cols[sel], eids[sel], sg.nv_pad
+        sel = cols < shard.nv_pad
+        return rows[sel], cols[sel], eids[sel], shard.nv_pad
     if part == "halo":
-        sel = cols >= sg.nv_pad
-        return rows[sel], cols[sel] - sg.nv_pad, eids[sel], sg.h_max
+        sel = cols >= shard.nv_pad
+        return rows[sel], cols[sel] - shard.nv_pad, eids[sel], shard.h_max
     if part != "all":
         raise ValueError(f"part must be all, own or halo, not {part!r}")
-    return rows, cols, eids, sg.nv_pad + sg.h_max
+    return rows, cols, eids, shard.nv_pad + shard.h_max
 
 
-def build_shard_ell(sg, rank: int, *, part: str = "all",
-                    with_trans: bool = True, device="cpu") -> ShardEll:
-    """``rank``'s tables of ``part`` (see ``shard_edges``) on ``device``:
+def build_shard_ell(shard, *, part: str = "all", with_trans: bool = True,
+                    device="cpu") -> ShardEll:
+    """The rank's tables of ``part`` (see ``shard_edges``) on ``device``:
     the forward table of nv_pad rows over the gathered rows, and with
     ``with_trans`` its transpose (training needs it, a forward-only
     caller does not)."""
-    rows, cols, eids, n_gather = shard_edges(sg, rank, part)
-    kw = dict(sentinel=sg.e_max, device=device)
-    fwd = local_table(rows, cols, eids, n_rows=sg.nv_pad, n_cols=n_gather,
-                      **kw)
+    rows, cols, eids, n_gather = shard_edges(shard, part)
+    kw = dict(sentinel=shard.e_max, device=device)
+    fwd = local_table(rows, cols, eids, n_rows=shard.nv_pad,
+                      n_cols=n_gather, **kw)
     trans = (local_table(cols, rows, eids, n_rows=n_gather,
-                         n_cols=sg.nv_pad, **kw) if with_trans else None)
-    return ShardEll(fwd=fwd, trans=trans, sentinel=sg.e_max)
+                         n_cols=shard.nv_pad, **kw) if with_trans else None)
+    return ShardEll(fwd=fwd, trans=trans, sentinel=shard.e_max)
 
 
-def build_rank_tables(sg, rank: int, parts, *, with_trans: bool = True,
+def build_rank_tables(shard, parts, *, with_trans: bool = True,
                       packed: bool = True, device="cpu") -> dict:
-    """{part: (ShardEll, ShardPackedW or None)} of ``rank`` for each of
-    ``parts``, with the shard's static slot weights packed per table
+    """{part: (ShardEll, ShardPackedW or None)} of the rank's ``shard``
+    for each of ``parts``, with its static slot weights packed per table
     where ``packed``."""
-    w = torch.from_numpy(sg.edge_w[rank]).to(device) if packed else None
+    w = torch.from_numpy(shard.edge_w).to(device) if packed else None
     out = {}
     for p in parts:
-        se = build_shard_ell(sg, rank, part=p, with_trans=with_trans,
+        se = build_shard_ell(shard, part=p, with_trans=with_trans,
                              device=device)
         out[p] = (se, None if w is None else pack_shard_values(se, w))
     return out

@@ -394,7 +394,7 @@ def test_run_benchmark_in_process(datasets, capsys):
 
 @pytest.mark.parametrize("case,item", [
     ("cf", "P15"), ("motif", "P15"), ("sample", "P15"), ("color", "P15"),
-    ("shards", "P14b")])
+    ("shards", "P14c")])
 def test_unported_routes_exit_2_and_name_their_item(datasets, case, item):
     env, kernel = {}, case
     if case == "shards":

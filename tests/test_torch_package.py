@@ -30,13 +30,14 @@ def test_port_imports_leave_jax_out():
         "import importlib, pkgutil, sys\n"
         "import graphaibench_tpu_torch as pkg\n"
         "names = [m.name for m in pkgutil.walk_packages(pkg.__path__, 'graphaibench_tpu_torch.')]\n"
-        "assert len(names) >= 45, names\n"
+        "assert len(names) >= 49, names\n"
         "for new in ('nn.sampler', 'utils.timers', 'utils.checkpoint', 'entry', 'ops.ell_edge', 'ops._ell_launch',\n"
         "            'ops.ell_pull', 'analytics', 'analytics.verifiers', 'analytics.traversal', 'analytics.pr', 'analytics.cc',\n"
         "            'compress', 'compress.unary', 'compress.vbyte', 'compress.cgr', 'compress.hybrid', 'compress.cli',\n"
         "            'compress.cgr_device', 'ops.cgr_decode', 'analytics.tc_stream',\n"
         "            'compress.device_decode', 'ops.vbyte_decode', 'parallel', 'parallel.partition',\n"
-        "            'parallel.multihost', 'parallel.halo', 'parallel.shard_ell', 'parallel.train'):\n"
+        "            'parallel.multihost', 'parallel.halo', 'parallel.shard_ell', 'parallel.train',\n"
+        "            'parallel.tp', 'parallel.dp_saint', 'parallel.shard_io', 'graph.partition'):\n"
         "    assert 'graphaibench_tpu_torch.' + new in names, new\n"
         "for n in names:\n"
         "    importlib.import_module(n)\n"

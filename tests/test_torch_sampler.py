@@ -27,6 +27,10 @@ SEEDS = [0, 1, 2, 7, 12345]
 
 @pytest.fixture
 def jax_native(tmp_path_factory, monkeypatch):
+    return load_jax_native(tmp_path_factory, monkeypatch)
+
+
+def load_jax_native(tmp_path_factory, monkeypatch):
     """The JAX package's native library, loaded in this process from a
     build of its own. The package builds it at first use into a cache
     that every process shares, through one fixed temporary file name:

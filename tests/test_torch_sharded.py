@@ -16,7 +16,8 @@
    step losses within 2e-4 (ggnn 1e-3); W_neigh within 3 lr. Also
    balance="edge", overlap=False and use_ell=False, and gcn over 3 ranks.
    Both ranks must hold identical parameters.
-4. The CLI's ``GAB_SHARDS=2 ... --device=cpu`` route.
+4. The CLI's ``GAB_SHARDS=2 ... --device=cpu`` route, and its refusal of
+   GGNN under ``GAB_TP``.
 
 The ranks are spawned processes that import this module, so jax is
 imported inside the tests only. Each spawn runs all of its cases at once
@@ -106,7 +107,7 @@ def test_slot_spmm_packed_matches_jax(rank, part):
     sg = tpart.build_sharded_graph(tg, w, 2)
     jl = jse.build_shard_ell(jsg, part=part)
     jwp = jse.pack_shard_values(jl, jsg.edge_w)
-    se = tse.build_shard_ell(sg, rank, part=part)
+    se = tse.build_shard_ell(sg.shard(rank), part=part)
     wp = tse.pack_shard_values(se, torch.from_numpy(sg.edge_w[rank]))
     if part == "halo":
         assert se.fwd.has_ell_layout     # the case has halo edges
@@ -142,7 +143,7 @@ def test_gat_fused_local_v2_matches_jax(rank, single, monkeypatch):
     jsg = jpart.build_sharded_graph(jg, ones, 2)
     sg = tpart.build_sharded_graph(tg, ones, 2)
     jl = _shard(jse.build_shard_ell(jsg), rank)
-    se = tse.build_shard_ell(sg, rank)
+    se = tse.build_shard_ell(sg.shard(rank))
     if rank == 0:   # a hub's pieces are combined, forward and transpose
         assert int(se.fwd.is_split.sum()) > 0
         assert int(se.trans.is_split.sum()) > 0
@@ -457,9 +458,10 @@ def test_cli_sharded_route(dataset):
 
 
 def test_cli_sharded_refusals(dataset):
-    r = _cli("train", "gcn", dataset, "1", "--device=cpu", GAB_SHARDS="2",
+    """GGNN has no tensor-parallel forward (JAX asserts): exit 2."""
+    r = _cli("train", "ggnn", dataset, "1", "--device=cpu", GAB_SHARDS="2",
              GAB_TP="2")
-    assert r.returncode == 2 and "P14b" in r.stderr and "Epoch" not in r.stdout
+    assert r.returncode == 2 and "ggnn" in r.stderr and "Epoch" not in r.stdout
     if not torch.cuda.is_available():   # no fallback to the CPU
         r = _cli("train", "gcn", dataset, "1", GAB_SHARDS="2")
         assert r.returncode != 0 and "Epoch" not in r.stdout

@@ -29,6 +29,15 @@ holds them, with halo_counts, h_max, the launches a step and
 ``halo_probe``; then ``cli train gcn`` with ``GAB_SHARDS=auto`` on
 rmat(13, 8).
 
+With ``--ranks N --tp M[,M...]``: for each M, the tensor-parallel trainer
+on N ranks, one a card (nccl), as (N / M graph x M model): GCN and GAT
+(l2norm and dense head) chip_smoke's TP_STEPS steps, the ranks equal to
+each other and held to ``Model`` on card 0 as chip_smoke's tp_dp phase
+holds them, with the launches a step. With ``--ranks N --dp``:
+data-parallel GraphSAINT on N ranks, one a card, the first step's
+averaged gradients held to the serial mean (chip_smoke's ``_tp_dp_dp``).
+Either skips the 1-D run above.
+
 With ``--sensitivity`` instead: how far a wrong GAT gradient reads
 against chip_smoke's limits. One ``Model`` run of GAT is the reference;
 then one-rank sharded runs of SHARDED_STEPS steps, each with one gradient
@@ -205,6 +214,22 @@ def _multi_rank(g, n: int) -> None:
                                f"{r.stderr[-3000:]}")
 
 
+def _tp_multi_rank(g, n: int, tps: list[int]) -> None:
+    models = cs._tp_models(g)
+    for m in tps:
+        shards = n // m
+        t0 = time.perf_counter()
+        ranks = cs.PAR.launch(cs._tp_rank, n, g.row_ptr, g.col_idx, shards,
+                              ("gcn", "gat"), cs.TP_STEPS, None,
+                              device="cuda", timeout_s=600)
+        print(json.dumps({"ranks": n, "layout": f"({shards}x{m})",
+                          "launch_s": time.perf_counter() - t0}))
+        for arch in ("gcn", "gat"):
+            cs._tp_hold(f"[tp {arch} ({shards}x{m}) nccl]", arch, ranks,
+                        models[arch], cs.TP_STEPS, shards,
+                        transport="device")
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--scale", type=int, default=cs.SCALE)
@@ -214,6 +239,11 @@ def main() -> None:
                     help="spawn this many ranks, one a card (nccl)")
     ap.add_argument("--sensitivity", action="store_true",
                     help="GAT against Model with one gradient scaled")
+    ap.add_argument("--tp", default="",
+                    help="with --ranks: the model parallelisms to run, "
+                         "comma-separated")
+    ap.add_argument("--dp", action="store_true",
+                    help="with --ranks: data-parallel GraphSAINT")
     args = ap.parse_args()
     cards = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -232,7 +262,13 @@ def _run(args) -> None:
         if torch.cuda.device_count() < args.ranks:
             raise SystemExit(f"--ranks {args.ranks}: "
                              f"{torch.cuda.device_count()} card(s)")
-        _multi_rank(g, args.ranks)
+        if args.tp:
+            _tp_multi_rank(g, args.ranks,
+                           [int(m) for m in args.tp.split(",")])
+        if args.dp:
+            cs._tp_dp_dp(g, args.ranks, backend=None)
+        if not (args.tp or args.dp):
+            _multi_rank(g, args.ranks)
         return
     cs.PAR.initialize(0, 1, port=cs.PAR.multihost.free_port(),
                       backend="nccl", device=torch.device("cuda", 0))
