@@ -105,11 +105,15 @@ non-zero exit code and no result line:
              at rmat19 (timed beside its bound) and at rmat13 behind the
              dirtied allocator, and triangle_count held to scipy's count
              (19,736,616 on rmat(19, 16, seed=0)), one cold solve and warm
-             ones, one K9 launch a count; K10 against its plain version on
-             one sweep from the degrees at rmat19 (timed beside its bound)
-             and at rmat13 behind the dirtied allocator, k_core_hindex (one
-             K10 launch a sweep) and k_core_peel (one K8 launch a peel)
-             equal to the serial oracle; bc_single_source held to a float64
+             ones, one K9 launch a count, and K9 on a graph with a row
+             wider than its hash tables held to plain and scipy; K10 against
+             its plain version on one sweep from the degrees at rmat19
+             (timed beside its bound, its device ms by kernel) and at
+             rmat13 behind the dirtied allocator, and on rmat13 joined to a
+             star wider than a hub block's histogram, k_core_hindex (one
+             K10 launch a sweep, 37 sweeps at rmat19, the solve's summed
+             device ms) and k_core_peel (one K8 launch a peel) equal to the
+             serial oracle, as k_core_hindex is on the star graph; bc_single_source held to a float64
              Brandes written with scipy (rtol 1e-4), one K8 launch a level
              forward and back, and at rmat13 to the serial oracle. Every
              count is set to 0 just before each solver and read just after.
@@ -232,6 +236,7 @@ from graphaibench_tpu_torch.compress import cgr_device as CD
 from graphaibench_tpu_torch.compress import device_decode as DD
 from graphaibench_tpu_torch.compress import hybrid as HYB
 from graphaibench_tpu_torch.compress import vbyte as VB
+from graphaibench_tpu_torch.graph.csr import from_edges
 from graphaibench_tpu_torch.graph.generators import grid2d
 from graphaibench_tpu_torch.graph.io import save_graph
 from graphaibench_tpu_torch.graph.transforms import (
@@ -340,6 +345,13 @@ CLI_EDGE_FACTOR = 8
 TC_REPLACES = "graphaibench_tpu/analytics/tc.py:64"
 HINDEX_REPLACES = "graphaibench_tpu/analytics/kcore.py:66"
 TC_RMAT19 = 19_736_616     # scipy's count on rmat(19, 16, seed=0)
+KCORE_SWEEPS_RMAT19 = 37   # the JAX package's sweeps on rmat(19, 16, seed=0)
+# K9's wide row: a DAG row of more ids than the widest group's hash table
+# takes (256 of 512 slots), the destination of many edges; K10's wide hub:
+# a star of more leaves than a hub block's histogram (2,048 bins) and than
+# the first design's 48 Ki values in shared memory, joined to rmat13
+TC_WIDE_ROW = 1500
+HINDEX_STAR_LEAVES = 50_000
 # BC against the float64 reference: sigma and delta are float32 sums
 BC_RTOL, BC_ATOL = 1e-4, 1e-6
 # The compress phase: the analytics graph in CGR, plain and with intervals,
@@ -492,13 +504,10 @@ def _batch_ms(fn, calls: int = TIMED_CALLS,
     return statistics.median(times)
 
 
-def _kernel_device_ms(fn, kernel: str, calls: int = TIMED_CALLS,
-                      per_call: bool = False):
+def _kernel_device_ms(fn, kernel: str, calls: int = TIMED_CALLS):
     """Device time of one launch of the kernel whose name contains
     ``kernel``: the mean over ``calls`` calls of ``fn`` under
-    torch.profiler (with ``per_call``, the device time of every kernel
-    whose name contains ``kernel`` over ``calls``: one call's, where a call
-    launches several). ``_batch_ms`` reads the host's enqueue instead where a
+    torch.profiler. ``_batch_ms`` reads the host's enqueue instead where a
     call's host work (allocating and initialising outputs, the ctypes
     call) outlasts a short kernel. The profiler now and then hands back
     no device event for so short a trace, so it is asked up to three
@@ -516,8 +525,31 @@ def _kernel_device_ms(fn, kernel: str, calls: int = TIMED_CALLS,
               if e.device_type == torch.autograd.DeviceType.CUDA
               and kernel in e.name]
         if us:
-            return (sum(us) / calls if per_call else statistics.mean(us)) / 1e3
+            return statistics.mean(us) / 1e3
     return None
+
+
+def _device_ms_by_name(fn, calls: int) -> dict:
+    """Device ms a call of ``fn`` of every kernel (and memset or copy) it
+    launches, by name, over ``calls`` calls under torch.profiler; asked up
+    to three times, as ``_kernel_device_ms``; {} when no device event came
+    back."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    for _ in range(3):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        by = {}
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                by[e.name] = by.get(e.name, 0.0) + e.time_range.elapsed_us()
+        if by:
+            return {k: v / calls / 1e3 for k, v in sorted(by.items())}
+    return {}
 
 
 def _bound(dg, f: int) -> tuple[float, str, int]:
@@ -1508,6 +1540,9 @@ def _pull_cases(dg, gen, what: str, dirty: bool, timed: bool) -> dict:
     ones = torch.sparse_csr_tensor(dg.row_ptr, dg.col_idx,
                                    torch.ones(ne, device="cuda"), size=(nv, nv))
     col = vals["float32"][:, None]
+    # none for the min cases: torch.sparse.mm's reduce="amin" runs only on
+    # the CPU, so on the card a min is a gather and a scatter_reduce_ (two
+    # calls), and nothing computes the min-plus of packed edge values
     library = {"float32 sum": lambda: torch.sparse.mm(ones, col)}
     _pull_close(library["float32 sum"]()[:, 0],
                 K8.neighbor_reduce_plain(dg, vals["float32"], "sum"),
@@ -1857,6 +1892,36 @@ def _scipy_triangles(g) -> int:
     return int((lo @ lo).multiply(lo).sum())
 
 
+def _tc_wide_row() -> dict:
+    """K9 on a graph laid out on the card whose row 0 holds TC_WIDE_ROW
+    ids, more than any group's hash table takes, and repeats two of them,
+    with an edge into 0 from every fifth vertex: held to plain and to
+    scipy's (L @ L) .* L of the same graph, which counts repeated ids with
+    their multiplicity as compare-all does."""
+    from scipy.sparse import csr_matrix
+
+    rng = np.random.default_rng(11)
+    nv = 5_000
+    rows = [np.sort(np.r_[rng.choice(np.arange(1, nv), TC_WIDE_ROW,
+                                     replace=False), [5, 7]])]
+    for v in range(1, nv):
+        hi = min(nv, v + 400)
+        k = min(int(rng.integers(0, 30)), hi - v - 1)
+        into = [0] if v % 5 == 0 else []
+        rows.append(np.sort(np.r_[into, rng.choice(np.arange(v + 1, hi), k,
+                                                   replace=False)]))
+    rp = np.r_[0, np.cumsum([len(r) for r in rows])].astype(np.int64)
+    col = np.concatenate(rows).astype(np.int32)
+    lo = csr_matrix((np.ones(len(col), np.int64), col, rp), shape=(nv, nv))
+    want = int((lo @ lo).multiply(lo).sum())
+    dag = K9.dag_edges(rp, col, device="cuda")
+    got, plain = int(K9.tc_count(dag)), int(K9.tc_count_plain(dag))
+    if got != want or plain != want:
+        raise RuntimeError(f"[analytics] the wide row's graph: tc_count "
+                           f"{got}, plain {plain}, scipy {want}")
+    return {"widest_row": int(np.diff(rp).max()), "triangles": got}
+
+
 def phase_tc(g) -> dict:
     """K9 against its plain version at the analytics size (timed beside its
     bound) and at rmat13 behind the dirtied allocator; then
@@ -1895,13 +1960,15 @@ def phase_tc(g) -> dict:
     if got_s != plain_s or got_s != _scipy_triangles(small):
         raise RuntimeError(f"[analytics] rmat{PULL_DIRTY_SCALE}: tc_count "
                            f"{got_s}, plain {plain_s}")
+    wide = _tc_wide_row()
     bound_ms, bound_by, nbytes = _tc_bound(dag)
     ms = _batch_ms(lambda: K9.tc_count(dag))
     info = {
         "triangles": n, "scipy": want, "launches_per_solve":
         launches["tc_count"], "cold_s": cold, "warm_s_per_solve": warm,
         "dag_edges": dag.ne, "counted_edges": int(dag.src.numel()),
-        "group_start": list(dag.group_start), "ms": ms,
+        "tasks": dag.tasks.numel() - 1, "class_start": list(dag.class_start),
+        "wide_row": wide, "ms": ms,
         "device_ms": _kernel_device_ms(lambda: K9.tc_count(dag),
                                        "tc_count_kernel"),
         "plain_ms": _batch_ms(lambda: K9.tc_count_plain(dag), calls=1,
@@ -1959,12 +2026,25 @@ class _hsweeps:
         KCM._hindex_sweep = self.saved
 
 
+def _star_joined(g, leaves: int):
+    """``g`` and one more vertex joined to every vertex of ``g`` and to
+    ``leaves`` leaves of its own."""
+    src, dst = g.coo()
+    hub = g.nv
+    nbrs = np.r_[np.arange(g.nv), hub + 1 + np.arange(leaves)]
+    return from_edges(np.r_[src, np.full(len(nbrs), hub), nbrs],
+                      np.r_[dst, nbrs, np.full(len(nbrs), hub)],
+                      g.nv + 1 + leaves)
+
+
 def phase_kcore(g, dg) -> dict:
     """K10 against its plain version on one sweep from the degrees at the
-    analytics size (timed beside its bound) and at rmat13 behind the
-    dirtied allocator; then k_core_hindex and k_core_peel, every count set
-    to 0 just before each, held to the serial oracle exactly. Returns
-    K10's entry data."""
+    analytics size (timed beside its bound, by kernel) and at rmat13 behind
+    the dirtied allocator, and on rmat13 joined to a star wider than a hub
+    block's histogram (k_core_hindex there held to the serial oracle); then
+    k_core_hindex (its summed device ms a solve) and k_core_peel, every
+    count set to 0 just before each, held to the serial oracle exactly.
+    Returns K10's entry data."""
     t0 = time.perf_counter()
     want = verifiers.kcore_serial(g)
     print(f"[analytics] kcore_serial in {time.perf_counter() - t0:.2f} s: "
@@ -1977,10 +2057,25 @@ def phase_kcore(g, dg) -> dict:
     score = torch.from_numpy(small.degrees().astype(np.int32)).cuda()
     _dirty(small.nv)      # the block the sweep's output comes from
     _hindex_compare(slay, score, f"rmat{PULL_DIRTY_SCALE}")
+    star = _star_joined(small, HINDEX_STAR_LEAVES)
+    stlay = KCM.hindex_state(star, device="cuda", with_plain=True)
+    sdeg = torch.from_numpy(star.degrees().astype(np.int32)).cuda()
+    _hindex_compare(stlay, sdeg, f"rmat{PULL_DIRTY_SCALE} and a star")
+    # a seeded core up to twice the widest row: the star's answer and many
+    # rows' are past their first pass's bins, which takes more passes
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    _hindex_compare(stlay, torch.randint(
+        0, 2 * stlay.hub_width, (star.nv,), dtype=torch.int32,
+        device="cuda", generator=gen),
+        f"rmat{PULL_DIRTY_SCALE} and a star, a random core")
+    _exact(KCM.k_core_hindex(star, layout=stlay).cpu().numpy(),
+           verifiers.kcore_serial(star), f"k_core_hindex, rmat"
+           f"{PULL_DIRTY_SCALE} and a star of {HINDEX_STAR_LEAVES} leaves")
     print(f"[analytics] hindex_sweep from the degrees equals plain at "
           f"rmat{ANALYTICS_SCALE} (classes {list(layout.class_start)}, widest "
-          f"hub {layout.hub_width}) and at rmat{PULL_DIRTY_SCALE} behind a "
-          f"NaN-dirtied allocator")
+          f"hub {layout.hub_width}), at rmat{PULL_DIRTY_SCALE} behind a "
+          f"NaN-dirtied allocator, and with a hub of {stlay.hub_width} "
+          f"neighbours, where k_core_hindex equals kcore_serial")
     _zero_counts()
     with _hsweeps() as sw:
         core = KCM.k_core_hindex(g, device="cuda")
@@ -1989,7 +2084,15 @@ def phase_kcore(g, dg) -> dict:
     _assert_counts("[analytics] k_core_hindex", launches,
                    {"hindex_sweep": sw.n})
     _exact(core.cpu().numpy(), want, "k_core_hindex")
+    if ANALYTICS_SCALE == 19 and sw.n != KCORE_SWEEPS_RMAT19:
+        raise RuntimeError(f"[analytics] k_core_hindex took {sw.n} sweeps on "
+                           f"rmat(19, 16), not {KCORE_SWEEPS_RMAT19}")
+    solve_by = _device_ms_by_name(lambda: KCM.k_core_hindex(g, layout=layout),
+                                  1)
     info = {"solver": "k_core_hindex", "sweeps": sw.n,
+            "solve_device_ms": (sum(v for k, v in solve_by.items()
+                                    if "hindex" in k) if solve_by else None),
+            "solve_device_ms_by_name": solve_by,
             "launches": launches["hindex_sweep"],
             "s_per_solve": _solve_seconds(
                 lambda: KCM.k_core_hindex(g, device="cuda")),
@@ -2006,11 +2109,14 @@ def phase_kcore(g, dg) -> dict:
     peel_s = _solve_seconds(lambda: KCM.k_core_peel(dg), solves=1)
     bound_ms, bound_by, nbytes = _hindex_bound(layout, deg)
     ms = _batch_ms(lambda: K10.hindex_sweep(layout, deg))
+    by_name = _device_ms_by_name(lambda: K10.hindex_sweep(layout, deg),
+                                 TIMED_CALLS)
     info.update(
         max_coreness=int(want.max()), peel_neighbor_reduce=pw.n,
         peel_s=peel_s, ms=ms,
-        device_ms=_kernel_device_ms(lambda: K10.hindex_sweep(layout, deg),
-                                    "hindex_", per_call=True),
+        device_ms=(sum(v for k, v in by_name.items() if "hindex" in k)
+                   if by_name else None),
+        device_ms_by_name=by_name,
         plain_ms=_batch_ms(lambda: K10.hindex_sweep_plain(layout, deg),
                            calls=1, batches=3),
         bound_ms=bound_ms, bound_by=bound_by, bound_bytes=nbytes,

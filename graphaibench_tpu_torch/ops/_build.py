@@ -67,14 +67,14 @@ _SIGNATURES = {
                                              _int, _vp],
     },
     "tc_count": {
-        # row_ptr, col_idx, src, dst, group_start (host), total, device,
-        # stream
-        "gab_tc_count": [_vp] * 4 + [_i64p, _vp, _int, _vp],
+        # row_ptr, col_idx, src, dst, tasks, class_start (host), total,
+        # device, stream
+        "gab_tc_count": [_vp] * 5 + [_i64p, _vp, _int, _vp],
     },
     "kcore_hindex": {
-        # row_ptr, col_idx, core, rows, class_start (host), hub_width, out,
-        # changed, device, stream
-        "gab_hindex_sweep": [_vp] * 4 + [_i64p, _i64, _vp, _vp, _int, _vp],
+        # row_ptr, col_idx, core, rows, class_start (host), out, changed,
+        # device, stream
+        "gab_hindex_sweep": [_vp] * 4 + [_i64p, _vp, _vp, _int, _vp],
     },
     "cgr_decode": {
         # words, nwords, then per entry: positions or lanes, their count, the

@@ -11,15 +11,15 @@ a vertex without neighbours keeping its value. The sweep reads ``core`` and
 writes a new tensor (Jacobi order, as in JAX: the sweep count is JAX's).
 
 ``hindex_layout`` moves a graph to the device once: its CSR and its
-vertices ordered by the kernel's classes of degree (rows of up to 16, 128
-and 1024 neighbours, then the hubs, which take a block each), and, for the
-plain version, the JAX package's no-split ELL buckets. ``hindex_sweep``
-takes the plain version for tensors on the CPU and launches the kernel for
-tensors on a CUDA device, or raises; ``LAUNCHES`` counts its calls on a
-CUDA device, one a sweep, each of which launches the row kernel and, on a
-graph with hubs, the hub kernel after it. Both return ``(new, changed)``,
-``changed`` a 0-d int32 tensor on the device, read once a sweep by the
-caller.
+vertices in the kernel's order (the hubs, rows of more than 1024
+neighbours, widest first, each a block; then the classes of rows of up to
+8, 16, 32, 64, 128 and 1024 neighbours), and, for the plain version, the
+JAX package's no-split ELL buckets. ``hindex_sweep`` takes the plain
+version for tensors on the CPU and launches the kernel for tensors on a
+CUDA device, or raises; ``LAUNCHES`` counts its calls on a CUDA device,
+one a sweep, each of which launches the one kernel. Both return ``(new,
+changed)``, ``changed`` a 0-d int32 tensor on the device, read once a
+sweep by the caller. Core values are non-negative.
 """
 
 from __future__ import annotations
@@ -35,9 +35,9 @@ from graphaibench_tpu_torch.ops._ell_launch import _launch_tail, _raise_on
 
 LAUNCHES = {"hindex_sweep": 0}
 
-# The row kernel's classes, by the most neighbours a row of each has; wider
-# rows are hubs.
-CLASS_WIDTHS = (16, 128, 1024)
+# The kernel's classes of rows after the hubs, by the most neighbours a row
+# of each has; wider rows are hubs.
+CLASS_WIDTHS = (8, 16, 32, 64, 128, 1024)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -47,8 +47,9 @@ class HindexLayout:
 
     row_ptr: torch.Tensor      # (nv + 1,) int32
     col_idx: torch.Tensor      # (ne,) int32
-    rows: torch.Tensor         # (nv,) int32 — every vertex, by class
-    class_start: tuple         # 5 ints: class c is rows[[c], [c + 1])
+    rows: torch.Tensor         # (nv,) int32 — every vertex: hubs, classes
+    class_start: tuple         # 8 ints: the hubs are rows[[0], [1]), class
+                               # c rows[[c + 1], [c + 2])
     hub_width: int             # the most neighbours of a hub (0: no hub)
     # the plain version's no-split buckets, ((width, row_ids, nbr,
     # edge_id), ...) with flat slot arrays, pads at edge id ne; None when
@@ -68,11 +69,13 @@ def hindex_layout(row_ptr: np.ndarray, col_idx: np.ndarray, buckets, *,
     if ne >= 2**31:
         raise ValueError("edge count must fit int32")
     deg = np.diff(row_ptr)
+    # the hubs as class -1, each by its degree, widest first
     cls = np.searchsorted(np.asarray(CLASS_WIDTHS), deg, side="left")
-    order = np.argsort(cls, kind="stable").astype(np.int32)
-    start = np.concatenate([[0], np.cumsum(
-        np.bincount(cls, minlength=len(CLASS_WIDTHS) + 1))])
     hubs = deg > CLASS_WIDTHS[-1]
+    cls[hubs] = -1
+    order = np.lexsort((np.where(hubs, -deg, 0), cls)).astype(np.int32)
+    start = np.concatenate([[0], np.cumsum(
+        np.bincount(cls + 1, minlength=len(CLASS_WIDTHS) + 1))])
 
     def to(a):
         return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(device)
@@ -142,8 +145,8 @@ def hindex_sweep(layout: HindexLayout, core: torch.Tensor):
     starts = (ctypes.c_int64 * len(layout.class_start))(*layout.class_start)
     rc = lib.gab_hindex_sweep(
         layout.row_ptr.data_ptr(), layout.col_idx.data_ptr(), core.data_ptr(),
-        layout.rows.data_ptr(), starts, layout.hub_width, out.data_ptr(),
-        changed.data_ptr(), *_launch_tail(core))
+        layout.rows.data_ptr(), starts, out.data_ptr(), changed.data_ptr(),
+        *_launch_tail(core))
     _raise_on(rc, lib, "hindex_sweep",
               f"{layout.nv} rows, widest hub {layout.hub_width}")
     LAUNCHES["hindex_sweep"] += 1

@@ -9,8 +9,9 @@ Coreness values are integers and must be equal: the port's against the JAX
 package's and the serial oracle's, and the h-index fixpoint must take as
 many sweeps as the JAX one (both sweep in Jacobi order). On the CPU
 ``hindex_sweep`` takes its plain version, the JAX package's binary search
-over the no-split layout; the kernel's arithmetic (its classes, fixed search
-steps and the hubs' search) is emulated in numpy from the constants of its
+over the no-split layout; the kernel's arithmetic (its block prefix and
+classes, the short rows' binary search, the histogram searches of a warp's
+row and of a hub's block) is emulated in numpy from the constants of its
 source, and the kernel itself runs on the card in ``chip_smoke.py``'s
 analytics phase and in the test marked ``cuda``.
 """
@@ -42,11 +43,15 @@ torch.set_num_threads(2)
 
 _SOURCE = (_build.CSRC / "kcore_hindex.cu").read_text()
 THREADS = int(re.search(r"constexpr int kThreads = (\d+);", _SOURCE).group(1))
-HUB_CAP = eval(re.search(r"constexpr int kHubCap = ([\d *]+);",
-                         _SOURCE).group(1))
-# (log2 lanes, values a lane, steps) of each class, from the row kernel
-ROW_CLASSES = [tuple(map(int, m)) for m in
-               re.findall(r"hindex_rows<(\d+), (\d+), (\d+)>", _SOURCE)]
+WARP_BINS = int(re.search(r"constexpr int kWarpBins = (\d+);",
+                          _SOURCE).group(1))
+# a hub block's bins: its warps' together
+HUB_BINS = WARP_BINS * THREADS // 32
+UNROLL = int(re.search(r"constexpr int kUnroll = (\d+);", _SOURCE).group(1))
+assert re.search(r"constexpr int kHubBins = kWarpBins \* kWarps;", _SOURCE)
+# (log2 lanes, values a lane) of each class of short rows, from the kernel
+SHORT_CLASSES = [tuple(map(int, m)) for m in
+                 re.findall(r"short_rows<(\d+), (\d+)>\(", _SOURCE)]
 
 
 def _isolated(gen, tr, csr):
@@ -67,10 +72,23 @@ def _hub(gen, tr, csr):
                           g.nv + 1)
 
 
+def _wide_hub(gen, tr, csr):
+    """rmat(9, 8) and one more vertex joined to 300 of its vertices and to
+    2,600 leaves of its own: a row wider than a hub block's histogram."""
+    g = gen.rmat(9, 8, seed=5)
+    src, dst = g.coo()
+    hub = g.nv
+    nbrs = np.r_[np.arange(300), hub + 1 + np.arange(2600)]
+    return csr.from_edges(np.r_[src, np.full(len(nbrs), hub), nbrs],
+                          np.r_[dst, nbrs, np.full(len(nbrs), hub)],
+                          g.nv + 2601)
+
+
 GRAPHS = {
     "uniform": lambda gen, tr, csr: gen.uniform_random(150, 500, seed=9),
     "rmat11": lambda gen, tr, csr: gen.rmat(11, 8, seed=3),   # rows > 64
     "hub": _hub,
+    "wide_hub": _wide_hub,
     "isolated": _isolated,
     "edgeless": lambda gen, tr, csr: csr.from_edges([], [], 7),
 }
@@ -213,80 +231,152 @@ def test_k_core_hindex_takes_a_caller_layout_and_start():
 
 @pytest.mark.parametrize("name", sorted(GRAPHS))
 def test_layout_orders_every_vertex_by_class(name):
+    """Every vertex once: the hubs first, widest first, then each class's
+    rows in vertex order, every row within its class's bounds."""
     g, _ = _pair(name)
     layout = KC.hindex_state(g, device="cpu")
     rows = layout.rows.numpy()
     assert sorted(rows.tolist()) == list(range(g.nv))
     deg = g.degrees()
     start = layout.class_start
-    assert len(start) == len(K10.CLASS_WIDTHS) + 2 and start[-1] == g.nv
-    bounds = (-1, *K10.CLASS_WIDTHS, np.inf)
-    for c in range(len(K10.CLASS_WIDTHS) + 1):
-        d = deg[rows[start[c]:start[c + 1]]]
-        assert np.all((d > bounds[c]) & (d <= bounds[c + 1]))
-    hubs = deg > K10.CLASS_WIDTHS[-1]
-    assert layout.hub_width == (deg[hubs].max() if hubs.any() else 0)
-    for (lg, k, steps), width in zip(ROW_CLASSES, K10.CLASS_WIDTHS):
-        # each class's capacity is its widest row, and its steps search
-        # [0, width] to the end
+    assert len(start) == len(K10.CLASS_WIDTHS) + 2
+    assert start[0] == 0 and start[-1] == g.nv
+    assert list(start) == sorted(start)
+    hubs = rows[:start[1]]
+    assert np.all(deg[hubs] > K10.CLASS_WIDTHS[-1])
+    assert np.all(np.diff(deg[hubs]) <= 0)
+    assert layout.hub_width == (deg[hubs].max() if len(hubs) else 0)
+    bounds = (-1, *K10.CLASS_WIDTHS)
+    for c in range(len(K10.CLASS_WIDTHS)):
+        r = rows[start[c + 1]:start[c + 2]]
+        assert np.all((deg[r] > bounds[c]) & (deg[r] <= bounds[c + 1]))
+        assert np.all(np.diff(r) > 0)
+    # each class of short rows holds its widest row in its lanes' values;
+    # the warp a row takes the rest up to the hubs
+    assert len(SHORT_CLASSES) == len(K10.CLASS_WIDTHS) - 1
+    for (lg, k), width in zip(SHORT_CLASSES, K10.CLASS_WIDTHS):
         assert (1 << lg) * k == width
-        assert steps == int(np.log2(width)) + 1
 
 
-def _emulate_sweep(layout, core: np.ndarray, hub_cap: int = HUB_CAP):
-    """The two kernels in numpy: each class's rows with the class's fixed
-    steps over its lanes' values (0 past the row), the hubs with the block's
-    search until lo meets hi; a row without neighbours keeps its value."""
+_EARLY = {"passes": 0}       # passes that stopped with hi
+
+
+def _histogram_search(vals: np.ndarray, c: int, bins: int,
+                      threads: int) -> int:
+    """warp_hindex (32 threads) and block_hindex: max t <= c with
+    #{min(x, c) >= t} >= t by histograms of ``bins`` bins over [lo, hi],
+    each scanned from the top bin down; the first pass gives each value
+    below lo + bins - 1 a bin and the rest the top bin, a later pass splits
+    [lo, hi] evenly, and the search goes on inside the bin found until it
+    is one value wide. A pass, in rounds of UNROLL values a thread, stops
+    with hi once as many values as hi have reached it."""
+    lo, hi = 0, c
+    first = True
+    while lo < hi:
+        span = hi - lo + 1
+        if first or span <= bins:
+            w, nb = 1, min(span, bins)
+        else:
+            w = -(-span // bins)
+            nb = -(-span // w)
+        first = False
+        y = np.minimum(vals, hi)
+        reached = np.cumsum(y == hi)
+        ends = np.minimum(np.arange(UNROLL * threads, len(y) + UNROLL *
+                                    threads, UNROLL * threads), len(y))
+        if len(y) and np.any(reached[ends - 1] >= hi):
+            _EARLY["passes"] += 1
+            return hi
+        y = y[y >= lo]
+        hist = np.bincount(np.minimum((y - lo) // w, nb - 1), minlength=nb)
+        assert len(hist) == nb
+        suffix = np.cumsum(hist[::-1])[::-1]       # S at each bin's edge
+        hit = np.nonzero(suffix >= lo + np.arange(nb) * w)[0]
+        assert hit[0] == 0                         # S(lo) >= lo
+        found = hit[-1]                            # the first from the top
+        lo += found * w
+        if found < nb - 1:
+            hi = lo + w - 1
+    return lo
+
+
+def _emulate_sweep(layout, core: np.ndarray, hub_bins: int = HUB_BINS,
+                   warp_bins: int = WARP_BINS):
+    """The kernel in numpy, block by block: the host entry's block prefix,
+    a hub's block with its histogram search, a warp's row with its own,
+    each short row's group with a binary search over its lanes' values (0
+    past the row), its first step at hi, until lo meets hi; a row without
+    neighbours keeps its value."""
     rp = layout.row_ptr.numpy().astype(np.int64)
     col = layout.col_idx.numpy()
     rows = layout.rows.numpy()
+    start = layout.class_start
+    lanes = [lg for lg, _ in SHORT_CLASSES] + [5]   # the warp a row
+    block_start, blocks = [], start[1] - start[0]
+    for c in range(len(lanes)):
+        block_start.append(blocks)
+        per_block = THREADS >> lanes[c]
+        blocks += -(-(start[c + 2] - start[c + 1]) // per_block)
+    block_start.append(blocks)
     new = np.full_like(core, -1)
     changed = 0
-    for c in range(len(ROW_CLASSES) + 1):
-        for v in rows[layout.class_start[c]:layout.class_start[c + 1]]:
+    for blk in range(blocks):
+        if blk < start[1]:
+            first = [rows[blk]]
+            c = None
+        else:
+            c = 0
+            while blk >= block_start[c + 1]:
+                c += 1
+            per_block = THREADS >> lanes[c]
+            r0 = start[c + 1] + (blk - block_start[c]) * per_block
+            first = rows[r0:min(r0 + per_block, start[c + 2])]
+        for v in first:
             d = rp[v + 1] - rp[v]
-            vals = core[col[rp[v]:rp[v + 1]]]
-            lo, hi = 0, min(d, core[v])
-            if c < len(ROW_CLASSES):
-                lg, k, steps = ROW_CLASSES[c]
+            vals = core[col[rp[v]:rp[v + 1]]].astype(np.int64)
+            top = min(d, core[v])
+            if c is None:
+                nw = _histogram_search(vals, top, hub_bins, THREADS)
+            elif c == len(SHORT_CLASSES):
+                nw = _histogram_search(vals, top, warp_bins, 32)
+            else:
+                lg, k = SHORT_CLASSES[c]
                 padded = np.zeros((1 << lg) * k, np.int64)
                 padded[:d] = vals
-                for _ in range(steps):
-                    mid = (lo + hi + 1) >> 1
+                lo, hi = 0, top
+                mid = hi                # the first step asks for hi
+                while lo < hi:
                     if (padded >= mid).sum() >= mid:
                         lo = mid
                     else:
                         hi = mid - 1
-                nw = core[v] if d == 0 else lo
-            else:
-                held = np.concatenate([vals[:hub_cap], core[col[rp[v]:rp[v + 1]]
-                                                            ][hub_cap:]])
-                while lo < hi:
                     mid = (lo + hi + 1) >> 1
-                    if (held >= mid).sum() >= mid:
-                        lo = mid
-                    else:
-                        hi = mid - 1
-                nw = lo
+                nw = core[v] if d == 0 else lo
+            assert new[v] == -1
             new[v] = nw
             changed += nw != core[v]
     assert np.all(new >= 0)
     return new, changed
 
 
-@pytest.mark.parametrize("name", ["uniform", "hub", "isolated"])
+@pytest.mark.parametrize("name", ["uniform", "hub", "isolated", "wide_hub"])
 def test_kernel_arithmetic_emulated_equals_plain(name):
     g, _ = _pair(name)
     layout = KC.hindex_state(g, device="cpu")
     rng = np.random.default_rng(5)
+    early = _EARLY["passes"]
     for core in (g.degrees().astype(np.int32),
                  rng.integers(0, 3000, g.nv).astype(np.int32)):
         want, want_changed = K10.hindex_sweep_plain(layout,
                                                     torch.from_numpy(core))
-        for cap in (HUB_CAP, 100):      # 100: a hub read again past the cap
-            new, changed = _emulate_sweep(layout, core, cap)
+        # the kernel's bins, then bins so few that every histogram search
+        # narrows over several passes
+        for hub_bins, warp_bins in ((HUB_BINS, WARP_BINS), (7, 5)):
+            new, changed = _emulate_sweep(layout, core, hub_bins, warp_bins)
             assert np.array_equal(new, want.numpy())
             assert changed == int(want_changed)
+    # the random core stops some passes early
+    assert _EARLY["passes"] > early or name in ("uniform", "isolated")
 
 
 def test_hub_graph_has_every_class():
@@ -294,6 +384,21 @@ def test_hub_graph_has_every_class():
     g, _ = _pair("hub")
     layout = KC.hindex_state(g, device="cpu")
     assert all(b > a for a, b in zip(layout.class_start, layout.class_start[1:]))
+
+
+def test_wide_hub_is_wider_than_the_hub_bins():
+    """The wide hub's first pass, from the degrees, has a top bin wider
+    than one value (c + 1 > the block's bins); its answer lies below it,
+    found in that one pass."""
+    g, _ = _pair("wide_hub")
+    layout = KC.hindex_state(g, device="cpu")
+    assert layout.class_start[1] == 1
+    assert layout.hub_width == 2900 and layout.hub_width + 1 > HUB_BINS
+    hub = int(layout.rows[0])
+    deg = g.degrees().astype(np.int32)
+    vals = deg[g.col_idx[g.row_ptr[hub]:g.row_ptr[hub + 1]]]
+    want = max(t for t in range(len(vals) + 1) if (vals >= t).sum() >= t)
+    assert _histogram_search(vals, int(deg[hub]), HUB_BINS, THREADS) == want
 
 
 def test_wrapper_refuses_a_bad_core():
@@ -309,16 +414,20 @@ def test_wrapper_refuses_a_bad_core():
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", sorted(GRAPHS))
 def test_kernel_matches_plain_on_cuda(name):
-    """The kernel against its plain version on the card (run at rmat19 by
-    chip_smoke.py's analytics phase)."""
+    """The kernel against its plain version on the card, from the degrees
+    and from a seeded core (run at rmat19 by chip_smoke.py's analytics
+    phase)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: hindex_sweep's kernel has no CPU "
                     "mode")
     g, _ = _pair(name)
     layout = KC.hindex_state(g, device="cuda", with_plain=True)
-    core = torch.from_numpy(g.degrees().astype(np.int32)).cuda()
-    new, changed = K10.hindex_sweep(layout, core)
-    want, want_changed = K10.hindex_sweep_plain(layout, core)
-    assert torch.equal(new, want) and int(changed) == int(want_changed)
+    rng = np.random.default_rng(5)
+    for core in (g.degrees().astype(np.int32),
+                 rng.integers(0, 3000, g.nv).astype(np.int32)):
+        core = torch.from_numpy(core).cuda()
+        new, changed = K10.hindex_sweep(layout, core)
+        want, want_changed = K10.hindex_sweep_plain(layout, core)
+        assert torch.equal(new, want) and int(changed) == int(want_changed)
     assert np.array_equal(k_core_hindex(g, device="cuda").cpu().numpy(),
                           TV.kcore_serial(g))

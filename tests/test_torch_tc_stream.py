@@ -32,6 +32,7 @@ from graphaibench_tpu_torch.graph import transforms as T
 from graphaibench_tpu_torch.ops import cgr_decode as K12
 from graphaibench_tpu_torch.ops import tc_count as K9
 from graphaibench_tpu_torch.ops.device_graph import to_device_graph
+from test_torch_tc import check_task_layout, emulate_kernel
 
 torch.set_num_threads(2)
 
@@ -150,10 +151,10 @@ def test_block_bounds_cover_the_vertices_in_order():
 
 
 def test_edges_between_lays_out_the_kernels_groups():
-    """A block pair's layout, built on the device, against the grouping
-    written out in numpy: the edges with both rows non-empty, stably by
-    the shorter row's lane group; the pair's count equals the count of
-    its edges over the global ids."""
+    """A block pair's layout, built on the device, against the layout's
+    invariants (every edge with both rows non-empty once, tasks of one
+    source by class); the pair's count, the kernel's arithmetic emulated
+    on it, equals the count of its edges over the global ids."""
     g, _, cg, _ = _pair("rmat11")
     st = TS.open_cgr_stream(cg, device="cpu")
     (ilo, ihi), (jlo, jhi) = TS.block_bounds(st, BLOCK_BYTES)[:2]
@@ -165,21 +166,13 @@ def test_edges_between_lays_out_the_kernels_groups():
     col = torch.cat([col_i, col_j])
     src, dst = u_i[sel], n_i + col_i[sel].long() - jlo
     got = K9.edges_between(rp, col, src, dst, id_bound=g.nv)
-    deg = np.diff(rp.numpy())
     s_np, d_np = src.numpy(), dst.numpy()
-    shorter = np.minimum(deg[s_np], deg[d_np])
-    keep = shorter > 0
-    group = np.searchsorted(np.asarray(K9.GROUP_WIDTHS), shorter[keep])
-    order = np.argsort(group, kind="stable")
-    assert np.array_equal(got.src.numpy(), s_np[keep][order])
-    assert np.array_equal(got.dst.numpy(), d_np[keep][order])
-    starts = np.r_[0, np.cumsum(np.bincount(
-        group, minlength=len(K9.GROUP_WIDTHS) + 1))]
-    assert got.group_start == tuple(int(x) for x in starts)
+    check_task_layout(got, s_np, d_np)
     assert got.sentinel == g.nv + 1 and got.nv == n_i + jhi - jlo
     rows = [set(col[rp[r]:rp[r + 1]].tolist()) for r in range(got.nv)]
     want = sum(len(rows[a] & rows[b]) for a, b in zip(s_np, d_np))
     assert want > 0 and int(K9.tc_count(got)) == want
+    assert emulate_kernel(got) == want
 
 
 def _save(tmp_path, obj, name):

@@ -47,6 +47,22 @@ freed and the peak reset, the whole streamed count: its peak, seconds,
 blocks, pairs and triangles. The turns are ordered as ``--tc-cold``'s, on
 one stream written once; one ``TC_STREAM_MEM {json}`` line a turn, with the
 CSR's bytes beside the peaks.
+
+``--kernels`` times K9 and K10 alone, at rmat(19, 16) and at rmat(17, 16):
+
+    python3 tools/analytics_probe.py --kernels [--parent DIR]
+
+Each turn is a process of its own that builds K9 and K10 of its checkout
+(the compiler's register and shared-memory report printed), then reads,
+under torch.profiler, the device ms of one ``tc_count`` and of one
+``hindex_sweep`` at three states of the fixpoint (from the degrees, after
+sweep 1, and the last sweep's input), each kernel of a sweep by its name,
+and the summed device ms of every K10 kernel over one whole
+``k_core_hindex`` solve (median of ``KERNEL_SOLVES``), beside the batch ms
+of the same calls and the unchanged bounds (``chip_smoke._tc_bound``,
+``_hindex_bound``). The turns run as ``--tc-cold``'s, per scale, on graphs
+written once; the triangles, the coreness and the sweeps of every turn must
+agree. One ``KERNELS {json}`` line a turn.
 """
 
 from __future__ import annotations
@@ -64,6 +80,8 @@ import numpy as np
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TC_COLD_SOLVES = 3
+KERNEL_SOLVES = 3
+KERNEL_CALLS = 20
 
 
 def phases(scale: int) -> int:
@@ -203,9 +221,128 @@ def tc_stream_mem_worker(tree: str, prefix: str) -> None:
         "peak": torch.cuda.max_memory_allocated() - base, **stats}))
 
 
-def _turns(parent: str | None, worker: str, path: str, tag: str) -> None:
+def kernels_worker(tree: str, graph_npz: str) -> None:
+    """One turn of ``--kernels``: K9 and K10 of the checkout at ``tree`` on
+    the graph in ``graph_npz``."""
+    sys.path.insert(0, ROOT)                 # chip_smoke's bounds
+    sys.path.insert(0, os.path.abspath(tree))
+    import torch
+
+    import chip_smoke as C
+    from graphaibench_tpu_torch import CSRGraph
+    from graphaibench_tpu_torch.analytics import kcore as KC
+    from graphaibench_tpu_torch.analytics import tc as TC
+    from graphaibench_tpu_torch.ops import _build
+    from graphaibench_tpu_torch.ops import hindex as K10
+    from graphaibench_tpu_torch.ops import tc_count as K9
+
+    import graphaibench_tpu_torch
+    assert graphaibench_tpu_torch.__file__.startswith(os.path.abspath(tree))
+    report = {}
+    for name in ("tc_count", "kcore_hindex"):
+        _build.load_library(name)
+        log = _build.BUILD_DIR.glob(f"gab_{name}_*.log")
+        report[name] = [ln.strip() for f in log
+                        for ln in f.read_text().splitlines()
+                        if "registers" in ln or "spill" in ln
+                        or "Compiling" in ln]
+    z = np.load(graph_npz)
+    g = CSRGraph(row_ptr=z["row_ptr"], col_idx=z["col_idx"])
+    res = {"tree": tree, "nv": g.nv, "ne": g.ne, "ptxas": report}
+
+    t0 = time.perf_counter()
+    dag = TC._tc_device_state(g, "cuda")
+    torch.cuda.synchronize()
+    res["tc_state_s"] = time.perf_counter() - t0
+    res["triangles"] = int(K9.tc_count(dag))
+    bound_ms, bound_by, _ = C._tc_bound(dag)
+    by = C._device_ms_by_name(lambda: K9.tc_count(dag), KERNEL_CALLS)
+    res["tc_count"] = {
+        "device_ms": sum(v for k, v in by.items() if "tc_" in k),
+        "by_name": by, "batch_ms": C._batch_ms(lambda: K9.tc_count(dag)),
+        "bound_ms": bound_ms, "bound_by": bound_by}
+
+    layout = KC.hindex_state(g, device="cuda")
+    deg = torch.from_numpy(g.degrees().astype(np.int32)).cuda()
+    states, core = [deg], deg
+    while True:
+        new, changed = K10.hindex_sweep(layout, core)
+        if int(changed) == 0:
+            break
+        core = new
+        if len(states) == 1:
+            states.append(core)
+    tagged = {"from_degrees": states[0], "after_sweep_1": states[-1],
+              "last_sweep": core}
+    res["hindex_sweep"] = {}
+    for tag, st in tagged.items():
+        by = C._device_ms_by_name(lambda: K10.hindex_sweep(layout, st),
+                                KERNEL_CALLS)
+        bound_ms, bound_by, _ = C._hindex_bound(layout, st)
+        res["hindex_sweep"][tag] = {
+            "device_ms": sum(v for k, v in by.items() if "hindex" in k),
+            "by_name": by,
+            "batch_ms": C._batch_ms(lambda: K10.hindex_sweep(layout, st)),
+            "bound_ms": bound_ms, "bound_by": bound_by}
+    solves = []
+    for _ in range(KERNEL_SOLVES):
+        counted = KC._hindex_sweep
+        n = [0]
+
+        def sweep(c, lay):
+            n[0] += 1
+            return counted(c, lay)
+
+        KC._hindex_sweep = sweep
+        try:
+            by = C._device_ms_by_name(
+                lambda: KC.k_core_hindex(g, layout=layout), 1)
+            torch.cuda.synchronize()
+            n[0] = 0
+            t0 = time.perf_counter()
+            final = KC.k_core_hindex(g, layout=layout)
+            torch.cuda.synchronize()
+            host_s = time.perf_counter() - t0
+        finally:
+            KC._hindex_sweep = counted
+        sweeps = n[0]
+        solves.append({"device_ms": sum(v for k, v in by.items()
+                                        if "hindex" in k),
+                       "by_name": by, "host_s": host_s})
+    solves.sort(key=lambda s: s["device_ms"])
+    res["solve"] = dict(solves[len(solves) // 2], sweeps=sweeps,
+                        all_device_ms=[s["device_ms"] for s in solves])
+    res["sweeps"] = res["solve"]["sweeps"]
+    res["core_sum"] = int(final.long().sum())
+    res["core_max"] = int(final.max())
+    deg_np = g.degrees()
+    res["hubs"] = int((deg_np > 1024).sum())
+    res["widest"] = int(deg_np.max())
+    print("KERNELS " + json.dumps(res))
+
+
+def kernels(parent: str | None, scales) -> None:
+    sys.path.insert(0, ROOT)
+    import chip_smoke as C
+    from graphaibench_tpu_torch import rmat
+
+    C.phase_device()         # the card's name and power limit
+    with tempfile.TemporaryDirectory() as tmp:
+        for scale in scales:
+            npz = os.path.join(tmp, f"rmat{scale}.npz")
+            g = rmat(scale, 16, seed=0, cache=False)
+            np.savez(npz, row_ptr=g.row_ptr, col_idx=g.col_idx)
+            del g
+            _turns(parent, "--kernels-worker", npz, "KERNELS",
+                   agree=("triangles", "core_sum", "core_max", "sweeps"))
+
+
+def _turns(parent: str | None, worker: str, path: str, tag: str,
+           agree=()) -> None:
     """Run ``worker`` on ``path`` with the change alone, or with parent,
-    change, change, parent; print each turn's ``tag`` line."""
+    change, change, parent; print each turn's ``tag`` line. The keys in
+    ``agree`` must be equal in every turn."""
+    first = None
     order = [("change", ROOT)]
     if parent:
         order = [("parent", parent), ("change", ROOT), ("change", ROOT),
@@ -225,6 +362,11 @@ def _turns(parent: str | None, worker: str, path: str, tag: str) -> None:
         res["turn"] = name
         print(f"{tag} " + json.dumps(res))
         sys.stdout.flush()
+        first = first or res
+        for key in agree:
+            if res[key] != first[key]:
+                raise SystemExit(f"the {name} turn's {key} {res[key]} "
+                                 f"differs from {first[key]}")
 
 
 def tc_stream_mem(parent: str | None, scale: int) -> None:
@@ -265,15 +407,27 @@ def main() -> int:
                     help="cold triangle_count solves, by their parts")
     ap.add_argument("--tc-stream-mem", action="store_true",
                     help="the streamed count's device memory, by stage")
-    ap.add_argument("--parent", help="with --tc-cold or --tc-stream-mem: "
+    ap.add_argument("--kernels", action="store_true",
+                    help="K9 a count and K10's sweeps and solve, at rmat19 "
+                    "and rmat17 (or --scale)")
+    ap.add_argument("--parent", help="with --tc-cold, --tc-stream-mem or "
+                    "--kernels: "
                     "root of the parent commit's checkout")
     ap.add_argument("--tc-cold-worker", nargs=2, metavar=("TREE", "NPZ"),
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--kernels-worker", nargs=2, metavar=("TREE", "NPZ"),
                     help=argparse.SUPPRESS)
     ap.add_argument("--tc-stream-mem-worker", nargs=2,
                     metavar=("TREE", "PREFIX"), help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.tc_cold_worker:
         tc_cold_worker(*args.tc_cold_worker)
+        return 0
+    if args.kernels_worker:
+        kernels_worker(*args.kernels_worker)
+        return 0
+    if args.kernels:
+        kernels(args.parent, [args.scale] if args.scale else [19, 17])
         return 0
     if args.tc_stream_mem_worker:
         tc_stream_mem_worker(*args.tc_stream_mem_worker)
