@@ -143,7 +143,12 @@ non-zero exit code and no result line:
              edges/s and the launches (1 svb_decode; 1 vgb_tags and 1
              vgb_values; for hybrid 1 cgr_residual and 1 svb_decode); each
              K11 kernel against its plain version at rmat19 (timed beside its
-             bound) and at rmat13 behind the dirtied allocator.
+             bound) and at rmat13 behind the dirtied allocator. rmat13
+             joined to a star of 50,000 leaves numbered after the hub, in
+             VarintGB (the hub a long row of many rounds) and in CGR with
+             64-bit interval segments (the hub two intervals, taken by the
+             device route): vgb_tags and cgr_merge against their plain
+             versions, both decodes against the CSR.
              triangle_count of the decoded graph (19,736,616),
              triangle_count_streaming equal to it, with its seconds, blocks,
              pairs and K9 launches (one a pair), and its peak memory over the
@@ -395,6 +400,9 @@ VBYTE_DECODE_LAUNCHES = {
     "hybrid": {"cgr_residual": 1, "svb_decode": 1},
 }
 OPS_PER_VALUE = 8
+# the leaves of the star joined to rmat13 whose hub is a long VarintGB row
+# and, in CGR with intervals, one long interval
+DECODE_STAR_LEAVES = 50_000
 # The sharded phase: GCN and GAT of the main path through the sharded
 # trainer, one rank (nccl) for SHARDED_STEPS steps and two ranks on the one
 # card (gloo, the exchange host-staged) for SHARDED_STEPS_TWO, held to
@@ -2227,6 +2235,27 @@ def _bound_of(nbytes: float, ops: float) -> tuple[float, str, float]:
             "bytes" if by_bytes >= by_ops else "operations", nbytes)
 
 
+def _vgb_tags_bound(vgb) -> tuple[float, str, float]:
+    """vgb_tags' bound on a VarintGB prep: the stream read once, the row
+    tables (first tag byte, group count, first group) read once, the tag
+    positions written once, over the memory rate, against OPS_PER_VALUE a
+    group over the float32 rate."""
+    n_g = vgb["n_g"]
+    return _bound_of(vgb["stream"].numel() + 12 * vgb["nv"] + 4 * n_g,
+                     n_g * OPS_PER_VALUE)
+
+
+def _cgr_merge_bound(prep) -> tuple[float, str, float]:
+    """cgr_merge's bound on a CGR prep with intervals: the residuals, the
+    row tables (row pointer, residual count, interval pointer), the
+    intervals (left, length, the lengths' prefix) read once, the row's ids
+    written once, against OPS_PER_CODE for every eighth id."""
+    nv, ne, n_itv = prep["nv"], prep["ne"], prep["n_itv"]
+    nres = float(prep["nres"].long().sum())
+    return _bound_of(4 * nres + 12 * nv + 8 + 12 * n_itv + 4 + 4 * ne,
+                     ne / 8 * OPS_PER_CODE)
+
+
 def _k12_cases(plain_prep, itv_prep, tag: str, timed: bool) -> dict:
     """Each K12 kernel against its plain version on the lanes of the two
     streams' preps: cgr_gamma on every residual segment's count (and the
@@ -2247,7 +2276,7 @@ def _k12_cases(plain_prep, itv_prep, tag: str, timed: bool) -> dict:
                                    f"plain in {int((a != b).sum())} of "
                                    f"{a.numel()}")
 
-    def run(name, fn, plain, n_out, nbytes, codes):
+    def run(name, fn, plain, n_out, bound):
         if not timed:
             _dirty(n_out)
         got = fn()
@@ -2256,7 +2285,7 @@ def _k12_cases(plain_prep, itv_prep, tag: str, timed: bool) -> dict:
               plain() if isinstance(got, tuple) else (plain(),))
         if not timed:
             return
-        bound_ms, bound_by, nb = _bound_of(nbytes, codes * OPS_PER_CODE)
+        bound_ms, bound_by, nb = bound
         ms = _batch_ms(fn)
         out[name] = {"case": f"{name} {tag}", "ms": ms,
                      "device_ms": _kernel_device_ms(fn, f"{name}_kernel"),
@@ -2270,7 +2299,7 @@ def _k12_cases(plain_prep, itv_prep, tag: str, timed: bool) -> dict:
     bits = float((nxt.long() - seg.long()).sum())
     run("cgr_gamma", lambda: K12.cgr_gamma(stream, seg, K12.COUNT),
         lambda: K12.cgr_gamma_plain(stream, seg, K12.COUNT), 2 * seg.numel(),
-        12 * seg.numel() + bits / 8, seg.numel())
+        _bound_of(12 * seg.numel() + bits / 8, seg.numel() * OPS_PER_CODE))
     bit_off = plain_prep["bit_off"]
     got = K12.cgr_gamma(stream, bit_off, K12.HEADER)
     check("cgr_gamma header", got,
@@ -2282,7 +2311,7 @@ def _k12_cases(plain_prep, itv_prep, tag: str, timed: bool) -> dict:
     n_l = lanes[0].numel()
     run("cgr_residual", lambda: K12.cgr_residual(stream, *lanes, ne, k),
         lambda: K12.cgr_residual_plain(stream, *lanes, ne, k), ne + n_l,
-        20 * n_l + 4 * ne + bits / 8, ne)
+        _bound_of(20 * n_l + 4 * ne + bits / 8, ne * OPS_PER_CODE))
     istream = itv_prep["stream"]
     ilanes = itv_prep["itv_lanes"]
     n_itv, m = int(itv_prep["left"].numel()), itv_prep["min_itv_len"]
@@ -2291,17 +2320,17 @@ def _k12_cases(plain_prep, itv_prep, tag: str, timed: bool) -> dict:
     n_i = ilanes[0].numel()
     run("cgr_interval", lambda: K12.cgr_interval(istream, *ilanes, n_itv, m),
         lambda: K12.cgr_interval_plain(istream, *ilanes, n_itv, m),
-        2 * n_itv + n_i, 20 * n_i + 8 * n_itv + bits / 8, 2 * n_itv)
+        2 * n_itv + n_i,
+        _bound_of(20 * n_i + 8 * n_itv + bits / 8, 2 * n_itv * OPS_PER_CODE))
     ilanes_r = [itv_prep[k] for k in ("data_p", "counts", "lane_v_d", "base")]
     res, _ = K12.cgr_residual(istream, *ilanes_r, itv_prep["ne"],
                               itv_prep["zeta_k"])
     margs = (res, itv_prep["row_ptr_d"], itv_prep["nres"], itv_prep["itv_ptr"],
              itv_prep["left"], itv_prep["length"], itv_prep["itv_pre"])
-    nv, ne_i = itv_prep["nv"], itv_prep["ne"]
-    nres = float(itv_prep["nres"].long().sum())
-    run("cgr_merge", lambda: K12.cgr_merge(*margs),
-        lambda: K12.cgr_merge_plain(*margs), ne_i,
-        4 * nres + 12 * nv + 8 + 12 * n_itv + 4 + 4 * ne_i, ne_i / 8)
+    tables = itv_prep["merge_tables"]
+    run("cgr_merge", lambda: K12.cgr_merge(*margs, **tables),
+        lambda: K12.cgr_merge_plain(*margs), itv_prep["ne"],
+        _cgr_merge_bound(itv_prep))
     return out
 
 
@@ -2430,7 +2459,7 @@ def _k11_cases(svb, vgb, tag: str, timed: bool) -> dict:
     Untimed, each output block is dirtied with NaN first."""
     out = {}
 
-    def run(name, fn, plain, n_out, nbytes, values):
+    def run(name, fn, plain, n_out, bound):
         if not timed:
             _dirty(n_out)
         got = fn()
@@ -2442,7 +2471,7 @@ def _k11_cases(svb, vgb, tag: str, timed: bool) -> dict:
                                f"{got.numel()}")
         if not timed:
             return
-        bound_ms, bound_by, nb = _bound_of(nbytes, values * OPS_PER_VALUE)
+        bound_ms, bound_by, nb = bound
         ms = _batch_ms(fn)
         out[name] = {"case": f"{name} {tag}", "ms": ms,
                      "device_ms": _kernel_device_ms(fn, f"{name}_kernel"),
@@ -2455,19 +2484,77 @@ def _k11_cases(svb, vgb, tag: str, timed: bool) -> dict:
     rows = (svb["word_offsets"][:nv] * 4 + 4, svb["degrees"],
             torch.cumsum(svb["degrees"], 0, dtype=torch.int32) - svb["degrees"])
     run("svb_decode", lambda: K11.svb_decode(stream, *rows, _col(ne)),
-        lambda: K11.svb_decode_plain(stream, *rows, _col(ne)),
-        ne, stream.numel() + 12 * nv + 4 * ne, ne)
+        lambda: K11.svb_decode_plain(stream, *rows, _col(ne)), ne,
+        _bound_of(stream.numel() + 12 * nv + 4 * ne, ne * OPS_PER_VALUE))
     stream, ne, nv, n_g = vgb["stream"], vgb["ne"], vgb["nv"], vgb["n_g"]
     chain = (vgb["pos"], vgb["ngroups"], vgb["gbase"])
-    run("vgb_tags", lambda: K11.vgb_tags(stream, *chain, n_g),
+    tables = vgb["tag_tables"]
+    run("vgb_tags", lambda: K11.vgb_tags(stream, *chain, n_g, **tables),
         lambda: K11.vgb_tags_plain(stream, *chain, n_g), n_g,
-        stream.numel() + 12 * nv + 4 * n_g, n_g)
+        _vgb_tags_bound(vgb))
     tagpos = K11.vgb_tags_plain(stream, *chain, n_g)
+    if not torch.equal(K11.vgb_tags(stream, *chain, n_g), tagpos):
+        raise RuntimeError(f"[compress] {tag}: vgb_tags under the tables it "
+                           f"builds itself differs from plain")
     rows = (vgb["gbase"], vgb["counts"], vgb["out_slot"])
     run("vgb_values", lambda: K11.vgb_values(stream, tagpos, *rows, _col(ne)),
-        lambda: K11.vgb_values_plain(stream, tagpos, *rows, _col(ne)),
-        ne, stream.numel() + 4 * n_g + 12 * nv + 4 * ne, ne)
+        lambda: K11.vgb_values_plain(stream, tagpos, *rows, _col(ne)), ne,
+        _bound_of(stream.numel() + 4 * n_g + 12 * nv + 4 * ne,
+                  ne * OPS_PER_VALUE))
     return out
+
+
+def _star_decodes() -> dict:
+    """rmat13 joined to a star of DECODE_STAR_LEAVES leaves numbered right
+    after the hub, through sort_and_clean: in VarintGB the hub's row is a
+    long row of many rounds, in CGR with intervals at itv_seg_len 64 two
+    intervals (every rmat13 vertex, then the leaves) and no residual, a
+    stream the device route takes (no StreamRefused). vgb_tags and
+    cgr_merge under their preps' tables against their plain versions, both
+    decodes against the CSR."""
+    t0 = time.perf_counter()
+    g = sort_and_clean(_star_joined(rmat(PULL_DIRTY_SCALE, EDGE_FACTOR,
+                                         seed=0), DECODE_STAR_LEAVES))
+    hub = int(np.argmax(g.degrees()))
+    col_ref = torch.from_numpy(g.col_idx).cuda()
+    vgb = DD.varintgb_device_prep(VB.encode_graph(g, "varintgb"),
+                                  device="cuda")
+    chain = (vgb["stream"], vgb["pos"], vgb["ngroups"], vgb["gbase"],
+             vgb["n_g"])
+    if not torch.equal(K11.vgb_tags(*chain, **vgb["tag_tables"]),
+                       K11.vgb_tags_plain(*chain)):
+        raise RuntimeError("[compress] star: vgb_tags differs from plain")
+    if not torch.equal(DD.varintgb_device_run(vgb), col_ref):
+        raise RuntimeError("[compress] star: the VarintGB decode differs "
+                           "from the CSR")
+    cg = CGR.encode_graph(g, CGR_STREAMS["interval"])
+    try:
+        itv = CD.cgr_device_prep(cg, device="cuda")
+    except CD.StreamRefused as e:
+        raise RuntimeError(f"[compress] star: the device route refused the "
+                           f"interval stream: {e}") from e
+    res, _ = K12.cgr_residual(itv["stream"], itv["data_p"], itv["counts"],
+                              itv["lane_v_d"], itv["base"], itv["ne"],
+                              itv["zeta_k"])
+    margs = (res, itv["row_ptr_d"], itv["nres"], itv["itv_ptr"], itv["left"],
+             itv["length"], itv["itv_pre"])
+    if not torch.equal(K12.cgr_merge(*margs, **itv["merge_tables"]),
+                       K12.cgr_merge_plain(*margs)):
+        raise RuntimeError("[compress] star: cgr_merge differs from plain")
+    row_ptr, col = CD.cgr_device_run(itv)
+    if not np.array_equal(row_ptr, g.row_ptr) or not torch.equal(col,
+                                                                 col_ref):
+        raise RuntimeError("[compress] star: the CGR decode differs from the "
+                           "CSR")
+    ip = itv["itv_ptr"][hub:hub + 2].tolist()
+    info = {"nv": g.nv, "ne": g.ne, "hub_ids": int(g.degrees()[hub]),
+            "hub_groups": int(vgb["ngroups"][hub]),
+            "hub_residuals": int(itv["nres"][hub]),
+            "hub_intervals": itv["length"][ip[0]:ip[1]].tolist(),
+            "seconds": time.perf_counter() - t0}
+    print(f"[compress] star: vgb_tags and cgr_merge equal plain, the "
+          f"VarintGB and CGR decodes the CSR {json.dumps(info)}")
+    return info
 
 
 def _run_cli(cli, root, env, args_list) -> list:
@@ -2626,6 +2713,7 @@ def phase_compress(g, dg) -> dict:
           f"rmat{ANALYTICS_SCALE} and at rmat{PULL_DIRTY_SCALE} behind a "
           f"NaN-dirtied allocator")
     del vpreps, sv
+    star = _star_decodes()
     # the solvers on the compressed graph
     dec = CD.cgr_decode_device(plain_cg, device="cuda")
     TCM._TC_CACHE.clear()
@@ -2685,7 +2773,7 @@ def phase_compress(g, dg) -> dict:
         for name, c in info["launches"].items():
             launches[name] = launches.get(name, 0) + c
     return {"cases": {**cases, **k11}, "launches": launches,
-            "decodes": decodes, "streaming": stream_info}
+            "decodes": decodes, "streaming": stream_info, "star": star}
 
 
 # ---- the sharded phase -----------------------------------------------------

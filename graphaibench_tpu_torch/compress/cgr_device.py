@@ -16,8 +16,9 @@ interval segments, whose final positions give the residual headers, read by
 segment), its first code's bit, count, vertex and first slot) and the row
 pointers, derived from the counts. ``cgr_device_run`` is the decode proper:
 one ``cgr_residual`` launch over every lane, the check of the final
-positions, and, for interval streams, one ``cgr_merge``. There are no count
-buckets: a thread loops over its own count.
+positions, and, for interval streams, one ``cgr_merge`` (its tile table
+built by the prep). There are no count buckets: a thread loops over its
+own count.
 
 Refused with ``StreamRefused`` (a ``ValueError``) by the prep, before the
 residual pass, as the JAX package refuses them: an unsegmented (unary)
@@ -230,6 +231,8 @@ def cgr_device_prep(cg, *, device="cuda") -> dict:
             "left": left, "length": length,
             "itv_pre": int32_on(np.concatenate([[0], np.cumsum(itv_lens)]),
                            device)})
+        prep["merge_tables"] = {
+            "tile_row": K12.merge_tile_rows(prep["row_ptr_d"], ne)}
     return prep
 
 
@@ -249,7 +252,7 @@ def cgr_device_run(prep: dict):
     if prep["n_itv"]:
         col = K12.cgr_merge(col, prep["row_ptr_d"], prep["nres"],
                             prep["itv_ptr"], prep["left"], prep["length"],
-                            prep["itv_pre"])
+                            prep["itv_pre"], **prep["merge_tables"])
     return prep["row_ptr"], col
 
 

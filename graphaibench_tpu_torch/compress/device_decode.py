@@ -12,9 +12,11 @@ uploads), and a run, the kernels alone:
 - StreamVByte: one ``svb_decode`` launch, a row's key bytes at its word
   offset times 4, plus 4 for the count word;
 - VarintGB: ``vgb_tags`` walks each row's tag chain from byte ``offset * 4 +
-  4`` into the groups' tag positions, then ``vgb_values`` decodes every group
-  given its tag; the chain is serial within a row, so its two passes are
-  the counterpart of JAX's ``_vgb_tag_chain`` and ``_vgb_flat_values``;
+  4`` into the groups' tag positions (its tables, the long rows and the
+  tiles cut at the rows' byte offsets, built by the prep), then
+  ``vgb_values`` decodes every group given its tag; the chain is serial
+  within a row, so its two passes are the counterpart of JAX's
+  ``_vgb_tag_chain`` and ``_vgb_flat_values``;
 - hybrid: the rows of degree below the threshold are unsegmented zeta_k
   streams after a gamma degree, one ``cgr_residual`` lane a row from the bit
   after that gamma (its length computed on the host from the degree); the
@@ -148,10 +150,12 @@ def varintgb_device_prep(vg, *, device="cuda") -> dict:
     ngroups = (deg + 3) // 4
     group_ptr = np.concatenate([[0], np.cumsum(ngroups)]).astype(np.int64)
     # +4 skips each row's count word (offsets count words)
-    pos = np.asarray(vg.offsets, dtype=np.int64)[:nv] * 4 + 4
-    pos = np.where(deg > 0, pos, 0)
+    bounds = np.asarray(vg.offsets, dtype=np.int64)[:nv + 1] * 4
+    pos = np.where(deg > 0, bounds[:nv] + 4, 0)
     _check_positions(vg.data, pos[deg > 0], "varintgb")
+    tables = K11.vgb_tag_tables(ngroups, pos, group_ptr[:nv], bounds)
     return {"stream": K12.stream_tensor(vg.data, device),
+            "tag_tables": {k: t.to(device) for k, t in tables.items()},
             "pos": int32_on(pos, device), "ngroups": int32_on(ngroups, device),
             "gbase": int32_on(group_ptr[:nv], device),
             "counts": int32_on(deg, device),
@@ -166,7 +170,7 @@ def varintgb_device_run(prep: dict) -> torch.Tensor:
     if prep["ne"] == 0:
         return col
     tagpos = K11.vgb_tags(prep["stream"], prep["pos"], prep["ngroups"],
-                          prep["gbase"], prep["n_g"])
+                          prep["gbase"], prep["n_g"], **prep["tag_tables"])
     return K11.vgb_values(prep["stream"], tagpos, prep["gbase"],
                           prep["counts"], prep["out_slot"], col)
 

@@ -26,11 +26,27 @@
 // is a lane and loops over its own count, and one launch covers every lane.
 // The count of a segment is bounded by the segment's length (about
 // 2 res_seg_len / 3 codes in the merged last segment), so the lanes of a
-// warp stay within a small factor of each other. The merge of a row's
-// sorted residuals with its intervals is one warp a row: a lane a residual
-// or an interval, each finding its place by a binary search in the other
-// sorted run, so no sort of the edge array is needed.
+// warp stay within a small factor of each other.
 //
+// The merge of a row's sorted residuals with its intervals needs no sort
+// of the edge array: residual i goes to slot i plus the interval ids below
+// it, interval j's ids to the lengths before j plus the residuals below
+// its left. The merge is split by output slots, not by rows: a warp takes
+// a tile of tile_slots consecutive slots of col, from the row that the
+// prep's tile table gives (the rows' slots are consecutive, so a hub
+// spreads over many tiles and short rows share one). A tile whose rows
+// have no interval holds their residuals where they already lie in the
+// residual buffer: a copy, 16 bytes a lane. Otherwise a lane takes every
+// 32nd slot of the tile: the slot's row by stepping through the row
+// pointers (a binary search past a few steps), then, by its index in the
+// row, a residual (the row's first nres ids) or an interval id, and where
+// it goes. A lane's slots rise, so
+// the intervals below its residual, and the interval that holds its
+// interval id, only move forward: a binary search once a row, then a
+// linear merge; the residuals below an interval are searched once an
+// interval. Consecutive lanes write consecutive ids of a residual run or
+// of an interval.
+
 // A 64-bit window at bit p is three big-endian words: the stream is read as
 // 32-bit words, byte-swapped with __byte_perm (the bytes are MSB-first),
 // and shifted together with __funnelshift_l, which shifts by p & 31 with no
@@ -57,6 +73,7 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarpsPerBlock = kThreads / 32;
+constexpr int kRowSteps = 4;  // cgr_merge's linear steps to a slot's row
 
 // Kinds of cgr_gamma (ops/cgr_decode.py: COUNT, HEADER, HEADER_DEG).
 constexpr int kCount = 0;
@@ -214,37 +231,126 @@ __device__ __forceinline__ int32_t count_below(const int32_t* __restrict__ a,
   return lo;
 }
 
+// The number of entries of the ascending run a[0, n) at most x.
+__device__ __forceinline__ int32_t count_at_most(const int32_t* __restrict__ a,
+                                                 int32_t n, int64_t x) {
+  int32_t lo = 0;
+  int32_t hi = n;
+  while (lo < hi) {
+    const int32_t mid = (lo + hi) >> 1;
+    if (__ldg(a + mid) <= x) {
+      lo = mid + 1;
+    } else {
+      hi = mid;
+    }
+  }
+  return lo;
+}
+
 __global__ void __launch_bounds__(kThreads)
 cgr_merge_kernel(const int32_t* __restrict__ res,
                  const int32_t* __restrict__ row_ptr,
                  const int32_t* __restrict__ nres,
                  const int32_t* __restrict__ itv_ptr,
                  const int32_t* __restrict__ left,
-                 const int32_t* __restrict__ length,
                  const int32_t* __restrict__ itv_pre, int64_t nv,
-                 int32_t* __restrict__ col) {
-  const int64_t v =
+                 const int32_t* __restrict__ tile_row, int64_t n_tiles,
+                 int64_t tile_slots, int64_t ne, int32_t* __restrict__ col) {
+  const int64_t w =
       static_cast<int64_t>(blockIdx.x) * kWarpsPerBlock + (threadIdx.x >> 5);
-  if (v >= nv) return;
+  if (w >= n_tiles) return;
   const int lane = threadIdx.x & 31;
-  const int64_t rb = __ldg(row_ptr + v);
-  const int32_t nr = __ldg(nres + v);
-  const int32_t ib = __ldg(itv_ptr + v);
-  const int32_t ni = __ldg(itv_ptr + v + 1) - ib;
-  const int32_t pb = __ldg(itv_pre + ib);
-  const int32_t* run = res + rb;
-  int32_t* out = col + rb;
-  for (int32_t i = lane; i < nr; i += 32) {
-    const int32_t r = __ldg(run + i);
-    const int32_t j = count_below(left + ib, ni, r);
-    out[i + __ldg(itv_pre + ib + j) - pb] = r;
+  const int64_t lo = w * tile_slots;
+  const int64_t hi = lo + tile_slots < ne ? lo + tile_slots : ne;
+  int64_t v = __ldg(tile_row + w);
+  int64_t v_last = __ldg(tile_row + w + 1);
+  v = v < 0 ? 0 : (v >= nv ? nv - 1 : v);
+  v_last = v_last < v ? v : (v_last >= nv ? nv - 1 : v_last);
+  if (__ldg(itv_ptr + v_last + 1) == __ldg(itv_ptr + v)) {
+    const bool vec = hi - lo == tile_slots && (tile_slots & 3) == 0 &&
+                     (reinterpret_cast<uintptr_t>(res) & 15) == 0 &&
+                     (reinterpret_cast<uintptr_t>(col) & 15) == 0;
+    if (vec) {
+      const int4* src = reinterpret_cast<const int4*>(res + lo);
+      int4* dst = reinterpret_cast<int4*>(col + lo);
+      for (int64_t i = lane; i < tile_slots / 4; i += 32) dst[i] = __ldg(src + i);
+    } else {
+      for (int64_t s = lo + lane; s < hi; s += 32) col[s] = __ldg(res + s);
+    }
+    return;
   }
-  for (int32_t j = lane; j < ni; j += 32) {
-    const int32_t lf = __ldg(left + ib + j);
-    const int32_t ln = __ldg(length + ib + j);
-    int32_t* dst = out + (__ldg(itv_pre + ib + j) - pb) +
-                   count_below(run, nr, lf);
-    for (int32_t t = 0; t < ln; ++t) dst[t] = lf + t;
+  int64_t rb = __ldg(row_ptr + v);
+  int64_t re = __ldg(row_ptr + v + 1);
+  bool fresh = true;   // the row's tables are still to be read
+  int32_t nr = 0, ib = 0, ni = 0, pb = 0;
+  int32_t below = -1;  // the intervals below the lane's last residual
+  int32_t held = -1;   // the interval that held its last interval id
+  int32_t hleft = 0;   // that interval's left
+  int64_t hfirst = 0;  // its first id's index among the row's interval ids
+  int64_t hslot = 0;   // its first id's slot
+  for (int64_t s = lo + lane; s < hi; s += 32) {
+    // the slot's row: a few steps, then a binary search up to v_last (a
+    // run of empty rows between two tiles' slots can be long)
+    for (int k = 0; k < kRowSteps && s >= re && v + 1 < nv; ++k) {
+      ++v;
+      rb = re;
+      re = __ldg(row_ptr + v + 1);
+      fresh = true;
+    }
+    if (s >= re && v < v_last) {
+      int64_t a = v + 1;
+      int64_t b = v_last;
+      while (a < b) {
+        const int64_t mid = (a + b + 1) >> 1;
+        if (__ldg(row_ptr + mid) <= s) {
+          a = mid;
+        } else {
+          b = mid - 1;
+        }
+      }
+      v = a;
+      rb = __ldg(row_ptr + v);
+      re = __ldg(row_ptr + v + 1);
+      fresh = true;
+    }
+    if (s < rb || s >= re) continue;  // tables that disagree
+    if (fresh) {
+      nr = __ldg(nres + v);
+      ib = __ldg(itv_ptr + v);
+      ni = __ldg(itv_ptr + v + 1) - ib;
+      pb = __ldg(itv_pre + ib);
+      below = -1;
+      held = -1;
+      fresh = false;
+    }
+    const int64_t e = s - rb;
+    if (e < nr) {
+      const int32_t r = __ldg(res + s);
+      if (below < 0) {
+        below = count_below(left + ib, ni, r);
+      } else {
+        while (below < ni && __ldg(left + ib + below) < r) ++below;
+      }
+      const int64_t d = rb + e + (__ldg(itv_pre + ib + below) - pb);
+      if (d >= 0 && d < ne) col[d] = r;
+    } else {
+      const int64_t q = e - nr;
+      int32_t j = held;
+      if (j < 0) {
+        j = count_at_most(itv_pre + ib, ni, q + pb) - 1;
+      } else {
+        while (j + 1 < ni && __ldg(itv_pre + ib + j + 1) - pb <= q) ++j;
+      }
+      if (j < 0) continue;  // tables that disagree
+      if (j != held) {
+        held = j;
+        hleft = __ldg(left + ib + j);
+        hfirst = __ldg(itv_pre + ib + j) - pb;
+        hslot = rb + hfirst + count_below(res + rb, nr, hleft);
+      }
+      const int64_t d = hslot + (q - hfirst);
+      if (d >= 0 && d < ne) col[d] = static_cast<int32_t>(hleft + (q - hfirst));
+    }
   }
 }
 
@@ -343,25 +449,35 @@ extern "C" int gab_cgr_interval(const void* words, int64_t nwords,
 
 // col (ne,): row v's sorted residuals res[row_ptr[v], + nres[v]) merged with
 // its intervals itv_ptr[v] .. itv_ptr[v + 1] (left, length; itv_pre the
-// prefix of the lengths, n_itv + 1 entries), expanded, in the row's slots.
+// prefix of the lengths, n_itv + 1 entries), expanded, in the row's slots
+// row_ptr[v] .. row_ptr[v + 1], which nres[v] and the lengths fill. The
+// tiles: n_tiles of tile_slots slots each, tile_row[k] the row that holds
+// slot k * tile_slots, tile_row[n_tiles] the last row. length is not read:
+// itv_pre holds the lengths.
 extern "C" int gab_cgr_merge(const void* res, const void* row_ptr,
                              const void* nres, const void* itv_ptr,
                              const void* left, const void* length,
-                             const void* itv_pre, int64_t nv, void* col,
+                             const void* itv_pre, int64_t nv,
+                             const void* tile_row, int64_t n_tiles,
+                             int64_t tile_slots, int64_t ne, void* col,
                              int device, void* stream) {
-  if (bad_grid(nv, kWarpsPerBlock)) {
+  (void)length;
+  if (nv < 0 || ne < 0 || tile_slots < 1 ||
+      bad_grid(n_tiles, kWarpsPerBlock)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (nv > 0) {
-    cgr_merge_kernel<<<blocks_for(nv, kWarpsPerBlock), kThreads, 0,
+  if (nv > 0 && n_tiles > 0) {
+    cgr_merge_kernel<<<blocks_for(n_tiles, kWarpsPerBlock), kThreads, 0,
                        static_cast<cudaStream_t>(stream)>>>(
         static_cast<const int32_t*>(res), static_cast<const int32_t*>(row_ptr),
         static_cast<const int32_t*>(nres),
         static_cast<const int32_t*>(itv_ptr),
-        static_cast<const int32_t*>(left), static_cast<const int32_t*>(length),
-        static_cast<const int32_t*>(itv_pre), nv, static_cast<int32_t*>(col));
+        static_cast<const int32_t*>(left),
+        static_cast<const int32_t*>(itv_pre), nv,
+        static_cast<const int32_t*>(tile_row), n_tiles, tile_slots, ne,
+        static_cast<int32_t*>(col));
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -84,15 +84,18 @@ _SIGNATURES = {
                                                        _int, _vp],
         "gab_cgr_interval": [_vp, _i64] + [_vp] * 4 + [_i64, _int, _vp, _vp,
                                                        _vp, _int, _vp],
-        # res, row_ptr, nres, itv_ptr, left, length, itv_pre, nv, col
-        "gab_cgr_merge": [_vp] * 7 + [_i64, _vp, _int, _vp],
+        # res, row_ptr, nres, itv_ptr, left, length, itv_pre, nv, tile_row,
+        # n_tiles, tile_slots, ne, col
+        "gab_cgr_merge": [_vp] * 7 + [_i64, _vp, _i64, _i64, _i64, _vp, _int,
+                                      _vp],
     },
     "vbyte_decode": {
         # bytes, nbytes, then the row arrays, their count, the output and its
         # length; device, stream
         "gab_svb_decode": [_vp, _i64] + [_vp] * 3 + [_i64, _vp, _i64, _int,
                                                      _vp],
-        "gab_vgb_tags": [_vp, _i64] + [_vp] * 3 + [_i64, _vp, _i64, _int, _vp],
+        "gab_vgb_tags": [_vp, _i64] + [_vp] * 3 + [_i64, _vp, _i64, _vp, _i64,
+                                                   _int, _vp, _i64, _int, _vp],
         # bytes, nbytes, tagpos, n_g, gbase, counts, out_slot, rows, col, ncol
         "gab_vgb_values": [_vp, _i64, _vp, _i64] + [_vp] * 3 + [_i64, _vp,
                                                                _i64, _int,

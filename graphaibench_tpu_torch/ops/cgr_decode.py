@@ -22,7 +22,9 @@ position stays inside it. Every pass works on lanes given by bit positions:
   i`` and the lane's final bit position.
 - ``cgr_merge``: per row, the sorted residual run (``nres[v]`` ids from
   ``row_ptr[v]`` of the residual buffer) merged with the row's intervals,
-  expanded, into the row's slots of a new ``col``.
+  expanded, into the row's slots of a new ``col``. The kernel works in
+  tiles of ``MERGE_TILE_SLOTS`` slots of ``col``, each starting at the row
+  its table (``merge_tile_rows``) gives.
 
 The arithmetic is the same in both versions, garbage included: positions
 and values in 64 bits, the leading-zero count capped at 31, a code's value
@@ -48,6 +50,8 @@ LAUNCHES = {"cgr_gamma": 0, "cgr_interval": 0, "cgr_residual": 0,
 
 COUNT, HEADER, HEADER_DEG = 0, 1, 2
 PAD_BYTES = 16
+# the slots of col a warp of cgr_merge fills
+MERGE_TILE_SLOTS = 256
 
 
 def stream_tensor(data: bytes, device) -> torch.Tensor:
@@ -314,11 +318,28 @@ def cgr_interval(stream, data_p, counts, lane_v, base, n_itv: int,
     return left, length, pfin
 
 
-def cgr_merge(res, row_ptr, nres, itv_ptr, left, length, itv_pre):
+def merge_tile_rows(row_ptr: torch.Tensor, ne: int,
+                    tile_slots: int = MERGE_TILE_SLOTS) -> torch.Tensor:
+    """``cgr_merge``'s tile table, on ``row_ptr``'s device: the row that
+    holds each tile's first slot (the last row whose pointer is at most
+    the slot), then the last row; ceil(ne / tile_slots) + 1 int32."""
+    nv = row_ptr.numel() - 1
+    starts = torch.arange(0, ne, tile_slots, dtype=row_ptr.dtype,
+                          device=row_ptr.device)
+    rows = torch.searchsorted(row_ptr, starts, right=True) - 1
+    return torch.cat([rows, rows.new_full((1,), max(nv - 1, 0))]).to(
+        torch.int32)
+
+
+def cgr_merge(res, row_ptr, nres, itv_ptr, left, length, itv_pre, *,
+              tile_row=None):
     """The rows' residual runs of ``res`` merged with their intervals into a
     new (ne,) int32 ``col``: ``row_ptr`` (nv + 1,), ``nres`` (nv,),
     ``itv_ptr`` (nv + 1,) the rows' intervals, ``left`` and ``length``
-    (n_itv,), ``itv_pre`` (n_itv + 1,) the prefix of the lengths."""
+    (n_itv,), ``itv_pre`` (n_itv + 1,) the prefix of the lengths; a row's
+    slots hold its residuals and its intervals' ids, as the prep builds
+    them. ``tile_row``: the kernel's tile table (``merge_tile_rows``, built
+    on the card when it is not given); the plain version takes none."""
     nv = nres.numel()
     dev = res.device
     args = (res, row_ptr, nres, itv_ptr, left, length, itv_pre)
@@ -335,10 +356,20 @@ def cgr_merge(res, row_ptr, nres, itv_ptr, left, length, itv_pre):
         return cgr_merge_plain(*args)
     if dev.type != "cuda":
         raise ValueError(f"cgr_merge runs on cpu or cuda, not {dev}")
+    ne = res.numel()
+    if tile_row is None:
+        tile_row = merge_tile_rows(row_ptr, ne)
+    n_tiles = -(-ne // MERGE_TILE_SLOTS)
+    if (tile_row.dtype != torch.int32 or tile_row.dim() != 1
+            or not tile_row.is_contiguous() or tile_row.device != dev
+            or tile_row.numel() != n_tiles + 1):
+        raise ValueError(f"cgr_merge: tile_row must be {n_tiles + 1} "
+                         f"contiguous int32 on the operands' device")
     lib = _build.load_library("cgr_decode")
     col = torch.empty_like(res)
-    rc = lib.gab_cgr_merge(*(t.data_ptr() for t in args), nv, col.data_ptr(),
-                           *_launch_tail(res))
+    rc = lib.gab_cgr_merge(*(t.data_ptr() for t in args), nv,
+                           tile_row.data_ptr(), n_tiles, MERGE_TILE_SLOTS, ne,
+                           col.data_ptr(), *_launch_tail(res))
     _raise_on(rc, lib, "cgr_merge", f"{nv} rows")
     LAUNCHES["cgr_merge"] += 1
     return col

@@ -14,7 +14,11 @@ works on rows given by int32 arrays:
   bytes little-endian, the ids by an inclusive prefix of the gaps.
 - ``vgb_tags``: a VarintGB row of ``ngroups[r]`` groups whose first tag is at
   byte ``pos[r]`` writes each group's tag position at ``tagpos[gbase[r] + j]``,
-  the next tag ``5 + (the tag's four codes)`` bytes on (``VGB_GLEN``).
+  the next tag ``5 + (the tag's four codes)`` bytes on (``VGB_GLEN``). The
+  kernel takes two tables (``vgb_tag_tables``): the rows of more than
+  ``VGB_LONG_GROUPS`` groups, widest first, each cut into chunks across a
+  block, and tiles of the other rows, runs of consecutive rows whose bytes
+  a block stages at once.
 - ``vgb_values``: a VarintGB row of ``counts[r]`` ids in the groups
   ``gbase[r] ..`` reads each group's tag and four values (a prefix within the
   group), a prefix of the group sums across the row, and writes the row's ids
@@ -44,6 +48,15 @@ LAUNCHES = {"svb_decode": 0, "vgb_tags": 0, "vgb_values": 0}
 VGB_GLEN = np.array(
     [5 + sum((t >> (2 * k)) & 3 for k in range(4)) for t in range(256)],
     dtype=np.int32)
+# vgb_tags' tables: a row of more than VGB_LONG_GROUPS groups is long (a
+# block of its own); a tile holds the other rows of VGB_TILE_BYTES of the
+# stream (from the prep's byte offsets) or VGB_TILE_ROWS rows (without
+# them), so that its bytes fit the kernel's staged window (kWinBytes,
+# 15,872: VGB_TILE_BYTES plus a short row's most, 17 * 256 + 4) and its
+# tags its collected ones (kOutSlots, 3,200)
+VGB_LONG_GROUPS = 256
+VGB_TILE_BYTES = 11264
+VGB_TILE_ROWS = 256
 
 
 def _check(stream: torch.Tensor, rows, outs) -> torch.device:
@@ -184,20 +197,86 @@ def svb_decode(stream, key_start, counts, out_slot, col):
     return col
 
 
-def vgb_tags(stream, pos, ngroups, gbase, n_g: int):
+def vgb_tag_tables(ngroups, pos, gbase, bounds=None) -> dict:
+    """``vgb_tags``' tables for rows of ``ngroups`` groups, the first tag at
+    byte ``pos``, the first slot ``gbase``: ``long_rows``, the rows of more
+    than VGB_LONG_GROUPS groups, widest first, and ``tiles``, (n_tiles + 1,
+    5): each tile's first row, the first byte and the bytes to stage (from
+    the first tag of its other rows to the farthest they reach), the first
+    slot and the slots to collect; the last row holds the end. With
+    ``bounds`` (the rows' byte boundaries, nv + 1, as the prep has them
+    from the offsets) from numpy arrays: tiles cut where the stream
+    crosses a multiple of VGB_TILE_BYTES and at every long row (which then
+    begins its tile and is skipped there), a row reaching to the next
+    one's start; without, from tensors, on their device: tiles of
+    VGB_TILE_ROWS rows, a row reaching 17 bytes a group. int32, on the
+    device of ``ngroups`` (the host's for numpy)."""
+    if bounds is not None:
+        bounds = np.asarray(bounds, np.int64)
+        long = np.asarray(ngroups) > VGB_LONG_GROUPS
+        key = bounds[:-1] // VGB_TILE_BYTES + np.cumsum(long)
+        cut = np.flatnonzero(np.diff(key)) + 1
+        tile_ptr = torch.from_numpy(np.r_[0, cut, len(long)])
+        ng, p, g, end = (torch.from_numpy(np.asarray(a, np.int64))
+                         for a in (ngroups, pos, gbase, bounds[1:]))
+    else:
+        ng, p, g = ngroups.long(), pos.long(), gbase.long()
+        tile_ptr = torch.arange(0, ng.numel() + VGB_TILE_ROWS, VGB_TILE_ROWS,
+                                device=ng.device).clamp(max=ng.numel())
+        end = p + 17 * ng
+    dev = ng.device
+    rows = torch.nonzero(ng > VGB_LONG_GROUPS).flatten()
+    rows = rows[torch.argsort(ng[rows], descending=True, stable=True)]
+    n_tiles = tile_ptr.numel() - 1
+    tile = torch.repeat_interleave(torch.arange(n_tiles, device=dev),
+                                   tile_ptr.diff(), output_size=ng.numel())
+    short = (ng > 0) & (ng <= VGB_LONG_GROUPS)
+
+    def per_tile(x, how):
+        """The min or max of x over each tile's short rows (0 without)."""
+        return torch.zeros(n_tiles, dtype=torch.long, device=dev).scatter_reduce(
+            0, tile[short], x[short], how, include_self=False)
+
+    b_lo, g_lo = per_tile(p, "amin"), per_tile(g, "amin")
+    tiles = torch.zeros((n_tiles + 1, 5), dtype=torch.long, device=dev)
+    tiles[:, 0] = tile_ptr
+    tiles[:-1, 1] = b_lo
+    tiles[:-1, 2] = (per_tile(end, "amax") - b_lo).clamp(0, 2**31 - 1)
+    tiles[:-1, 3] = g_lo
+    tiles[:-1, 4] = (per_tile(g + ng, "amax") - g_lo).clamp(0, 2**31 - 1)
+    return {"long_rows": rows.to(torch.int32),
+            "tiles": tiles.clamp(-2**31, 2**31 - 1).to(torch.int32)}
+
+
+def vgb_tags(stream, pos, ngroups, gbase, n_g: int, *, long_rows=None,
+             tiles=None):
     """(n_g,) int32: the byte of every group's tag, row r's at
     ``gbase[r] ..``; slots no row covers are undefined on the card (0 in the
-    plain version)."""
+    plain version). ``long_rows`` and ``tiles``: the kernel's tables
+    (``vgb_tag_tables``, which builds them on the card when they are not
+    given); the plain version takes none."""
     dev = _check(stream, (pos, ngroups, gbase), ())
     if n_g >= 2**31:
         raise ValueError("vgb_tags: group count past int32")
     if dev.type == "cpu":
         return vgb_tags_plain(stream, pos, ngroups, gbase, n_g)
+    if long_rows is None or tiles is None:
+        tables = vgb_tag_tables(ngroups, pos, gbase)
+        long_rows, tiles = tables["long_rows"], tables["tiles"]
+    if (long_rows.dim() != 1 or tiles.dim() != 2 or tiles.shape[1] != 5
+            or tiles.shape[0] < 1
+            or any(t.dtype != torch.int32 or not t.is_contiguous()
+                   or t.device != dev for t in (long_rows, tiles))):
+        raise ValueError("vgb_tags: long_rows (n,) and tiles (n_tiles + 1, "
+                         "5) must be contiguous int32 on the stream's device")
     lib = _build.load_library("vbyte_decode")
     tagpos = torch.empty(n_g, dtype=torch.int32, device=dev)
     rc = lib.gab_vgb_tags(stream.data_ptr(), stream.numel(), pos.data_ptr(),
                           ngroups.data_ptr(), gbase.data_ptr(), pos.numel(),
-                          tagpos.data_ptr(), n_g, *_launch_tail(stream))
+                          long_rows.data_ptr(), long_rows.numel(),
+                          tiles.data_ptr(), tiles.shape[0] - 1,
+                          VGB_LONG_GROUPS, tagpos.data_ptr(), n_g,
+                          *_launch_tail(stream))
     _raise_on(rc, lib, "vgb_tags", f"{pos.numel()} rows")
     LAUNCHES["vgb_tags"] += 1
     return tagpos

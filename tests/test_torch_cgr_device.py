@@ -362,6 +362,7 @@ inline cudaError_t cudaSetDevice(int) { return cudaSuccess; }
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
 inline const char* cudaGetErrorString(cudaError_t) { return ""; }
 template <class T> inline T __ldg(const T* p) { return *p; }
+struct int4 { int x, y, z, w; };
 inline unsigned __byte_perm(unsigned a, unsigned b, unsigned s) {
   const unsigned long long x = ((unsigned long long)b << 32) | a;
   unsigned r = 0;
@@ -410,6 +411,20 @@ def emulated(tmp_path_factory):
     return lib
 
 
+def _emulated_merge(lib, args, tile_row, tile_slots: int):
+    """``gab_cgr_merge`` of the emulated library on ``args`` (cgr_merge's
+    operands) in tiles of ``tile_slots`` slots, the table built when
+    ``tile_row`` is None."""
+    ne = args[0].numel()
+    if tile_row is None:
+        tile_row = K12.merge_tile_rows(args[1], ne, tile_slots)
+    col = torch.full_like(args[0], -1)
+    assert lib.gab_cgr_merge(*(t.data_ptr() for t in args), args[2].numel(),
+                             tile_row.data_ptr(), tile_row.numel() - 1,
+                             tile_slots, ne, col.data_ptr(), 0, None) == 0
+    return col
+
+
 def _emulated_passes(lib, monkeypatch):
     """Route every wrapper through the emulated library and hold each call
     against the plain version on the same inputs."""
@@ -442,16 +457,17 @@ def _emulated_passes(lib, monkeypatch):
                                     pf.data_ptr(), 0, None) == 0
         return lf, ln, pf
 
-    def merge(*args):
-        col = torch.full_like(args[0], -1)
-        assert lib.gab_cgr_merge(*(t.data_ptr() for t in args),
-                                 args[2].numel(), col.data_ptr(), 0,
-                                 None) == 0
+    def merge(*args, tile_row=None):
+        # the prep's tiles, then tiles of 8 slots: boundaries inside
+        # intervals and between a residual and the interval after it
+        col = _emulated_merge(lib, args, tile_row, K12.MERGE_TILE_SLOTS)
+        small = _emulated_merge(lib, args, None, 8)
+        assert torch.equal(col, small)
         return col
 
     def checked(name, emu, plain):
-        def run(*args):
-            got, want = emu(*args), plain(*args)
+        def run(*args, **tables):
+            got, want = emu(*args, **tables), plain(*args)
             for a, b in zip(got if isinstance(got, tuple) else (got,),
                             want if isinstance(want, tuple) else (want,)):
                 assert torch.equal(a, b), name
@@ -494,6 +510,92 @@ def test_kernel_source_emulated_on_a_stream_that_does_not_parse(emulated,
         with pytest.raises(CD.StreamRefused, match="device CGR decode"):
             CD.cgr_decode_device(cg, device="cpu")
     assert calls["cgr_gamma"] >= 4
+
+
+def _merge_operands(rows):
+    """cgr_merge's operands for rows given as (residuals, [(left, len),
+    ...]): the residual buffer holds each row's residuals first in its
+    slots, the rest -1."""
+    deg = [len(r) + sum(n for _, n in itv) for r, itv in rows]
+    row_ptr = np.r_[0, np.cumsum(deg)]
+    res = np.full(row_ptr[-1], -1)
+    for (r, _), b in zip(rows, row_ptr):
+        res[b:b + len(r)] = r
+    itvs = [x for _, itv in rows for x in itv]
+    lens = np.array([n for _, n in itvs], np.int64)
+    return (_i32(res), _i32(row_ptr), _i32([len(r) for r, _ in rows]),
+            _i32(np.r_[0, np.cumsum([len(itv) for _, itv in rows])]),
+            _i32([lf for lf, _ in itvs]), _i32(lens),
+            _i32(np.r_[0, np.cumsum(lens)]))
+
+
+def test_merge_source_emulated_on_rows_of_every_shape(emulated):
+    """The merge kernel against its plain version in tiles of 4, 8, 12, 32
+    and 256 slots: a row of residuals only, a row of intervals only (one of
+    700 ids, across many tiles), an empty row, rows mixing both with tile
+    boundaries inside intervals and between a residual and the interval
+    after it, 300 empty rows among rows of intervals, short rows that
+    share a tile, and a row of 3,000 whose
+    residuals and intervals alternate, so that a lane meets many of both
+    in one row."""
+    rng = np.random.default_rng(3)
+    mixed = []
+    for n, p in [(40, 0.3)] * 6 + [(3000, 0.02)]:
+        ids = np.unique(rng.integers(0, 100 * n, n))
+        itv, res, x = [], [], 0
+        for v in ids:
+            if rng.random() < p and v > x + 1:
+                n = int(rng.integers(4, 30))
+                itv.append((int(v), n))
+                x = v + n + 1
+            elif v > x:
+                res.append(int(v))
+                x = v + 1
+        mixed.append((res, itv))
+    rows = [(list(range(0, 900, 3)), []), ([], [(10, 700)]), ([], []),
+            ([2, 9], [(4, 4)]), ([], [(1, 4), (6, 5), (20, 40)]),
+            *[([], [])] * 300, ([100], []), ([3], [(5, 6)]), *mixed,
+            ([7, 8], [])]
+    args = _merge_operands(rows)
+    want = K12.cgr_merge_plain(*args)
+    assert sorted(set(want.tolist())) and (want >= 0).all()
+    for slots in (4, 8, 12, 32, 256):
+        assert torch.equal(_emulated_merge(emulated, args, None, slots),
+                           want), slots
+
+
+def test_merge_tile_rows():
+    """The row holding each tile's first slot, empty rows skipped, then
+    the last row."""
+    row_ptr = _i32([0, 3, 3, 3, 10, 11, 20, 20])
+    assert K12.merge_tile_rows(row_ptr, 20, 4).tolist() == [0, 3, 3, 5, 5,
+                                                            6]
+    assert K12.merge_tile_rows(row_ptr, 20, 256).tolist() == [0, 6]
+    assert K12.merge_tile_rows(_i32([0]), 0).tolist() == [0]
+
+
+def test_star_decodes_through_the_emulated_kernels(emulated, monkeypatch):
+    """rmat9 joined to a star of 3,000 leaves numbered after the hub, in
+    CGR with intervals in 64-bit segments: the hub's row is two intervals
+    (every rmat9 vertex, then the leaves) and nothing else, the leaves'
+    rows one residual each; every pass through the emulated kernels
+    equals its plain version and the decode the graph."""
+    calls = _emulated_passes(emulated, monkeypatch)
+    g0 = tgen.rmat(9, 8, seed=1)
+    src, dst = g0.coo()
+    hub, leaves = g0.nv, 3000
+    nbrs = np.r_[np.arange(g0.nv), hub + 1 + np.arange(leaves)]
+    g = T.sort_and_clean(tcsr.from_edges(
+        np.r_[src, np.full(len(nbrs), hub), nbrs],
+        np.r_[dst, nbrs, np.full(len(nbrs), hub)], g0.nv + 1 + leaves))
+    cg = tcgr.encode_graph(g, tcgr.CgrConfig(use_interval=True,
+                                             itv_seg_len=64))
+    prep = CD.cgr_device_prep(cg, device="cpu")
+    lo = prep["itv_ptr"][hub].item()
+    assert prep["nres"][hub].item() == 0
+    assert prep["length"][lo:lo + 2].tolist() == [g0.nv, leaves]
+    _same(CD.cgr_decode_device(cg, device="cpu"), g, "star")
+    assert calls["cgr_merge"] == 1
 
 
 # ---- on the card -----------------------------------------------------------

@@ -13,10 +13,12 @@ graph, on rmat9-10 and on the handmade graphs of ``tests/test_compress.py``
 (:158-227): zero-degree rows, ids of 1 to 4 bytes, 4-byte lanes from ids of
 2^24 and up, partial final groups, tags at every in-word alignment, a hub.
 ``vgb_tags``, which uses no warp intrinsic, is also compiled here with g++
-against a header that emulates the CUDA it uses and runs its blocks one
-thread after another, and held against its plain version. The kernels
-themselves run on the card in the tests marked ``cuda`` and in
-``chip_smoke.py``'s ``compress`` phase.
+against a header that emulates the CUDA it uses (a block's threads as host
+threads that meet at ``__syncthreads``, its shared memory static) and runs
+its blocks one after another, and held against its plain version under
+its tables at the shipped sizes and at small ones. The kernels themselves
+run on the card in the tests marked ``cuda`` and in ``chip_smoke.py``'s
+``compress`` phase.
 """
 
 import ctypes
@@ -409,33 +411,82 @@ def test_a_stream_that_does_not_parse_reads_inside_it():
 
 EMULATION = r"""
 #pragma once
+#include <climits>
+#include <condition_variable>
 #include <cstdint>
 #include <cstdlib>
 #include <functional>
+#include <mutex>
+#include <thread>
+#include <vector>
 #define __global__
 #define __device__
 #define __forceinline__ inline
 #define __restrict__
-#define __launch_bounds__(x)
+#define __launch_bounds__(...)
+#define __shared__ static
+#define __align__(n) __attribute__((aligned(n)))
 typedef int cudaError_t;
 typedef void* cudaStream_t;
 enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
 struct dim3 { unsigned x = 0; };
-static dim3 blockIdx, threadIdx;
+static thread_local dim3 blockIdx, threadIdx;
+struct uint4 { unsigned x, y, z, w; };
 inline cudaError_t cudaSetDevice(int) { return cudaSuccess; }
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
 inline const char* cudaGetErrorString(cudaError_t) { return ""; }
 template <class T> inline T __ldg(const T* p) { return *p; }
-// the warp passes are not emulated: a thread at a time cannot shuffle
+// the warp passes are not emulated: their shuffles abort
 inline unsigned __shfl_up_sync(unsigned, unsigned, int) { std::abort(); }
 inline unsigned __shfl_sync(unsigned, unsigned, int) { std::abort(); }
-inline void emulate(unsigned grid, unsigned block, std::function<void()> f) {
-  for (unsigned b = 0; b < grid; ++b)
-    for (unsigned t = 0; t < block; ++t) {
-      blockIdx.x = b;
-      threadIdx.x = t;
-      f();
+// a block's threads are host threads, __syncthreads a barrier among them
+struct Barrier {
+  std::mutex m;
+  std::condition_variable cv;
+  unsigned n, waiting = 0, gen = 0;
+  explicit Barrier(unsigned n) : n(n) {}
+  void wait() {
+    std::unique_lock<std::mutex> lk(m);
+    const unsigned g = gen;
+    if (++waiting == n) {
+      waiting = 0;
+      ++gen;
+      cv.notify_all();
+    } else {
+      cv.wait(lk, [&] { return gen != g; });
     }
+  }
+};
+static Barrier* block_barrier;
+inline void __syncthreads() { block_barrier->wait(); }
+static std::mutex atomics;
+inline long long atomicMin(long long* p, long long v) {
+  std::lock_guard<std::mutex> g(atomics);
+  const long long o = *p;
+  if (v < o) *p = v;
+  return o;
+}
+inline long long atomicMax(long long* p, long long v) {
+  std::lock_guard<std::mutex> g(atomics);
+  const long long o = *p;
+  if (v > o) *p = v;
+  return o;
+}
+// the grid's blocks one after another, each by `block` host threads
+inline void emulate(unsigned grid, unsigned block, std::function<void()> f) {
+  Barrier bar(block);
+  block_barrier = &bar;
+  std::vector<std::thread> threads;
+  for (unsigned t = 0; t < block; ++t)
+    threads.emplace_back([&, t] {
+      threadIdx.x = t;
+      for (unsigned b = 0; b < grid; ++b) {
+        blockIdx.x = b;
+        f();
+        bar.wait();
+      }
+    });
+  for (auto& th : threads) th.join();
 }
 """
 
@@ -443,8 +494,9 @@ inline void emulate(unsigned grid, unsigned block, std::function<void()> f) {
 @pytest.fixture(scope="module")
 def emulated(tmp_path_factory):
     """The library of ``csrc/vbyte_decode.cu`` built by g++ for the host,
-    each launch ``k<<<grid, block, 0, s>>>(args)`` run as a loop over the
-    grid's threads; only ``gab_vgb_tags`` is called."""
+    each launch ``k<<<grid, block, 0, s>>>(args)`` run block after block,
+    a block's threads as host threads that meet at ``__syncthreads``; only
+    ``gab_vgb_tags`` is called."""
     if shutil.which("g++") is None:
         pytest.skip("no g++ on this host")
     d = tmp_path_factory.mktemp("vbyte_emulated")
@@ -455,8 +507,9 @@ def emulated(tmp_path_factory):
                      flags=re.S)
     assert n == 3
     (d / "k.cpp").write_text(src)
-    subprocess.run(["g++", "-O1", "-std=c++17", "-shared", "-fPIC",
-                    f"-I{d}", str(d / "k.cpp"), "-o", str(d / "k.so")],
+    subprocess.run(["g++", "-O1", "-std=c++17", "-pthread", "-shared",
+                    "-fPIC", f"-I{d}", str(d / "k.cpp"), "-o",
+                    str(d / "k.so")],
                    check=True, capture_output=True, timeout=300)
     lib = ctypes.CDLL(str(d / "k.so"))
     for fn, argtypes in _build._SIGNATURES["vbyte_decode"].items():
@@ -465,33 +518,134 @@ def emulated(tmp_path_factory):
     return lib
 
 
-def _emulated_tags(lib, stream, pos, ngroups, gbase, n_g):
+def _emulated_tags(lib, stream, pos, ngroups, gbase, n_g, tables):
     tagpos = torch.full((n_g,), -1, dtype=torch.int32)
+    lr, tiles = tables["long_rows"], tables["tiles"]
     assert lib.gab_vgb_tags(stream.data_ptr(), stream.numel(), pos.data_ptr(),
                             ngroups.data_ptr(), gbase.data_ptr(), pos.numel(),
+                            lr.data_ptr(), lr.numel(), tiles.data_ptr(),
+                            tiles.shape[0] - 1, K11.VGB_LONG_GROUPS,
                             tagpos.data_ptr(), n_g, 0, None) == 0
     return tagpos
 
 
-@pytest.mark.parametrize("name", ["rmat9", "vgb_cases", "garbage"])
-def test_vgb_tags_source_emulated_equals_plain(emulated, name):
-    if name == "garbage":
-        rng = np.random.default_rng(1)
-        stream = K12.stream_tensor(
-            rng.integers(0, 256, 100, dtype=np.uint8).tobytes(), "cpu")
+def _vgb_rows(adjs):
+    """Rows encoded as ``vbyte.encode_graph`` lays them out (count word,
+    groups, padding to a word): (stream, pos, ngroups, gbase, n_g, the
+    rows' byte boundaries)."""
+    chunks = [tvbyte.varintgb_encode(np.asarray(a, np.int64)) for a in adjs]
+    bounds = np.cumsum([0] + [len(c) for c in chunks])
+    deg = np.array([len(a) for a in adjs])
+    ng = (deg + 3) // 4
+    i32 = lambda a: torch.from_numpy(np.asarray(a, np.int32))  # noqa: E731
+    return (K12.stream_tensor(b"".join(chunks), "cpu"),
+            i32(np.where(deg > 0, bounds[:-1] + 4, 0)), i32(ng),
+            i32(np.cumsum(ng) - ng), int(ng.sum()), bounds)
+
+
+def _hub_rows():
+    """A hub of 12,000 ids, gaps of one to four bytes (so tags at every
+    alignment, 23 KB of groups: wider than the kernel's 15,872-byte window
+    and its 16,384-byte rounds), among short rows, an empty row and a
+    second long row."""
+    rng = np.random.default_rng(5)
+    nbytes = rng.choice([1, 2, 3], 12000, p=[0.5, 0.3, 0.2])
+    gaps = rng.integers(1, 256, 12000) << (8 * (nbytes - 1))
+    hub = np.cumsum(gaps)
+    hub[100::997] += np.int64(1) << 24           # 4-byte gaps now and then
+    hub = np.maximum.accumulate(hub)
+    return [np.arange(3) * 7, hub, [], np.arange(50) * 300,
+            np.cumsum(rng.integers(1, 70000, 1100)), [9], np.arange(17)]
+
+
+def _garbage_rows(long: bool):
+    rng = np.random.default_rng(1)
+    if not long:
         ngroups = torch.tensor([3, 0, 9, 40], dtype=torch.int32)
         pos = torch.tensor([0, 7, 90, 200], dtype=torch.int32)
-        gbase = torch.cumsum(ngroups, 0, dtype=torch.int32) - ngroups
-        n_g = int(ngroups.sum())
+        data = rng.integers(0, 256, 100, dtype=np.uint8).tobytes()
     else:
-        prep = DD.varintgb_device_prep(_encoded(name, "varintgb"),
-                                       device="cpu")
-        stream, pos, ngroups, gbase, n_g = (
-            prep["stream"], prep["pos"], prep["ngroups"], prep["gbase"],
-            prep["n_g"])
-    got = _emulated_tags(emulated, stream, pos, ngroups, gbase, n_g)
+        # chains of up to 5,000 groups over 40,000 random bytes: past the
+        # stream's end (clamped reads), over several rounds, from a
+        # negative position and one past the end
+        ngroups = torch.tensor([300, 5000, 0, 40, 1000, 700, 257],
+                               dtype=torch.int32)
+        pos = torch.tensor([13, 17, 0, 39990, -5, 41000, 20011],
+                           dtype=torch.int32)
+        data = rng.integers(0, 256, 40000, dtype=np.uint8).tobytes()
+    gbase = torch.cumsum(ngroups, 0, dtype=torch.int32) - ngroups
+    return (K12.stream_tensor(data, "cpu"), pos, ngroups, gbase,
+            int(ngroups.sum()), None)
+
+
+def _tag_case(name):
+    if name == "garbage":
+        return _garbage_rows(long=False)
+    if name == "garbage_long":
+        return _garbage_rows(long=True)
+    if name == "hub":
+        return _vgb_rows(_hub_rows())
+    vg = _encoded(name, "varintgb")
+    prep = DD.varintgb_device_prep(vg, device="cpu")
+    return (prep["stream"], prep["pos"], prep["ngroups"], prep["gbase"],
+            prep["n_g"], np.asarray(vg.offsets[:vg.nv + 1]) * 4)
+
+
+@pytest.mark.parametrize("name", ["rmat9", "vgb_cases", "garbage", "hub",
+                                  "garbage_long"])
+def test_vgb_tags_source_emulated_equals_plain(emulated, name, monkeypatch):
+    """The kernel against the plain version under the tables the prep
+    builds (tiles cut at the rows' bytes) and those built without byte
+    offsets (tiles of VGB_TILE_ROWS rows), each at the shipped sizes and,
+    but for the 70,000 rows of vgb_cases (a block's 256 host threads meet
+    at every barrier), at small ones: a long row from 9 groups on, tiles of
+    64 bytes or 5 rows, so that many rows are long and a tile's window
+    misses rows; and under tables whose windows are shifted off the rows
+    or empty."""
+    stream, pos, ngroups, gbase, n_g, bounds = _tag_case(name)
     want = K11.vgb_tags_plain(stream, pos, ngroups, gbase, n_g)
-    assert torch.equal(got, want)
+    small = {"VGB_LONG_GROUPS": 8, "VGB_TILE_BYTES": 64, "VGB_TILE_ROWS": 5}
+    for sizes in ({},) if name == "vgb_cases" else ({}, small):
+        for k, v in sizes.items():
+            monkeypatch.setattr(K11, k, v)
+        tables = [K11.vgb_tag_tables(ngroups, pos, gbase)]
+        if bounds is not None:
+            tables.append(K11.vgb_tag_tables(ngroups.numpy(), pos.numpy(),
+                                             gbase.numpy(), bounds))
+        # windows that stage and collect nothing, and windows shifted off
+        # the rows: every read and write then goes past them
+        off = tables[-1]["tiles"].clone()
+        off[:, 1:] += torch.tensor([5, 0, 1, 0], dtype=torch.int32)
+        none = tables[-1]["tiles"].clone()
+        none[:, 2::2] = 0
+        tables += [dict(tables[-1], tiles=off), dict(tables[-1], tiles=none)]
+        for t in tables:
+            got = _emulated_tags(emulated, stream, pos, ngroups, gbase, n_g,
+                                 t)
+            assert torch.equal(got, want), (name, sizes)
+
+
+def test_vgb_tag_tables():
+    """The long rows widest first; tiles cut at the byte boundaries and at
+    each long row, which begins its tile and is left out of its extents;
+    each tile's bytes from its short rows' first tag to their end (with the
+    bounds) or 17 bytes a group on (without), its slots theirs."""
+    ng = np.array([1, 300, 2, 0, 900, 5, 300, 1])
+    bounds = np.array([0, 10, 5000, 5020, 5024, 30000, 30010, 40000, 40008])
+    pos = np.where(ng > 0, bounds[:-1] + 4, 0)
+    gbase = np.cumsum(ng) - ng
+    t = K11.vgb_tag_tables(ng, pos, gbase, bounds)
+    assert t["long_rows"].tolist() == [4, 1, 6]
+    assert t["tiles"].tolist() == [[0, 4, 6, 0, 1], [1, 5004, 16, 301, 2],
+                                   [4, 0, 0, 0, 0], [5, 30004, 6, 1203, 5],
+                                   [6, 0, 0, 0, 0], [7, 40004, 4, 1508, 1],
+                                   [8, 0, 0, 0, 0]]
+    i32 = lambda a: torch.from_numpy(a.astype(np.int32))  # noqa: E731
+    d = K11.vgb_tag_tables(i32(ng), i32(pos), i32(gbase))
+    assert d["long_rows"].tolist() == [4, 1, 6]
+    assert d["tiles"].tolist() == [[0, 4, 40017, 0, 1509],
+                                   [8, 0, 0, 0, 0]]
+    assert all(x.dtype == torch.int32 for x in (*t.values(), *d.values()))
 
 
 # ---- on the card -----------------------------------------------------------
@@ -522,6 +676,8 @@ def test_kernels_match_plain_on_cuda(name):
     chain = (vgb["pos"], vgb["ngroups"], vgb["gbase"], vgb["n_g"])
     tags = K11.vgb_tags(vgb["stream"], *chain)
     assert torch.equal(tags, K11.vgb_tags_plain(vgb["stream"], *chain))
+    assert torch.equal(K11.vgb_tags(vgb["stream"], *chain,
+                                    **vgb["tag_tables"]), tags)
     rows = (vgb["gbase"], vgb["counts"], vgb["out_slot"])
     got = K11.vgb_values(vgb["stream"], tags, *rows, torch.full(
         (g.ne,), -1, dtype=torch.int32, device="cuda"))

@@ -63,6 +63,28 @@ of the same calls and the unchanged bounds (``chip_smoke._tc_bound``,
 ``_hindex_bound``). The turns run as ``--tc-cold``'s, per scale, on graphs
 written once; the triangles, the coreness and the sweeps of every turn must
 agree. One ``KERNELS {json}`` line a turn.
+
+``--decode-kernels`` times K11's ``vgb_tags`` and K12's ``cgr_merge``, at
+rmat(19, 16) and at rmat(17, 16):
+
+    python3 tools/analytics_probe.py --decode-kernels [--parent DIR]
+
+The graph (through ``sort_and_clean``) is written once in VarintGB and in
+CGR with intervals (``chip_smoke.CGR_STREAMS["interval"]``). Each turn is a
+process of its own that builds the kernels of its checkout (the
+compiler's register and shared-memory report printed), runs its preps,
+and reads, under torch.profiler, the device ms of one ``vgb_tags`` and of
+one ``cgr_merge`` as each decode calls it, summed over the pass's kernels
+a call, beside the batch ms and the unchanged bounds
+(``chip_smoke._vgb_tags_bound``, ``_cgr_merge_bound``); the warm
+``varintgb_device_run`` and ``cgr_device_run`` seconds (median of
+``DECODE_RUNS``); and the split between long rows and the rest: each
+kernel's device ms on the rows above a threshold alone and on the others
+alone (VarintGB: a subset of the row lists; CGR: the other rows given no
+residuals and no intervals), with the rows' shape (widest rows, rows
+above each threshold, the longest interval). The turns run as
+``--tc-cold``'s, per scale; the decoded columns of every turn must agree.
+One ``DECODE {json}`` line a turn.
 """
 
 from __future__ import annotations
@@ -82,6 +104,9 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TC_COLD_SOLVES = 3
 KERNEL_SOLVES = 3
 KERNEL_CALLS = 20
+DECODE_RUNS = 7
+VGB_SPLITS = (64, 256, 1024)      # groups a row
+CGR_SPLITS = (256, 1024, 4096)    # ids a row
 
 
 def phases(scale: int) -> int:
@@ -321,6 +346,194 @@ def kernels_worker(tree: str, graph_npz: str) -> None:
     print("KERNELS " + json.dumps(res))
 
 
+def _ptxas(names) -> dict:
+    """Each library's -Xptxas -v lines (registers, shared memory, spills)."""
+    from graphaibench_tpu_torch.ops import _build
+
+    report = {}
+    for name in names:
+        _build.load_library(name)
+        log = _build.BUILD_DIR.glob(f"gab_{name}_*.log")
+        report[name] = [ln.strip() for f in log
+                        for ln in f.read_text().splitlines()
+                        if "registers" in ln or "spill" in ln
+                        or "Compiling" in ln]
+    return report
+
+
+def _pass_ms(C, fn, kernel: str) -> dict:
+    """Device ms a call of ``fn`` summed over the kernels whose name holds
+    ``kernel``, by name, and the batch ms of the same call."""
+    by = C._device_ms_by_name(fn, KERNEL_CALLS)
+    return {"device_ms": sum(v for k, v in by.items() if kernel in k),
+            "by_name": {k: v for k, v in by.items() if kernel in k},
+            "batch_ms": C._batch_ms(fn)}
+
+
+def _digest(t) -> str:
+    import hashlib
+
+    return hashlib.sha256(t.cpu().numpy().tobytes()).hexdigest()[:16]
+
+
+def _vgb_reading(C, DD, K11, vg) -> dict:
+    import torch
+
+    prep = DD.varintgb_device_prep(vg, device="cuda")
+    chain = (prep["stream"], prep["pos"], prep["ngroups"], prep["gbase"])
+    n_g = prep["n_g"]
+    tables = prep.get("tag_tables", {})
+    out = _pass_ms(C, lambda: K11.vgb_tags(*chain, n_g, **tables),
+                   "vgb_tags")
+    out["bound_ms"], out["bound_by"], out["bound_bytes"] = (
+        C._vgb_tags_bound(prep))
+    out["share_of_bound"] = out["bound_ms"] / out["device_ms"]
+    out["warm_run_s"] = C._solve_seconds(
+        lambda: DD.varintgb_device_run(prep), DECODE_RUNS)
+    out["col"] = _digest(DD.varintgb_device_run(prep))
+    ng = prep["ngroups"]
+    out["widest_groups"] = int(ng.max())
+    out["rows"] = int(ng.numel())
+    out["n_g"] = n_g
+    out["split"] = {}
+    for t in VGB_SPLITS:
+        part = {}
+        for side, keep in (("long", ng > t), ("rest", ng <= t)):
+            rows = tuple(a[keep].contiguous() for a in chain[1:])
+            part[side] = _pass_ms(C, lambda: K11.vgb_tags(
+                chain[0], *rows, n_g), "vgb_tags")["device_ms"]
+            part[f"{side}_rows"] = int(keep.sum())
+            part[f"{side}_groups"] = int(ng[keep].long().sum())
+        out["split"][t] = part
+    torch.cuda.synchronize()
+    return out
+
+
+def _merge_rows(prep, keep):
+    """cgr_merge's operands on the rows of ``keep`` alone: every other row
+    given no residuals and no intervals (degree 0), the kept rows' slots
+    of the residual buffer packed after each other."""
+    import torch
+
+    res, rp, nres, ip = (prep["res"], prep["row_ptr_d"].long(),
+                         prep["nres"], prep["itv_ptr"].long())
+    nv = nres.numel()
+    deg = rp[1:] - rp[:-1]
+    slot_keep = torch.repeat_interleave(keep, deg, output_size=res.numel())
+    ni = ip[1:] - ip[:-1]
+    itv_keep = torch.repeat_interleave(keep, ni,
+                                       output_size=prep["left"].numel())
+    length = prep["length"][itv_keep].contiguous()
+    i32 = torch.int32
+
+    def ptr(counts):
+        p = torch.zeros(nv + 1, dtype=torch.long, device=res.device)
+        p[1:] = torch.cumsum(counts, 0)
+        return p.to(i32)
+
+    pre = torch.zeros(length.numel() + 1, dtype=torch.long,
+                      device=res.device)
+    pre[1:] = torch.cumsum(length.long(), 0)
+    return (res[slot_keep].contiguous(), ptr(torch.where(keep, deg, 0)),
+            torch.where(keep, nres, 0).to(i32), ptr(torch.where(keep, ni, 0)),
+            prep["left"][itv_keep].contiguous(), length, pre.to(i32))
+
+
+def _cgr_reading(C, CD, K12, cg) -> dict:
+    import torch
+
+    prep = CD.cgr_device_prep(cg, device="cuda")
+    res, _ = K12.cgr_residual(prep["stream"], prep["data_p"], prep["counts"],
+                              prep["lane_v_d"], prep["base"], prep["ne"],
+                              prep["zeta_k"])
+    margs = (res, prep["row_ptr_d"], prep["nres"], prep["itv_ptr"],
+             prep["left"], prep["length"], prep["itv_pre"])
+    tables = prep.get("merge_tables", {})
+    out = _pass_ms(C, lambda: K12.cgr_merge(*margs, **tables), "cgr_merge")
+    out["bound_ms"], out["bound_by"], out["bound_bytes"] = (
+        C._cgr_merge_bound(prep))
+    out["share_of_bound"] = out["bound_ms"] / out["device_ms"]
+    out["warm_run_s"] = C._solve_seconds(
+        lambda: CD.cgr_device_run(prep), DECODE_RUNS)
+    out["col"] = _digest(CD.cgr_device_run(prep)[1])
+    rp = prep["row_ptr_d"].long()
+    deg = rp[1:] - rp[:-1]
+    ni = prep["itv_ptr"].long()[1:] - prep["itv_ptr"].long()[:-1]
+    top = torch.argsort(deg, descending=True)[:3]
+    out["widest"] = [{"row": int(v), "ids": int(deg[v]),
+                      "residuals": int(prep["nres"][v]),
+                      "intervals": int(ni[v])} for v in top]
+    out["intervals"] = int(prep["left"].numel())
+    out["rows_with_intervals"] = int((ni > 0).sum())
+    out["longest_interval"] = int(prep["length"].max())
+    out["interval_ids"] = int(prep["length"].long().sum())
+    prep["res"] = res
+    out["split"] = {}
+    for t in CGR_SPLITS:
+        part = {}
+        for side, keep in (("long", deg > t), ("rest", deg <= t)):
+            args = _merge_rows(prep, keep)
+            part[side] = _pass_ms(C, lambda: K12.cgr_merge(*args),
+                                  "cgr_merge")["device_ms"]
+            part[f"{side}_rows"] = int(keep.sum())
+            part[f"{side}_ids"] = int(deg[keep].sum())
+            del args
+        out["split"][t] = part
+    torch.cuda.synchronize()
+    return out
+
+
+def decode_kernels_worker(tree: str, path: str) -> None:
+    """One turn of ``--decode-kernels``: ``vgb_tags`` and ``cgr_merge`` of
+    the checkout at ``tree`` on the streams under ``path``."""
+    sys.path.insert(0, ROOT)                 # chip_smoke's bounds
+    sys.path.insert(0, os.path.abspath(tree))
+    import chip_smoke as C
+    from graphaibench_tpu_torch.compress import cgr_device as CD
+    from graphaibench_tpu_torch.compress import device_decode as DD
+    from graphaibench_tpu_torch.compress.cli import load_compressed
+    from graphaibench_tpu_torch.ops import cgr_decode as K12
+    from graphaibench_tpu_torch.ops import vbyte_decode as K11
+
+    import graphaibench_tpu_torch
+    assert graphaibench_tpu_torch.__file__.startswith(os.path.abspath(tree))
+    res = {"tree": tree, "ptxas": _ptxas(("vbyte_decode", "cgr_decode"))}
+    vg = load_compressed(os.path.join(path, "vgb"))
+    res["nv"], res["ne"] = vg.nv, vg.ne
+    res["vgb_tags"] = _vgb_reading(C, DD, K11, vg)
+    del vg
+    res["cgr_merge"] = _cgr_reading(C, CD, K12,
+                                    load_compressed(os.path.join(path, "cgr")))
+    res["vgb_col"] = res["vgb_tags"].pop("col")
+    res["cgr_col"] = res["cgr_merge"].pop("col")
+    print("DECODE " + json.dumps(res))
+
+
+def decode_kernels(parent: str | None, scales) -> None:
+    sys.path.insert(0, ROOT)
+    import chip_smoke as C
+    from graphaibench_tpu_torch import rmat
+    from graphaibench_tpu_torch.compress import cgr, vbyte
+    from graphaibench_tpu_torch.compress.cli import save_compressed
+    from graphaibench_tpu_torch.graph.transforms import sort_and_clean
+
+    C.phase_device()         # the card's name and power limit
+    with tempfile.TemporaryDirectory() as tmp:
+        for scale in scales:
+            t0 = time.perf_counter()
+            d = os.path.join(tmp, f"rmat{scale}")
+            g = sort_and_clean(rmat(scale, 16, seed=0, cache=False))
+            save_compressed(vbyte.encode_graph(g, "varintgb"),
+                            os.path.join(d, "vgb"))
+            save_compressed(cgr.encode_graph(g, C.CGR_STREAMS["interval"]),
+                            os.path.join(d, "cgr"))
+            del g
+            print(f"rmat({scale}, 16) encoded in "
+                  f"{time.perf_counter() - t0:.1f} s")
+            _turns(parent, "--decode-kernels-worker", d, "DECODE",
+                   agree=("vgb_col", "cgr_col"))
+
+
 def kernels(parent: str | None, scales) -> None:
     sys.path.insert(0, ROOT)
     import chip_smoke as C
@@ -410,13 +623,18 @@ def main() -> int:
     ap.add_argument("--kernels", action="store_true",
                     help="K9 a count and K10's sweeps and solve, at rmat19 "
                     "and rmat17 (or --scale)")
-    ap.add_argument("--parent", help="with --tc-cold, --tc-stream-mem or "
-                    "--kernels: "
+    ap.add_argument("--decode-kernels", action="store_true",
+                    help="K11's vgb_tags and K12's cgr_merge a decode, at "
+                    "rmat19 and rmat17 (or --scale)")
+    ap.add_argument("--parent", help="with --tc-cold, --tc-stream-mem, "
+                    "--kernels or --decode-kernels: "
                     "root of the parent commit's checkout")
     ap.add_argument("--tc-cold-worker", nargs=2, metavar=("TREE", "NPZ"),
                     help=argparse.SUPPRESS)
     ap.add_argument("--kernels-worker", nargs=2, metavar=("TREE", "NPZ"),
                     help=argparse.SUPPRESS)
+    ap.add_argument("--decode-kernels-worker", nargs=2,
+                    metavar=("TREE", "DIR"), help=argparse.SUPPRESS)
     ap.add_argument("--tc-stream-mem-worker", nargs=2,
                     metavar=("TREE", "PREFIX"), help=argparse.SUPPRESS)
     args = ap.parse_args()
@@ -428,6 +646,12 @@ def main() -> int:
         return 0
     if args.kernels:
         kernels(args.parent, [args.scale] if args.scale else [19, 17])
+        return 0
+    if args.decode_kernels_worker:
+        decode_kernels_worker(*args.decode_kernels_worker)
+        return 0
+    if args.decode_kernels:
+        decode_kernels(args.parent, [args.scale] if args.scale else [19, 17])
         return 0
     if args.tc_stream_mem_worker:
         tc_stream_mem_worker(*args.tc_stream_mem_worker)
