@@ -6,7 +6,14 @@ names, same bytes; ``tests/test_torch_compress.py`` holds them equal).
 Parity with src/structure/hybrid_encoder.cc: low-degree adjacency lists
 use unary (zeta-delta CGR) coding, high-degree lists use a VByte scheme
 — small lists compress best bit-packed, long lists decode fastest
-byte-aligned."""
+byte-aligned.
+
+One difference from the JAX copy: a row routed to CGR (degree below the
+threshold) must be strictly increasing, as ``cgr.encode_graph`` requires of
+every row, or ``encode_graph`` raises CGR's ``ValueError``. A repeated id
+codes a gap of -1, which no decoder reads back (JAX's encoder writes such a
+stream; its host decode raises ``IndexError`` and its device decode gives
+ids past ``nv``). Rows routed to the VByte scheme may repeat ids."""
 
 from __future__ import annotations
 
@@ -48,6 +55,7 @@ def encode_graph(
     chunks = []
     offsets = np.zeros(g.nv + 1, dtype=np.int64)
     deg = g.degrees()
+    _check_cgr_rows(g, deg < threshold)
     for v in range(g.nv):
         adj = g.neighbors(v)
         if deg[v] < threshold:
@@ -61,6 +69,20 @@ def encode_graph(
     return HybridGraph(nv=g.nv, ne=g.ne, threshold=threshold, zeta_k=zeta_k,
                        vbyte_scheme=vbyte_scheme, offsets=offsets,
                        data=b"".join(chunks), degrees=deg)
+
+
+def _check_cgr_rows(g: CSRGraph, low: np.ndarray) -> None:
+    """CGR's ValueError unless every row marked in ``low`` is strictly
+    increasing."""
+    if not g.ne:
+        return
+    src, dst = g.coo()
+    bad = (src[1:] == src[:-1]) & (dst[1:] <= dst[:-1]) & low[src[1:]]
+    if bad.any():
+        raise ValueError(
+            "CGR requires strictly increasing adjacency lists; run "
+            "transforms.sort_and_clean(g) first (hybrid sends row "
+            f"{int(src[1:][bad][0])}, below the degree threshold, to CGR)")
 
 
 def decode_vertex(hg: HybridGraph, v: int) -> np.ndarray:

@@ -34,6 +34,7 @@ import torch
 from graphaibench_tpu.compress import device_decode as JDD
 from graphaibench_tpu.compress import hybrid as jhybrid
 from graphaibench_tpu.compress import vbyte as jvbyte
+from graphaibench_tpu.graph import csr as jcsr
 from graphaibench_tpu_torch.analytics import run_benchmark
 from graphaibench_tpu_torch.compress import cli as tccli
 from graphaibench_tpu_torch.compress import device_decode as DD
@@ -42,6 +43,7 @@ from graphaibench_tpu_torch.compress import vbyte as tvbyte
 from graphaibench_tpu_torch.compress.cgr_device import StreamRefused
 from graphaibench_tpu_torch.graph import csr as tcsr
 from graphaibench_tpu_torch.graph import generators as tgen
+from graphaibench_tpu_torch.graph import io as tio
 from graphaibench_tpu_torch.graph import transforms as T
 from graphaibench_tpu_torch.ops import _build
 from graphaibench_tpu_torch.ops import cgr_decode as K12
@@ -134,6 +136,10 @@ def _jax_hybrid(hg):
         degrees=hg.degrees)
 
 
+def _jax_graph(g):
+    return jcsr.CSRGraph(row_ptr=g.row_ptr, col_idx=g.col_idx)
+
+
 def _same(got, g):
     np.testing.assert_array_equal(got.row_ptr, g.row_ptr)
     np.testing.assert_array_equal(got.col_idx, g.col_idx)
@@ -187,6 +193,58 @@ def test_hybrid_equals_jax_and_the_host(name, threshold):
     _same(thybrid.decode_graph(hg), g)
 
 
+# rows 0 and 69999 of both handmade graphs repeat an id: [1, 300, 69999,
+# 69999] and [0, 0] (and svb_cases' row 3 is [3, 3])
+@pytest.mark.parametrize("threshold", [3, 4, 8])
+@pytest.mark.parametrize("name", ["svb_cases", "vgb_cases"])
+def test_hybrid_refuses_repeated_ids_in_a_cgr_row(name, threshold):
+    """A row below the threshold goes to CGR, which needs a strictly
+    increasing row: the port's encoder raises CGR's ValueError. At
+    threshold 2 every such row is a StreamVByte chunk, which may repeat ids,
+    and the stream is byte-equal to JAX's."""
+    g = _graph(name)
+    with pytest.raises(ValueError, match="strictly increasing"):
+        thybrid.encode_graph(g, threshold=threshold)
+    hg = thybrid.encode_graph(g, threshold=2)
+    jh = jhybrid.encode_graph(_jax_graph(g), threshold=2)
+    assert hg.data == jh.data
+    np.testing.assert_array_equal(hg.offsets, jh.offsets)
+
+
+# what the JAX package does with the same graphs: row 0's decode at
+# threshold 8 on the device
+_JAX_ROW0 = {"svb_cases": [1, 300, 69999, 95088],
+             "vgb_cases": [1, 300, 69999, 95089]}
+
+
+@pytest.mark.parametrize("name", ["svb_cases", "vgb_cases"])
+def test_jax_hybrid_writes_a_stream_it_decodes_wrongly(name):
+    """The stated difference: JAX's encoder writes the stream at thresholds
+    3, 4 and 8, its host decode raises IndexError on it, and its device
+    decode at threshold 8 gives row 0 an id past nv."""
+    g = _graph(name)
+    for threshold in (3, 4, 8):
+        jh = jhybrid.encode_graph(_jax_graph(g), threshold=threshold)
+        with pytest.raises(IndexError):
+            jhybrid.decode_graph(jh)
+    got = JDD.decode_hybrid_device(jh)
+    row0 = np.asarray(got.col_idx)[got.row_ptr[0]:got.row_ptr[1]]
+    assert row0.tolist() == _JAX_ROW0[name]
+    assert row0.max() >= g.nv
+
+
+def test_the_cli_refuses_a_hybrid_with_repeated_ids(tmp_path):
+    """``compress compress -s hybrid`` raises before it writes a file."""
+    d = str(tmp_path / "g")
+    tio.save_graph(_graph("vgb_cases"), d)
+    prefix = tmp_path / "out" / "h"
+    with pytest.raises(ValueError, match="strictly increasing"):
+        tccli.main(["compress", d, str(prefix), "-s", "hybrid", "-t", "8"])
+    assert not prefix.parent.exists() or not any(prefix.parent.iterdir())
+    assert tccli.main(["compress", d, str(prefix), "-s", "hybrid", "-t",
+                       "2"]) == 0
+
+
 def test_hybrid_decode_takes_the_two_kernels_once(monkeypatch):
     """The low-degree rows are one cgr_residual call, a lane a row from the
     bit after its gamma degree; the high-degree rows one svb_decode call
@@ -230,8 +288,11 @@ def test_svb_plain_equals_jax_streamvbyte_decode_device(name):
         ne=vg.ne)
     np.testing.assert_array_equal(rp.numpy(), np.asarray(jrp))
     np.testing.assert_array_equal(col.numpy(), np.asarray(jcol))
-    hg = thybrid.encode_graph(_graph(name), threshold=3)
-    high = np.nonzero(hg.degrees >= 3)[0]
+    # svb_cases repeats ids in rows of degree 2 ([3, 3], [0, 0]), which the
+    # encoder refuses to send to CGR: at threshold 2 every row is a chunk
+    threshold = 2 if name == "svb_cases" else 3
+    hg = thybrid.encode_graph(_graph(name), threshold=threshold)
+    high = np.nonzero(hg.degrees >= threshold)[0]
     stream = K12.stream_tensor(hg.data, "cpu")
     off = hg.offsets[high].astype(np.int32)
     hdeg = hg.degrees[high].astype(np.int32)
@@ -687,7 +748,8 @@ def test_kernels_match_plain_on_cuda(name):
                                  device="cuda"), g)
     _same(DD.varintgb_decode_device(_encoded(name, "varintgb"),
                                     device="cuda"), g)
-    _same(DD.decode_hybrid_device(thybrid.encode_graph(g, threshold=4),
+    threshold = 2 if name.endswith("_cases") else 4   # repeated ids: Q3-2
+    _same(DD.decode_hybrid_device(thybrid.encode_graph(g, threshold=threshold),
                                   device="cuda"), g)
 
 
