@@ -336,7 +336,7 @@ PULL_REPLACES = "graphaibench_tpu/ops/segment.py:124"
 # changes from run to run): rtol 1e-5, atol 1e-6 of the largest |plain|.
 PULL_FSUM_RTOL = 1e-5
 PULL_FSUM_ATOL_SCALE = 1e-6
-PULL_TIMED = ("float32 min packed", "int32 min", "float32 sum")
+PULL_TIMED = ("float32 min packed", "int32 min", "float32 sum", "int32 sum")
 PULL_HEAD = "float32 sum"          # the timed case with a library call
 SOLVES = 3                         # warm solves timed after the checked one
 SSSP_RTOL = 1e-5                   # run_benchmark's tolerance
@@ -1550,7 +1550,8 @@ def _pull_cases(dg, gen, what: str, dirty: bool, timed: bool) -> dict:
     col = vals["float32"][:, None]
     # none for the min cases: torch.sparse.mm's reduce="amin" runs only on
     # the CPU, so on the card a min is a gather and a scatter_reduce_ (two
-    # calls), and nothing computes the min-plus of packed edge values
+    # calls), and nothing computes the min-plus of packed edge values; none
+    # timed for the int32 sum (k_core_peel's), whose SpMV would be int32
     library = {"float32 sum": lambda: torch.sparse.mm(ones, col)}
     _pull_close(library["float32 sum"]()[:, 0],
                 K8.neighbor_reduce_plain(dg, vals["float32"], "sum"),
@@ -1569,6 +1570,8 @@ def _pull_cases(dg, gen, what: str, dirty: bool, timed: bool) -> dict:
             ms=ms, device_ms=device_ms, plain_ms=plain_ms,
             library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
             bound_bytes=nbytes, share_of_bound=bound_ms / ms,
+            share_of_bound_device=(bound_ms / device_ms if device_ms
+                                   else None),
             edges_per_s=ne / (ms * 1e-3))
         print(f"[analytics] neighbor_reduce {name} {json.dumps(cases[name])}")
     return cases
@@ -1592,10 +1595,21 @@ def phase_pull_kernel(dg) -> dict:
                             device="cuda")
     dirty = _pull_cases(small, gen, f"rmat{PULL_DIRTY_SCALE}", dirty=True,
                         timed=False)
-    err = max(c["max_abs_err"] for c in (*cases.values(), *dirty.values()))
+    # a hub joined to every rmat13 vertex and to 50,000 leaves: 58,192
+    # neighbours, 910 virtual rows of one output row
+    star = to_device_graph(_star_joined(rmat(PULL_DIRTY_SCALE, EDGE_FACTOR,
+                                             seed=0), HINDEX_STAR_LEAVES),
+                           device="cuda")
+    hub = _pull_cases(star, gen, f"rmat{PULL_DIRTY_SCALE} + star", dirty=True,
+                      timed=False)
+    err = max(c["max_abs_err"] for c in (*cases.values(), *dirty.values(),
+                                         *hub.values()))
     print(f"[analytics] neighbor_reduce: {len(cases)} cases at "
-          f"rmat{ANALYTICS_SCALE} and {len(dirty)} at rmat{PULL_DIRTY_SCALE} "
-          f"behind a NaN-dirtied allocator agree with plain, max_abs_err {err}")
+          f"rmat{ANALYTICS_SCALE}, {len(dirty)} at rmat{PULL_DIRTY_SCALE} "
+          f"and {len(hub)} at rmat{PULL_DIRTY_SCALE} joined to a star of "
+          f"{HINDEX_STAR_LEAVES} leaves (widest row "
+          f"{int(star.deg.max())}), behind a NaN-dirtied allocator, agree "
+          f"with plain, max_abs_err {err}")
     return {"cases": [dict(cases[n], case=n) for n in PULL_TIMED],
             "max_abs_err": err}
 
@@ -1764,24 +1778,30 @@ def phase_solvers(g, dg) -> int:
     weights = {k: torch.from_numpy(w).cuda()
                for k, w in (("symmetric", w_sym), ("asymmetric", w_asym))}
     _zero_counts()
-    bfs = _solve("bfs", ne, lambda: TR.bfs(dg, 0), check_bfs)
+    per_solve = {}
+    bfs = per_solve["bfs"] = _solve("bfs", ne, lambda: TR.bfs(dg, 0),
+                                    check_bfs)
     if bfs["sweeps"] != ref_bfs.max() + 1:
         raise RuntimeError(f"[analytics] bfs took {bfs['sweeps']} sweeps for "
                            f"depth {ref_bfs.max()}")
     for kind, w in weights.items():
-        _solve(f"sssp_bellman_ford {kind} weights", ne,
-               lambda w=w: TR.sssp_bellman_ford(dg, w, 0), check_sssp(kind))
-    pr = _solve("pagerank", ne, lambda: PRM.pagerank(dg), check_pr)
+        per_solve[f"sssp {kind}"] = _solve(
+            f"sssp_bellman_ford {kind} weights", ne,
+            lambda w=w: TR.sssp_bellman_ford(dg, w, 0), check_sssp(kind))
+    pr = per_solve["pagerank"] = _solve("pagerank", ne,
+                                        lambda: PRM.pagerank(dg), check_pr)
     if pr["sweeps"] != pr["iterations"]:
         raise RuntimeError("[analytics] pagerank's sweeps are not its iterations")
-    _solve("connected_components", ne, lambda: CCM.connected_components(dg),
-           check_cc)
+    per_solve["cc"] = _solve("connected_components", ne,
+                             lambda: CCM.connected_components(dg), check_cc)
     _solve("connected_components_afforest", None,
            lambda: CCM.connected_components_afforest(g, device="cuda"), check_cc)
     counts = _counts()
     launches = counts["neighbor_reduce"]
     if launches == 0:
         raise RuntimeError("[analytics] the solvers launched no neighbor_reduce")
+    print(f"[analytics] neighbor_reduce launches a solve: "
+          f"{json.dumps({k: v['launches'] for k, v in per_solve.items()})}")
     _assert_counts("[analytics]", counts, {"neighbor_reduce": launches})
     print(f"[analytics] launches of the solves above {counts}")
     phase_profile(f"bfs rmat{ANALYTICS_SCALE}",
@@ -2245,6 +2265,15 @@ def _vgb_tags_bound(vgb) -> tuple[float, str, float]:
                      n_g * OPS_PER_VALUE)
 
 
+def _svb_decode_bound(stream_bytes: int, rows: int,
+                      values: int) -> tuple[float, str, float]:
+    """svb_decode's bound: the stream read once, the row tables (key start,
+    count, output slot) read once, the ids written once, over the memory
+    rate, against OPS_PER_VALUE a value over the float32 rate."""
+    return _bound_of(stream_bytes + 12 * rows + 4 * values,
+                     values * OPS_PER_VALUE)
+
+
 def _cgr_merge_bound(prep) -> tuple[float, str, float]:
     """cgr_merge's bound on a CGR prep with intervals: the residuals, the
     row tables (row pointer, residual count, interval pointer), the
@@ -2449,17 +2478,57 @@ def _col(ne: int) -> torch.Tensor:
     return torch.empty(ne, dtype=torch.int32, device="cuda")
 
 
-def _k11_cases(svb, vgb, tag: str, timed: bool) -> dict:
+def _high_bytes(hg) -> int:
+    """The bytes of a hybrid's StreamVByte chunks: what svb_decode reads."""
+    return int(np.diff(hg.offsets)[np.asarray(hg.degrees)
+                                   >= hg.threshold].sum())
+
+
+def _svb_routes(stream, rows, ne: int, tag: str) -> dict:
+    """svb_decode's two routes apart, each against the plain version on the
+    same rows: the rows above SVB_LONG_VALUES values alone (a block each,
+    widest first) and the others alone (tiles), each under the tables
+    svb_tables builds for them; then every row under the tables the
+    kernel builds itself. Returns the rows and values of each route."""
+    n = rows[1]
+    info = {}
+    for route, keep in (("long", n > K11.SVB_LONG_VALUES),
+                        ("tiles", n <= K11.SVB_LONG_VALUES)):
+        sub = tuple(a[keep].contiguous() for a in rows)
+        tables = K11.svb_tables(sub[1])
+        routed = (int(tables["long_rows"].numel()),
+                  int(tables["tiles"].numel()) - 1)
+        got = K11.svb_decode(stream, *sub, _col(ne).fill_(-1), **tables)
+        want = K11.svb_decode_plain(stream, *sub, _col(ne).fill_(-1))
+        if not torch.equal(got, want):
+            raise RuntimeError(f"[compress] {tag}: svb_decode's {route} route "
+                               f"differs from plain in "
+                               f"{int((got != want).sum())} slots")
+        info[route] = {"rows": int(keep.sum()), "values": int(n[keep].sum()),
+                       "long_blocks": routed[0], "tiles": routed[1]}
+    got = K11.svb_decode(stream, *rows, _col(ne).fill_(-1))
+    if not torch.equal(got, K11.svb_decode_plain(stream, *rows,
+                                                 _col(ne).fill_(-1))):
+        raise RuntimeError(f"[compress] {tag}: svb_decode under the tables it "
+                           f"builds itself differs from plain")
+    print(f"[compress] {tag}: svb_decode's long rows and tiles apart equal "
+          f"plain {json.dumps(info)}")
+    return info
+
+
+def _k11_cases(svb, vgb, tag: str, timed: bool, hyb=None) -> dict:
     """Each K11 kernel against its plain version on the rows of the
-    StreamVByte and VarintGB preps: svb_decode on every row, vgb_tags on
-    every row's tag chain, vgb_values on the tag positions. Exact, int32.
-    With ``timed``, each beside its bound: the stream read once, the row
-    tables (and the tag positions) read once, the output written once, over
-    the memory rate, against OPS_PER_VALUE a value over the float32 rate.
-    Untimed, each output block is dirtied with NaN first."""
+    StreamVByte and VarintGB preps: svb_decode on every row (and, given the
+    hybrid prep ``hyb``, on hybrid's high rows), under the prep's tables,
+    and each of its routes apart; vgb_tags on every row's tag chain,
+    vgb_values on the tag positions. Exact, int32. With ``timed``, each
+    beside its bound: the stream (hybrid: its high rows' chunks) read once,
+    the row tables (and the tag positions) read once, the output written
+    once, over the memory rate, against OPS_PER_VALUE a value over the
+    float32 rate. Untimed, each output block is dirtied with NaN first."""
     out = {}
 
-    def run(name, fn, plain, n_out, bound):
+    def run(name, fn, plain, n_out, bound, key=None, kernel=None):
         if not timed:
             _dirty(n_out)
         got = fn()
@@ -2473,19 +2542,37 @@ def _k11_cases(svb, vgb, tag: str, timed: bool) -> dict:
             return
         bound_ms, bound_by, nb = bound
         ms = _batch_ms(fn)
-        out[name] = {"case": f"{name} {tag}", "ms": ms,
-                     "device_ms": _kernel_device_ms(fn, f"{name}_kernel"),
-                     "plain_ms": _batch_ms(plain, calls=1, batches=3),
-                     "bound_ms": bound_ms, "bound_by": bound_by,
-                     "bound_bytes": nb, "share_of_bound": bound_ms / ms}
-        print(f"[compress] {json.dumps(out[name])}")
+        device_ms = _kernel_device_ms(fn, f"{kernel or name}_kernel")
+        out[key or name] = {
+            "case": f"{name} {tag}", "ms": ms, "device_ms": device_ms,
+            "plain_ms": _batch_ms(plain, calls=1, batches=3),
+            "bound_ms": bound_ms, "bound_by": bound_by, "bound_bytes": nb,
+            "share_of_bound": bound_ms / ms,
+            "share_of_bound_device": (bound_ms / device_ms if device_ms
+                                      else None)}
+        print(f"[compress] {json.dumps(out[key or name])}")
 
     stream, ne, nv = svb["stream"], svb["ne"], svb["nv"]
-    rows = (svb["word_offsets"][:nv] * 4 + 4, svb["degrees"],
-            torch.cumsum(svb["degrees"], 0, dtype=torch.int32) - svb["degrees"])
-    run("svb_decode", lambda: K11.svb_decode(stream, *rows, _col(ne)),
+    rows = (svb["key_start"], svb["degrees"], svb["out_slot"])
+    tables = svb["svb_tables"]
+    run("svb_decode", lambda: K11.svb_decode(stream, *rows, _col(ne),
+                                             **tables),
         lambda: K11.svb_decode_plain(stream, *rows, _col(ne)), ne,
-        _bound_of(stream.numel() + 12 * nv + 4 * ne, ne * OPS_PER_VALUE))
+        _svb_decode_bound(stream.numel(), nv, ne))
+    _svb_routes(stream, rows, ne, f"{tag} StreamVByte")
+    if hyb is not None:
+        # the low rows' slots are not svb_decode's: both sides keep -1 there
+        high, hstream = hyb["high"], hyb["stream"]
+        values = int(high[1].long().sum())
+        hcol = _col(hyb["ne"]).fill_(-1)
+        run("svb_decode hybrid", lambda: K11.svb_decode(
+                hstream, *high, hcol, **hyb["svb_tables"]),
+            lambda: K11.svb_decode_plain(hstream, *high,
+                                         _col(hyb["ne"]).fill_(-1)),
+            hyb["ne"], _svb_decode_bound(hyb["high_bytes"], high[0].numel(),
+                                         values),
+            key="svb_decode_hybrid", kernel="svb_decode")
+        _svb_routes(hstream, high, hyb["ne"], f"{tag} hybrid")
     stream, ne, nv, n_g = vgb["stream"], vgb["ne"], vgb["nv"], vgb["n_g"]
     chain = (vgb["pos"], vgb["ngroups"], vgb["gbase"])
     tables = vgb["tag_tables"]
@@ -2517,6 +2604,19 @@ def _star_decodes() -> dict:
                                          seed=0), DECODE_STAR_LEAVES))
     hub = int(np.argmax(g.degrees()))
     col_ref = torch.from_numpy(g.col_idx).cuda()
+    svb = DD.streamvbyte_device_prep(VB.encode_graph(g, "streamvbyte"),
+                                     device="cuda")
+    rows = (svb["key_start"], svb["degrees"], svb["out_slot"])
+    if not torch.equal(
+            K11.svb_decode(svb["stream"], *rows, _col(g.ne).fill_(-1),
+                           **svb["svb_tables"]),
+            K11.svb_decode_plain(svb["stream"], *rows, _col(g.ne).fill_(-1))):
+        raise RuntimeError("[compress] star: svb_decode differs from plain")
+    if not torch.equal(DD.streamvbyte_device_run(svb), col_ref):
+        raise RuntimeError("[compress] star: the StreamVByte decode differs "
+                           "from the CSR")
+    svb_long = int(svb["svb_tables"]["long_rows"].numel())
+    del svb, rows
     vgb = DD.varintgb_device_prep(VB.encode_graph(g, "varintgb"),
                                   device="cuda")
     chain = (vgb["stream"], vgb["pos"], vgb["ngroups"], vgb["gbase"],
@@ -2548,12 +2648,14 @@ def _star_decodes() -> dict:
                            "CSR")
     ip = itv["itv_ptr"][hub:hub + 2].tolist()
     info = {"nv": g.nv, "ne": g.ne, "hub_ids": int(g.degrees()[hub]),
+            "svb_long_rows": svb_long,
             "hub_groups": int(vgb["ngroups"][hub]),
             "hub_residuals": int(itv["nres"][hub]),
             "hub_intervals": itv["length"][ip[0]:ip[1]].tolist(),
             "seconds": time.perf_counter() - t0}
-    print(f"[compress] star: vgb_tags and cgr_merge equal plain, the "
-          f"VarintGB and CGR decodes the CSR {json.dumps(info)}")
+    print(f"[compress] star: svb_decode, vgb_tags and cgr_merge equal "
+          f"plain, the StreamVByte, VarintGB and CGR decodes the CSR "
+          f"{json.dumps(info)}")
     return info
 
 
@@ -2698,21 +2800,28 @@ def phase_compress(g, dg) -> dict:
           f"NaN-dirtied allocator")
     del preps, sp
     # the byte codecs, decoded through K11
-    vpreps = {}
+    vpreps, _vbyte_objs = {}, {}
     for scheme, (obj, enc) in _vbyte_encode(gs).items():
         vpreps[scheme], decodes[scheme] = _vbyte_decode(scheme, obj, gs,
                                                         col_ref)
         decodes[scheme]["encode_s"] = enc
+        _vbyte_objs[scheme] = obj
+    hyb_obj = _vbyte_objs["hybrid"]
+    vpreps["hybrid"]["high_bytes"] = _high_bytes(hyb_obj)
     k11 = _k11_cases(vpreps["streamvbyte"], vpreps["varintgb"],
-                     f"rmat{ANALYTICS_SCALE}", timed=True)
+                     f"rmat{ANALYTICS_SCALE}", timed=True,
+                     hyb=vpreps["hybrid"])
     sv = {s: VBYTE_ROUTES[s][0](VB.encode_graph(small, s), device="cuda")
           for s in ("streamvbyte", "varintgb")}
+    sh = HYB.encode_graph(small)
+    shp = DD.hybrid_device_prep(sh, device="cuda")
+    shp["high_bytes"] = _high_bytes(sh)
     _k11_cases(sv["streamvbyte"], sv["varintgb"], f"rmat{PULL_DIRTY_SCALE}",
-               timed=False)
+               timed=False, hyb=shp)
     print(f"[compress] every K11 kernel equals its plain version at "
           f"rmat{ANALYTICS_SCALE} and at rmat{PULL_DIRTY_SCALE} behind a "
           f"NaN-dirtied allocator")
-    del vpreps, sv
+    del vpreps, sv, shp, _vbyte_objs
     star = _star_decodes()
     # the solvers on the compressed graph
     dec = CD.cgr_decode_device(plain_cg, device="cuda")
@@ -3609,6 +3718,8 @@ def main() -> None:
             # no PyTorch call decodes a CGR stream or a varint
             "library_ms": None,
             "device_ms": res["device_ms"],
+            **({"cases": [res, k12["cases"]["svb_decode_hybrid"]]}
+               if kname == "svb_decode" else {}),
         })
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

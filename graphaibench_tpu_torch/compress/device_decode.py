@@ -10,7 +10,8 @@ work (the degrees' checks and prefix sums, the rows' byte positions, the
 uploads), and a run, the kernels alone:
 
 - StreamVByte: one ``svb_decode`` launch, a row's key bytes at its word
-  offset times 4, plus 4 for the count word;
+  offset times 4, plus 4 for the count word (its tables, the long rows and
+  the tiles, built by the prep);
 - VarintGB: ``vgb_tags`` walks each row's tag chain from byte ``offset * 4 +
   4`` into the groups' tag positions (its tables, the long rows and the
   tiles cut at the rows' byte offsets, built by the prep), then
@@ -22,7 +23,7 @@ uploads), and a run, the kernels alone:
   after that gamma (its length computed on the host from the degree); the
   other rows are count-word-free StreamVByte chunks at their byte offsets,
   one ``svb_decode`` launch writing into the same ``col`` at their row
-  pointers.
+  pointers (its tables built by the prep over those rows).
 
 JAX's ``lax.scan`` trip grids (``_VGB_TRIP_GRID``, hybrid's ``grid``) are not
 carried: the kernels loop over each row's own count, so a VarintGB hub past
@@ -110,16 +111,28 @@ def streamvbyte_device_prep(vg, *, device="cuda") -> dict:
     _check_positions(vg.data, off[:vg.nv][deg > 0] * 4 + 4, "streamvbyte")
     return {"stream": K12.stream_tensor(vg.data, device),
             "word_offsets": int32_on(off, device),
+            "key_start": int32_on(off[:vg.nv] * 4 + 4, device),
+            "out_slot": int32_on(row_ptr[:vg.nv], device),
             "degrees": int32_on(deg, device), "row_ptr": row_ptr,
-            "nv": vg.nv, "ne": vg.ne}
+            "svb_tables": _svb_tables(deg, device),
+            "nv": vg.nv, "ne": vg.ne, "device": device}
+
+
+def _svb_tables(counts: np.ndarray, device) -> dict:
+    """``svb_decode``'s tables for rows of ``counts`` values, built on the
+    host and uploaded."""
+    return {k: t.to(device) for k, t in K11.svb_tables(
+        torch.from_numpy(np.asarray(counts, np.int32))).items()}
 
 
 def streamvbyte_device_run(prep: dict) -> torch.Tensor:
     """The decode proper, given a prep: the (ne,) int32 col_idx on the
-    device."""
-    return streamvbyte_decode_device(
-        prep["stream"], prep["word_offsets"], prep["degrees"],
-        nv=prep["nv"], ne=prep["ne"])[1]
+    device, one ``svb_decode`` launch under the prep's tables."""
+    col = torch.empty(prep["ne"], dtype=torch.int32, device=prep["device"])
+    if prep["ne"] == 0:
+        return col
+    return K11.svb_decode(prep["stream"], prep["key_start"], prep["degrees"],
+                          prep["out_slot"], col, **prep["svb_tables"])
 
 
 def decode_graph_device(vg, *, device="cuda") -> CSRGraph:
@@ -216,7 +229,8 @@ def hybrid_device_prep(hg, *, device="cuda") -> dict:
                 off[low] * 8 + _gamma_len(counts), counts, low,
                 row_ptr[low])),
             "high": tuple(int32_on(a, device) for a in (
-                off[high], deg[high], row_ptr[high]))}
+                off[high], deg[high], row_ptr[high])),
+            "svb_tables": _svb_tables(deg[high], device)}
 
 
 def hybrid_device_run(prep: dict) -> torch.Tensor:
@@ -230,7 +244,7 @@ def hybrid_device_run(prep: dict) -> torch.Tensor:
     else:
         col = torch.empty(ne, dtype=torch.int32, device=prep["device"])
     if high[0].numel():
-        K11.svb_decode(prep["stream"], *high, col)
+        K11.svb_decode(prep["stream"], *high, col, **prep["svb_tables"])
     return col
 
 

@@ -16,33 +16,42 @@
 // which the wrapper writes. BFS, SSSP, connected components and PageRank
 // spend their sweeps here: one launch a sweep.
 //
-// What bounds it on this card: bytes, and of those the scattered ones. The
-// compulsory traffic is 4 bytes per edge of ids (8 with edge values), 8 per
-// virtual row (row id and count), the split flags and 4 per vertex each for
-// vals and out: 73 MB on rmat(19, 16) (136 MB with edge values), 0.022 ms at
-// 3.35 TB/s (0.041). But vals (2 MiB at 2^19 vertices) sits in L2, and each
-// slot gathers one 4-byte value from a random line of it: the gather is
-// served at the rate at which L1 takes scattered lines, not at the rate of
-// bytes. gat_rowmax (csrc/fused_gat.cu), the same gather of one float per
-// slot with a max, reaches 30% of its byte bound that way.
+// What bounds it on this card: the gathers. The compulsory traffic is 4
+// bytes per edge of ids (8 with edge values), 8 per virtual row (row id and
+// count), the split flags and 4 per vertex each for vals and out: 73 MB on
+// rmat(19, 16) (136 MB with edge values), 0.022 ms at 3.35 TB/s (0.041).
+// Measured there (tools/analytics_probe.py --pull-kernels; NVIDIA H100
+// 80GB HBM3, 700 W): the sweep with every gather sent to one vertex takes
+// 0.027-0.035 ms, the id stream; 15.8 M gathers with no id stream take
+// 0.113 ms at uniformly random ids, 0.024 ms inside 128 KiB of vals (which
+// L1 holds), 0.014 ms inside one line. So a gather that L1 misses is served
+// at L2's rate of scattered 32-byte sectors, and the sweep (0.09 ms) is set
+// by how many of rmat's skewed gathers L1 catches; the split rows' atomics
+// cost nothing measurable (their slots run at the wide buckets' rate).
 //
-// What the design does about it (gat_rowmax's, over csrc/ell_table.cuh's
-// table):
+// What the design does about it (over csrc/ell_table.cuh's table):
 //   * One launch per call covers every bucket, widest first; a block finds
-//     its bucket from a prefix of block counts.
-//   * Four lanes a row. A lane reads two int4 of ids a step (and, with edge
+//     its bucket from a prefix of block counts, counted with the bucket's
+//     own lanes a row.
+//   * Lanes a row by the bucket's width (1 at width 4-8, 2 at 16, 4 at 32,
+//     8 at 64): every lane reads two int4 of ids a step (and, with edge
 //     values, two float4 of them beside the ids) and has their eight gathers
-//     in flight at once. The ids are read up to the bucket's width without
-//     waiting for the row's count (every slot holds a real or a pad
-//     neighbour, and pads hold vertex 0), which arrives beside them and
-//     decides which slots are gathered: the pads at the tail of the row take
-//     the identity, in place of the JAX package's mask by edge id.
-//   * The four lanes reduce by shuffles; a row that has one virtual row is
-//     stored, the pieces of a split row (degree > 64) are combined: atomicMin
-//     / atomicMax for int32, the ordered-integer atomics of ell_table.cuh for
-//     float32 min and max, atomicAdd for sums.
+//     in flight, in every bucket; a row of width 64 takes one step. The ids
+//     and edge values are read once, without allocating in L1
+//     (ld.global.nc.L1::no_allocate), which L1 keeps for vals. The ids are
+//     read up to the bucket's width without waiting for the row's count
+//     (every slot holds a real or a pad neighbour, and pads hold vertex 0),
+//     which arrives beside them and decides which slots are gathered: the
+//     pads at the tail of the row take the identity, in place of the JAX
+//     package's mask by edge id.
+//   * The lanes of a row reduce by shuffles; a row that has one virtual row
+//     is stored, the pieces of a split row (degree > 64) are combined:
+//     atomicMin / atomicMax for int32, the ordered-integer atomics of
+//     ell_table.cuh for float32 min and max, atomicAdd for sums.
 //   * Templates over the reduction, the value type and the edge values: nine
 //     kernels, each without a branch on the kind in its loop.
+//   * vals is indexed by the slot ids alone: a table whose ids index n_cols
+//     gathered rows (a rank's own and halo rows) works as it is.
 //
 // Exact for min, max and int32 sums (integer adds wrap in any order). A
 // float32 sum adds in another order than the plain version, and the atomics
@@ -63,9 +72,29 @@
 
 namespace {
 
-// log2 lanes a row, and int4 of ids a lane reads a step (gat_rowmax's).
-constexpr int kPullLg = 2;
+// int4 of ids a lane reads a step. The lanes a row follow the bucket's
+// width (lanes_lg): each lane has kPullQuads int4 of ids, and their gathers,
+// in flight in every bucket, and a row of width 64 takes one step.
+#ifdef GAB_PULL_QUADS
+constexpr int kPullQuads = GAB_PULL_QUADS;
+#else
 constexpr int kPullQuads = 2;
+#endif
+#ifdef GAB_PULL_MAXLG
+constexpr int kPullMaxLg = GAB_PULL_MAXLG;
+#else
+constexpr int kPullMaxLg = 3;
+#endif
+
+// Build-time choices, for tools/analytics_probe.py --variants:
+// GAB_PULL_QUADS (int4 of ids a lane reads a step), GAB_PULL_FIXED_LG (four
+// lanes a row in every bucket, the PR 8 design),
+// GAB_PULL_IDS (how the ids and edge values are read: 0 through L1, 1
+// without allocating in L1, 2 streaming, evict-first in L1 and L2),
+// GAB_PULL_MAXLG (the most lanes a row, log2).
+#ifndef GAB_PULL_IDS
+#define GAB_PULL_IDS 1
+#endif
 
 enum Kind { kMin = 0, kMax = 1, kSum = 2 };
 enum Dtype { kInt32 = 0, kFloat32 = 1 };
@@ -115,6 +144,22 @@ __device__ __forceinline__ void combine(float* dst, float v) {
   }
 }
 
+// Sixteen bytes of the id or edge-value stream, read once.
+template <typename V>
+__device__ __forceinline__ V stream16(const V* p) {
+#if GAB_PULL_IDS == 1
+  int4 r;
+  asm("ld.global.nc.L1::no_allocate.v4.s32 {%0, %1, %2, %3}, [%4];"
+               : "=r"(r.x), "=r"(r.y), "=r"(r.z), "=r"(r.w)
+               : "l"(p));
+  return *reinterpret_cast<V*>(&r);
+#elif GAB_PULL_IDS == 2
+  return __ldcs(p);
+#else
+  return __ldg(p);
+#endif
+}
+
 // One slot: its neighbour's value, with the slot's edge value where given;
 // the identity for a pad.
 template <int KIND, typename T, bool EV>
@@ -129,60 +174,91 @@ __device__ __forceinline__ T slot(const T* __restrict__ vals, int32_t id,
   }
 }
 
-// A group of 2^kPullLg lanes a row; lane gl takes the quads of slots
-// 4 gl + 4 2^kPullLg u + kStep s (u < kPullQuads, s = 0, 1, ...) up to the
-// bucket's width. Every bucket's width is a multiple of 4 and its ids (and
-// edge values) start 16-byte aligned: the wrapper checks.
+// K8's table: csrc/ell_table.cuh's, its first blocks counted with each
+// bucket's own lanes a row.
+struct PullTable {
+  Table tab;
+  int32_t lg[kMaxBuckets];
+};
+
+// log2 lanes a row for a bucket of `width` slots.
+int lanes_lg(int32_t width) {
+#ifdef GAB_PULL_FIXED_LG
+  (void)width;
+  return 2;
+#else
+  int lg = 0;
+  while (lg < kPullMaxLg && (4 * kPullQuads << lg) < width) ++lg;
+  return lg;
+#endif
+}
+
+// A group of 2^lg lanes a row (lg by the bucket's width); lane gl takes
+// the quads of slots 4 gl + 4 2^lg u + 4 kPullQuads 2^lg s (u < kPullQuads,
+// s = 0, 1, ...) up to the bucket's width. Every bucket's width is a
+// multiple of 4 and its ids (and edge values) start 16-byte aligned: the
+// wrapper checks.
 template <int KIND, typename T, bool EV>
 __global__ void __launch_bounds__(kThreads)
-neighbor_reduce_kernel(const __grid_constant__ Table tab,
+neighbor_reduce_kernel(const __grid_constant__ PullTable pt,
                        const __grid_constant__ EdgeVals ev,
                        const uint8_t* __restrict__ is_split,
                        const T* __restrict__ vals, T* __restrict__ out) {
-  constexpr int kStep = 4 * kPullQuads << kPullLg;  // slots a group takes a step
-  const Pos p = locate(tab, kPullLg);
-  const Bucket& b = tab.b[p.bucket];
+  const Table& tab = pt.tab;
+  const int32_t blk = blockIdx.x;
+  int bi = 0;
+  while (bi + 1 < tab.n && blk >= tab.b[bi + 1].first_block) ++bi;
+  const Bucket& b = tab.b[bi];
+  const int lg = pt.lg[bi];
+  const int64_t r =
+      (static_cast<int64_t>(blk - b.first_block) * kThreads + threadIdx.x) >>
+      lg;
+  const int gl = threadIdx.x & ((1 << lg) - 1);
+  const bool live = r < b.rows;
+  const int step = 4 * kPullQuads << lg;  // slots a group takes a step
   T v = identity<KIND>(T());
   int32_t row = 0;
   bool split = false;
-  if (p.live) {
-    row = __ldg(b.row_ids + p.r);
-    const int cnt = __ldg(b.valid + p.r);
-    const int64_t first = p.r * b.width;
+  if (live) {
+    row = __ldg(b.row_ids + r);
+    const int cnt = __ldg(b.valid + r);
+    const int64_t first = r * b.width;
     const int4* ids = reinterpret_cast<const int4*>(b.nbr + first);
     const float4* evs =
-        EV ? reinterpret_cast<const float4*>(ev.b[p.bucket] + first) : nullptr;
-    for (int j0 = 4 * p.gl; j0 < b.width; j0 += kStep) {
+        EV ? reinterpret_cast<const float4*>(ev.b[bi] + first) : nullptr;
+    for (int j0 = 4 * gl; j0 < b.width; j0 += step) {
       int4 q[kPullQuads];
       float4 e[kPullQuads];
 #pragma unroll
       for (int u = 0; u < kPullQuads; ++u) {
-        const int j = j0 + (4 << kPullLg) * u;
+        const int j = j0 + (4 << lg) * u;
         const bool in = j < b.width;
-        q[u] = in ? __ldg(ids + j / 4) : make_int4(0, 0, 0, 0);
-        e[u] = EV && in ? __ldg(evs + j / 4) : make_float4(0.f, 0.f, 0.f, 0.f);
+        q[u] = in ? stream16(ids + j / 4) : make_int4(0, 0, 0, 0);
+        e[u] = EV && in ? stream16(evs + j / 4)
+                        : make_float4(0.f, 0.f, 0.f, 0.f);
       }
-      T s[kPullQuads][4];
+      T sv[kPullQuads][4];
 #pragma unroll
       for (int u = 0; u < kPullQuads; ++u) {
-        const int j = j0 + (4 << kPullLg) * u;
-        s[u][0] = slot<KIND, T, EV>(vals, q[u].x, e[u].x, j < cnt);
-        s[u][1] = slot<KIND, T, EV>(vals, q[u].y, e[u].y, j + 1 < cnt);
-        s[u][2] = slot<KIND, T, EV>(vals, q[u].z, e[u].z, j + 2 < cnt);
-        s[u][3] = slot<KIND, T, EV>(vals, q[u].w, e[u].w, j + 3 < cnt);
+        const int j = j0 + (4 << lg) * u;
+        sv[u][0] = slot<KIND, T, EV>(vals, q[u].x, e[u].x, j < cnt);
+        sv[u][1] = slot<KIND, T, EV>(vals, q[u].y, e[u].y, j + 1 < cnt);
+        sv[u][2] = slot<KIND, T, EV>(vals, q[u].z, e[u].z, j + 2 < cnt);
+        sv[u][3] = slot<KIND, T, EV>(vals, q[u].w, e[u].w, j + 3 < cnt);
       }
 #pragma unroll
       for (int u = 0; u < kPullQuads; ++u) {
-        v = reduce2<KIND>(v, reduce2<KIND>(reduce2<KIND>(s[u][0], s[u][1]),
-                                           reduce2<KIND>(s[u][2], s[u][3])));
+        v = reduce2<KIND>(v, reduce2<KIND>(reduce2<KIND>(sv[u][0], sv[u][1]),
+                                           reduce2<KIND>(sv[u][2], sv[u][3])));
       }
     }
     split = __ldg(is_split + row) != 0;
   }
-  for (int o = (1 << kPullLg) >> 1; o > 0; o >>= 1) {
+  // every thread of a block has its bucket's lg
+  for (int o = (1 << lg) >> 1; o > 0; o >>= 1) {
     v = reduce2<KIND>(v, __shfl_xor_sync(kFullMask, v, o));
   }
-  if (p.live && p.gl == 0) {
+  if (live && gl == 0) {
     if (split) {
       combine<KIND>(out + row, v);
     } else {
@@ -192,7 +268,7 @@ neighbor_reduce_kernel(const __grid_constant__ Table tab,
 }
 
 template <int KIND, typename T, bool EV>
-void launch(int64_t blocks, cudaStream_t stream, const Table& tab,
+void launch(int64_t blocks, cudaStream_t stream, const PullTable& tab,
             const EdgeVals& ev, const uint8_t* is_split, const void* vals,
             void* out) {
   neighbor_reduce_kernel<KIND, T, EV>
@@ -202,8 +278,8 @@ void launch(int64_t blocks, cudaStream_t stream, const Table& tab,
 
 template <typename T, bool EV>
 void launch_kind(int kind, int64_t blocks, cudaStream_t stream,
-                 const Table& tab, const EdgeVals& ev, const uint8_t* is_split,
-                 const void* vals, void* out) {
+                 const PullTable& tab, const EdgeVals& ev,
+                 const uint8_t* is_split, const void* vals, void* out) {
   if (kind == kMin) {
     launch<kMin, T, EV>(blocks, stream, tab, ev, is_split, vals, out);
   } else if (kind == kMax) {
@@ -234,10 +310,22 @@ extern "C" int gab_neighbor_reduce(GAB_TABLE_PARAMS, const void* is_split,
       (edge_vals != nullptr && dtype != kFloat32)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  Table tab;
+  PullTable tab;
   cudaError_t err;
-  const int64_t blocks = fill_table(&tab, GAB_TABLE_ARGS, kPullLg, 1, &err);
-  if (err != cudaSuccess) return static_cast<int>(err);
+  if (fill_table(&tab.tab, GAB_TABLE_ARGS, 0, 1, &err) == 0) {
+    return static_cast<int>(err);
+  }
+  // the first blocks again, with each bucket's lanes a row
+  int64_t blocks = 0;
+  for (int i = 0; i < n_buckets; ++i) {
+    tab.lg[i] = lanes_lg(widths[i]);
+    const int64_t per_block = kThreads >> tab.lg[i];
+    tab.tab.b[i].first_block = static_cast<int32_t>(blocks);
+    blocks += (rows[i] + per_block - 1) / per_block;
+  }
+  if (blocks > 0x7fffffff) {
+    return static_cast<int>(cudaErrorInvalidConfiguration);
+  }
   EdgeVals ev{};
   if (edge_vals != nullptr) {
     for (int i = 0; i < n_buckets; ++i) {

@@ -28,10 +28,16 @@
 // because XLA has no loop that carries a sum; here a row's prefix sums are
 // the loop's carry.
 //
-// - svb_decode: a warp a row, 32 values a step. A lane reads its key byte and
-//   its length; a warp scan of the lengths gives each value's byte offset
-//   within the step, and a second scan of the gaps gives the ids; the last
-//   lane's sums carry to the next step.
+// - svb_decode: a quad (the up to four values of one key byte) a thread,
+//   two a thread a round. Its byte offset in the row is a prefix of the
+//   lengths its key bytes give, its ids a prefix of the gaps: each a scan
+//   over the round less the scan at the row's first quad (or at the round's
+//   start, plus what the round before carried, for a row that crosses
+//   rounds). The long rows (above long_values values; the prep's table,
+//   widest first) take a block each, 512 quads a round; the other rows are
+//   cut into tiles of at most 32 consecutive rows (the prep's table), a
+//   warp a tile, 64 quads a round, so that short rows no longer leave most
+//   lanes idle. A quad's 16 bytes come from five aligned word loads.
 // - vgb_tags: one launch, a block a work item, the long rows first (widest
 //   first), then tiles of the other rows. A row's chain is serial (where a
 //   tag lies depends on every tag before it), so a long row (above
@@ -101,38 +107,297 @@ __device__ __forceinline__ uint32_t warp_prefix(uint32_t x, int lane) {
   return x;
 }
 
-__global__ void __launch_bounds__(kThreads)
+// svb_decode's work items. A quad is the up to four values of a row that
+// share one key byte. A group of G threads (a block of kThreads for a long
+// row, a warp for a tile) decodes rows G at a time, their quads in rounds
+// of kSvbQuads a thread.
+#ifdef GAB_SVB_QUADS
+constexpr int kSvbQuads = GAB_SVB_QUADS;
+#else
+constexpr int kSvbQuads = 2;
+#endif
+#ifndef GAB_SVB_MIN_BLOCKS
+#define GAB_SVB_MIN_BLOCKS 6
+#endif
+
+// The inclusive prefix of x over the group's threads in order (modulo
+// 2^64 or 2^32); *total gets the group's sum. Every thread of the group
+// takes part; a block's group uses `sums` (kWarpsPerBlock entries).
+template <int G, typename T>
+__device__ __forceinline__ T group_prefix(T x, T* sums, T* total) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const T y = __shfl_up_sync(kFull, x, d);
+    if (lane >= d) x += y;
+  }
+  if (G == 32) {
+    *total = __shfl_sync(kFull, x, 31);
+    return x;
+  }
+  const int warp = threadIdx.x >> 5;
+  if (lane == 31) sums[warp] = x;
+  __syncthreads();
+  T before = 0;
+  T all = 0;
+#pragma unroll
+  for (int w = 0; w < kWarpsPerBlock; ++w) {
+    const T v = sums[w];
+    before += w < warp ? v : T(0);
+    all += v;
+  }
+  *total = all;
+  __syncthreads();
+  return x + before;
+}
+
+template <int G>
+__device__ __forceinline__ void group_sync() {
+  if (G == 32) {
+    __syncwarp();
+  } else {
+    __syncthreads();
+  }
+}
+
+// What a group keeps of the rows of one batch (at most G rows).
+template <int G>
+struct SvbRows {
+  int64_t qs[G + 1];       // each row's first quad within the batch
+  int64_t key[G];          // the row's first key byte
+  int64_t n[G];            // its values
+  int64_t slot[G];         // its first output slot
+  int64_t head_off[G];     // the round's byte base, by row
+  uint32_t head_id[G];     // the round's id base, by row
+  int64_t carry_off;       // where the row crossing into a round stands
+  uint32_t carry_id;
+  int64_t lsum[kWarpsPerBlock];
+  uint32_t isum[kWarpsPerBlock];
+};
+
+// The little-endian words of the stream at o, o + 4, o + 8, o + 12 (16
+// bytes from any o): from five aligned loads where they lie inside the
+// stream, else byte by byte, clamped.
+__device__ __forceinline__ void sixteen(const Bytes& s, int64_t o,
+                                        uint32_t (&w)[5]) {
+  const int64_t a = o & ~int64_t{3};
+  if ((reinterpret_cast<uintptr_t>(s.p) & 3) == 0 && a >= 0 &&
+      a + 20 <= s.n) {
+    const uint32_t* p = reinterpret_cast<const uint32_t*>(s.p + a);
+    uint32_t x[5];
+#pragma unroll
+    for (int k = 0; k < 5; ++k) x[k] = __ldg(p + k);
+    const int sh = static_cast<int>(o - a) * 8;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const uint64_t pair = (static_cast<uint64_t>(x[k + 1]) << 32) | x[k];
+      w[k] = static_cast<uint32_t>(pair >> sh);
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < 4; ++k) w[k] = read_le(s, o + 4 * k, 4);
+  }
+  w[4] = 0;
+}
+
+// The len (1..4) bytes at byte b (0..12) of the sixteen in w.
+__device__ __forceinline__ uint32_t word_at(const uint32_t (&w)[5], int b,
+                                            int len) {
+  const int i = b >> 2;
+  const uint32_t lo = i == 0 ? w[0] : i == 1 ? w[1] : i == 2 ? w[2] : w[3];
+  const uint32_t hi = i == 0 ? w[1] : i == 1 ? w[2] : i == 2 ? w[3] : w[4];
+  const uint64_t pair = (static_cast<uint64_t>(hi) << 32) | lo;
+  const uint32_t v = static_cast<uint32_t>(pair >> ((b & 3) * 8));
+  return len == 4 ? v : v & ((1u << (8 * len)) - 1u);
+}
+
+// Rows [lo, hi) of at most long_values values (the others are skipped), G
+// rows a batch, decoded by a group of G threads (t its thread); a batch's
+// quads in rounds of G kSvbQuads, the row that crosses from one round into
+// the next carrying its byte offset and its id.
+template <int G>
+__device__ void svb_rows(const Bytes& s, const int32_t* __restrict__ key_start,
+                         const int32_t* __restrict__ counts,
+                         const int32_t* __restrict__ out_slot, int64_t lo,
+                         int64_t hi, int64_t long_values,
+                         int32_t* __restrict__ col, int64_t ncol,
+                         SvbRows<G>& sm, int t) {
+  constexpr int kRound = G * kSvbQuads;
+  for (int64_t b0 = lo; b0 < hi; b0 += G) {
+    const int nb = hi - b0 < G ? static_cast<int>(hi - b0) : G;
+    int64_t n = 0;
+    if (t < nb) {
+      n = __ldg(counts + b0 + t);
+      if (n > long_values) n = 0;
+      n = n < 0 ? 0 : n;
+      sm.key[t] = __ldg(key_start + b0 + t);
+      sm.slot[t] = __ldg(out_slot + b0 + t);
+      sm.n[t] = n;
+    }
+    const int64_t q = (n + 3) >> 2;
+    int64_t total;
+    const int64_t incl = group_prefix<G, int64_t>(q, sm.lsum, &total);
+    if (t < nb) sm.qs[t] = incl - q;
+    group_sync<G>();
+    for (int64_t r0 = 0; r0 < total; r0 += kRound) {
+      int row[kSvbQuads];
+      int64_t jq[kSvbQuads];
+      int m[kSvbQuads];
+      uint32_t key[kSvbQuads];
+      uint32_t len4[kSvbQuads];
+#pragma unroll
+      for (int u = 0; u < kSvbQuads; ++u) {
+        const int64_t g = r0 + kSvbQuads * t + u;
+        row[u] = 0;
+        jq[u] = 0;
+        m[u] = 0;
+        key[u] = 0;
+        len4[u] = 0;
+        if (g < total) {
+          // the last row whose first quad is at or before g (the rows
+          // without values share their first quad with the next row)
+          int a = 0, b = nb;
+          while (b - a > 1) {
+            const int mid = (a + b) >> 1;
+            if (sm.qs[mid] <= g) a = mid; else b = mid;
+          }
+          row[u] = a;
+          jq[u] = g - sm.qs[a];
+          const int64_t left = sm.n[a] - 4 * jq[u];
+          m[u] = left < 4 ? static_cast<int>(left) : 4;
+          key[u] = byte_at(s, sm.key[a] + jq[u]);
+#pragma unroll
+          for (int k = 0; k < 4; ++k) {
+            len4[u] += k < m[u] ? ((key[u] >> (2 * k)) & 3u) + 1u : 0u;
+          }
+        }
+      }
+      // byte offsets: a prefix over the round, less the row's base
+      uint32_t pair_len = 0;
+#pragma unroll
+      for (int u = 0; u < kSvbQuads; ++u) pair_len += len4[u];
+      uint32_t round_len;
+      uint32_t off = group_prefix<G, uint32_t>(pair_len, sm.isum,
+                                               &round_len) - pair_len;
+      uint32_t e_off[kSvbQuads];
+#pragma unroll
+      for (int u = 0; u < kSvbQuads; ++u) {
+        e_off[u] = off;
+        off += len4[u];
+        const int64_t g = r0 + kSvbQuads * t + u;
+        if (g < total && (jq[u] == 0 || g == r0)) {
+          sm.head_off[row[u]] = static_cast<int64_t>(e_off[u]) -
+                                (jq[u] != 0 ? sm.carry_off : 0);
+        }
+      }
+      group_sync<G>();
+      uint32_t v[kSvbQuads][4];
+      uint32_t gsum[kSvbQuads];
+#pragma unroll
+      for (int u = 0; u < kSvbQuads; ++u) {
+        gsum[u] = 0;
+#pragma unroll
+        for (int k = 0; k < 4; ++k) v[u][k] = 0;
+        if (m[u] > 0) {
+          const int a = row[u];
+          const int64_t o = sm.key[a] + ((sm.n[a] + 3) >> 2) +
+                            (static_cast<int64_t>(e_off[u]) - sm.head_off[a]);
+          uint32_t w[5];
+          sixteen(s, o, w);
+          int b = 0;
+#pragma unroll
+          for (int k = 0; k < 4; ++k) {
+            const int len = static_cast<int>((key[u] >> (2 * k)) & 3u) + 1;
+            if (k < m[u]) {
+              v[u][k] = word_at(w, b, len);
+              gsum[u] += v[u][k];
+              b += len;
+            }
+          }
+        }
+      }
+      // ids: a prefix of the gaps over the round, less the row's base
+      uint32_t pair_gap = 0;
+#pragma unroll
+      for (int u = 0; u < kSvbQuads; ++u) pair_gap += gsum[u];
+      uint32_t round_gap;
+      uint32_t id = group_prefix<G, uint32_t>(pair_gap, sm.isum,
+                                              &round_gap) - pair_gap;
+      uint32_t e_id[kSvbQuads];
+#pragma unroll
+      for (int u = 0; u < kSvbQuads; ++u) {
+        e_id[u] = id;
+        id += gsum[u];
+        const int64_t g = r0 + kSvbQuads * t + u;
+        if (g < total && (jq[u] == 0 || g == r0)) {
+          sm.head_id[row[u]] = e_id[u] - (jq[u] != 0 ? sm.carry_id : 0u);
+        }
+      }
+      group_sync<G>();
+#pragma unroll
+      for (int u = 0; u < kSvbQuads; ++u) {
+        const int a = row[u];
+        uint32_t x = e_id[u] - sm.head_id[a];
+        const int64_t slot0 = sm.slot[a] + 4 * jq[u];
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          x += v[u][k];
+          const int64_t slot = slot0 + k;
+          if (k < m[u] && slot >= 0 && slot < ncol) {
+            col[slot] = static_cast<int32_t>(x);
+          }
+        }
+        // the round's last quad hands its row's place to the next round
+        const int64_t g = r0 + kSvbQuads * t + u;
+        if (g == r0 + kRound - 1 && g < total) {
+          sm.carry_off = static_cast<int64_t>(e_off[u] + len4[u]) -
+                         sm.head_off[a];
+          sm.carry_id = e_id[u] + gsum[u] - sm.head_id[a];
+        }
+      }
+      group_sync<G>();
+    }
+  }
+}
+
+// A block a long row (widest first) and then a warp a tile, a run of
+// consecutive rows whose rows of at most long_values values it decodes,
+// kWarpsPerBlock tiles a block. Build-time choices, for
+// tools/analytics_probe.py --variants: GAB_SVB_QUADS (quads a thread a
+// round), GAB_SVB_MIN_BLOCKS (blocks an SM the registers must allow: 6,
+// 40 registers, is the shipped choice; the warps' tiles wait on loads and
+// want the warps more than the long rows want the registers).
+__global__ void __launch_bounds__(kThreads, GAB_SVB_MIN_BLOCKS)
 svb_decode_kernel(const Bytes s, const int32_t* __restrict__ key_start,
                   const int32_t* __restrict__ counts,
                   const int32_t* __restrict__ out_slot, int64_t rows,
-                  int32_t* __restrict__ col, int64_t ncol) {
-  const int64_t r =
-      static_cast<int64_t>(blockIdx.x) * kWarpsPerBlock + (threadIdx.x >> 5);
-  if (r >= rows) return;
-  const int lane = threadIdx.x & 31;
-  const int64_t ks = __ldg(key_start + r);
-  const int64_t n = __ldg(counts + r);
-  const int64_t slot0 = __ldg(out_slot + r);
-  int64_t data = ks + ((n + 3) >> 2);
-  uint32_t carry = 0;
-  for (int64_t c = 0; c < n; c += 32) {
-    const int64_t i = c + lane;
-    const bool valid = i < n;
-    int len = 0;
-    if (valid) {
-      const uint32_t key = byte_at(s, ks + (i >> 2));
-      len = static_cast<int>((key >> ((i & 3) * 2)) & 3) + 1;
-    }
-    const uint32_t end = warp_prefix(static_cast<uint32_t>(len), lane);
-    const uint32_t gap = read_le(s, data + end - len, len);
-    const uint32_t id = carry + warp_prefix(gap, lane);
-    const int64_t slot = slot0 + i;
-    if (valid && slot >= 0 && slot < ncol) {
-      col[slot] = static_cast<int32_t>(id);
-    }
-    data += __shfl_sync(kFull, end, 31);
-    carry = __shfl_sync(kFull, id, 31);
+                  const int32_t* __restrict__ long_rows, int64_t n_long,
+                  const int32_t* __restrict__ tiles, int64_t n_tiles,
+                  int64_t long_values, int32_t* __restrict__ col,
+                  int64_t ncol) {
+  __shared__ union {
+    SvbRows<kThreads> block;
+    SvbRows<32> warp[kWarpsPerBlock];
+  } sm;
+  const int64_t b = blockIdx.x;
+  if (b < n_long) {
+    int64_t lo = __ldg(long_rows + b);
+    int64_t hi = lo + 1;
+    lo = lo < 0 ? 0 : lo;
+    hi = hi > rows ? rows : hi;
+    svb_rows<kThreads>(s, key_start, counts, out_slot, lo, hi, INT64_MAX,
+                       col, ncol, sm.block, threadIdx.x);
+    return;
   }
+  const int warp = threadIdx.x >> 5;
+  const int64_t k = (b - n_long) * kWarpsPerBlock + warp;
+  if (k >= n_tiles) return;
+  int64_t lo = __ldg(tiles + k);
+  int64_t hi = __ldg(tiles + k + 1);
+  lo = lo < 0 ? 0 : lo;
+  hi = hi > rows ? rows : hi;
+  svb_rows<32>(s, key_start, counts, out_slot, lo, hi, long_values, col,
+               ncol, sm.warp[warp], threadIdx.x & 31);
 }
 
 // vgb_tags' work items. A group is 5 to 17 bytes (the tag and four values
@@ -444,23 +709,35 @@ bool bad_grid(int64_t n, int64_t per_block) {
 // rows it launches nothing.
 
 // col[out_slot[r] + i] for i < counts[r]: row r's ids, its key bytes from
-// byte key_start[r] and its values right after them.
+// byte key_start[r] and its values right after them. The rows of more than
+// long_values values are long_rows (n_long of them, widest first: a block
+// each); the others are covered by the tiles (a warp each), tiles[k] ..
+// tiles[k + 1] the rows of tile k (n_tiles + 1 entries). A row left out of
+// both is not written.
 extern "C" int gab_svb_decode(const void* bytes, int64_t nbytes,
                               const void* key_start, const void* counts,
-                              const void* out_slot, int64_t rows, void* col,
-                              int64_t ncol, int device, void* stream) {
-  if (nbytes < 1 || bad_grid(rows, kWarpsPerBlock)) {
+                              const void* out_slot, int64_t rows,
+                              const void* long_rows, int64_t n_long,
+                              const void* tiles, int64_t n_tiles,
+                              int64_t long_values, void* col, int64_t ncol,
+                              int device, void* stream) {
+  if (nbytes < 1 || rows < 0 || n_long < 0 || n_tiles < 0 ||
+      n_long + n_tiles > 0x7fffffff || long_values < 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (rows > 0) {
-    svb_decode_kernel<<<blocks_for(rows, kWarpsPerBlock), kThreads, 0,
+  const int64_t grid = n_long + (n_tiles + kWarpsPerBlock - 1) /
+                                    kWarpsPerBlock;
+  if (rows > 0 && grid > 0) {
+    svb_decode_kernel<<<static_cast<unsigned>(grid), kThreads, 0,
                         static_cast<cudaStream_t>(stream)>>>(
         Bytes{static_cast<const uint8_t*>(bytes), nbytes},
         static_cast<const int32_t*>(key_start),
         static_cast<const int32_t*>(counts),
         static_cast<const int32_t*>(out_slot), rows,
+        static_cast<const int32_t*>(long_rows), n_long,
+        static_cast<const int32_t*>(tiles), n_tiles, long_values,
         static_cast<int32_t*>(col), ncol);
   }
   return static_cast<int>(cudaGetLastError());

@@ -92,8 +92,11 @@ _SIGNATURES = {
     "vbyte_decode": {
         # bytes, nbytes, then the row arrays, their count, the output and its
         # length; device, stream
-        "gab_svb_decode": [_vp, _i64] + [_vp] * 3 + [_i64, _vp, _i64, _int,
-                                                     _vp],
+        # bytes, nbytes, key_start, counts, out_slot, rows, long_rows,
+        # n_long, tiles, n_tiles, long_values, col, ncol, device, stream
+        "gab_svb_decode": [_vp, _i64] + [_vp] * 3 + [_i64, _vp, _i64, _vp,
+                                                     _i64, _i64, _vp, _i64,
+                                                     _int, _vp],
         "gab_vgb_tags": [_vp, _i64] + [_vp] * 3 + [_i64, _vp, _i64, _vp, _i64,
                                                    _int, _vp, _i64, _int, _vp],
         # bytes, nbytes, tagpos, n_g, gbase, counts, out_slot, rows, col, ncol

@@ -11,7 +11,10 @@ works on rows given by int32 arrays:
   at byte ``key_start[r]`` (the values follow the ``ceil(count / 4)`` key
   bytes) writes its ids at ``col[out_slot[r] + i]``: each value's length from
   its 2-bit code, its byte offset by an exclusive prefix of the lengths, 1 to 4
-  bytes little-endian, the ids by an inclusive prefix of the gaps.
+  bytes little-endian, the ids by an inclusive prefix of the gaps. The kernel
+  takes two tables (``svb_tables``): the rows of more than
+  ``SVB_LONG_VALUES`` values, widest first, a block each, and tiles of the
+  other rows, runs of consecutive rows a warp decodes together.
 - ``vgb_tags``: a VarintGB row of ``ngroups[r]`` groups whose first tag is at
   byte ``pos[r]`` writes each group's tag position at ``tagpos[gbase[r] + j]``,
   the next tag ``5 + (the tag's four codes)`` bytes on (``VGB_GLEN``). The
@@ -55,6 +58,15 @@ VGB_GLEN = np.array(
 # 15,872: VGB_TILE_BYTES plus a short row's most, 17 * 256 + 4) and its
 # tags its collected ones (kOutSlots, 3,200)
 VGB_LONG_GROUPS = 256
+# svb_decode's tables: a row of more than SVB_LONG_VALUES values is long (a
+# block of its own, in rounds of 512 quads); a tile (a warp's, in rounds of
+# 64 quads) is a run of rows whose first quads (a quad: the up to four
+# values of one key byte) lie in one window of SVB_TILE_QUADS quads and
+# whose indices in one window of SVB_TILE_ROWS rows, so that it mostly
+# fills about two rounds and never passes a batch of the warp's 32 rows
+SVB_LONG_VALUES = 1024
+SVB_TILE_QUADS = 112
+SVB_TILE_ROWS = 32
 VGB_TILE_BYTES = 11264
 VGB_TILE_ROWS = 256
 
@@ -182,16 +194,52 @@ def vgb_values_plain(stream, tagpos, gbase, counts, out_slot, col):
 
 # ---- the kernels' wrappers -------------------------------------------------
 
-def svb_decode(stream, key_start, counts, out_slot, col):
-    """``col`` with every row's ids written at ``col[out_slot[r] + i]``."""
+def svb_tables(counts: torch.Tensor) -> dict:
+    """``svb_decode``'s tables for rows of ``counts`` values (int32, on any
+    device; the tables on the same one): ``long_rows``, the rows of more
+    than SVB_LONG_VALUES values, widest first, and ``tiles`` (n_tiles + 1,),
+    each tile's first row and then the end: a tile ends where the rows'
+    first quads (counted over the other rows with values) cross a multiple
+    of SVB_TILE_QUADS or the rows' indices one of SVB_TILE_ROWS. int32."""
+    n = counts.long()
+    long = n > SVB_LONG_VALUES
+    q = torch.where(long | (n <= 0), 0, (n + 3) >> 2)
+    first = torch.cumsum(q, 0) - q
+    key = (first // SVB_TILE_QUADS
+           + torch.arange(n.numel(), device=n.device) // SVB_TILE_ROWS)
+    cut = torch.nonzero(key.diff()).flatten() + 1
+    tiles = torch.cat([cut.new_zeros(1), cut, cut.new_full((1,), n.numel())])
+    rows = torch.nonzero(long).flatten()
+    rows = rows[torch.argsort(n[rows], descending=True, stable=True)]
+    return {"long_rows": rows.to(torch.int32),
+            "tiles": tiles.clamp(max=2**31 - 1).to(torch.int32)}
+
+
+def svb_decode(stream, key_start, counts, out_slot, col, *, long_rows=None,
+               tiles=None):
+    """``col`` with every row's ids written at ``col[out_slot[r] + i]``.
+    ``long_rows`` and ``tiles``: the kernel's tables (``svb_tables``, which
+    builds them on the card when they are not given); the plain version
+    takes none."""
     dev = _check(stream, (key_start, counts, out_slot), (col,))
     if dev.type == "cpu":
         return svb_decode_plain(stream, key_start, counts, out_slot, col)
+    if long_rows is None or tiles is None:
+        tables = svb_tables(counts)
+        long_rows, tiles = tables["long_rows"], tables["tiles"]
+    if (long_rows.dim() != 1 or tiles.dim() != 1 or tiles.numel() < 1
+            or any(t.dtype != torch.int32 or not t.is_contiguous()
+                   or t.device != dev for t in (long_rows, tiles))):
+        raise ValueError("svb_decode: long_rows (n,) and tiles (n_tiles + 1,) "
+                         "must be contiguous int32 on the stream's device")
     lib = _build.load_library("vbyte_decode")
     rc = lib.gab_svb_decode(stream.data_ptr(), stream.numel(),
                             key_start.data_ptr(), counts.data_ptr(),
                             out_slot.data_ptr(), key_start.numel(),
-                            col.data_ptr(), col.numel(), *_launch_tail(stream))
+                            long_rows.data_ptr(), long_rows.numel(),
+                            tiles.data_ptr(), tiles.numel() - 1,
+                            SVB_LONG_VALUES, col.data_ptr(), col.numel(),
+                            *_launch_tail(stream))
     _raise_on(rc, lib, "svb_decode", f"{key_start.numel()} rows")
     LAUNCHES["svb_decode"] += 1
     return col

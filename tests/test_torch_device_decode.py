@@ -12,11 +12,14 @@ device decoder (jit on the JAX CPU backend), the host decoder and the
 graph, on rmat9-10 and on the handmade graphs of ``tests/test_compress.py``
 (:158-227): zero-degree rows, ids of 1 to 4 bytes, 4-byte lanes from ids of
 2^24 and up, partial final groups, tags at every in-word alignment, a hub.
-``vgb_tags``, which uses no warp intrinsic, is also compiled here with g++
-against a header that emulates the CUDA it uses (a block's threads as host
-threads that meet at ``__syncthreads``, its shared memory static) and runs
-its blocks one after another, and held against its plain version under
-its tables at the shipped sizes and at small ones. The kernels themselves
+``vgb_tags`` and ``svb_decode`` are also compiled here with g++ against a
+header that emulates the CUDA they use (a block's threads as host threads
+that meet at ``__syncthreads``, a warp's at ``__syncwarp`` and around each
+shuffle, shared memory static) and run their blocks one after another,
+each held against its plain version under its tables at the shipped sizes
+and at small ones. Hybrid's encoder refuses a row it would send to CGR
+that is not strictly increasing, where JAX's writes a stream it decodes
+wrongly: a stated difference, held here. The kernels themselves
 run on the card in the tests marked ``cuda`` and in ``chip_smoke.py``'s
 ``compress`` phase.
 """
@@ -252,8 +255,8 @@ def test_hybrid_decode_takes_the_two_kernels_once(monkeypatch):
     calls = []
     for mod, name in ((K12, "cgr_residual"), (K11, "svb_decode")):
         fn = getattr(mod, name)
-        monkeypatch.setattr(mod, name, lambda *a, _f=fn, _n=name: (
-            calls.append(_n), _f(*a))[1])
+        monkeypatch.setattr(mod, name, lambda *a, _f=fn, _n=name, **kw: (
+            calls.append(_n), _f(*a, **kw))[1])
     g = _graph("rmat10")
     hg = thybrid.encode_graph(g)
     prep = DD.hybrid_device_prep(hg, device="cpu")
@@ -497,9 +500,6 @@ inline cudaError_t cudaSetDevice(int) { return cudaSuccess; }
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
 inline const char* cudaGetErrorString(cudaError_t) { return ""; }
 template <class T> inline T __ldg(const T* p) { return *p; }
-// the warp passes are not emulated: their shuffles abort
-inline unsigned __shfl_up_sync(unsigned, unsigned, int) { std::abort(); }
-inline unsigned __shfl_sync(unsigned, unsigned, int) { std::abort(); }
 // a block's threads are host threads, __syncthreads a barrier among them
 struct Barrier {
   std::mutex m;
@@ -520,6 +520,31 @@ struct Barrier {
 };
 static Barrier* block_barrier;
 inline void __syncthreads() { block_barrier->wait(); }
+// a warp's 32 threads meet at a barrier of their own: __syncwarp, and a
+// shuffle through an exchange between two such meetings (every lane of the
+// warp shuffles together, as the kernels' full masks require)
+static Barrier* warp_barrier[32];
+inline void __syncwarp(unsigned = 0xffffffffu) {
+  warp_barrier[threadIdx.x >> 5]->wait();
+}
+static unsigned long long shuffled[1024];
+template <class T> inline T __shfl_up_sync(unsigned, T v, int d) {
+  const unsigned t = threadIdx.x;
+  shuffled[t] = static_cast<unsigned long long>(v);
+  __syncwarp();
+  const T r = (t & 31) >= static_cast<unsigned>(d)
+                  ? static_cast<T>(shuffled[t - d]) : v;
+  __syncwarp();
+  return r;
+}
+template <class T> inline T __shfl_sync(unsigned, T v, int src) {
+  const unsigned t = threadIdx.x;
+  shuffled[t] = static_cast<unsigned long long>(v);
+  __syncwarp();
+  const T r = static_cast<T>(shuffled[(t & ~31u) + src]);
+  __syncwarp();
+  return r;
+}
 static std::mutex atomics;
 inline long long atomicMin(long long* p, long long v) {
   std::lock_guard<std::mutex> g(atomics);
@@ -537,6 +562,11 @@ inline long long atomicMax(long long* p, long long v) {
 inline void emulate(unsigned grid, unsigned block, std::function<void()> f) {
   Barrier bar(block);
   block_barrier = &bar;
+  std::vector<Barrier*> warps;
+  for (unsigned w = 0; w < block / 32; ++w) {
+    warps.push_back(new Barrier(32));
+    warp_barrier[w] = warps.back();
+  }
   std::vector<std::thread> threads;
   for (unsigned t = 0; t < block; ++t)
     threads.emplace_back([&, t] {
@@ -548,6 +578,7 @@ inline void emulate(unsigned grid, unsigned block, std::function<void()> f) {
       }
     });
   for (auto& th : threads) th.join();
+  for (Barrier* w : warps) delete w;
 }
 """
 
@@ -557,7 +588,7 @@ def emulated(tmp_path_factory):
     """The library of ``csrc/vbyte_decode.cu`` built by g++ for the host,
     each launch ``k<<<grid, block, 0, s>>>(args)`` run block after block,
     a block's threads as host threads that meet at ``__syncthreads``; only
-    ``gab_vgb_tags`` is called."""
+    ``gab_vgb_tags`` and ``gab_svb_decode`` are called."""
     if shutil.which("g++") is None:
         pytest.skip("no g++ on this host")
     d = tmp_path_factory.mktemp("vbyte_emulated")
@@ -686,6 +717,150 @@ def test_vgb_tags_source_emulated_equals_plain(emulated, name, monkeypatch):
             assert torch.equal(got, want), (name, sizes)
 
 
+def _emulated_svb(lib, stream, rows, ncol, tables, long_values=None):
+    col = torch.full((ncol,), -7, dtype=torch.int32)
+    lr, tiles = tables["long_rows"], tables["tiles"]
+    assert lib.gab_svb_decode(
+        stream.data_ptr(), stream.numel(), *(a.data_ptr() for a in rows),
+        rows[0].numel(), lr.data_ptr(), lr.numel(), tiles.data_ptr(),
+        tiles.numel() - 1, long_values or K11.SVB_LONG_VALUES,
+        col.data_ptr(), col.numel(), 0, None) == 0
+    return col
+
+
+def _svb_rows(adjs):
+    """Rows as hybrid lays out its StreamVByte chunks (no count word), one
+    after another: (stream, key_start, counts, out_slot, ncol)."""
+    chunks = [tvbyte.streamvbyte_encode(np.asarray(a, np.int64),
+                                        add_degree=False) for a in adjs]
+    bounds = np.cumsum([0] + [len(c) for c in chunks])
+    deg = np.array([len(a) for a in adjs])
+    i32 = lambda a: torch.from_numpy(np.asarray(a, np.int32))  # noqa: E731
+    return (K12.stream_tensor(b"".join(chunks), "cpu"),
+            (i32(bounds[:-1]), i32(deg), i32(np.cumsum(deg) - deg)),
+            int(deg.sum()))
+
+
+def _svb_case(name):
+    if name == "hub":
+        return _svb_rows(_hub_rows())
+    if name == "garbage":
+        rng = np.random.default_rng(2)
+        # rows past the stream's end, from a negative start, one of 1,500
+        # values (three rounds at the shipped sizes), slots past col
+        counts = torch.tensor([7, 0, 40, 3, 1500, 77, 5, 600],
+                              dtype=torch.int32)
+        start = torch.tensor([60, 5, 250, 70, 13, -3, 2990, 101],
+                             dtype=torch.int32)
+        slot = torch.cumsum(counts, 0, dtype=torch.int32) - counts
+        slot[-1] += 10
+        data = rng.integers(0, 256, 3000, dtype=np.uint8).tobytes()
+        return (K12.stream_tensor(data, "cpu"), (start, counts, slot),
+                int(counts.sum()))
+    if name.startswith("hybrid_"):
+        hg = thybrid.encode_graph(_graph(name[7:]), threshold=3)
+        high = np.nonzero(hg.degrees >= 3)[0]
+        i32 = lambda a: torch.from_numpy(np.asarray(a, np.int32))  # noqa: E731
+        rp = np.r_[0, np.cumsum(hg.degrees)]
+        return (K12.stream_tensor(hg.data, "cpu"),
+                (i32(hg.offsets[high]), i32(hg.degrees[high]), i32(rp[high])),
+                hg.ne)
+    prep = DD.streamvbyte_device_prep(_encoded(name, "streamvbyte"),
+                                      device="cpu")
+    return (prep["stream"], (prep["key_start"], prep["degrees"],
+                             prep["out_slot"]), prep["ne"])
+
+
+@pytest.mark.parametrize("name", ["rmat9", "hub", "garbage", "hybrid_rmat10"])
+def test_svb_decode_source_emulated_equals_plain(emulated, name,
+                                                 monkeypatch):
+    """svb_decode's kernel against the plain version under the tables
+    ``svb_tables`` builds at the shipped sizes, under one tile of every row
+    (a warp's: rows crossing from one round into the next inside a tile,
+    batches of 32 rows) and, on the handmade rows (a block's 256 host
+    threads meet at every barrier), under tables at small sizes (a long row
+    from 9 values,
+    tiles of 5 quads or 3 rows, so that many rows are long and many tiles
+    short) and, on the handmade rows, under a tile a row. The slots that no
+    row covers keep what they held."""
+    stream, rows, ncol = _svb_case(name)
+    want = K11.svb_decode_plain(stream, *rows, torch.full(
+        (ncol,), -7, dtype=torch.int32))
+    small = {"SVB_LONG_VALUES": 8, "SVB_TILE_QUADS": 5, "SVB_TILE_ROWS": 3}
+    for sizes in ({}, small) if name in ("hub", "garbage") else ({},):
+        for k, v in sizes.items():
+            monkeypatch.setattr(K11, k, v)
+        got = _emulated_svb(emulated, stream, rows, ncol,
+                            K11.svb_tables(rows[1]))
+        assert torch.equal(got, want), (name, sizes)
+    n = rows[1].numel()
+    none = torch.zeros(0, dtype=torch.int32)
+    for tiles in (torch.tensor([0, n], dtype=torch.int32),
+                  torch.arange(n + 1, dtype=torch.int32)):
+        if name not in ("hub", "garbage") and tiles.numel() > 2:
+            continue            # a block of host threads a row
+        got = _emulated_svb(emulated, stream, rows, ncol,
+                            {"long_rows": none, "tiles": tiles},
+                            long_values=2**24)
+        assert torch.equal(got, want), (name, tiles.numel())
+
+
+def test_svb_tables():
+    """The long rows widest first; tiles cut where the other rows' first
+    quads cross a multiple of SVB_TILE_QUADS or their indices one of
+    SVB_TILE_ROWS; the long rows and the empty ones take no quad."""
+    counts = np.array([3, 2000, 400, 0, 1800, 900, 1, 4, 1025, 17])
+    t = K11.svb_tables(torch.from_numpy(counts.astype(np.int32)))
+    assert t["long_rows"].tolist() == [1, 4, 8]
+    # quads 1, -, 100, 0, -, 225, 1, 1, -, 5: first quads 0, 1, 1, 101, 101,
+    # 101, 326, 327, 328, 328; windows of 112 quads: 0 and 2
+    assert t["tiles"].tolist() == [0, 6, 10]
+    q = np.where((counts > 1024) | (counts <= 0), 0, (counts + 3) // 4)
+    first = np.cumsum(q) - q
+    for quads, nrows in ((100, 256), (448, 4), (1, 1)):
+        import unittest.mock as um
+        with um.patch.object(K11, "SVB_TILE_QUADS", quads), \
+                um.patch.object(K11, "SVB_TILE_ROWS", nrows):
+            tiles = K11.svb_tables(torch.from_numpy(
+                counts.astype(np.int32)))["tiles"].numpy()
+        key = first // quads + np.arange(len(counts)) // nrows
+        want = np.r_[0, np.flatnonzero(np.diff(key)) + 1, len(counts)]
+        np.testing.assert_array_equal(tiles, want)
+    assert all(x.dtype == torch.int32 for x in t.values())
+
+
+@pytest.mark.parametrize("name", ["rmat9", "rmat10", "svb_cases", "vgb_cases",
+                                  "wide"])
+def test_svb_decode_under_any_tables_equals_jax(name):
+    """On the CPU the wrapper takes the plain version whatever tables it is
+    given: the StreamVByte decode, through the prep's tables, under none
+    and under one tile, equals JAX's device decode; so does hybrid's at
+    threshold 2."""
+    vg = _encoded(name, "streamvbyte")
+    prep = DD.streamvbyte_device_prep(vg, device="cpu")
+    assert set(prep["svb_tables"]) == {"long_rows", "tiles"}
+    jrp, jcol = JDD.streamvbyte_decode_device(
+        _jax_words(vg.data, (-len(vg.data)) % 4 + 8),
+        jnp.asarray(prep["word_offsets"].numpy()),
+        jnp.asarray(prep["degrees"].numpy()), nv=vg.nv, ne=vg.ne)
+    rows = (prep["key_start"], prep["degrees"], prep["out_slot"])
+    one = {"long_rows": torch.zeros(0, dtype=torch.int32),
+           "tiles": torch.tensor([0, vg.nv], dtype=torch.int32)}
+    for tables in (prep["svb_tables"], {}, one):
+        col = K11.svb_decode(prep["stream"], *rows, torch.empty(
+            vg.ne, dtype=torch.int32), **tables)
+        np.testing.assert_array_equal(col.numpy(), np.asarray(jcol))
+    np.testing.assert_array_equal(DD.streamvbyte_device_run(prep).numpy(),
+                                  np.asarray(jcol))
+    if name == "wide":
+        return
+    hg = thybrid.encode_graph(_graph(name), threshold=2)
+    hp = DD.hybrid_device_prep(hg, device="cpu")
+    np.testing.assert_array_equal(
+        DD.hybrid_device_run(hp).numpy(),
+        JDD.decode_hybrid_device(_jax_hybrid(hg)).col_idx)
+
+
 def test_vgb_tag_tables():
     """The long rows widest first; tiles cut at the byte boundaries and at
     each long row, which begins its tile and is left out of its extents;
@@ -733,6 +908,9 @@ def test_kernels_match_plain_on_cuda(name):
         (g.ne,), -1, dtype=torch.int32, device="cuda"))
     assert torch.equal(got, K11.svb_decode_plain(
         svb["stream"], *rows, torch.zeros_like(got)))
+    assert torch.equal(K11.svb_decode(svb["stream"], *rows, torch.full(
+        (g.ne,), -1, dtype=torch.int32, device="cuda"), **svb["svb_tables"]),
+        got)
     vgb = DD.varintgb_device_prep(_encoded(name, "varintgb"), device="cuda")
     chain = (vgb["pos"], vgb["ngroups"], vgb["gbase"], vgb["n_g"])
     tags = K11.vgb_tags(vgb["stream"], *chain)
@@ -751,6 +929,33 @@ def test_kernels_match_plain_on_cuda(name):
     threshold = 2 if name.endswith("_cases") else 4   # repeated ids: Q3-2
     _same(DD.decode_hybrid_device(thybrid.encode_graph(g, threshold=threshold),
                                   device="cuda"), g)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["rmat10", "svb_cases", "hub", "garbage",
+                                  "hybrid_rmat10"])
+def test_svb_decode_routes_on_cuda(name, monkeypatch):
+    """svb_decode's long rows (a block each, in rounds) and tiles on the
+    card against the plain version, under the tables svb_tables builds at
+    the shipped sizes and at small ones, and under one tile of every row."""
+    _need_cuda()
+    stream, rows, ncol = _svb_case(name)
+    stream = stream.cuda()
+    rows = tuple(a.cuda() for a in rows)
+    want = K11.svb_decode_plain(stream, *rows, torch.full(
+        (ncol,), -7, dtype=torch.int32, device="cuda"))
+    for sizes in ({}, {"SVB_LONG_VALUES": 8, "SVB_TILE_QUADS": 5,
+                       "SVB_TILE_ROWS": 3}):
+        for k, v in sizes.items():
+            monkeypatch.setattr(K11, k, v)
+        col = torch.full((ncol,), -7, dtype=torch.int32, device="cuda")
+        assert torch.equal(K11.svb_decode(stream, *rows, col), want), sizes
+    monkeypatch.setattr(K11, "SVB_LONG_VALUES", 2**24)
+    one = {"long_rows": torch.zeros(0, dtype=torch.int32, device="cuda"),
+           "tiles": torch.tensor([0, rows[0].numel()], dtype=torch.int32,
+                                 device="cuda")}
+    col = torch.full((ncol,), -7, dtype=torch.int32, device="cuda")
+    assert torch.equal(K11.svb_decode(stream, *rows, col, **one), want)
 
 
 @pytest.mark.cuda

@@ -42,9 +42,20 @@ torch.set_num_threads(2)
 FSUM = dict(rtol=1e-5, atol=1e-6)
 
 _SOURCE = (_build.CSRC / "ell_pull.cu").read_text()
-PULL_LG = int(re.search(r"constexpr int kPullLg = (\d+);", _SOURCE).group(1))
 PULL_QUADS = int(re.search(r"constexpr int kPullQuads = (\d+);",
                            _SOURCE).group(1))
+PULL_MAX_LG = int(re.search(r"constexpr int kPullMaxLg = (\d+);",
+                            _SOURCE).group(1))
+
+
+def _lanes_lg(width: int) -> int:
+    """log2 lanes a row of a bucket (``lanes_lg`` of the source): the least
+    that covers the width with kPullQuads int4 a lane, at most
+    2^kPullMaxLg."""
+    lg = 0
+    while lg < PULL_MAX_LG and (4 * PULL_QUADS << lg) < width:
+        lg += 1
+    return lg
 
 
 def _pair(build):
@@ -66,6 +77,18 @@ def _disconnected(gen, tr, csr):
         np.r_[src, src + n], np.r_[dst, dst + n], 2 * n + 9)))
 
 
+def _star(gen, tr, csr):
+    """rmat8 and a hub joined to every one of its vertices and to 3,000
+    leaves: 3,256 neighbours, 51 virtual rows of one row."""
+    a = tr.sort_and_clean(tr.symmetrize(gen.rmat(8, 6, seed=11)))
+    src, dst = a.coo()
+    hub = a.nv
+    nbrs = np.r_[np.arange(a.nv), hub + 1 + np.arange(3000)]
+    return csr.from_edges(np.r_[src, np.full(len(nbrs), hub), nbrs],
+                          np.r_[dst, nbrs, np.full(len(nbrs), hub)],
+                          a.nv + 1 + 3000)
+
+
 GRAPHS = {
     "rmat8": lambda gen, tr, csr: tr.sort_and_clean(tr.symmetrize(
         gen.rmat(8, 6, seed=11))),
@@ -75,6 +98,7 @@ GRAPHS = {
         gen.uniform_random(300, 1200, seed=9)),
     "grid24": lambda gen, tr, csr: gen.grid2d(24),
     "disconnected": _disconnected,
+    "star": _star,
 }
 
 _CACHE = {}
@@ -152,8 +176,9 @@ def test_pack_neighbor_edge_vals_bit_equal(name):
 
 def _emulate(dg, vals, kind, slots=None):
     """neighbor_reduce as csrc/ell_pull.cu computes it: per virtual row,
-    2^kPullLg lanes; lane gl reads the int4 of ids at slots
-    4 gl + 4 2^kPullLg u + step s (u < kPullQuads) up to the bucket's width,
+    2^lg lanes, lg by the bucket's width (``lanes_lg``); lane gl reads the
+    int4 of ids at slots 4 gl + 4 2^lg u + step s (u < kPullQuads) up to the
+    bucket's width,
     gathers the slots below the row's count and takes the identity for the
     others; the lanes are combined by the shuffle tree; a split row is
     combined into an identity-filled output, any other row stored. Each
@@ -164,9 +189,9 @@ def _emulate(dg, vals, kind, slots=None):
     out = np.empty(dg.nv, vals.dtype)
     out[dg.zero_rows.numpy()] = ident
     split = dg.is_split.numpy()
-    lanes = 1 << PULL_LG
-    step = 4 * PULL_QUADS << PULL_LG
     for i, b in enumerate(dg.ell):
+        lanes = 1 << _lanes_lg(b.width)
+        step = 4 * PULL_QUADS * lanes
         nbr = b.nbr.numpy().reshape(b.rows, b.width)
         ev = None if slots is None else slots[i].numpy().reshape(b.rows, b.width)
         for r, (row, cnt) in enumerate(zip(b.row_ids.numpy(), b.valid.numpy())):
@@ -201,7 +226,7 @@ def _emulate(dg, vals, kind, slots=None):
     ("int32", "min", "none"), ("int32", "sum", "none"),
     ("float32", "max", "none"), ("float32", "min", "packed"),
     ("float32", "sum", "packed")])
-@pytest.mark.parametrize("name", ["rmat12", "disconnected"])
+@pytest.mark.parametrize("name", ["rmat12", "disconnected", "star"])
 def test_kernel_slot_arithmetic_matches_plain(name, dtype, kind, ev):
     _, dg, _ = _case(name)
     v = torch.from_numpy(_vals(dg.nv, dtype, seed=7))
@@ -291,6 +316,30 @@ def test_kernel_matches_plain_on_cuda(dtype, kind, ev):
         pytest.skip("needs a CUDA device: neighbor_reduce's kernel has no "
                     "CPU mode")
     g, dg, _ = _case("rmat12")
+    dgc = tdgm.to_device_graph(g, device="cuda")
+    v = torch.from_numpy(_vals(g.nv, dtype))
+    e = torch.from_numpy(_edge_vals(g.ne))
+    t_ev = {"none": None, "flat": e,
+            "packed": pack_neighbor_edge_vals(dg, e)}[ev]
+    c_ev = (None if t_ev is None else e.cuda() if ev == "flat"
+            else tuple(p.cuda() for p in t_ev))
+    got = neighbor_reduce(dgc, v.cuda(), kind, c_ev).cpu()
+    want = neighbor_reduce(dg, v, kind, t_ev)
+    if kind == "sum" and dtype == "float32":
+        torch.testing.assert_close(got, want, **FSUM)
+    else:
+        assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,kind,ev", CASES)
+def test_kernel_matches_plain_on_a_hub_on_cuda(dtype, kind, ev):
+    """A row of 3,256 neighbours (51 virtual rows combined into one) among
+    rows of every bucket, on the card against the plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: neighbor_reduce's kernel has no "
+                    "CPU mode")
+    g, dg, _ = _case("star")
     dgc = tdgm.to_device_graph(g, device="cuda")
     v = torch.from_numpy(_vals(g.nv, dtype))
     e = torch.from_numpy(_edge_vals(g.ne))

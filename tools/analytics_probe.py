@@ -84,7 +84,48 @@ alone (VarintGB: a subset of the row lists; CGR: the other rows given no
 residuals and no intervals), with the rows' shape (widest rows, rows
 above each threshold, the longest interval). The turns run as
 ``--tc-cold``'s, per scale; the decoded columns of every turn must agree.
-One ``DECODE {json}`` line a turn.
+One ``DECODE {json}`` line a turn. ``--decoders`` picks some of the three
+readings (``vgb,cgr,svb``, the default all): ``svb`` times K11's
+``svb_decode`` on rmat(scale, 16) in StreamVByte (every row) and in hybrid
+at threshold 32 (its high rows), each a decode, beside the unchanged
+``chip_smoke._svb_decode_bound``, with the warm ``streamvbyte_device_run``
+and ``hybrid_device_run``, and split into the rows above each of
+``SVB_SPLITS`` values alone and the others alone:
+
+    python3 tools/analytics_probe.py --decode-kernels --decoders svb [--parent DIR]
+
+``--variants`` works here as for ``--pull-kernels`` below; a choice named
+like a constant of ``ops/vbyte_decode.py`` (``SVB_TILE_QUADS=112``) sets
+it before the preps build their tables.
+
+``--pull-kernels`` times K8 ``neighbor_reduce`` at rmat(19, 16) (or
+``--scale``):
+
+    python3 tools/analytics_probe.py --pull-kernels [--parent DIR]
+
+Each turn is a process of its own that builds K8 of its checkout (the
+compiler's register report printed), then reads under torch.profiler: the
+summed K8 device ms and the launches of one whole solve of each pull solver
+(BFS from 0, Bellman-Ford with symmetric and with asymmetric weights,
+PageRank, CC, ``k_core_peel``, ``bc_single_source`` from 0); one sweep of
+each case (int32 min and sum, float32 sum, float32 min with packed edge
+values) beside the batch ms and the unchanged ``chip_smoke._pull_bound``;
+the same sweeps on the graph's rows split by class, each class alone (the
+narrow buckets of width 4-8, the wider buckets of width 16-64, the split
+rows of degree above 64, every virtual row of theirs), and on the whole
+graph with every neighbour id set to 0 (the id stream with every gather
+hitting one line). Two probe kernels compiled from this file give the
+floors: the id arrays streamed alone (int4 loads, an xor a row) and as
+many gathers of ``vals`` at uniformly random ids with no id stream, over
+all of ``vals``, over its first 32,768 values (L1 holds them) and over one
+line. The
+turns run as ``--tc-cold``'s; the solves' results must agree. One
+``PULL {json}`` line a turn. ``--variants "A;B"`` runs the change's turns
+once under each set of ``-D`` choices of ``csrc/ell_pull.cu`` (defines
+split by ``,``; K8 alone is rebuilt), between the parent's:
+
+    python3 tools/analytics_probe.py --pull-kernels --parent DIR \
+        --variants "GAB_PULL_IDS=0;GAB_PULL_IDS=2,GAB_PULL_VALS=1"
 """
 
 from __future__ import annotations
@@ -107,6 +148,65 @@ KERNEL_CALLS = 20
 DECODE_RUNS = 7
 VGB_SPLITS = (64, 256, 1024)      # groups a row
 CGR_SPLITS = (256, 1024, 4096)    # ids a row
+SVB_SPLITS = (256, 1024)          # values a row
+HYBRID_THRESHOLD = 32             # hybrid's default degree threshold
+# the solves whose results are exact (PageRank and BC add floats in an
+# order that changes from run to run)
+EXACT_SOLVES = ("bfs", "sssp symmetric", "sssp asymmetric", "cc",
+                "k_core_peel")
+GATHER_SPANS = (32768, 32)   # 128 KiB of vals (L1 holds it); one line
+PULL_CASES = {                    # case -> (vals dtype, kind, edge values)
+    "int32 min": ("int32", "min", False),
+    "int32 sum": ("int32", "sum", False),
+    "float32 sum": ("float32", "sum", False),
+    "float32 min packed": ("float32", "min", True),
+}
+# the floors of a pull sweep: the id arrays streamed alone, and random
+# gathers of vals with no id stream (ids from a hash of the slot, below a
+# span: all of vals, GATHER_SPANS' first entries of it)
+PULL_FLOOR_SRC = r"""
+#include <climits>
+#include <cstdint>
+#include <cuda_runtime.h>
+__global__ void ids_only(const int4* __restrict__ ids, long long n4,
+                         int per_row4, int* __restrict__ out) {
+  const long long r = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+  if (r * per_row4 >= n4) return;
+  int x = 0;
+  for (int k = 0; k < per_row4; ++k) {
+    const int4 q = __ldcs(ids + r * per_row4 + k);
+    x ^= q.x ^ q.y ^ q.z ^ q.w;
+  }
+  if (x == 0x7fffffff) out[0] = x;   // keeps the loads
+}
+__global__ void gather_only(const int* __restrict__ vals, unsigned span,
+                            long long n, int* __restrict__ out) {
+  const long long t = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+  if (8 * t >= n) return;
+  int m = INT_MAX;
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    unsigned h = static_cast<unsigned>(8 * t + k) * 2654435761u;
+    h ^= h >> 15; h *= 2246822519u; h ^= h >> 13;
+    m = min(m, __ldg(vals + h % span));
+  }
+  if (m == INT_MIN + 1) out[0] = m;   // keeps the loads
+}
+extern "C" int probe_ids_only(const void* ids, long long n4, int per_row4,
+                              void* out, void* stream) {
+  const long long rows = (n4 + per_row4 - 1) / per_row4;
+  ids_only<<<(unsigned)((rows + 255) / 256), 256, 0, (cudaStream_t)stream>>>(
+      (const int4*)ids, n4, per_row4, (int*)out);
+  return (int)cudaGetLastError();
+}
+extern "C" int probe_gather_only(const void* vals, unsigned span,
+                                 long long n, void* out, void* stream) {
+  const long long threads = (n + 7) / 8;
+  gather_only<<<(unsigned)((threads + 255) / 256), 256, 0,
+                 (cudaStream_t)stream>>>((const int*)vals, span, n, (int*)out);
+  return (int)cudaGetLastError();
+}
+"""
 
 
 def phases(scale: int) -> int:
@@ -346,6 +446,192 @@ def kernels_worker(tree: str, graph_npz: str) -> None:
     print("KERNELS " + json.dumps(res))
 
 
+def _pull_floor_lib():
+    """The probe kernels of PULL_FLOOR_SRC, compiled by nvcc into the build
+    directory."""
+    import ctypes
+
+    from graphaibench_tpu_torch.ops import _build
+
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    src = _build.BUILD_DIR / "pull_floor.cu"
+    so = _build.BUILD_DIR / f"pull_floor_{os.getpid()}.so"
+    src.write_text(PULL_FLOOR_SRC)
+    subprocess.run([_build.find_nvcc(), *_build.NVCC_FLAGS, "-o", str(so),
+                    str(src)], check=True, capture_output=True, timeout=300)
+    lib = ctypes.CDLL(str(so))
+    vp, i64 = ctypes.c_void_p, ctypes.c_longlong
+    lib.probe_ids_only.argtypes = [vp, i64, ctypes.c_int, vp, vp]
+    lib.probe_gather_only.argtypes = [vp, ctypes.c_uint, i64, vp, vp]
+    return lib
+
+
+def _pull_rows(dg, keep):
+    """``dg`` with only the virtual rows that ``keep(bucket)`` (a bool mask
+    a bucket) selects, buckets left empty dropped."""
+    import dataclasses
+
+    import torch
+
+    from graphaibench_tpu_torch.ops.device_graph import EllBucket
+
+    ell = []
+    for b in dg.ell:
+        idx = torch.nonzero(keep(b)).flatten()
+        if not idx.numel():
+            continue
+        slots = (idx[:, None] * b.width + torch.arange(
+            b.width, device=idx.device)[None, :]).flatten()
+        ell.append(EllBucket(
+            row_ids=b.row_ids[idx].contiguous(),
+            nbr=b.nbr[slots].contiguous(),
+            edge_id=b.edge_id[slots].contiguous(), width=b.width,
+            valid=b.valid[idx].contiguous()))
+    return dataclasses.replace(dg, ell=tuple(ell))
+
+
+def pull_kernels_worker(tree: str, graph_npz: str, defines: str = "") -> None:
+    """One turn of ``--pull-kernels``: K8 of the checkout at ``tree`` on
+    the graph in ``graph_npz``, built under the comma-separated ``-D``
+    choices ``defines``."""
+    import ctypes
+    import dataclasses
+
+    sys.path.insert(0, ROOT)                 # chip_smoke's bounds
+    sys.path.insert(0, os.path.abspath(tree))
+    import torch
+
+    import chip_smoke as C
+    from graphaibench_tpu_torch import CSRGraph
+    from graphaibench_tpu_torch.analytics import bc as BCM
+    from graphaibench_tpu_torch.analytics import cc as CCM
+    from graphaibench_tpu_torch.analytics import kcore as KCM
+    from graphaibench_tpu_torch.analytics import pr as PRM
+    from graphaibench_tpu_torch.analytics import traversal as TR
+    from graphaibench_tpu_torch.ops import _build
+    from graphaibench_tpu_torch.ops import ell_pull as K8
+    from graphaibench_tpu_torch.ops.device_graph import to_device_graph
+
+    import graphaibench_tpu_torch
+    assert graphaibench_tpu_torch.__file__.startswith(os.path.abspath(tree))
+    if defines:
+        # K8 alone under the choices (the other sources keep their builds)
+        _build.NVCC_FLAGS += tuple(f"-D{d}" for d in defines.split(","))
+        _build.SOURCES = ("ell_pull.cu",)
+    res = {"tree": tree, "defines": defines, "ptxas": _ptxas(("ell_pull",))}
+    z = np.load(graph_npz)
+    g = CSRGraph(row_ptr=z["row_ptr"], col_idx=z["col_idx"])
+    dg = to_device_graph(g, device="cuda")
+    res["nv"], res["ne"] = g.nv, g.ne
+    res["buckets"] = [(b.width, b.rows) for b in dg.ell]
+    rng = np.random.default_rng(1)
+    rev = dg.trans_perm.cpu().numpy()
+    w = {"symmetric": rng.uniform(0.1, 2.0, g.ne).astype(np.float32)[
+             np.minimum(np.arange(g.ne), rev)],
+         "asymmetric": rng.uniform(0.1, 2.0, g.ne).astype(np.float32)}
+    w = {k: torch.from_numpy(v).cuda() for k, v in w.items()}
+    solves = {
+        "bfs": lambda: TR.bfs(dg, 0),
+        "sssp symmetric": lambda: TR.sssp_bellman_ford(dg, w["symmetric"], 0),
+        "sssp asymmetric": lambda: TR.sssp_bellman_ford(dg, w["asymmetric"],
+                                                        0),
+        "pagerank": lambda: PRM.pagerank(dg)[0],
+        "cc": lambda: CCM.connected_components(dg),
+        "k_core_peel": lambda: KCM.k_core_peel(dg),
+        "bc": lambda: BCM.bc_single_source(dg, 0),
+    }
+    res["solves"], res["digests"] = {}, {}
+    for name, fn in solves.items():
+        before = K8.LAUNCHES["neighbor_reduce"]
+        out = fn()
+        torch.cuda.synchronize()
+        launches = K8.LAUNCHES["neighbor_reduce"] - before
+        if name in EXACT_SOLVES:
+            res["digests"][name] = _digest(out)
+        by = C._device_ms_by_name(fn, 1)
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        res["solves"][name] = {
+            "launches": launches, "host_s": time.perf_counter() - t0,
+            "k8_device_ms": sum(v for k, v in by.items()
+                                if "neighbor_reduce" in k),
+            "all_device_ms": sum(by.values())}
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    vals = {"int32": torch.randint(0, 2, (g.nv,), dtype=torch.int32,
+                                   device="cuda", generator=gen),
+            "float32": torch.randn(g.nv, device="cuda", generator=gen)}
+    ev = torch.rand(g.ne, device="cuda", generator=gen) + 0.25
+
+    def sweeps(graph) -> dict:
+        out = {}
+        packed = K8.pack_neighbor_edge_vals(graph, ev)
+        for case, (dtype, kind, edge) in PULL_CASES.items():
+            e = packed if edge else None
+            fn = lambda: K8.neighbor_reduce(graph, vals[dtype], kind, e)  # noqa: E731
+            out[case] = C._kernel_device_ms(fn, "neighbor_reduce")
+        return out
+
+    res["sweep"] = {}
+    for case, (dtype, kind, edge) in PULL_CASES.items():
+        e = K8.pack_neighbor_edge_vals(dg, ev) if edge else None
+        fn = lambda: K8.neighbor_reduce(dg, vals[dtype], kind, e)  # noqa: E731
+        bound_ms, bound_by, nbytes = C._pull_bound(dg, edge)
+        device_ms = C._kernel_device_ms(fn, "neighbor_reduce")
+        res["sweep"][case] = {
+            "device_ms": device_ms, "batch_ms": C._batch_ms(fn),
+            "bound_ms": bound_ms, "bound_by": bound_by, "bound_bytes": nbytes,
+            "share_of_bound": bound_ms / device_ms if device_ms else None}
+        if case != "float32 sum":     # adds in an order that varies
+            res["digests"][f"sweep {case}"] = _digest(fn())
+    split = dg.is_split.bool()
+    classes = {
+        "narrow 4-8": lambda b: (~split[b.row_ids.long()]) & (b.width <= 8),
+        "wide 16-64": lambda b: (~split[b.row_ids.long()]) & (b.width >= 16),
+        "split rows": lambda b: split[b.row_ids.long()],
+    }
+    res["classes"] = {}
+    for name, keep in classes.items():
+        sub = _pull_rows(dg, keep)
+        res["classes"][name] = {
+            "virtual_rows": sum(b.rows for b in sub.ell),
+            "slots": sum(b.rows * b.width for b in sub.ell),
+            "real_slots": int(sum(b.valid.long().sum() for b in sub.ell)),
+            "device_ms": sweeps(sub)}
+        del sub
+    zero = dataclasses.replace(dg, ell=tuple(
+        dataclasses.replace(b, nbr=torch.zeros_like(b.nbr)) for b in dg.ell))
+    res["classes"]["ids, every gather at vertex 0"] = {"device_ms": sweeps(zero)}
+    del zero
+    lib = _pull_floor_lib()
+    sink = torch.zeros(1, dtype=torch.int32, device="cuda")
+    stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+    ids = {b.width: b.nbr for b in dg.ell}
+    slots = sum(b.nbr.numel() for b in dg.ell)
+    real = int(sum(b.valid.long().sum() for b in dg.ell))
+
+    def ids_pass():
+        for width, nbr in ids.items():
+            lib.probe_ids_only(nbr.data_ptr(), nbr.numel() // 4, width // 4,
+                               sink.data_ptr(), stream)
+
+    by = C._device_ms_by_name(ids_pass, KERNEL_CALLS)
+    res["floors"] = {
+        "ids_only_device_ms": sum(v for k, v in by.items() if "ids_only" in k),
+        "id_bytes": 4 * slots,
+        "gather_only_device_ms": C._kernel_device_ms(
+            lambda: lib.probe_gather_only(vals["int32"].data_ptr(), g.nv, real,
+                                          sink.data_ptr(), stream),
+            "gather_only"),
+        "gathers": real}
+    for span in GATHER_SPANS:
+        res["floors"][f"gather_only_span_{span}_device_ms"] = (
+            C._kernel_device_ms(lambda: lib.probe_gather_only(
+                vals["int32"].data_ptr(), span, real, sink.data_ptr(),
+                stream), "gather_only"))
+    print("PULL " + json.dumps(res))
+
+
 def _ptxas(names) -> dict:
     """Each library's -Xptxas -v lines (registers, shared memory, spills)."""
     from graphaibench_tpu_torch.ops import _build
@@ -353,9 +639,8 @@ def _ptxas(names) -> dict:
     report = {}
     for name in names:
         _build.load_library(name)
-        log = _build.BUILD_DIR.glob(f"gab_{name}_*.log")
-        report[name] = [ln.strip() for f in log
-                        for ln in f.read_text().splitlines()
+        log = _build._library_path(f"{name}.cu").with_suffix(".log")
+        report[name] = [ln.strip() for ln in log.read_text().splitlines()
                         if "registers" in ln or "spill" in ln
                         or "Compiling" in ln]
     return report
@@ -483,9 +768,62 @@ def _cgr_reading(C, CD, K12, cg) -> dict:
     return out
 
 
-def decode_kernels_worker(tree: str, path: str) -> None:
+def _svb_reading(C, DD, K11, obj, hybrid: bool) -> dict:
+    """svb_decode as the StreamVByte (or, with ``hybrid``, the hybrid)
+    decode calls it: a decode's device ms and batch ms beside the bound, the
+    warm run, and the split by row length."""
+    import torch
+
+    if hybrid:
+        prep = DD.hybrid_device_prep(obj, device="cuda")
+        rows = prep["high"]
+        run = DD.hybrid_device_run
+    else:
+        prep = DD.streamvbyte_device_prep(obj, device="cuda")
+        deg = prep["degrees"]
+        rows = (prep["word_offsets"][:prep["nv"]] * 4 + 4, deg,
+                torch.cumsum(deg, 0, dtype=torch.int32) - deg)
+        run = DD.streamvbyte_device_run
+    stream, ne = prep["stream"], prep["ne"]
+    tables = prep.get("svb_tables", {})
+    col = torch.empty(ne, dtype=torch.int32, device="cuda")
+    fn = lambda: K11.svb_decode(stream, *rows, col, **tables)  # noqa: E731
+    out = _pass_ms(C, fn, "svb_decode")
+    n = rows[1].long()
+    # the bytes of the rows decoded (hybrid: its high rows' chunks alone)
+    nbytes = (int(np.diff(obj.offsets)[np.asarray(obj.degrees)
+                                        >= obj.threshold].sum())
+              if hybrid else stream.numel())
+    out["bound_ms"], out["bound_by"], out["bound_bytes"] = (
+        C._svb_decode_bound(nbytes, n.numel(), int(n.sum())))
+    out["share_of_bound"] = out["bound_ms"] / out["device_ms"]
+    out["warm_run_s"] = C._solve_seconds(lambda: run(prep), DECODE_RUNS)
+    out["col"] = _digest(run(prep))
+    out["rows"] = int(n.numel())
+    out["values"] = int(n.sum())
+    out["widest"] = int(n.max())
+    out["split"] = {}
+    for t in SVB_SPLITS:
+        part = {}
+        for side, keep in (("long", n > t), ("rest", n <= t)):
+            sub = tuple(a[keep].contiguous() for a in rows)
+            sub_tables = (K11.svb_tables(sub[1])
+                          if hasattr(K11, "svb_tables") else {})
+            part[side] = _pass_ms(C, lambda: K11.svb_decode(
+                stream, *sub, col, **sub_tables), "svb_decode")["device_ms"]
+            part[f"{side}_rows"] = int(keep.sum())
+            part[f"{side}_values"] = int(n[keep].sum())
+        out["split"][t] = part
+    torch.cuda.synchronize()
+    return out
+
+
+def decode_kernels_worker(tree: str, path: str, defines: str = "") -> None:
     """One turn of ``--decode-kernels``: ``vgb_tags`` and ``cgr_merge`` of
-    the checkout at ``tree`` on the streams under ``path``."""
+    the checkout at ``tree`` on the streams under ``path``; each of the
+    comma-separated ``defines`` sets a table size of ``ops/vbyte_decode.py``
+    (``SVB_TILE_QUADS=112``) or is a ``-D`` choice of the two decode
+    sources."""
     sys.path.insert(0, ROOT)                 # chip_smoke's bounds
     sys.path.insert(0, os.path.abspath(tree))
     import chip_smoke as C
@@ -497,41 +835,91 @@ def decode_kernels_worker(tree: str, path: str) -> None:
 
     import graphaibench_tpu_torch
     assert graphaibench_tpu_torch.__file__.startswith(os.path.abspath(tree))
-    res = {"tree": tree, "ptxas": _ptxas(("vbyte_decode", "cgr_decode"))}
-    vg = load_compressed(os.path.join(path, "vgb"))
-    res["nv"], res["ne"] = vg.nv, vg.ne
-    res["vgb_tags"] = _vgb_reading(C, DD, K11, vg)
-    del vg
-    res["cgr_merge"] = _cgr_reading(C, CD, K12,
-                                    load_compressed(os.path.join(path, "cgr")))
-    res["vgb_col"] = res["vgb_tags"].pop("col")
-    res["cgr_col"] = res["cgr_merge"].pop("col")
+    from graphaibench_tpu_torch.ops import _build
+
+    for d in (d for d in defines.split(",") if d):
+        name, _, value = d.partition("=")
+        if hasattr(K11, name):
+            setattr(K11, name, int(value))
+        else:
+            _build.NVCC_FLAGS += (f"-D{d}",)
+            _build.SOURCES = ("vbyte_decode.cu", "cgr_decode.cu")
+    res = {"tree": tree, "defines": defines,
+           "ptxas": _ptxas(("vbyte_decode", "cgr_decode"))}
+    here = lambda name: os.path.exists(os.path.join(  # noqa: E731
+        path, name + ".meta.json"))
+    if here("vgb"):
+        res["vgb_tags"] = _vgb_reading(
+            C, DD, K11, load_compressed(os.path.join(path, "vgb")))
+        res["vgb_col"] = res["vgb_tags"].pop("col")
+    if here("cgr"):
+        res["cgr_merge"] = _cgr_reading(
+            C, CD, K12, load_compressed(os.path.join(path, "cgr")))
+        res["cgr_col"] = res["cgr_merge"].pop("col")
+    if here("svb"):
+        res["svb_decode"] = _svb_reading(
+            C, DD, K11, load_compressed(os.path.join(path, "svb")), False)
+        res["svb_col"] = res["svb_decode"].pop("col")
+    if here("hybrid"):
+        res["svb_decode_hybrid"] = _svb_reading(
+            C, DD, K11, load_compressed(os.path.join(path, "hybrid")), True)
+        res["hybrid_col"] = res["svb_decode_hybrid"].pop("col")
     print("DECODE " + json.dumps(res))
 
 
-def decode_kernels(parent: str | None, scales) -> None:
+def pull_kernels(parent: str | None, scale: int, variants=()) -> None:
     sys.path.insert(0, ROOT)
     import chip_smoke as C
     from graphaibench_tpu_torch import rmat
-    from graphaibench_tpu_torch.compress import cgr, vbyte
+
+    C.phase_device()         # the card's name and power limit
+    with tempfile.TemporaryDirectory() as tmp:
+        npz = os.path.join(tmp, f"rmat{scale}.npz")
+        g = rmat(scale, 16, seed=0, cache=False)
+        np.savez(npz, row_ptr=g.row_ptr, col_idx=g.col_idx)
+        del g
+        _turns(parent, "--pull-kernels-worker", npz, "PULL",
+               agree=("digests",), variants=variants)
+
+
+def decode_kernels(parent: str | None, scales, decoders,
+                   variants=()) -> None:
+    sys.path.insert(0, ROOT)
+    import chip_smoke as C
+    from graphaibench_tpu_torch import rmat
+    from graphaibench_tpu_torch.compress import cgr, hybrid, vbyte
     from graphaibench_tpu_torch.compress.cli import save_compressed
     from graphaibench_tpu_torch.graph.transforms import sort_and_clean
 
+    encoders = {
+        "vgb": {"vgb": lambda g: vbyte.encode_graph(g, "varintgb")},
+        "cgr": {"cgr": lambda g: cgr.encode_graph(
+            g, C.CGR_STREAMS["interval"])},
+        "svb": {"svb": lambda g: vbyte.encode_graph(g, "streamvbyte"),
+                "hybrid": lambda g: hybrid.encode_graph(
+                    g, threshold=HYBRID_THRESHOLD)},
+    }
+    unknown = set(decoders) - set(encoders)
+    if unknown:
+        raise SystemExit(f"unknown decoders {sorted(unknown)}: of "
+                         f"{sorted(encoders)}")
+    cols = {"vgb": ("vgb_col",), "cgr": ("cgr_col",),
+            "svb": ("svb_col", "hybrid_col")}
     C.phase_device()         # the card's name and power limit
     with tempfile.TemporaryDirectory() as tmp:
         for scale in scales:
             t0 = time.perf_counter()
             d = os.path.join(tmp, f"rmat{scale}")
             g = sort_and_clean(rmat(scale, 16, seed=0, cache=False))
-            save_compressed(vbyte.encode_graph(g, "varintgb"),
-                            os.path.join(d, "vgb"))
-            save_compressed(cgr.encode_graph(g, C.CGR_STREAMS["interval"]),
-                            os.path.join(d, "cgr"))
+            for dec in decoders:
+                for name, enc in encoders[dec].items():
+                    save_compressed(enc(g), os.path.join(d, name))
             del g
             print(f"rmat({scale}, 16) encoded in "
                   f"{time.perf_counter() - t0:.1f} s")
             _turns(parent, "--decode-kernels-worker", d, "DECODE",
-                   agree=("vgb_col", "cgr_col"))
+                   agree=tuple(c for dec in decoders for c in cols[dec]),
+                   variants=variants)
 
 
 def kernels(parent: str | None, scales) -> None:
@@ -551,18 +939,23 @@ def kernels(parent: str | None, scales) -> None:
 
 
 def _turns(parent: str | None, worker: str, path: str, tag: str,
-           agree=()) -> None:
+           agree=(), variants=()) -> None:
     """Run ``worker`` on ``path`` with the change alone, or with parent,
     change, change, parent; print each turn's ``tag`` line. The keys in
-    ``agree`` must be equal in every turn."""
+    ``agree`` must be equal in every turn. With ``variants`` (``-D``
+    choices, comma-separated, a string each), the change's turns are one a
+    variant, between the parent's."""
     first = None
-    order = [("change", ROOT)]
+    order = [("change", ROOT, "")]
+    if variants:
+        order = [("change", ROOT, v) for v in variants]
     if parent:
-        order = [("parent", parent), ("change", ROOT), ("change", ROOT),
-                 ("parent", parent)]
-    for name, tree in order:
+        order = ([("parent", parent, "")] + order * (1 if variants else 2)
+                 + [("parent", parent, "")])
+    for name, tree, defines in order:
         r = subprocess.run(
-            [sys.executable, os.path.abspath(__file__), worker, tree, path],
+            [sys.executable, os.path.abspath(__file__), worker, tree, path,
+             *([defines] if defines else [])],
             capture_output=True, text=True, timeout=600)
         lines = [ln for ln in r.stdout.splitlines()
                  if ln.startswith(tag + " ")]
@@ -626,15 +1019,28 @@ def main() -> int:
     ap.add_argument("--decode-kernels", action="store_true",
                     help="K11's vgb_tags and K12's cgr_merge a decode, at "
                     "rmat19 and rmat17 (or --scale)")
+    ap.add_argument("--decoders", default="vgb,cgr,svb",
+                    help="with --decode-kernels: the readings to take, of "
+                    "vgb, cgr and svb")
+    ap.add_argument("--pull-kernels", action="store_true",
+                    help="K8 over each pull solve, a sweep of each case and "
+                    "split by row class, at rmat19 (or --scale)")
+    ap.add_argument("--variants", default="",
+                    help="with --pull-kernels or --decode-kernels: the "
+                    "change's turns under these -D choices (or, for the "
+                    "decode, table sizes of ops/vbyte_decode.py), ';' "
+                    "between variants, ',' between the choices of one")
+    ap.add_argument("--pull-kernels-worker", nargs="+",
+                    metavar="ARG", help=argparse.SUPPRESS)
     ap.add_argument("--parent", help="with --tc-cold, --tc-stream-mem, "
-                    "--kernels or --decode-kernels: "
+                    "--kernels, --decode-kernels or --pull-kernels: "
                     "root of the parent commit's checkout")
     ap.add_argument("--tc-cold-worker", nargs=2, metavar=("TREE", "NPZ"),
                     help=argparse.SUPPRESS)
     ap.add_argument("--kernels-worker", nargs=2, metavar=("TREE", "NPZ"),
                     help=argparse.SUPPRESS)
-    ap.add_argument("--decode-kernels-worker", nargs=2,
-                    metavar=("TREE", "DIR"), help=argparse.SUPPRESS)
+    ap.add_argument("--decode-kernels-worker", nargs="+",
+                    metavar="ARG", help=argparse.SUPPRESS)
     ap.add_argument("--tc-stream-mem-worker", nargs=2,
                     metavar=("TREE", "PREFIX"), help=argparse.SUPPRESS)
     args = ap.parse_args()
@@ -651,7 +1057,16 @@ def main() -> int:
         decode_kernels_worker(*args.decode_kernels_worker)
         return 0
     if args.decode_kernels:
-        decode_kernels(args.parent, [args.scale] if args.scale else [19, 17])
+        decode_kernels(args.parent, [args.scale] if args.scale else [19, 17],
+                       [d for d in args.decoders.split(",") if d],
+                       [v for v in args.variants.split(";") if v])
+        return 0
+    if args.pull_kernels_worker:
+        pull_kernels_worker(*args.pull_kernels_worker)
+        return 0
+    if args.pull_kernels:
+        pull_kernels(args.parent, args.scale or 19,
+                     [v for v in args.variants.split(";") if v])
         return 0
     if args.tc_stream_mem_worker:
         tc_stream_mem_worker(*args.tc_stream_mem_worker)
