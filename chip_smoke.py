@@ -2800,13 +2800,13 @@ def phase_compress(g, dg) -> dict:
           f"NaN-dirtied allocator")
     del preps, sp
     # the byte codecs, decoded through K11
-    vpreps, _vbyte_objs = {}, {}
+    vpreps, vobjs = {}, {}
     for scheme, (obj, enc) in _vbyte_encode(gs).items():
         vpreps[scheme], decodes[scheme] = _vbyte_decode(scheme, obj, gs,
                                                         col_ref)
         decodes[scheme]["encode_s"] = enc
-        _vbyte_objs[scheme] = obj
-    hyb_obj = _vbyte_objs["hybrid"]
+        vobjs[scheme] = obj
+    hyb_obj = vobjs["hybrid"]
     vpreps["hybrid"]["high_bytes"] = _high_bytes(hyb_obj)
     k11 = _k11_cases(vpreps["streamvbyte"], vpreps["varintgb"],
                      f"rmat{ANALYTICS_SCALE}", timed=True,
@@ -2821,7 +2821,7 @@ def phase_compress(g, dg) -> dict:
     print(f"[compress] every K11 kernel equals its plain version at "
           f"rmat{ANALYTICS_SCALE} and at rmat{PULL_DIRTY_SCALE} behind a "
           f"NaN-dirtied allocator")
-    del vpreps, sv, shp, _vbyte_objs
+    del vpreps, sv, shp, vobjs
     star = _star_decodes()
     # the solvers on the compressed graph
     dec = CD.cgr_decode_device(plain_cg, device="cuda")

@@ -80,18 +80,13 @@ constexpr int kPullQuads = GAB_PULL_QUADS;
 #else
 constexpr int kPullQuads = 2;
 #endif
-#ifdef GAB_PULL_MAXLG
-constexpr int kPullMaxLg = GAB_PULL_MAXLG;
-#else
 constexpr int kPullMaxLg = 3;
-#endif
 
 // Build-time choices, for tools/analytics_probe.py --variants:
-// GAB_PULL_QUADS (int4 of ids a lane reads a step), GAB_PULL_FIXED_LG (four
-// lanes a row in every bucket, the PR 8 design),
-// GAB_PULL_IDS (how the ids and edge values are read: 0 through L1, 1
-// without allocating in L1, 2 streaming, evict-first in L1 and L2),
-// GAB_PULL_MAXLG (the most lanes a row, log2).
+// GAB_PULL_QUADS (int4 of ids a lane reads a step; 1 and 4 read within 3%
+// of 2) and GAB_PULL_IDS (how the ids and edge values are read: 0 through
+// L1, 1 without allocating in L1, 2 streaming, evict-first in L1 and L2;
+// all within 3%).
 #ifndef GAB_PULL_IDS
 #define GAB_PULL_IDS 1
 #endif
@@ -150,8 +145,8 @@ __device__ __forceinline__ V stream16(const V* p) {
 #if GAB_PULL_IDS == 1
   int4 r;
   asm("ld.global.nc.L1::no_allocate.v4.s32 {%0, %1, %2, %3}, [%4];"
-               : "=r"(r.x), "=r"(r.y), "=r"(r.z), "=r"(r.w)
-               : "l"(p));
+      : "=r"(r.x), "=r"(r.y), "=r"(r.z), "=r"(r.w)
+      : "l"(p));
   return *reinterpret_cast<V*>(&r);
 #elif GAB_PULL_IDS == 2
   return __ldcs(p);
@@ -183,14 +178,9 @@ struct PullTable {
 
 // log2 lanes a row for a bucket of `width` slots.
 int lanes_lg(int32_t width) {
-#ifdef GAB_PULL_FIXED_LG
-  (void)width;
-  return 2;
-#else
   int lg = 0;
   while (lg < kPullMaxLg && (4 * kPullQuads << lg) < width) ++lg;
   return lg;
-#endif
 }
 
 // A group of 2^lg lanes a row (lg by the bucket's width); lane gl takes

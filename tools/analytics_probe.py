@@ -125,7 +125,7 @@ once under each set of ``-D`` choices of ``csrc/ell_pull.cu`` (defines
 split by ``,``; K8 alone is rebuilt), between the parent's:
 
     python3 tools/analytics_probe.py --pull-kernels --parent DIR \
-        --variants "GAB_PULL_IDS=0;GAB_PULL_IDS=2,GAB_PULL_VALS=1"
+        --variants "GAB_PULL_IDS=0;GAB_PULL_IDS=2,GAB_PULL_QUADS=1"
 """
 
 from __future__ import annotations
