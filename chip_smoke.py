@@ -512,18 +512,24 @@ def _batch_ms(fn, calls: int = TIMED_CALLS,
     return statistics.median(times)
 
 
-def _kernel_device_ms(fn, kernel: str, calls: int = TIMED_CALLS):
+def _kernel_device_ms(fn, kernel: str, calls: int = TIMED_CALLS,
+                      at_least_ms: float | None = None):
     """Device time of one launch of the kernel whose name contains
     ``kernel``: the mean over ``calls`` calls of ``fn`` under
     torch.profiler. ``_batch_ms`` reads the host's enqueue instead where a
     call's host work (allocating and initialising outputs, the ctypes
-    call) outlasts a short kernel. The profiler now and then hands back
-    no device event for so short a trace, so it is asked up to three
-    times; None when none came back."""
+    call) outlasts a short kernel. A trace is read only when the kernel's
+    events are none of them empty and, with ``at_least_ms`` (for a kernel
+    that holds most of its call's batch time), their mean is no less; an
+    event the profiler drops does not move the mean. The profiler now and
+    then hands back no device event, or events it timed short, so it is
+    asked up to five times; None, with the reason printed, when no trace
+    passed."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
-    for _ in range(3):
+    why = "no device event"
+    for _ in range(5):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(calls):
@@ -532,20 +538,31 @@ def _kernel_device_ms(fn, kernel: str, calls: int = TIMED_CALLS):
         us = [e.time_range.elapsed_us() for e in prof.events()
               if e.device_type == torch.autograd.DeviceType.CUDA
               and kernel in e.name]
-        if us:
-            return statistics.mean(us) / 1e3
+        if not us:
+            continue
+        ms = statistics.mean(us) / 1e3
+        if min(us) <= 0:
+            why = f"an empty event of {len(us)}"
+        elif at_least_ms is not None and ms < at_least_ms:
+            why = f"{ms:.4f} ms, below {at_least_ms:.4f}"
+        else:
+            return ms
+    print(f"[profile] {kernel}: no device time read ({why})")
     return None
 
 
-def _device_ms_by_name(fn, calls: int) -> dict:
+def _device_ms_by_name(fn, calls: int,
+                       at_least_ms: float | None = None) -> dict:
     """Device ms a call of ``fn`` of every kernel (and memset or copy) it
     launches, by name, over ``calls`` calls under torch.profiler; asked up
-    to three times, as ``_kernel_device_ms``; {} when no device event came
-    back."""
+    to five times, as ``_kernel_device_ms``, while no device event comes
+    back or, with ``at_least_ms``, the names' sum a call falls below it;
+    {}, with the reason printed, when no trace passed."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
-    for _ in range(3):
+    why = "no device event"
+    for _ in range(5):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(calls):
@@ -555,8 +572,14 @@ def _device_ms_by_name(fn, calls: int) -> dict:
         for e in prof.events():
             if e.device_type == torch.autograd.DeviceType.CUDA:
                 by[e.name] = by.get(e.name, 0.0) + e.time_range.elapsed_us()
-        if by:
+        if not by:
+            continue
+        total = sum(by.values()) / calls / 1e3
+        if at_least_ms is not None and total < at_least_ms:
+            why = f"{total:.4f} ms a call, below {at_least_ms:.4f}"
+        else:
             return {k: v / calls / 1e3 for k, v in sorted(by.items())}
+    print(f"[profile] no device times read ({why})")
     return {}
 
 
@@ -1560,8 +1583,11 @@ def _pull_cases(dg, gen, what: str, dirty: bool, timed: bool) -> dict:
         v, kind, e = specs[name]
         slots = None if e is None else packed
         ms = _batch_ms(lambda: K8.neighbor_reduce(dg, v, kind, e))
+        # the sweep holds most of its batch time at this size: a reading
+        # below half of it is the profiler's, not the kernel's
         device_ms = _kernel_device_ms(
-            lambda: K8.neighbor_reduce(dg, v, kind, e), "neighbor_reduce_kernel")
+            lambda: K8.neighbor_reduce(dg, v, kind, e), "neighbor_reduce_kernel",
+            at_least_ms=ms / 2)
         plain_ms = _batch_ms(lambda: K8.neighbor_reduce_plain(dg, v, kind, slots),
                              calls=3, batches=3)
         library_ms = _batch_ms(library[name]) if name in library else None

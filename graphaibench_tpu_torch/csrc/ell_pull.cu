@@ -38,7 +38,9 @@
 //     values, two float4 of them beside the ids) and has their eight gathers
 //     in flight, in every bucket; a row of width 64 takes one step. The ids
 //     and edge values are read once, without allocating in L1
-//     (ld.global.nc.L1::no_allocate), which L1 keeps for vals. The ids are
+//     (ld.global.nc.L1::no_allocate), which L1 keeps for vals: on that card
+//     the id stream alone (every gather at vertex 0) reads 11% faster than
+//     through L1, the sweeps up to 5%. The ids are
 //     read up to the bucket's width without waiting for the row's count
 //     (every slot holds a real or a pad neighbour, and pads hold vertex 0),
 //     which arrives beside them and decides which slots are gathered: the
@@ -75,21 +77,8 @@ namespace {
 // int4 of ids a lane reads a step. The lanes a row follow the bucket's
 // width (lanes_lg): each lane has kPullQuads int4 of ids, and their gathers,
 // in flight in every bucket, and a row of width 64 takes one step.
-#ifdef GAB_PULL_QUADS
-constexpr int kPullQuads = GAB_PULL_QUADS;
-#else
 constexpr int kPullQuads = 2;
-#endif
 constexpr int kPullMaxLg = 3;
-
-// Build-time choices, for tools/analytics_probe.py --variants:
-// GAB_PULL_QUADS (int4 of ids a lane reads a step; 1 and 4 read within 3%
-// of 2) and GAB_PULL_IDS (how the ids and edge values are read: 0 through
-// L1, 1 without allocating in L1, 2 streaming, evict-first in L1 and L2;
-// all within 3%).
-#ifndef GAB_PULL_IDS
-#define GAB_PULL_IDS 1
-#endif
 
 enum Kind { kMin = 0, kMax = 1, kSum = 2 };
 enum Dtype { kInt32 = 0, kFloat32 = 1 };
@@ -139,20 +128,14 @@ __device__ __forceinline__ void combine(float* dst, float v) {
   }
 }
 
-// Sixteen bytes of the id or edge-value stream, read once.
+// Sixteen bytes of the id or edge-value stream, read once, not kept in L1.
 template <typename V>
 __device__ __forceinline__ V stream16(const V* p) {
-#if GAB_PULL_IDS == 1
   int4 r;
   asm("ld.global.nc.L1::no_allocate.v4.s32 {%0, %1, %2, %3}, [%4];"
       : "=r"(r.x), "=r"(r.y), "=r"(r.z), "=r"(r.w)
       : "l"(p));
   return *reinterpret_cast<V*>(&r);
-#elif GAB_PULL_IDS == 2
-  return __ldcs(p);
-#else
-  return __ldg(p);
-#endif
 }
 
 // One slot: its neighbour's value, with the slot's edge value where given;
@@ -169,13 +152,6 @@ __device__ __forceinline__ T slot(const T* __restrict__ vals, int32_t id,
   }
 }
 
-// K8's table: csrc/ell_table.cuh's, its first blocks counted with each
-// bucket's own lanes a row.
-struct PullTable {
-  Table tab;
-  int32_t lg[kMaxBuckets];
-};
-
 // log2 lanes a row for a bucket of `width` slots.
 int lanes_lg(int32_t width) {
   int lg = 0;
@@ -190,16 +166,15 @@ int lanes_lg(int32_t width) {
 // wrapper checks.
 template <int KIND, typename T, bool EV>
 __global__ void __launch_bounds__(kThreads)
-neighbor_reduce_kernel(const __grid_constant__ PullTable pt,
+neighbor_reduce_kernel(const __grid_constant__ Table tab,
                        const __grid_constant__ EdgeVals ev,
                        const uint8_t* __restrict__ is_split,
                        const T* __restrict__ vals, T* __restrict__ out) {
-  const Table& tab = pt.tab;
   const int32_t blk = blockIdx.x;
   int bi = 0;
   while (bi + 1 < tab.n && blk >= tab.b[bi + 1].first_block) ++bi;
   const Bucket& b = tab.b[bi];
-  const int lg = pt.lg[bi];
+  const int lg = b.lg;
   const int64_t r =
       (static_cast<int64_t>(blk - b.first_block) * kThreads + threadIdx.x) >>
       lg;
@@ -258,7 +233,7 @@ neighbor_reduce_kernel(const __grid_constant__ PullTable pt,
 }
 
 template <int KIND, typename T, bool EV>
-void launch(int64_t blocks, cudaStream_t stream, const PullTable& tab,
+void launch(int64_t blocks, cudaStream_t stream, const Table& tab,
             const EdgeVals& ev, const uint8_t* is_split, const void* vals,
             void* out) {
   neighbor_reduce_kernel<KIND, T, EV>
@@ -268,7 +243,7 @@ void launch(int64_t blocks, cudaStream_t stream, const PullTable& tab,
 
 template <typename T, bool EV>
 void launch_kind(int kind, int64_t blocks, cudaStream_t stream,
-                 const PullTable& tab, const EdgeVals& ev,
+                 const Table& tab, const EdgeVals& ev,
                  const uint8_t* is_split, const void* vals, void* out) {
   if (kind == kMin) {
     launch<kMin, T, EV>(blocks, stream, tab, ev, is_split, vals, out);
@@ -300,22 +275,11 @@ extern "C" int gab_neighbor_reduce(GAB_TABLE_PARAMS, const void* is_split,
       (edge_vals != nullptr && dtype != kFloat32)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  PullTable tab;
+  Table tab;
   cudaError_t err;
-  if (fill_table(&tab.tab, GAB_TABLE_ARGS, 0, 1, &err) == 0) {
-    return static_cast<int>(err);
-  }
-  // the first blocks again, with each bucket's lanes a row
-  int64_t blocks = 0;
-  for (int i = 0; i < n_buckets; ++i) {
-    tab.lg[i] = lanes_lg(widths[i]);
-    const int64_t per_block = kThreads >> tab.lg[i];
-    tab.tab.b[i].first_block = static_cast<int32_t>(blocks);
-    blocks += (rows[i] + per_block - 1) / per_block;
-  }
-  if (blocks > 0x7fffffff) {
-    return static_cast<int>(cudaErrorInvalidConfiguration);
-  }
+  const int64_t blocks =
+      fill_table(&tab, GAB_TABLE_ARGS, 0, 1, &err, lanes_lg);
+  if (blocks == 0) return static_cast<int>(err);
   EdgeVals ev{};
   if (edge_vals != nullptr) {
     for (int i = 0; i < n_buckets; ++i) {

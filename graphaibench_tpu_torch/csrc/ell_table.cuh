@@ -37,6 +37,7 @@ struct Bucket {
   int64_t rows;
   int32_t width;
   int32_t first_block;     // of this bucket inside one tile's blocks
+  int32_t lg;              // log2 lanes a row
 };
 
 struct Table {
@@ -169,13 +170,13 @@ __device__ __forceinline__ void atomic_min_float(float* addr, float v) {
   }
 }
 
-// Fills the table for groups of 2^lg lanes and `tiles` feature tiles;
+// Fills the table for groups of 2^lg lanes, or of 2^bucket_lg(width) lanes
+// in each bucket where bucket_lg is given, and `tiles` feature tiles;
 // returns the grid size, or 0 and an error code in *err.
 int64_t fill_table(Table* tab, GAB_TABLE_PARAMS, int lg, int64_t tiles,
-                   cudaError_t* err) {
+                   cudaError_t* err, int (*bucket_lg)(int32_t) = nullptr) {
   *err = cudaErrorInvalidValue;
   if (n_buckets <= 0 || n_buckets > kMaxBuckets || tiles <= 0) return 0;
-  const int64_t rows_per_block = kThreads >> lg;
   *tab = Table{};
   tab->n = n_buckets;
   int64_t blocks = 0;
@@ -188,6 +189,8 @@ int64_t fill_table(Table* tab, GAB_TABLE_PARAMS, int lg, int64_t tiles,
     tab->b[i].rows = rows[i];
     tab->b[i].width = widths[i];
     tab->b[i].first_block = static_cast<int32_t>(blocks);
+    tab->b[i].lg = bucket_lg != nullptr ? bucket_lg(widths[i]) : lg;
+    const int64_t rows_per_block = kThreads >> tab->b[i].lg;
     blocks += (rows[i] + rows_per_block - 1) / rows_per_block;
     if (blocks > 0x7fffffff) {
       *err = cudaErrorInvalidConfiguration;

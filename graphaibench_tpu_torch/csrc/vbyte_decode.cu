@@ -28,16 +28,23 @@
 // because XLA has no loop that carries a sum; here a row's prefix sums are
 // the loop's carry.
 //
-// - svb_decode: a quad (the up to four values of one key byte) a thread,
-//   two a thread a round. Its byte offset in the row is a prefix of the
-//   lengths its key bytes give, its ids a prefix of the gaps: each a scan
-//   over the round less the scan at the row's first quad (or at the round's
-//   start, plus what the round before carried, for a row that crosses
-//   rounds). The long rows (above long_values values; the prep's table,
-//   widest first) take a block each, 512 quads a round; the other rows are
-//   cut into tiles of at most 32 consecutive rows (the prep's table), a
-//   warp a tile, 64 quads a round, so that short rows no longer leave most
-//   lanes idle. A quad's 16 bytes come from five aligned word loads.
+// - svb_decode: one launch, a block a long row (above long_values values;
+//   the prep's table, widest first), then a warp a tile of the other rows.
+//   A long row is walked in tiles of kThreads x kLongQuads quads (a quad:
+//   the up to four values of one key byte): the tile's key bytes are staged
+//   in shared memory (asynchronous 16-byte copies, issued while the tile
+//   before is decoded), a block scan of each thread's lengths gives its
+//   byte offset and the tile's span of value bytes, which is staged next;
+//   each thread decodes its consecutive quads there, a block scan of the
+//   gaps gives the ids, which are collected in shared memory and stored in
+//   order (a thread's own run of ids would have a warp's store touch 32
+//   sectors), and the tile's bytes and gaps carry to the next. A tile of
+//   short rows (at most 32 consecutive rows, the prep's table) takes a quad
+//   a lane, two a lane a round: a quad's byte offset is a warp scan of the
+//   lengths over the round less the scan at its row's first quad (or, for
+//   the row that crosses from the round before, plus what that round
+//   carried), its ids likewise a scan of the gaps; its 16 bytes come from
+//   five aligned word loads, so short rows do not leave most lanes idle.
 // - vgb_tags: one launch, a block a work item, the long rows first (widest
 //   first), then tiles of the other rows. A row's chain is serial (where a
 //   tag lies depends on every tag before it), so a long row (above
@@ -71,6 +78,7 @@
 
 #include <cstdint>
 
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -97,53 +105,52 @@ __device__ __forceinline__ uint32_t read_le(const Bytes& s, int64_t o,
   return v;
 }
 
-// The inclusive prefix sum of x over the warp's lanes, modulo 2^32.
-__device__ __forceinline__ uint32_t warp_prefix(uint32_t x, int lane) {
-#pragma unroll
-  for (int d = 1; d < 32; d <<= 1) {
-    const uint32_t y = __shfl_up_sync(kFull, x, d);
-    if (lane >= d) x += y;
+// dst[i] = byte_at(s, a + i) for i < n rounded up to 16, a a multiple of
+// 16: 16-byte loads where they lie inside the stream, else byte by byte
+// (clamped). Every thread of the block takes part.
+__device__ __forceinline__ void stage(const Bytes& s, int64_t a, int n,
+                                      uint8_t* dst) {
+  const bool aligned = (reinterpret_cast<uintptr_t>(s.p) & 15) == 0;
+  for (int k = threadIdx.x; 16 * k < n; k += kThreads) {
+    const int64_t o = a + 16 * static_cast<int64_t>(k);
+    if (aligned && o >= 0 && o + 16 <= s.n) {
+      *reinterpret_cast<uint4*>(dst + 16 * k) =
+          __ldg(reinterpret_cast<const uint4*>(s.p + o));
+    } else {
+      for (int i = 0; i < 16; ++i) {
+        dst[16 * k + i] = static_cast<uint8_t>(byte_at(s, o + i));
+      }
+    }
   }
-  return x;
 }
 
-// svb_decode's work items. A quad is the up to four values of a row that
-// share one key byte. A group of G threads (a block of kThreads for a long
-// row, a warp for a tile) decodes rows G at a time, their quads in rounds
-// of kSvbQuads a thread.
-#ifdef GAB_SVB_QUADS
-constexpr int kSvbQuads = GAB_SVB_QUADS;
-#else
-constexpr int kSvbQuads = 2;
-#endif
-#ifndef GAB_SVB_MIN_BLOCKS
-#define GAB_SVB_MIN_BLOCKS 6
-#endif
-
-// The inclusive prefix of x over the group's threads in order (modulo
-// 2^64 or 2^32); *total gets the group's sum. Every thread of the group
-// takes part; a block's group uses `sums` (kWarpsPerBlock entries).
-template <int G, typename T>
-__device__ __forceinline__ T group_prefix(T x, T* sums, T* total) {
-  const int lane = threadIdx.x & 31;
+// The inclusive prefix sum of x over the warp's lanes, modulo 2^64 or 2^32.
+template <typename T>
+__device__ __forceinline__ T warp_prefix(T x, int lane) {
 #pragma unroll
   for (int d = 1; d < 32; d <<= 1) {
     const T y = __shfl_up_sync(kFull, x, d);
     if (lane >= d) x += y;
   }
-  if (G == 32) {
-    *total = __shfl_sync(kFull, x, 31);
-    return x;
-  }
+  return x;
+}
+
+// The inclusive prefix sum of x over the block's threads in order, modulo
+// 2^32; *total gets the block's sum. Every thread takes part; `sums` holds
+// kWarpsPerBlock entries.
+__device__ __forceinline__ uint32_t block_prefix(uint32_t x, uint32_t* sums,
+                                                 uint32_t* total) {
+  const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
+  x = warp_prefix(x, lane);
   if (lane == 31) sums[warp] = x;
   __syncthreads();
-  T before = 0;
-  T all = 0;
+  uint32_t before = 0;
+  uint32_t all = 0;
 #pragma unroll
   for (int w = 0; w < kWarpsPerBlock; ++w) {
-    const T v = sums[w];
-    before += w < warp ? v : T(0);
+    const uint32_t v = sums[w];
+    before += w < warp ? v : 0u;
     all += v;
   }
   *total = all;
@@ -151,28 +158,27 @@ __device__ __forceinline__ T group_prefix(T x, T* sums, T* total) {
   return x + before;
 }
 
-template <int G>
-__device__ __forceinline__ void group_sync() {
-  if (G == 32) {
-    __syncwarp();
-  } else {
-    __syncthreads();
-  }
-}
+// svb_decode's work items. A quad is the up to four values of a row that
+// share one key byte. A warp decodes a tile's rows 32 at a time, their
+// quads in rounds of kSvbQuads a lane; a block walks a long row in tiles of
+// kLongQuads quads a thread. The warps' tiles wait on loads and want the
+// warps (kSvbMinBlocks blocks an SM, 40 registers) more than the long rows
+// want the registers.
+constexpr int kSvbQuads = 2;
+constexpr int kSvbMinBlocks = 6;
+constexpr int kLongQuads = 2;
+constexpr int kLongTile = kThreads * kLongQuads;   // quads a long row's tile
 
-// What a group keeps of the rows of one batch (at most G rows).
-template <int G>
+// What a warp keeps of the rows of one batch (at most 32 rows).
 struct SvbRows {
-  int64_t qs[G + 1];       // each row's first quad within the batch
-  int64_t key[G];          // the row's first key byte
-  int64_t n[G];            // its values
-  int64_t slot[G];         // its first output slot
-  int64_t head_off[G];     // the round's byte base, by row
-  uint32_t head_id[G];     // the round's id base, by row
+  int64_t qs[33];          // each row's first quad within the batch
+  int64_t key[32];         // the row's first key byte
+  int64_t n[32];           // its values
+  int64_t slot[32];        // its first output slot
+  int64_t head_off[32];    // the round's byte base, by row
+  uint32_t head_id[32];    // the round's id base, by row
   int64_t carry_off;       // where the row crossing into a round stands
   uint32_t carry_id;
-  int64_t lsum[kWarpsPerBlock];
-  uint32_t isum[kWarpsPerBlock];
 };
 
 // The little-endian words of the stream at o, o + 4, o + 8, o + 12 (16
@@ -211,17 +217,17 @@ __device__ __forceinline__ uint32_t word_at(const uint32_t (&w)[5], int b,
   return len == 4 ? v : v & ((1u << (8 * len)) - 1u);
 }
 
-// Rows [lo, hi) of at most long_values values (the others are skipped), G
-// rows a batch, decoded by a group of G threads (t its thread); a batch's
-// quads in rounds of G kSvbQuads, the row that crosses from one round into
-// the next carrying its byte offset and its id.
-template <int G>
+// Rows [lo, hi) of at most long_values values (the others are skipped), 32
+// rows a batch, decoded by a warp (t its lane); a batch's quads in rounds
+// of 32 kSvbQuads, the row that crosses from one round into the next
+// carrying its byte offset and its id.
 __device__ void svb_rows(const Bytes& s, const int32_t* __restrict__ key_start,
                          const int32_t* __restrict__ counts,
                          const int32_t* __restrict__ out_slot, int64_t lo,
                          int64_t hi, int64_t long_values,
                          int32_t* __restrict__ col, int64_t ncol,
-                         SvbRows<G>& sm, int t) {
+                         SvbRows& sm, int t) {
+  constexpr int G = 32;
   constexpr int kRound = G * kSvbQuads;
   for (int64_t b0 = lo; b0 < hi; b0 += G) {
     const int nb = hi - b0 < G ? static_cast<int>(hi - b0) : G;
@@ -235,10 +241,10 @@ __device__ void svb_rows(const Bytes& s, const int32_t* __restrict__ key_start,
       sm.n[t] = n;
     }
     const int64_t q = (n + 3) >> 2;
-    int64_t total;
-    const int64_t incl = group_prefix<G, int64_t>(q, sm.lsum, &total);
+    const int64_t incl = warp_prefix(q, t);
+    const int64_t total = __shfl_sync(kFull, incl, 31);
     if (t < nb) sm.qs[t] = incl - q;
-    group_sync<G>();
+    __syncwarp();
     for (int64_t r0 = 0; r0 < total; r0 += kRound) {
       int row[kSvbQuads];
       int64_t jq[kSvbQuads];
@@ -276,9 +282,7 @@ __device__ void svb_rows(const Bytes& s, const int32_t* __restrict__ key_start,
       uint32_t pair_len = 0;
 #pragma unroll
       for (int u = 0; u < kSvbQuads; ++u) pair_len += len4[u];
-      uint32_t round_len;
-      uint32_t off = group_prefix<G, uint32_t>(pair_len, sm.isum,
-                                               &round_len) - pair_len;
+      uint32_t off = warp_prefix(pair_len, t) - pair_len;
       uint32_t e_off[kSvbQuads];
 #pragma unroll
       for (int u = 0; u < kSvbQuads; ++u) {
@@ -290,7 +294,7 @@ __device__ void svb_rows(const Bytes& s, const int32_t* __restrict__ key_start,
                                 (jq[u] != 0 ? sm.carry_off : 0);
         }
       }
-      group_sync<G>();
+      __syncwarp();
       uint32_t v[kSvbQuads][4];
       uint32_t gsum[kSvbQuads];
 #pragma unroll
@@ -320,9 +324,7 @@ __device__ void svb_rows(const Bytes& s, const int32_t* __restrict__ key_start,
       uint32_t pair_gap = 0;
 #pragma unroll
       for (int u = 0; u < kSvbQuads; ++u) pair_gap += gsum[u];
-      uint32_t round_gap;
-      uint32_t id = group_prefix<G, uint32_t>(pair_gap, sm.isum,
-                                              &round_gap) - pair_gap;
+      uint32_t id = warp_prefix(pair_gap, t) - pair_gap;
       uint32_t e_id[kSvbQuads];
 #pragma unroll
       for (int u = 0; u < kSvbQuads; ++u) {
@@ -333,7 +335,7 @@ __device__ void svb_rows(const Bytes& s, const int32_t* __restrict__ key_start,
           sm.head_id[row[u]] = e_id[u] - (jq[u] != 0 ? sm.carry_id : 0u);
         }
       }
-      group_sync<G>();
+      __syncwarp();
 #pragma unroll
       for (int u = 0; u < kSvbQuads; ++u) {
         const int a = row[u];
@@ -355,19 +357,156 @@ __device__ void svb_rows(const Bytes& s, const int32_t* __restrict__ key_start,
           sm.carry_id = e_id[u] + gsum[u] - sm.head_id[a];
         }
       }
-      group_sync<G>();
+      __syncwarp();
     }
+  }
+}
+
+// A long row's tile, staged: its key bytes (two buffers: the next tile's
+// keys arrive while this one is decoded) and its span of value bytes (at
+// most four bytes a value, and room to read five words from any of them),
+// each from the 16-byte line below its first byte.
+struct SvbLong {
+  alignas(16) uint8_t keys[2][kLongTile + 16];
+  alignas(16) uint8_t vals[16 * kLongTile + 32];
+  int32_t ids[4 * kLongTile + 4 * kLongTile / 32];  // id i at i + i / 32
+  uint32_t sums[kWarpsPerBlock];
+};
+
+// Starts copying byte_at(s, a + i), i < n rounded up to 16, a a multiple of
+// 16, into dst in shared memory: 16 bytes a copy, not waited for, where
+// they lie inside the stream, else byte by byte (clamped). Every thread of
+// the block takes part; its copies are one commit group.
+__device__ __forceinline__ void stage_async(const Bytes& s, int64_t a, int n,
+                                            uint8_t* dst) {
+  const bool aligned = (reinterpret_cast<uintptr_t>(s.p) & 15) == 0;
+  for (int k = threadIdx.x; 16 * k < n; k += kThreads) {
+    const int64_t o = a + 16 * static_cast<int64_t>(k);
+    if (aligned && o >= 0 && o + 16 <= s.n) {
+      __pipeline_memcpy_async(dst + 16 * k, s.p + o, 16);
+    } else {
+      for (int i = 0; i < 16; ++i) {
+        dst[16 * k + i] = static_cast<uint8_t>(byte_at(s, o + i));
+      }
+    }
+  }
+  __pipeline_commit();
+}
+
+// Row r's ids into col, by the whole block, a tile of kLongTile quads at a
+// time; thread t takes the tile's quads kLongQuads t .. kLongQuads t +
+// kLongQuads - 1, so that its value bytes are consecutive, and the tile's
+// ids are collected in shared memory and stored in order. Every tile's
+// keys start at the same offset in their line (kLongTile is a multiple of
+// 16).
+__device__ void svb_long_row(const Bytes& s, int64_t k0, int64_t n,
+                             int64_t slot0, int32_t* __restrict__ col,
+                             int64_t ncol, SvbLong& sm) {
+  const int t = threadIdx.x;
+  n = n < 0 ? 0 : n;
+  const int64_t nq = (n + 3) >> 2;
+  const int klead = static_cast<int>(k0 & 15);
+  const uint32_t* words = reinterpret_cast<const uint32_t*>(sm.vals);
+  int64_t off = k0 + nq;  // the tile's first value byte
+  uint32_t carry = 0;     // the row's id before the tile
+  if (nq > 0) {
+    stage_async(s, k0 - klead,
+                klead + static_cast<int>(nq < kLongTile ? nq : kLongTile),
+                sm.keys[0]);
+  }
+  for (int64_t q0 = 0; q0 < nq; q0 += kLongTile) {
+    const int tq = nq - q0 < kLongTile ? static_cast<int>(nq - q0) : kLongTile;
+    const uint8_t* keys = sm.keys[(q0 / kLongTile) & 1] + klead;
+    __pipeline_wait_prior(0);  // this tile's keys
+    __syncthreads();
+    // this thread's value bytes, and where they start in the tile
+    const int j0 = kLongQuads * t;
+    uint32_t len = 0;
+#pragma unroll
+    for (int u = 0; u < kLongQuads; ++u) {
+      const int j = j0 + u;
+      const int64_t left = n - 4 * (q0 + j);
+      const int m = j >= tq ? 0 : (left < 4 ? static_cast<int>(left) : 4);
+      const uint32_t key = keys[j];
+      for (int k = 0; k < m; ++k) len += ((key >> (2 * k)) & 3u) + 1u;
+    }
+    uint32_t span;
+    const uint32_t b0 = block_prefix(len, sm.sums, &span) - len;
+    const int vlead = static_cast<int>(off & 15);
+    stage_async(s, off - vlead, vlead + static_cast<int>(span), sm.vals);
+    const int64_t q1 = q0 + kLongTile;  // the next tile's keys, meanwhile
+    if (q1 < nq) {
+      stage_async(s, k0 + q1 - klead,
+                  klead + static_cast<int>(nq - q1 < kLongTile ? nq - q1
+                                                               : kLongTile),
+                  sm.keys[(q1 / kLongTile) & 1]);
+    } else {
+      __pipeline_commit();  // an empty group, younger than the values
+    }
+    __pipeline_wait_prior(1);  // the values
+    __syncthreads();
+    // the gaps: their sum over this thread's values, then the ids
+    uint32_t gsum = 0;
+    uint32_t gall = 0;  // the tile's gaps
+    for (int pass = 0; pass < 2; ++pass) {
+      uint32_t x = 0;
+      if (pass == 1) x = carry + block_prefix(gsum, sm.sums, &gall) - gsum;
+      int p = vlead + static_cast<int>(b0);
+#pragma unroll
+      for (int u = 0; u < kLongQuads; ++u) {
+        const int j = j0 + u;
+        const int64_t left = n - 4 * (q0 + j);
+        const int m = j >= tq ? 0 : (left < 4 ? static_cast<int>(left) : 4);
+        if (m <= 0) continue;
+        const uint32_t key = keys[j];
+        // the quad's 16 bytes from five aligned words of the staged span
+        uint32_t w[5];
+        const int sh = (p & 3) * 8;
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          const uint64_t pair =
+              (static_cast<uint64_t>(words[(p >> 2) + k + 1]) << 32) |
+              words[(p >> 2) + k];
+          w[k] = static_cast<uint32_t>(pair >> sh);
+        }
+        w[4] = 0;
+        int b = 0;
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          const int l = static_cast<int>((key >> (2 * k)) & 3u) + 1;
+          if (k < m) {
+            const uint32_t v = word_at(w, b, l);
+            b += l;
+            if (pass == 0) {
+              gsum += v;
+            } else {
+              x += v;
+              const int i = 4 * j + k;
+              sm.ids[i + (i >> 5)] = static_cast<int32_t>(x);
+            }
+          }
+        }
+        p += b;
+      }
+    }
+    __syncthreads();
+    // the tile's ids, consecutive threads writing consecutive slots
+    const int64_t left = n - 4 * q0;
+    const int nv = left < 4 * tq ? static_cast<int>(left) : 4 * tq;
+    for (int i = t; i < nv; i += kThreads) {
+      const int64_t slot = slot0 + 4 * q0 + i;
+      if (slot >= 0 && slot < ncol) col[slot] = sm.ids[i + (i >> 5)];
+    }
+    off += span;
+    carry += gall;
+    __syncthreads();  // before the next tile is staged over this one
   }
 }
 
 // A block a long row (widest first) and then a warp a tile, a run of
 // consecutive rows whose rows of at most long_values values it decodes,
-// kWarpsPerBlock tiles a block. Build-time choices, for
-// tools/analytics_probe.py --variants: GAB_SVB_QUADS (quads a thread a
-// round), GAB_SVB_MIN_BLOCKS (blocks an SM the registers must allow: 6,
-// 40 registers, is the shipped choice; the warps' tiles wait on loads and
-// want the warps more than the long rows want the registers).
-__global__ void __launch_bounds__(kThreads, GAB_SVB_MIN_BLOCKS)
+// kWarpsPerBlock tiles a block.
+__global__ void __launch_bounds__(kThreads, kSvbMinBlocks)
 svb_decode_kernel(const Bytes s, const int32_t* __restrict__ key_start,
                   const int32_t* __restrict__ counts,
                   const int32_t* __restrict__ out_slot, int64_t rows,
@@ -376,17 +515,16 @@ svb_decode_kernel(const Bytes s, const int32_t* __restrict__ key_start,
                   int64_t long_values, int32_t* __restrict__ col,
                   int64_t ncol) {
   __shared__ union {
-    SvbRows<kThreads> block;
-    SvbRows<32> warp[kWarpsPerBlock];
+    SvbLong block;
+    SvbRows warp[kWarpsPerBlock];
   } sm;
   const int64_t b = blockIdx.x;
   if (b < n_long) {
-    int64_t lo = __ldg(long_rows + b);
-    int64_t hi = lo + 1;
-    lo = lo < 0 ? 0 : lo;
-    hi = hi > rows ? rows : hi;
-    svb_rows<kThreads>(s, key_start, counts, out_slot, lo, hi, INT64_MAX,
-                       col, ncol, sm.block, threadIdx.x);
+    const int64_t r = __ldg(long_rows + b);
+    if (r >= 0 && r < rows) {
+      svb_long_row(s, __ldg(key_start + r), __ldg(counts + r),
+                   __ldg(out_slot + r), col, ncol, sm.block);
+    }
     return;
   }
   const int warp = threadIdx.x >> 5;
@@ -396,7 +534,7 @@ svb_decode_kernel(const Bytes s, const int32_t* __restrict__ key_start,
   int64_t hi = __ldg(tiles + k + 1);
   lo = lo < 0 ? 0 : lo;
   hi = hi > rows ? rows : hi;
-  svb_rows<32>(s, key_start, counts, out_slot, lo, hi, long_values, col,
+  svb_rows(s, key_start, counts, out_slot, lo, hi, long_values, col,
                ncol, sm.warp[warp], threadIdx.x & 31);
 }
 
@@ -424,25 +562,6 @@ constexpr int kSmemBytes = kLongSmem > kTileSmem ? kLongSmem : kTileSmem;
 __device__ __forceinline__ int group_len(uint32_t t) {
   const uint32_t x = (t & 0x33u) + ((t >> 2) & 0x33u);
   return static_cast<int>(5u + (x & 15u) + (x >> 4));
-}
-
-// dst[i] = byte_at(s, a + i) for i < n rounded up to 16, a a multiple of
-// 16: 16-byte loads where they lie inside the stream, else byte by byte
-// (clamped). Every thread of the block takes part.
-__device__ __forceinline__ void stage(const Bytes& s, int64_t a, int n,
-                                      uint8_t* dst) {
-  const bool aligned = (reinterpret_cast<uintptr_t>(s.p) & 15) == 0;
-  for (int k = threadIdx.x; 16 * k < n; k += kThreads) {
-    const int64_t o = a + 16 * static_cast<int64_t>(k);
-    if (aligned && o >= 0 && o + 16 <= s.n) {
-      *reinterpret_cast<uint4*>(dst + 16 * k) =
-          __ldg(reinterpret_cast<const uint4*>(s.p + o));
-    } else {
-      for (int i = 0; i < 16; ++i) {
-        dst[16 * k + i] = static_cast<uint8_t>(byte_at(s, o + i));
-      }
-    }
-  }
 }
 
 // Every tag of a long row of ng groups, the first at byte p, into

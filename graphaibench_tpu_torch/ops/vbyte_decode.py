@@ -59,7 +59,7 @@ VGB_GLEN = np.array(
 # tags its collected ones (kOutSlots, 3,200)
 VGB_LONG_GROUPS = 256
 # svb_decode's tables: a row of more than SVB_LONG_VALUES values is long (a
-# block of its own, in rounds of 512 quads); a tile (a warp's, in rounds of
+# block of its own, staged 512 quads at a time); a tile (a warp's, in rounds of
 # 64 quads) is a run of rows whose first quads (a quad: the up to four
 # values of one key byte) lie in one window of SVB_TILE_QUADS quads and
 # whose indices in one window of SVB_TILE_ROWS rows, so that it mostly

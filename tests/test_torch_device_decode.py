@@ -15,7 +15,7 @@ graph, on rmat9-10 and on the handmade graphs of ``tests/test_compress.py``
 ``vgb_tags`` and ``svb_decode`` are also compiled here with g++ against a
 header that emulates the CUDA they use (a block's threads as host threads
 that meet at ``__syncthreads``, a warp's at ``__syncwarp`` and around each
-shuffle, shared memory static) and run their blocks one after another,
+shuffle, shared memory static, an asynchronous copy done at once) and run their blocks one after another,
 each held against its plain version under its tables at the shipped sizes
 and at small ones. Hybrid's encoder refuses a row it would send to CGR
 that is not strictly increasing, where JAX's writes a stream it decodes
@@ -583,6 +583,21 @@ inline void emulate(unsigned grid, unsigned block, std::function<void()> f) {
 """
 
 
+# cuda_pipeline.h for the emulation: an asynchronous copy to shared memory
+# completes at once
+PIPELINE = r"""
+#pragma once
+#include <cstddef>
+#include <cstring>
+inline void __pipeline_memcpy_async(void* dst, const void* src, size_t n,
+                                    size_t = 0) {
+  std::memcpy(dst, src, n);
+}
+inline void __pipeline_commit() {}
+inline void __pipeline_wait_prior(size_t) {}
+"""
+
+
 @pytest.fixture(scope="module")
 def emulated(tmp_path_factory):
     """The library of ``csrc/vbyte_decode.cu`` built by g++ for the host,
@@ -593,6 +608,7 @@ def emulated(tmp_path_factory):
         pytest.skip("no g++ on this host")
     d = tmp_path_factory.mktemp("vbyte_emulated")
     (d / "cuda_runtime.h").write_text(EMULATION)
+    (d / "cuda_pipeline.h").write_text(PIPELINE)
     src = (_build.CSRC / "vbyte_decode.cu").read_text()
     src, n = re.subn(r"(\w+)<<<(.*?),\s*(\w+),\s*0,\s*(.*?)>>>\((.*?)\);",
                      r"emulate(\2, \3, [&] { \1(\5); });", src,

@@ -94,9 +94,10 @@ and ``hybrid_device_run``, and split into the rows above each of
 
     python3 tools/analytics_probe.py --decode-kernels --decoders svb [--parent DIR]
 
-``--variants`` works here as for ``--pull-kernels`` below; a choice named
-like a constant of ``ops/vbyte_decode.py`` (``SVB_TILE_QUADS=112``) sets
-it before the preps build their tables.
+``--variants`` works here as for ``--pull-kernels`` below, over
+``csrc/vbyte_decode.cu`` and ``csrc/cgr_decode.cu``; a choice named like a
+constant of ``ops/vbyte_decode.py`` (``SVB_TILE_QUADS=112``) sets it before
+the preps build their tables.
 
 ``--pull-kernels`` times K8 ``neighbor_reduce`` at rmat(19, 16) (or
 ``--scale``):
@@ -120,12 +121,18 @@ many gathers of ``vals`` at uniformly random ids with no id stream, over
 all of ``vals``, over its first 32,768 values (L1 holds them) and over one
 line. The
 turns run as ``--tc-cold``'s; the solves' results must agree. One
-``PULL {json}`` line a turn. ``--variants "A;B"`` runs the change's turns
-once under each set of ``-D`` choices of ``csrc/ell_pull.cu`` (defines
-split by ``,``; K8 alone is rebuilt), between the parent's:
+``PULL {json}`` line a turn. ``--variants "A;B"`` adds a turn of the
+change under each variant, between two of the change as it is and between
+the parent's. A variant sets integer constants of ``csrc/ell_pull.cu``
+(``constexpr int NAME = ...;``, choices split by ``,``) in a copy of
+``csrc/`` under ``build/probe_variants/``, from which K8 alone is rebuilt:
 
     python3 tools/analytics_probe.py --pull-kernels --parent DIR \
-        --variants "GAB_PULL_IDS=0;GAB_PULL_IDS=2,GAB_PULL_QUADS=1"
+        --variants "kPullQuads=1;kPullQuads=4,kPullMaxLg=4"
+
+``--parent`` takes several checkouts split by ``,`` (the parent commit's
+and, say, an earlier state of the change): their turns come first in that
+order and last in the reverse one.
 """
 
 from __future__ import annotations
@@ -446,6 +453,44 @@ def kernels_worker(tree: str, graph_npz: str) -> None:
     print("KERNELS " + json.dumps(res))
 
 
+def _use_variant(defines: str, sources) -> list:
+    """Build ``sources`` (of ``csrc/``) from a copy of ``csrc/`` under
+    ``build/probe_variants/`` whose ``constexpr int NAME = ...;`` lines
+    take the comma-separated ``NAME=VALUE`` choices in ``defines``; every
+    choice must name one such constant of the sources. Returns the
+    choices that name none, for the caller to apply."""
+    import re
+    import shutil
+
+    from graphaibench_tpu_torch.ops import _build
+
+    choices = [d.partition("=") for d in defines.split(",") if d]
+    texts = {src: (_build.CSRC / src).read_text() for src in sources}
+    rest, patched = [], False
+    for name, _, value in choices:
+        pat = re.compile(rf"constexpr int {re.escape(name)} = [^;]+;")
+        hits = [src for src, text in texts.items() if pat.search(text)]
+        if not hits:
+            rest.append((name, value))
+            continue
+        if len(hits) > 1 or len(pat.findall(texts[hits[0]])) != 1:
+            raise SystemExit(f"variant {name}: not one constant of {sources}")
+        texts[hits[0]] = pat.sub(f"constexpr int {name} = {int(value)};",
+                                 texts[hits[0]])
+        patched = True
+    if patched:
+        tag = re.sub(r"[^\w=,-]", "_", defines)
+        csrc = _build.BUILD_DIR.parent / "probe_variants" / tag / "csrc"
+        if csrc.exists():
+            shutil.rmtree(csrc)
+        shutil.copytree(_build.CSRC, csrc)
+        for src, text in texts.items():
+            (csrc / src).write_text(text)
+        _build.CSRC = csrc
+        _build.SOURCES = tuple(sources)
+    return rest
+
+
 def _pull_floor_lib():
     """The probe kernels of PULL_FLOOR_SRC, compiled by nvcc into the build
     directory."""
@@ -492,8 +537,8 @@ def _pull_rows(dg, keep):
 
 def pull_kernels_worker(tree: str, graph_npz: str, defines: str = "") -> None:
     """One turn of ``--pull-kernels``: K8 of the checkout at ``tree`` on
-    the graph in ``graph_npz``, built under the comma-separated ``-D``
-    choices ``defines``."""
+    the graph in ``graph_npz``, built with the constants ``defines``
+    (``_use_variant``)."""
     import ctypes
     import dataclasses
 
@@ -514,10 +559,9 @@ def pull_kernels_worker(tree: str, graph_npz: str, defines: str = "") -> None:
 
     import graphaibench_tpu_torch
     assert graphaibench_tpu_torch.__file__.startswith(os.path.abspath(tree))
-    if defines:
-        # K8 alone under the choices (the other sources keep their builds)
-        _build.NVCC_FLAGS += tuple(f"-D{d}" for d in defines.split(","))
-        _build.SOURCES = ("ell_pull.cu",)
+    unknown = _use_variant(defines, ("ell_pull.cu",))
+    if unknown:
+        raise SystemExit(f"no constants {unknown} in csrc/ell_pull.cu")
     res = {"tree": tree, "defines": defines, "ptxas": _ptxas(("ell_pull",))}
     z = np.load(graph_npz)
     g = CSRGraph(row_ptr=z["row_ptr"], col_idx=z["col_idx"])
@@ -577,9 +621,11 @@ def pull_kernels_worker(tree: str, graph_npz: str, defines: str = "") -> None:
         e = K8.pack_neighbor_edge_vals(dg, ev) if edge else None
         fn = lambda: K8.neighbor_reduce(dg, vals[dtype], kind, e)  # noqa: E731
         bound_ms, bound_by, nbytes = C._pull_bound(dg, edge)
-        device_ms = C._kernel_device_ms(fn, "neighbor_reduce")
+        batch_ms = C._batch_ms(fn)
+        device_ms = C._kernel_device_ms(fn, "neighbor_reduce",
+                                        at_least_ms=batch_ms / 2)
         res["sweep"][case] = {
-            "device_ms": device_ms, "batch_ms": C._batch_ms(fn),
+            "device_ms": device_ms, "batch_ms": batch_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "bound_bytes": nbytes,
             "share_of_bound": bound_ms / device_ms if device_ms else None}
         if case != "float32 sum":     # adds in an order that varies
@@ -646,13 +692,19 @@ def _ptxas(names) -> dict:
     return report
 
 
-def _pass_ms(C, fn, kernel: str) -> dict:
+def _pass_ms(C, fn, kernel: str, whole: bool = True) -> dict:
     """Device ms a call of ``fn`` summed over the kernels whose name holds
-    ``kernel``, by name, and the batch ms of the same call."""
-    by = C._device_ms_by_name(fn, KERNEL_CALLS)
+    ``kernel``, by name, and the batch ms of the same call. For a
+    ``whole`` decode's pass, which holds most of its call, a trace whose
+    device work a call reads below half the batch ms is the profiler's and
+    is taken again; a part of the rows may be shorter than the call's host
+    work."""
+    batch_ms = C._batch_ms(fn)
+    by = C._device_ms_by_name(fn, KERNEL_CALLS,
+                              at_least_ms=batch_ms / 2 if whole else None)
     return {"device_ms": sum(v for k, v in by.items() if kernel in k),
             "by_name": {k: v for k, v in by.items() if kernel in k},
-            "batch_ms": C._batch_ms(fn)}
+            "batch_ms": batch_ms}
 
 
 def _digest(t) -> str:
@@ -686,7 +738,7 @@ def _vgb_reading(C, DD, K11, vg) -> dict:
         for side, keep in (("long", ng > t), ("rest", ng <= t)):
             rows = tuple(a[keep].contiguous() for a in chain[1:])
             part[side] = _pass_ms(C, lambda: K11.vgb_tags(
-                chain[0], *rows, n_g), "vgb_tags")["device_ms"]
+                chain[0], *rows, n_g), "vgb_tags", whole=False)["device_ms"]
             part[f"{side}_rows"] = int(keep.sum())
             part[f"{side}_groups"] = int(ng[keep].long().sum())
         out["split"][t] = part
@@ -759,7 +811,7 @@ def _cgr_reading(C, CD, K12, cg) -> dict:
         for side, keep in (("long", deg > t), ("rest", deg <= t)):
             args = _merge_rows(prep, keep)
             part[side] = _pass_ms(C, lambda: K12.cgr_merge(*args),
-                                  "cgr_merge")["device_ms"]
+                                  "cgr_merge", whole=False)["device_ms"]
             part[f"{side}_rows"] = int(keep.sum())
             part[f"{side}_ids"] = int(deg[keep].sum())
             del args
@@ -810,7 +862,8 @@ def _svb_reading(C, DD, K11, obj, hybrid: bool) -> dict:
             sub_tables = (K11.svb_tables(sub[1])
                           if hasattr(K11, "svb_tables") else {})
             part[side] = _pass_ms(C, lambda: K11.svb_decode(
-                stream, *sub, col, **sub_tables), "svb_decode")["device_ms"]
+                stream, *sub, col, **sub_tables), "svb_decode",
+                whole=False)["device_ms"]
             part[f"{side}_rows"] = int(keep.sum())
             part[f"{side}_values"] = int(n[keep].sum())
         out["split"][t] = part
@@ -821,9 +874,9 @@ def _svb_reading(C, DD, K11, obj, hybrid: bool) -> dict:
 def decode_kernels_worker(tree: str, path: str, defines: str = "") -> None:
     """One turn of ``--decode-kernels``: ``vgb_tags`` and ``cgr_merge`` of
     the checkout at ``tree`` on the streams under ``path``; each of the
-    comma-separated ``defines`` sets a table size of ``ops/vbyte_decode.py``
-    (``SVB_TILE_QUADS=112``) or is a ``-D`` choice of the two decode
-    sources."""
+    comma-separated ``defines`` sets a constant of the two decode sources
+    (``_use_variant``) or a table size of ``ops/vbyte_decode.py``
+    (``SVB_TILE_QUADS=112``)."""
     sys.path.insert(0, ROOT)                 # chip_smoke's bounds
     sys.path.insert(0, os.path.abspath(tree))
     import chip_smoke as C
@@ -837,13 +890,12 @@ def decode_kernels_worker(tree: str, path: str, defines: str = "") -> None:
     assert graphaibench_tpu_torch.__file__.startswith(os.path.abspath(tree))
     from graphaibench_tpu_torch.ops import _build
 
-    for d in (d for d in defines.split(",") if d):
-        name, _, value = d.partition("=")
-        if hasattr(K11, name):
-            setattr(K11, name, int(value))
-        else:
-            _build.NVCC_FLAGS += (f"-D{d}",)
-            _build.SOURCES = ("vbyte_decode.cu", "cgr_decode.cu")
+    for name, value in _use_variant(defines, ("vbyte_decode.cu",
+                                              "cgr_decode.cu")):
+        if not hasattr(K11, name):
+            raise SystemExit(f"no constant {name} in the decode sources or "
+                             "ops/vbyte_decode.py")
+        setattr(K11, name, int(value))
     res = {"tree": tree, "defines": defines,
            "ptxas": _ptxas(("vbyte_decode", "cgr_decode"))}
     here = lambda name: os.path.exists(os.path.join(  # noqa: E731
@@ -940,18 +992,19 @@ def kernels(parent: str | None, scales) -> None:
 
 def _turns(parent: str | None, worker: str, path: str, tag: str,
            agree=(), variants=()) -> None:
-    """Run ``worker`` on ``path`` with the change alone, or with parent,
-    change, change, parent; print each turn's ``tag`` line. The keys in
-    ``agree`` must be equal in every turn. With ``variants`` (``-D``
-    choices, comma-separated, a string each), the change's turns are one a
-    variant, between the parent's."""
+    """Run ``worker`` on ``path`` with the change alone, or with the
+    parents (``parent``, checkouts split by ``,``), the change twice and
+    the parents in reverse; print each turn's ``tag`` line. The keys in
+    ``agree`` must be equal in every turn. With ``variants`` (constants,
+    comma-separated, a string each), a turn of each variant comes between
+    the change's two."""
     first = None
-    order = [("change", ROOT, "")]
-    if variants:
-        order = [("change", ROOT, v) for v in variants]
-    if parent:
-        order = ([("parent", parent, "")] + order * (1 if variants else 2)
-                 + [("parent", parent, "")])
+    order = ([("change", ROOT, "")] + [("change", ROOT, v) for v in variants]
+             + [("change", ROOT, "")])
+    if not parent and not variants:
+        order = order[:1]
+    parents = [("parent", p, "") for p in (parent or "").split(",") if p]
+    order = parents + order + parents[::-1]
     for name, tree, defines in order:
         r = subprocess.run(
             [sys.executable, os.path.abspath(__file__), worker, tree, path,
@@ -1026,15 +1079,17 @@ def main() -> int:
                     help="K8 over each pull solve, a sweep of each case and "
                     "split by row class, at rmat19 (or --scale)")
     ap.add_argument("--variants", default="",
-                    help="with --pull-kernels or --decode-kernels: the "
-                    "change's turns under these -D choices (or, for the "
-                    "decode, table sizes of ops/vbyte_decode.py), ';' "
-                    "between variants, ',' between the choices of one")
+                    help="with --pull-kernels or --decode-kernels: turns "
+                    "of the change with these constants of its sources "
+                    "(NAME=VALUE; or, for the decode, table sizes of "
+                    "ops/vbyte_decode.py), ';' between variants, ',' "
+                    "between the choices of one")
     ap.add_argument("--pull-kernels-worker", nargs="+",
                     metavar="ARG", help=argparse.SUPPRESS)
     ap.add_argument("--parent", help="with --tc-cold, --tc-stream-mem, "
                     "--kernels, --decode-kernels or --pull-kernels: "
-                    "root of the parent commit's checkout")
+                    "root of the parent commit's checkout (several split "
+                    "by ',')")
     ap.add_argument("--tc-cold-worker", nargs=2, metavar=("TREE", "NPZ"),
                     help=argparse.SUPPRESS)
     ap.add_argument("--kernels-worker", nargs=2, metavar=("TREE", "NPZ"),
