@@ -135,7 +135,10 @@ non-zero exit code and no result line:
              intervals 4 cgr_gamma, 1 cgr_interval, 1 cgr_residual, 1
              cgr_merge). Each K12 kernel against its plain version on the
              same lanes at rmat19 (timed beside its bound) and at rmat13
-             behind the dirtied allocator. The same graph in StreamVByte,
+             behind the dirtied allocator; cgr_residual under the prep's
+             tables and under those it builds itself, on the plain
+             stream's lanes and the interval stream's residual lanes. The
+             same graph in StreamVByte,
              VarintGB and hybrid (threshold 32, StreamVByte chunks) by the
              host encoders (seconds, bytes, ratio), each decoded on the card
              by its prep and run, every count set to 0 just before them,
@@ -143,12 +146,16 @@ non-zero exit code and no result line:
              edges/s and the launches (1 svb_decode; 1 vgb_tags and 1
              vgb_values; for hybrid 1 cgr_residual and 1 svb_decode); each
              K11 kernel against its plain version at rmat19 (timed beside its
-             bound) and at rmat13 behind the dirtied allocator. rmat13
-             joined to a star of 50,000 leaves numbered after the hub, in
-             VarintGB (the hub a long row of many rounds) and in CGR with
-             64-bit interval segments (the hub two intervals, taken by the
-             device route): vgb_tags and cgr_merge against their plain
-             versions, both decodes against the CSR.
+             bound) and at rmat13 behind the dirtied allocator, with
+             svb_decode's and vgb_values' long-row and tile routes apart,
+             and cgr_residual on hybrid's low rows (timed as its own case).
+             rmat13 joined to a star of 50,000 leaves numbered after the
+             hub, in VarintGB (the hub a long row of many rounds), in plain
+             CGR (many residual segments) and in CGR with 64-bit interval
+             segments (the hub two intervals, taken by the device route):
+             vgb_tags, vgb_values, cgr_residual and cgr_merge against their
+             plain versions, with their tables and without, the decodes
+             against the CSR.
              triangle_count of the decoded graph (19,736,616),
              triangle_count_streaming equal to it, with its seconds, blocks,
              pairs and K9 launches (one a pair), and its peak memory over the
@@ -2300,6 +2307,27 @@ def _svb_decode_bound(stream_bytes: int, rows: int,
                      values * OPS_PER_VALUE)
 
 
+def _vgb_values_bound(vgb) -> tuple[float, str, float]:
+    """vgb_values' bound on a VarintGB prep: the stream read once, the tag
+    positions and the row tables (first group, count, first slot) read
+    once, the ids written once, over the memory rate, against
+    OPS_PER_VALUE a value over the float32 rate."""
+    ne = vgb["ne"]
+    return _bound_of(vgb["stream"].numel() + 4 * vgb["n_g"] + 12 * vgb["nv"]
+                     + 4 * ne, ne * OPS_PER_VALUE)
+
+
+def _cgr_residual_bound(lanes: int, ids: int,
+                        bits: float) -> tuple[float, str, float]:
+    """cgr_residual's bound on ``lanes`` lanes writing ``ids`` ids from
+    ``bits`` bits of codes (the lanes' final positions less their first):
+    the lane tables (position, count, vertex, first slot) read and the
+    final positions written once, the ids written once, the code bits read
+    once, over the memory rate, against OPS_PER_CODE a code over the
+    float32 rate."""
+    return _bound_of(20 * lanes + 4 * ids + bits / 8, ids * OPS_PER_CODE)
+
+
 def _cgr_merge_bound(prep) -> tuple[float, str, float]:
     """cgr_merge's bound on a CGR prep with intervals: the residuals, the
     row tables (row pointer, residual count, interval pointer), the
@@ -2311,12 +2339,38 @@ def _cgr_merge_bound(prep) -> tuple[float, str, float]:
                      ne / 8 * OPS_PER_CODE)
 
 
+def _interval_residuals(itv, what: str):
+    """cgr_residual on an interval stream's residual lanes, under the
+    prep's tables and under those it builds itself, against the plain
+    version: each lane's final bit, and the residuals (which leave the
+    interval ids' slots as allocated) merged by the plain merge. Returns
+    the residual buffer and cgr_merge's operands."""
+    lanes = [itv[k] for k in ("data_p", "counts", "lane_v_d", "base")]
+    ne, k = itv["ne"], itv["zeta_k"]
+    pres, ppfin = K12.cgr_residual_plain(itv["stream"], *lanes, ne, k)
+    rest = (itv["row_ptr_d"], itv["nres"], itv["itv_ptr"], itv["left"],
+            itv["length"], itv["itv_pre"])
+    want = K12.cgr_merge_plain(pres, *rest)
+    for tables in (itv["res_tables"], {}):
+        res, pfin = K12.cgr_residual(itv["stream"], *lanes, ne, k, **tables)
+        torch.cuda.synchronize()
+        if (not torch.equal(pfin, ppfin)
+                or not torch.equal(K12.cgr_merge_plain(res, *rest), want)):
+            raise RuntimeError(f"{what}: cgr_residual on the interval "
+                               f"stream's lanes differs from plain "
+                               f"({'with' if tables else 'without'} its "
+                               f"tables)")
+    return res, (res, *rest)
+
+
 def _k12_cases(plain_prep, itv_prep, tag: str, timed: bool) -> dict:
     """Each K12 kernel against its plain version on the lanes of the two
     streams' preps: cgr_gamma on every residual segment's count (and the
     vertices' headers), cgr_residual on the plain stream's lanes (where
-    they cover every slot), cgr_interval on the interval stream's interval
-    lanes, cgr_merge on that stream's residual buffer. Exact, int32. With
+    they cover every slot) and on the interval stream's residual lanes,
+    each under the prep's tables and under those it builds itself,
+    cgr_interval on the interval stream's interval lanes, cgr_merge on that
+    stream's residual buffer. Exact, int32. With
     ``timed``, each beside its bound: the bytes the data needs (positions
     and lane tables read, outputs written, the stream bits decoded) and
     OPS_PER_CODE a code. Untimed, each output block is dirtied with NaN
@@ -2361,12 +2415,16 @@ def _k12_cases(plain_prep, itv_prep, tag: str, timed: bool) -> dict:
           K12.cgr_gamma_plain(stream, bit_off, K12.HEADER))
     lanes = [plain_prep[k] for k in ("data_p", "counts", "lane_v_d", "base")]
     ne, k = plain_prep["ne"], plain_prep["zeta_k"]
-    _, pfin = K12.cgr_residual(stream, *lanes, ne, k)
+    rt = plain_prep["res_tables"]
+    _, pfin = K12.cgr_residual(stream, *lanes, ne, k, **rt)
     bits = float((pfin.long() - lanes[0].long()).sum())
     n_l = lanes[0].numel()
-    run("cgr_residual", lambda: K12.cgr_residual(stream, *lanes, ne, k),
+    run("cgr_residual", lambda: K12.cgr_residual(stream, *lanes, ne, k, **rt),
         lambda: K12.cgr_residual_plain(stream, *lanes, ne, k), ne + n_l,
-        _bound_of(20 * n_l + 4 * ne + bits / 8, ne * OPS_PER_CODE))
+        _cgr_residual_bound(n_l, ne, bits))
+    check("cgr_residual under the tables it builds itself",
+          K12.cgr_residual(stream, *lanes, ne, k),
+          K12.cgr_residual_plain(stream, *lanes, ne, k))
     istream = itv_prep["stream"]
     ilanes = itv_prep["itv_lanes"]
     n_itv, m = int(itv_prep["left"].numel()), itv_prep["min_itv_len"]
@@ -2377,11 +2435,7 @@ def _k12_cases(plain_prep, itv_prep, tag: str, timed: bool) -> dict:
         lambda: K12.cgr_interval_plain(istream, *ilanes, n_itv, m),
         2 * n_itv + n_i,
         _bound_of(20 * n_i + 8 * n_itv + bits / 8, 2 * n_itv * OPS_PER_CODE))
-    ilanes_r = [itv_prep[k] for k in ("data_p", "counts", "lane_v_d", "base")]
-    res, _ = K12.cgr_residual(istream, *ilanes_r, itv_prep["ne"],
-                              itv_prep["zeta_k"])
-    margs = (res, itv_prep["row_ptr_d"], itv_prep["nres"], itv_prep["itv_ptr"],
-             itv_prep["left"], itv_prep["length"], itv_prep["itv_pre"])
+    _, margs = _interval_residuals(itv_prep, f"[compress] {tag}")
     tables = itv_prep["merge_tables"]
     run("cgr_merge", lambda: K12.cgr_merge(*margs, **tables),
         lambda: K12.cgr_merge_plain(*margs), itv_prep["ne"],
@@ -2510,6 +2564,38 @@ def _high_bytes(hg) -> int:
                                    >= hg.threshold].sum())
 
 
+def _vgb_value_routes(stream, tagpos, rows, ne: int, tag: str) -> dict:
+    """vgb_values' two routes apart, each against the plain version on the
+    same rows: the rows above VGB_LONG_GROUPS groups alone (a block each,
+    widest first) and the others alone (tiles), each under the tables
+    vgb_value_tables builds for them; then every row under the tables the
+    kernel builds itself. Returns the rows and groups of each route."""
+    ng = (rows[1].long() + 3) >> 2
+    info = {}
+    for route, keep in (("long", ng > K11.VGB_LONG_GROUPS),
+                        ("tiles", ng <= K11.VGB_LONG_GROUPS)):
+        sub = tuple(a[keep].contiguous() for a in rows)
+        tables = K11.vgb_value_tables(*sub)
+        got = K11.vgb_values(stream, tagpos, *sub, _col(ne).fill_(-1),
+                             **tables)
+        want = K11.vgb_values_plain(stream, tagpos, *sub, _col(ne).fill_(-1))
+        if not torch.equal(got, want):
+            raise RuntimeError(f"[compress] {tag}: vgb_values' {route} route "
+                               f"differs from plain in "
+                               f"{int((got != want).sum())} slots")
+        info[route] = {"rows": int(keep.sum()), "groups": int(ng[keep].sum()),
+                       "long_blocks": int(tables["long_rows"].numel()),
+                       "tiles": int(tables["tiles"].shape[0]) - 1}
+    got = K11.vgb_values(stream, tagpos, *rows, _col(ne).fill_(-1))
+    if not torch.equal(got, K11.vgb_values_plain(stream, tagpos, *rows,
+                                                 _col(ne).fill_(-1))):
+        raise RuntimeError(f"[compress] {tag}: vgb_values under the tables "
+                           f"it builds itself differs from plain")
+    print(f"[compress] {tag}: vgb_values' long rows and tiles apart equal "
+          f"plain {json.dumps(info)}")
+    return info
+
+
 def _svb_routes(stream, rows, ne: int, tag: str) -> dict:
     """svb_decode's two routes apart, each against the plain version on the
     same rows: the rows above SVB_LONG_VALUES values alone (a block each,
@@ -2545,21 +2631,27 @@ def _svb_routes(stream, rows, ne: int, tag: str) -> dict:
 def _k11_cases(svb, vgb, tag: str, timed: bool, hyb=None) -> dict:
     """Each K11 kernel against its plain version on the rows of the
     StreamVByte and VarintGB preps: svb_decode on every row (and, given the
-    hybrid prep ``hyb``, on hybrid's high rows), under the prep's tables,
-    and each of its routes apart; vgb_tags on every row's tag chain,
-    vgb_values on the tag positions. Exact, int32. With ``timed``, each
+    hybrid prep ``hyb``, on hybrid's high rows, and K12's cgr_residual on
+    its low rows, under the prep's tables and under those it builds
+    itself), under the prep's tables, and each of its routes apart;
+    vgb_tags on every row's tag chain, vgb_values on the tag positions
+    under the prep's tables, and each of its routes apart. Exact, int32.
+    With ``timed``, each
     beside its bound: the stream (hybrid: its high rows' chunks) read once,
     the row tables (and the tag positions) read once, the output written
     once, over the memory rate, against OPS_PER_VALUE a value over the
     float32 rate. Untimed, each output block is dirtied with NaN first."""
     out = {}
 
-    def run(name, fn, plain, n_out, bound, key=None, kernel=None):
+    def run(name, fn, plain, n_out, bound, key=None, kernel=None, keep=None):
         if not timed:
             _dirty(n_out)
         got = fn()
         torch.cuda.synchronize()
         want = plain()
+        if keep is not None:     # (col, pfin): col's slots of these lanes
+            got, want = (torch.cat([got[0][keep], got[1]]),
+                         torch.cat([want[0][keep], want[1]]))
         if not torch.equal(got, want):
             raise RuntimeError(f"[compress] {tag}: {name} differs from plain "
                                f"in {int((got != want).sum())} of "
@@ -2599,6 +2691,30 @@ def _k11_cases(svb, vgb, tag: str, timed: bool, hyb=None) -> dict:
                                          values),
             key="svb_decode_hybrid", kernel="svb_decode")
         _svb_routes(hstream, high, hyb["ne"], f"{tag} hybrid")
+        # the low rows, a cgr_residual lane each: not consecutive (the
+        # high rows lie between them), their slots alone compared
+        low, zk, hne = hyb["low"], hyb["zeta_k"], hyb["ne"]
+        rt = hyb["res_tables"]
+        n = low[1].long()
+        keep = torch.zeros(hne, dtype=torch.bool, device="cuda")
+        keep[torch.repeat_interleave(low[3].long() - (torch.cumsum(n, 0) - n),
+                                     n, output_size=int(n.sum()))
+             + torch.arange(int(n.sum()), device="cuda")] = True
+        _, pfin = K12.cgr_residual(hstream, *low, hne, zk, **rt)
+        bits = float((pfin.long() - low[0].long()).sum())
+        run("cgr_residual hybrid", lambda: K12.cgr_residual(
+                hstream, *low, hne, zk, **rt),
+            lambda: K12.cgr_residual_plain(hstream, *low, hne, zk),
+            hne + low[0].numel(),
+            _cgr_residual_bound(low[0].numel(), int(n.sum()), bits),
+            key="cgr_residual_hybrid", kernel="cgr_residual", keep=keep)
+        got = K12.cgr_residual(hstream, *low, hne, zk)
+        want = K12.cgr_residual_plain(hstream, *low, hne, zk)
+        if (not torch.equal(got[0][keep], want[0][keep])
+                or not torch.equal(got[1], want[1])):
+            raise RuntimeError(f"[compress] {tag}: cgr_residual on hybrid's "
+                               f"low rows under the tables it builds itself "
+                               f"differs from plain")
     stream, ne, nv, n_g = vgb["stream"], vgb["ne"], vgb["nv"], vgb["n_g"]
     chain = (vgb["pos"], vgb["ngroups"], vgb["gbase"])
     tables = vgb["tag_tables"]
@@ -2610,10 +2726,12 @@ def _k11_cases(svb, vgb, tag: str, timed: bool, hyb=None) -> dict:
         raise RuntimeError(f"[compress] {tag}: vgb_tags under the tables it "
                            f"builds itself differs from plain")
     rows = (vgb["gbase"], vgb["counts"], vgb["out_slot"])
-    run("vgb_values", lambda: K11.vgb_values(stream, tagpos, *rows, _col(ne)),
+    vt = vgb["value_tables"]
+    run("vgb_values", lambda: K11.vgb_values(stream, tagpos, *rows, _col(ne),
+                                             **vt),
         lambda: K11.vgb_values_plain(stream, tagpos, *rows, _col(ne)), ne,
-        _bound_of(stream.numel() + 4 * n_g + 12 * nv + 4 * ne,
-                  ne * OPS_PER_VALUE))
+        _vgb_values_bound(vgb))
+    _vgb_value_routes(stream, tagpos, rows, ne, f"{tag} VarintGB")
     return out
 
 
@@ -2622,9 +2740,11 @@ def _star_decodes() -> dict:
     after the hub, through sort_and_clean: in VarintGB the hub's row is a
     long row of many rounds, in CGR with intervals at itv_seg_len 64 two
     intervals (every rmat13 vertex, then the leaves) and no residual, a
-    stream the device route takes (no StreamRefused). vgb_tags and
-    cgr_merge under their preps' tables against their plain versions, both
-    decodes against the CSR."""
+    stream the device route takes (no StreamRefused), in plain CGR many
+    residual segments. vgb_tags, vgb_values, cgr_residual and cgr_merge
+    under their preps' tables (and the first three under the tables they
+    build themselves) against their plain versions, the decodes against the
+    CSR."""
     t0 = time.perf_counter()
     g = sort_and_clean(_star_joined(rmat(PULL_DIRTY_SCALE, EDGE_FACTOR,
                                          seed=0), DECODE_STAR_LEAVES))
@@ -2650,6 +2770,18 @@ def _star_decodes() -> dict:
     if not torch.equal(K11.vgb_tags(*chain, **vgb["tag_tables"]),
                        K11.vgb_tags_plain(*chain)):
         raise RuntimeError("[compress] star: vgb_tags differs from plain")
+    tagpos = K11.vgb_tags_plain(*chain)
+    vrows = (vgb["gbase"], vgb["counts"], vgb["out_slot"])
+    for tables in (vgb["value_tables"], {}):
+        if not torch.equal(
+                K11.vgb_values(vgb["stream"], tagpos, *vrows, _col(g.ne),
+                               **tables),
+                K11.vgb_values_plain(vgb["stream"], tagpos, *vrows,
+                                     _col(g.ne))):
+            raise RuntimeError(f"[compress] star: vgb_values differs from "
+                               f"plain ({'with' if tables else 'without'} "
+                               f"its tables)")
+    vgb_long = int(vgb["value_tables"]["long_rows"].numel())
     if not torch.equal(DD.varintgb_device_run(vgb), col_ref):
         raise RuntimeError("[compress] star: the VarintGB decode differs "
                            "from the CSR")
@@ -2659,11 +2791,7 @@ def _star_decodes() -> dict:
     except CD.StreamRefused as e:
         raise RuntimeError(f"[compress] star: the device route refused the "
                            f"interval stream: {e}") from e
-    res, _ = K12.cgr_residual(itv["stream"], itv["data_p"], itv["counts"],
-                              itv["lane_v_d"], itv["base"], itv["ne"],
-                              itv["zeta_k"])
-    margs = (res, itv["row_ptr_d"], itv["nres"], itv["itv_ptr"], itv["left"],
-             itv["length"], itv["itv_pre"])
+    _, margs = _interval_residuals(itv, "[compress] star")
     if not torch.equal(K12.cgr_merge(*margs, **itv["merge_tables"]),
                        K12.cgr_merge_plain(*margs)):
         raise RuntimeError("[compress] star: cgr_merge differs from plain")
@@ -2672,15 +2800,36 @@ def _star_decodes() -> dict:
                                                                  col_ref):
         raise RuntimeError("[compress] star: the CGR decode differs from the "
                            "CSR")
+    # plain CGR: the hub's 50,000 ids in many residual segments
+    plain = CD.cgr_device_prep(CGR.encode_graph(g, CGR_STREAMS["plain"]),
+                               device="cuda")
+    lanes = [plain[k] for k in ("data_p", "counts", "lane_v_d", "base")]
+    want = K12.cgr_residual_plain(plain["stream"], *lanes, g.ne,
+                                  plain["zeta_k"])
+    for tables in (plain["res_tables"], {}):
+        got = K12.cgr_residual(plain["stream"], *lanes, g.ne, plain["zeta_k"],
+                               **tables)
+        if not all(torch.equal(a, b) for a, b in zip(got, want)):
+            raise RuntimeError(f"[compress] star: cgr_residual on the plain "
+                               f"stream differs from plain "
+                               f"({'with' if tables else 'without'} its "
+                               f"tables)")
+    row_ptr, col = CD.cgr_device_run(plain)
+    if not np.array_equal(row_ptr, g.row_ptr) or not torch.equal(col,
+                                                                 col_ref):
+        raise RuntimeError("[compress] star: the plain CGR decode differs "
+                           "from the CSR")
     ip = itv["itv_ptr"][hub:hub + 2].tolist()
     info = {"nv": g.nv, "ne": g.ne, "hub_ids": int(g.degrees()[hub]),
-            "svb_long_rows": svb_long,
+            "svb_long_rows": svb_long, "vgb_values_long_rows": vgb_long,
+            "hub_segments": int(plain["nsegs"][hub]),
             "hub_groups": int(vgb["ngroups"][hub]),
             "hub_residuals": int(itv["nres"][hub]),
             "hub_intervals": itv["length"][ip[0]:ip[1]].tolist(),
             "seconds": time.perf_counter() - t0}
-    print(f"[compress] star: svb_decode, vgb_tags and cgr_merge equal "
-          f"plain, the StreamVByte, VarintGB and CGR decodes the CSR "
+    print(f"[compress] star: svb_decode, vgb_tags, vgb_values, "
+          f"cgr_residual and cgr_merge equal plain (with their tables and "
+          f"without), the StreamVByte, VarintGB and CGR decodes the CSR "
           f"{json.dumps(info)}")
     return info
 
@@ -3744,8 +3893,8 @@ def main() -> None:
             # no PyTorch call decodes a CGR stream or a varint
             "library_ms": None,
             "device_ms": res["device_ms"],
-            **({"cases": [res, k12["cases"]["svb_decode_hybrid"]]}
-               if kname == "svb_decode" else {}),
+            **({"cases": [res, k12["cases"][f"{kname}_hybrid"]]}
+               if kname in ("svb_decode", "cgr_residual") else {}),
         })
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -73,6 +73,10 @@ class CgrStream:
     # the first slot in the whole CSR; uploaded a block at a time
     lanes: np.ndarray
     checked: set = dataclasses.field(default_factory=set)
+    # (first lane, end lane) -> cgr_residual's tables of those lanes
+    # (``K12.residual_tables``: the order, then the tiles), built on the
+    # host at the block's first decode and uploaded with its lanes
+    tables: dict = dataclasses.field(default_factory=dict)
 
 
 def open_cgr_stream(cg, *, device="cuda") -> CgrStream:
@@ -125,18 +129,33 @@ def block_bounds(st: CgrStream, block_bytes: int) -> list[tuple[int, int]]:
     return out
 
 
+def _block_tables(st: CgrStream, l0: int, l1: int) -> np.ndarray:
+    """``cgr_residual``'s order and tiles of the lanes [l0, l1), relative
+    to l0, as one int32 array, built once."""
+    if (l0, l1) not in st.tables:
+        t = K12.residual_tables(torch.from_numpy(st.lanes[1, l0:l1]))
+        st.tables[(l0, l1)] = np.concatenate([t["order"].numpy(),
+                                              t["tiles"].numpy()])
+    return st.tables[(l0, l1)]
+
+
 def decode_block(st: CgrStream, vlo: int, vhi: int) -> torch.Tensor:
     """The neighbour ids (global, int32) of vertices [vlo, vhi), rows in
     order, as one ``cgr_residual`` launch over the block's lanes, whose
-    tables are uploaded for it; the rows' bounds are
+    tables (with the kernel's, built on the host at the block's first
+    decode) are uploaded for it in one copy; the rows' bounds are
     ``st.row_ptr[vlo:vhi + 1] - st.row_ptr[vlo]``."""
     l0, l1 = int(st.lane_start[vlo]), int(st.lane_start[vhi])
     off = int(st.row_ptr[vlo])
+    n = l1 - l0
     tab = st.lanes[:, l0:l1].copy()
     tab[3] -= off
-    data_p, counts, lane_v, base = torch.from_numpy(tab).to(st.stream.device)
+    buf = torch.from_numpy(np.concatenate([
+        tab.reshape(-1), _block_tables(st, l0, l1)])).to(st.stream.device)
+    data_p, counts, lane_v, base = buf[:4 * n].view(4, n)
     col, pfin = K12.cgr_residual(st.stream, data_p, counts, lane_v, base,
-                                 int(st.row_ptr[vhi]) - off, st.zeta_k)
+                                 int(st.row_ptr[vhi]) - off, st.zeta_k,
+                                 order=buf[4 * n:5 * n], tiles=buf[5 * n:])
     if (vlo, vhi) not in st.checked:
         CD._check_closed_segments_fit(
             pfin.cpu().numpy(), st.seg_start[l0:l1], st.lane_k[l0:l1],

@@ -14,8 +14,9 @@ segment of a vertex's residuals (and intervals) is padded to exactly
 interval segments, whose final positions give the residual headers, read by
 ``cgr_gamma`` again; the host builds the lane tables (a lane per (vertex,
 segment), its first code's bit, count, vertex and first slot) and the row
-pointers, derived from the counts. ``cgr_device_run`` is the decode proper:
-one ``cgr_residual`` launch over every lane, the check of the final
+pointers, derived from the counts, and ``cgr_residual``'s tables (tiles of
+consecutive lanes, each tile's lanes by count). ``cgr_device_run`` is the
+decode proper: one ``cgr_residual`` launch over every lane, the check of the final
 positions, and, for interval streams, one ``cgr_merge`` (its tile table
 built by the prep). There are no count buckets: a thread loops over its
 own count.
@@ -62,6 +63,14 @@ def _check_closed_segments_fit(pfin, seg_start, lane_k, nsegs, lane_v,
 def int32_on(a: np.ndarray, device) -> torch.Tensor:
     """A host array as a contiguous int32 tensor on ``device``."""
     return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(device)
+
+
+def residual_tables_on(counts, device) -> dict:
+    """``cgr_residual``'s tables (``K12.residual_tables``) for lanes of
+    ``counts`` codes (a host array), built on the host and uploaded to
+    ``device``."""
+    return {k: t.to(device) for k, t in K12.residual_tables(
+        torch.from_numpy(np.asarray(counts, np.int64))).items()}
 
 
 def _lanes(nsegs: np.ndarray, segs_base: np.ndarray, seg_len: int):
@@ -210,17 +219,18 @@ def cgr_device_prep(cg, *, device="cuda") -> dict:
         raise StreamRefused(f"device CGR decode: stream parse mismatch "
                             f"({row_ptr[-1]} != {ne} edges; oversized "
                             f"segment?)")
+    base = lane_bases(counts, lanes["lane_v"], row_ptr)
     prep = {"empty": False, "device": device, "nv": nv, "ne": ne,
             "zeta_k": cfg.zeta_k, "seg_len": cfg.res_seg_len,
             "stream": stream, "row_ptr": row_ptr, "n_itv": n_itv,
             "data_p": lanes["data_p"], "counts": lanes["counts_d"],
             "lane_v_d": int32_on(lanes["lane_v"], device),
-            "base": int32_on(lane_bases(counts, lanes["lane_v"], row_ptr),
-                             device),
+            "base": int32_on(base, device),
             "lane_v": lanes["lane_v"], "lane_k": lanes["lane_k"],
             "seg_start": lanes["seg_start"], "nsegs": nsegs,
             "bit_off": bit_off, "itv_lanes": itv_lanes,
-            "min_itv_len": cfg.min_itv_len}
+            "min_itv_len": cfg.min_itv_len,
+            "res_tables": residual_tables_on(counts, device)}
     if n_itv:
         itv_ptr = np.concatenate(
             [[0], np.cumsum(np.bincount(itv_vertex, minlength=nv))])
@@ -245,7 +255,8 @@ def cgr_device_run(prep: dict):
                 torch.zeros(0, dtype=torch.int32, device=prep["device"]))
     col, pfin = K12.cgr_residual(prep["stream"], prep["data_p"],
                                  prep["counts"], prep["lane_v_d"],
-                                 prep["base"], prep["ne"], prep["zeta_k"])
+                                 prep["base"], prep["ne"], prep["zeta_k"],
+                                 **prep["res_tables"])
     _check_closed_segments_fit(pfin.cpu().numpy(), prep["seg_start"],
                                prep["lane_k"], prep["nsegs"], prep["lane_v"],
                                prep["seg_len"], "residual")

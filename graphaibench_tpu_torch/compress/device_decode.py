@@ -15,12 +15,14 @@ uploads), and a run, the kernels alone:
 - VarintGB: ``vgb_tags`` walks each row's tag chain from byte ``offset * 4 +
   4`` into the groups' tag positions (its tables, the long rows and the
   tiles cut at the rows' byte offsets, built by the prep), then
-  ``vgb_values`` decodes every group given its tag; the chain is serial
+  ``vgb_values`` decodes every group given its tag (its tables, the long
+  rows and the tiles of consecutive rows, built by the prep); the chain is serial
   within a row, so its two passes are the counterpart of JAX's
   ``_vgb_tag_chain`` and ``_vgb_flat_values``;
 - hybrid: the rows of degree below the threshold are unsegmented zeta_k
   streams after a gamma degree, one ``cgr_residual`` lane a row from the bit
-  after that gamma (its length computed on the host from the degree); the
+  after that gamma (its length computed on the host from the degree; its
+  tables, the tiles of consecutive low rows, built by the prep); the
   other rows are count-word-free StreamVByte chunks at their byte offsets,
   one ``svb_decode`` launch writing into the same ``col`` at their row
   pointers (its tables built by the prep over those rows).
@@ -44,7 +46,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from graphaibench_tpu_torch.compress.cgr_device import StreamRefused, int32_on
+from graphaibench_tpu_torch.compress.cgr_device import (
+    StreamRefused, int32_on, residual_tables_on)
 from graphaibench_tpu_torch.graph.csr import CSRGraph
 from graphaibench_tpu_torch.ops import cgr_decode as K12
 from graphaibench_tpu_torch.ops import vbyte_decode as K11
@@ -167,8 +170,11 @@ def varintgb_device_prep(vg, *, device="cuda") -> dict:
     pos = np.where(deg > 0, bounds[:nv] + 4, 0)
     _check_positions(vg.data, pos[deg > 0], "varintgb")
     tables = K11.vgb_tag_tables(ngroups, pos, group_ptr[:nv], bounds)
+    values = K11.vgb_value_tables(*(torch.from_numpy(a) for a in (
+        group_ptr[:nv], deg, row_ptr[:nv])))
     return {"stream": K12.stream_tensor(vg.data, device),
             "tag_tables": {k: t.to(device) for k, t in tables.items()},
+            "value_tables": {k: t.to(device) for k, t in values.items()},
             "pos": int32_on(pos, device), "ngroups": int32_on(ngroups, device),
             "gbase": int32_on(group_ptr[:nv], device),
             "counts": int32_on(deg, device),
@@ -185,7 +191,8 @@ def varintgb_device_run(prep: dict) -> torch.Tensor:
     tagpos = K11.vgb_tags(prep["stream"], prep["pos"], prep["ngroups"],
                           prep["gbase"], prep["n_g"], **prep["tag_tables"])
     return K11.vgb_values(prep["stream"], tagpos, prep["gbase"],
-                          prep["counts"], prep["out_slot"], col)
+                          prep["counts"], prep["out_slot"], col,
+                          **prep["value_tables"])
 
 
 def varintgb_decode_device(vg, *, device="cuda") -> CSRGraph:
@@ -223,14 +230,14 @@ def hybrid_device_prep(hg, *, device="cuda") -> dict:
     high = np.nonzero((deg > 0) & (deg >= hg.threshold))[0]
     _check_positions(hg.data, off[np.r_[low, high]], "hybrid", bits=True)
     counts = deg[low]
+    low_lanes = (off[low] * 8 + _gamma_len(counts), counts, low, row_ptr[low])
     return {"stream": K12.stream_tensor(hg.data, device), "nv": nv, "ne": ne,
             "zeta_k": hg.zeta_k, "row_ptr": row_ptr, "device": device,
-            "low": tuple(int32_on(a, device) for a in (
-                off[low] * 8 + _gamma_len(counts), counts, low,
-                row_ptr[low])),
+            "low": tuple(int32_on(a, device) for a in low_lanes),
             "high": tuple(int32_on(a, device) for a in (
                 off[high], deg[high], row_ptr[high])),
-            "svb_tables": _svb_tables(deg[high], device)}
+            "svb_tables": _svb_tables(deg[high], device),
+            "res_tables": residual_tables_on(counts, device)}
 
 
 def hybrid_device_run(prep: dict) -> torch.Tensor:
@@ -240,7 +247,8 @@ def hybrid_device_run(prep: dict) -> torch.Tensor:
     ne = prep["ne"]
     low, high = prep["low"], prep["high"]
     if low[0].numel():
-        col, _ = K12.cgr_residual(prep["stream"], *low, ne, prep["zeta_k"])
+        col, _ = K12.cgr_residual(prep["stream"], *low, ne, prep["zeta_k"],
+                                  **prep["res_tables"])
     else:
         col = torch.empty(ne, dtype=torch.int32, device=prep["device"])
     if high[0].numel():

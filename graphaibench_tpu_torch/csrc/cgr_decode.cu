@@ -24,9 +24,19 @@
 // their shape): the JAX package buckets lanes by code count and pads them
 // to powers of two because a lax.scan needs static lengths; here a thread
 // is a lane and loops over its own count, and one launch covers every lane.
+// A lane's codes are serial (where a code starts depends on every code
+// before it), but consecutive lanes have consecutive stream bits and
+// consecutive output slots. So cgr_residual takes a block a tile of
+// consecutive lanes (the prep's table): the tile's span of the stream is
+// staged in shared memory (16-byte asynchronous copies), so that a code's
+// two 64-bit windows are read from there and not as three loads at each
+// lane's own bit position; the tile's lanes are handed to its threads
+// largest count first (the table's order), so that a warp's lanes are of
+// like length and it does not wait for one long lane; the ids are
+// collected in shared memory and stored in order, 16 bytes a store, where
+// a thread's own run of ids would have a warp's store touch 32 sectors.
 // The count of a segment is bounded by the segment's length (about
-// 2 res_seg_len / 3 codes in the merged last segment), so the lanes of a
-// warp stay within a small factor of each other.
+// 2 res_seg_len / 3 codes in the merged last segment).
 //
 // The merge of a row's sorted residuals with its intervals needs no sort
 // of the edge array: residual i goes to slot i plus the interval ids below
@@ -67,6 +77,7 @@
 
 #include <cstdint>
 
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -129,6 +140,44 @@ __device__ __forceinline__ int64_t read_code(const Stream& s, int64_t p,
   return first_bits(hi2, lo2, nb) - 1;
 }
 
+// The stream's words with a tile's span of them staged in shared memory:
+// words w0 .. w0 + nst at win, byte-swapped (most significant bit first).
+struct Staged {
+  Stream s;
+  const uint32_t* win;
+  int64_t w0;
+  int64_t nst;
+};
+
+// read_code's value and length from the staged words where the four from
+// the one holding p lie there (no clamp can apply: they lie inside the
+// stream), else read_code's own: the same windows, in one read. The code
+// is at most 95 bits (a zero count capped at 31, value bits at 63), and
+// the 96 bits from p hold both of read_code's windows.
+__device__ __forceinline__ int64_t read_code(const Staged& c, int64_t p,
+                                             int k, int& nbits) {
+  const int64_t r = (p >> 5) - c.w0;
+  if (r < 0 || r + 4 > c.nst) return read_code(c.s, p, k, nbits);
+  const uint32_t* w = c.win + r;
+  const unsigned sh = static_cast<unsigned>(p & 31);
+  const uint32_t a = __funnelshift_l(w[1], w[0], sh);
+  const uint32_t b = __funnelshift_l(w[2], w[1], sh);
+  int h = __clz(a);
+  h = h > 31 ? 31 : h;
+  if (k == 1) {
+    const int nb = 2 * h + 1;
+    nbits = nb;
+    return first_bits(a, b, nb) - 1;
+  }
+  const uint32_t cw = __funnelshift_l(w[3], w[2], sh);
+  int nb = (h + 1) * k;
+  nb = nb > 63 ? 63 : nb;
+  const unsigned s1 = static_cast<unsigned>(h + 1);   // 1..32
+  nbits = h + 1 + nb;
+  return first_bits(__funnelshift_lc(b, a, s1), __funnelshift_lc(cw, b, s1),
+                    nb) - 1;
+}
+
 __device__ __forceinline__ int64_t nat2int(int64_t x) {
   return (x & 1) ? -((x + 1) >> 1) : (x >> 1);
 }
@@ -157,29 +206,162 @@ cgr_gamma_kernel(const Stream s, const int32_t* __restrict__ pos, int64_t n,
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
-cgr_residual_kernel(const Stream s, const int32_t* __restrict__ data_p,
-                    const int32_t* __restrict__ counts,
-                    const int32_t* __restrict__ lane_v,
-                    const int32_t* __restrict__ base, int64_t lanes, int k,
-                    int32_t* __restrict__ col, int32_t* __restrict__ pfin) {
-  const int64_t l = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-  if (l >= lanes) return;
+// cgr_residual's work items: a block a tile of consecutive lanes (the
+// prep's table: at most kThreads lanes, their ids about kResSlots / 4 * 3),
+// the tile's span of the stream (from its first lane's first code to the
+// next tile's, at most kResWords words) staged, its ids collected from its
+// first lane's first slot on.
+constexpr int kResWords = 3072;
+constexpr int kResSlots = 4096;
+
+struct ResTile {
+  alignas(16) uint32_t win[kResWords];
+  alignas(16) int32_t ids[kResSlots];
+  alignas(16) uint8_t flag[kResSlots];
+  uint8_t done[kThreads];
+};
+
+// The collected ids of the slots cbase .. cbase + kResSlots (cbase a
+// multiple of 4) whose flags are set, into col: 16 bytes a store where all
+// four of an aligned quad are set, else one by one. Every thread takes part.
+__device__ __forceinline__ void flush_ids(const int32_t* ids,
+                                          const uint8_t* flag, int64_t cbase,
+                                          int32_t* __restrict__ col,
+                                          int64_t ncol) {
+  const bool aligned = (reinterpret_cast<uintptr_t>(col) & 15) == 0;
+  for (int i = threadIdx.x; i < kResSlots / 4; i += kThreads) {
+    const uint32_t f = reinterpret_cast<const uint32_t*>(flag)[i];
+    if (f == 0) continue;
+    const int64_t q = cbase + 4 * i;
+    if (f == 0x01010101u && aligned && q >= 0 && q + 4 <= ncol) {
+      *reinterpret_cast<int4*>(col + q) =
+          *reinterpret_cast<const int4*>(ids + 4 * i);
+      continue;
+    }
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      if (((f >> (8 * k)) & 1u) && q + k >= 0 && q + k < ncol) {
+        col[q + k] = ids[4 * i + k];
+      }
+    }
+  }
+}
+
+// Lane l's residuals, collected (ids from cbase, flags) where all of its
+// slots lie there, else each stored through put; and its final bit.
+template <typename Put>
+__device__ __forceinline__ void residual_lane(
+    const Staged& c, const int32_t* __restrict__ data_p,
+    const int32_t* __restrict__ counts, const int32_t* __restrict__ lane_v,
+    const int32_t* __restrict__ base, int64_t l, int k, int64_t cbase,
+    int32_t* ids, uint8_t* flag, int32_t* __restrict__ pfin, Put put) {
   int64_t p = __ldg(data_p + l);
   const int32_t n = __ldg(counts + l);
   const int64_t v = __ldg(lane_v + l);
-  int32_t* out = col + static_cast<int64_t>(__ldg(base + l));
+  const int64_t b = __ldg(base + l);
   int32_t prev = 0;
+  const int64_t rel0 = b - cbase;
+  const bool inside = rel0 >= 0 && rel0 + n <= kResSlots;
   for (int32_t i = 0; i < n; ++i) {
     int nb;
-    const int64_t x = read_code(s, p, k, nb);
+    const int64_t x = read_code(c, p, k, nb);
     const int32_t val = static_cast<int32_t>(
         i == 0 ? v + nat2int(x) : static_cast<int64_t>(prev) + x + 1);
-    out[i] = val;
+    if (inside) {
+      ids[rel0 + i] = val;
+      flag[rel0 + i] = 1;
+    } else {
+      put(b + i, val);
+    }
     prev = val;
     p += nb;
   }
   pfin[l] = static_cast<int32_t>(p);
+}
+
+// A block a tile: lanes tiles[b] .. tiles[b + 1], kThreads a round, thread
+// t taking lane order[i] of the round's position i (the prep orders a
+// tile's lanes by count, largest first, so that a warp's lanes are of like
+// length; an order that names a lane outside the round, or names one
+// twice, still leaves no lane out: a lane no thread took is decoded by the
+// thread of its position). The codes are read from the staged words, the
+// ids collected and stored in order; a word outside the staged span is
+// read from the stream, a slot outside the collected span written
+// directly: any table is exact, a good one only faster (hybrid's low rows
+// have high rows between them, in the stream and in col).
+__global__ void __launch_bounds__(kThreads)
+cgr_residual_kernel(const Stream s, const int32_t* __restrict__ data_p,
+                    const int32_t* __restrict__ counts,
+                    const int32_t* __restrict__ lane_v,
+                    const int32_t* __restrict__ base, int64_t lanes,
+                    const int32_t* __restrict__ tiles,
+                    const int32_t* __restrict__ order, int k,
+                    int32_t* __restrict__ col, int64_t ncol,
+                    int32_t* __restrict__ pfin) {
+  __shared__ ResTile sm;
+  const int t = threadIdx.x;
+  int64_t lo = __ldg(tiles + blockIdx.x);
+  int64_t hi = __ldg(tiles + blockIdx.x + 1);
+  lo = lo < 0 ? 0 : (lo > lanes ? lanes : lo);
+  hi = hi > lanes ? lanes : (hi < lo ? lo : hi);
+  // the span: whole 16-byte lines from the first lane's first code's word
+  // to the next tile's (the last tile: as many as fit)
+  const int64_t p0 = lo < hi ? __ldg(data_p + lo) : 0;
+  int64_t w0 = p0 >> 5;
+  w0 -= w0 & 3;
+  const int64_t w1 = hi < lanes ? (static_cast<int64_t>(__ldg(data_p + hi))
+                                   >> 5) + 4
+                                : w0 + kResWords;
+  int64_t nst = w1 - w0;
+  nst = nst < 0 ? 0 : (nst > kResWords ? kResWords : nst);
+  nst = (nst + 3) & ~int64_t{3};
+  if (w0 < 0 || (reinterpret_cast<uintptr_t>(s.words) & 15) != 0) nst = 0;
+  if (nst > s.nwords - w0) nst = (s.nwords - w0) & ~int64_t{3};
+  for (int i = t; 4 * i < nst; i += kThreads) {
+    __pipeline_memcpy_async(sm.win + 4 * i, s.words + w0 + 4 * i, 16);
+  }
+  __pipeline_commit();
+  const int64_t s_lo = lo < hi ? __ldg(base + lo) : 0;
+  const int64_t cbase = s_lo - (s_lo & 3);
+  for (int i = t; i < kResSlots / 16; i += kThreads) {
+    reinterpret_cast<uint4*>(sm.flag)[i] = make_uint4(0, 0, 0, 0);
+  }
+  __pipeline_wait_prior(0);
+  __syncthreads();
+  // the staged words' bytes swapped once, most significant first
+  for (int i = t; i < nst; i += kThreads) {
+    sm.win[i] = __byte_perm(sm.win[i], 0, 0x0123);
+  }
+  const Staged c{s, sm.win, w0, nst};
+  auto put = [&](int64_t slot, int32_t val) {
+    const int64_t rel = slot - cbase;
+    if (rel >= 0 && rel < kResSlots) {
+      sm.ids[rel] = val;
+      sm.flag[rel] = 1;
+    } else if (slot >= 0 && slot < ncol) {
+      col[slot] = val;
+    }
+  };
+  for (int64_t r0 = lo; r0 < hi; r0 += kThreads) {
+    const int64_t end = hi - r0 < kThreads ? hi : r0 + kThreads;
+    const int64_t i = r0 + t;
+    sm.done[t] = 0;
+    __syncthreads();  // the staged words swapped; the round before checked
+    if (i < end) {
+      int64_t l = __ldg(order + i);
+      l = l >= r0 && l < end ? l : i;
+      residual_lane(c, data_p, counts, lane_v, base, l, k, cbase, sm.ids,
+                    sm.flag, pfin, put);
+      sm.done[l - r0] = 1;
+    }
+    __syncthreads();
+    if (i < end && !sm.done[t]) {
+      residual_lane(c, data_p, counts, lane_v, base, i, k, cbase, sm.ids,
+                    sm.flag, pfin, put);
+    }
+  }
+  __syncthreads();
+  flush_ids(sm.ids, sm.flag, cbase, col, ncol);
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -396,26 +578,34 @@ extern "C" int gab_cgr_gamma(const void* words, int64_t nwords,
 
 // col[base[l] + i] for i < counts[l]: the residuals of lane l, whose codes
 // start at bit data_p[l], decoded against its vertex lane_v[l]; pfin (lanes,)
-// the bit after each lane's last code.
+// the bit after each lane's last code. The tiles (n_tiles + 1 lane bounds)
+// cover the lanes, a block each; order (lanes,) the order in which a
+// tile's threads take its lanes. A slot outside col (ncol) is not written;
+// a lane left out of every tile is not decoded.
 extern "C" int gab_cgr_residual(const void* words, int64_t nwords,
                                 const void* data_p, const void* counts,
                                 const void* lane_v, const void* base,
-                                int64_t lanes, int k, void* col, void* pfin,
+                                int64_t lanes, const void* tiles,
+                                int64_t n_tiles, const void* order, int k,
+                                void* col, int64_t ncol, void* pfin,
                                 int device, void* stream) {
-  if (nwords < 4 || bad_grid(lanes, kThreads) || k < 1) {
+  if (nwords < 4 || lanes < 0 || n_tiles < 0 || n_tiles > 0x7fffffff ||
+      k < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (lanes > 0) {
-    cgr_residual_kernel<<<blocks_for(lanes, kThreads), kThreads, 0,
+  if (lanes > 0 && n_tiles > 0) {
+    cgr_residual_kernel<<<static_cast<unsigned>(n_tiles), kThreads, 0,
                           static_cast<cudaStream_t>(stream)>>>(
         Stream{static_cast<const uint32_t*>(words), nwords},
         static_cast<const int32_t*>(data_p),
         static_cast<const int32_t*>(counts),
         static_cast<const int32_t*>(lane_v),
-        static_cast<const int32_t*>(base), lanes, k,
-        static_cast<int32_t*>(col), static_cast<int32_t*>(pfin));
+        static_cast<const int32_t*>(base), lanes,
+        static_cast<const int32_t*>(tiles),
+        static_cast<const int32_t*>(order), k, static_cast<int32_t*>(col),
+        ncol, static_cast<int32_t*>(pfin));
   }
   return static_cast<int>(cudaGetLastError());
 }

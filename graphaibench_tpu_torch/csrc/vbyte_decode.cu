@@ -67,9 +67,24 @@
 //   them back in order. A byte outside the staged span is read from the
 //   stream, a slot outside the collected span is written directly: any
 //   table is exact, a good one only faster.
-// - vgb_values: a warp a row, a lane a group: the lane reads its tag and four
-//   values (a prefix within the group), a warp scan of the group sums gives
-//   the prefix across the row's groups; ids past the row's count are dropped.
+// - vgb_values: one launch, a block a long row (above long_groups groups;
+//   widest first), then a block a tile of consecutive rows (the prep's
+//   table: up to kThreads rows whose groups fit kValGroups). The groups of
+//   consecutive rows are consecutive in tagpos, their bytes in the stream
+//   and their ids in col, so a tile is decoded flat over its groups: the
+//   tile's tag positions are staged (coalesced), then their span of the
+//   stream (16-byte asynchronous copies); each row marks its first group,
+//   a block scan of the marks gives every group its row; thread t decodes
+//   kValPerThread consecutive groups from shared memory (five aligned words
+//   a group), a block scan of the group sums less the scan at the row's
+//   first group gives the ids, which are collected in shared memory and
+//   stored in order, 16 bytes a store. A long row's block walks it
+//   kValLongStep groups at a time the same way, carrying the sum of the
+//   groups before. A byte outside the staged span is read from the
+//   stream, a slot outside the collected span written directly, and a row
+//   whose groups leave the tile's span or hold another row's first group
+//   is decoded by its thread from the stream: any table is exact, a good
+//   one only faster.
 //
 // Every byte read is clamped to the stream, so a stream that does not parse
 // reads nothing outside it, and the plain versions, which clamp the same
@@ -762,60 +777,391 @@ vgb_tags_kernel(const Bytes s, const int32_t* __restrict__ pos,
   }
 }
 
+// vgb_values' work items. A tile's block decodes up to kValGroups groups
+// of consecutive rows, kValPerThread consecutive groups a thread; a long
+// row's block walks the row kValLongStep groups at a time.
+constexpr int kValPerThread = 4;
+constexpr int kValGroups = kThreads * kValPerThread;
+constexpr int kValSlots = 4 * kValGroups;    // a tile's collected ids
+constexpr int kValWin = 12288;               // a tile's staged stream
+constexpr int kValCols = 4;                  // a tile table row
+// a long row's groups a round: their ids, after the first id's place in
+// its quad, fit the collected slots
+constexpr int kValLongStep = kValGroups - 1;
+
+// A vgb_values block's shared memory: the staged stream, the collected ids
+// and their flags, the groups' tag positions and the prefix of their sums,
+// each group's owner (a tile's row + 1, 0 for none), and the tile's rows
+// (first group less the tile's, count, first slot, whether flat).
+struct VgbValues {
+  alignas(16) uint8_t win[kValWin + 32];
+  alignas(16) int32_t ids[kValSlots + 4];
+  alignas(16) uint8_t flag[kValSlots];
+  int32_t tp[kValGroups];
+  uint32_t pre[kValGroups];
+  uint16_t own[kValGroups];
+  int32_t head[kThreads];
+  int32_t n[kThreads];
+  int32_t slot[kThreads];
+  uint8_t flat[kThreads];
+  uint32_t sums[kWarpsPerBlock];
+};
+
+// The prefix within the group (v) of the four values of the group whose tag
+// is at o, and their sum: from the staged bytes (win holds the stream's
+// bytes a .. a + nwin) where the group's 17 lie inside them, else from the
+// stream, clamped.
+__device__ __forceinline__ uint32_t vgb_group(const Bytes& s,
+                                              const uint8_t* win, int64_t a,
+                                              int nwin, int64_t o,
+                                              uint32_t (&v)[4]) {
+  const int64_t w = o - a;
+  uint32_t acc = 0;
+  if (w >= 0 && w + 17 <= nwin) {
+    const int b = static_cast<int>(w);
+    const uint32_t t = win[b];
+    const uint32_t* words = reinterpret_cast<const uint32_t*>(win);
+    const int i = (b + 1) >> 2;
+    const int sh = ((b + 1) & 3) * 8;
+    uint32_t x[5];
+#pragma unroll
+    for (int k = 0; k < 5; ++k) x[k] = words[i + k];
+    uint32_t w16[5];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const uint64_t pair = (static_cast<uint64_t>(x[k + 1]) << 32) | x[k];
+      w16[k] = static_cast<uint32_t>(pair >> sh);
+    }
+    w16[4] = 0;
+    int off = 0;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int len = static_cast<int>((t >> (2 * k)) & 3u) + 1;
+      acc += word_at(w16, off, len);
+      off += len;
+      v[k] = acc;
+    }
+  } else {
+    const uint32_t t = byte_at(s, o);
+    ++o;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int len = static_cast<int>((t >> (2 * k)) & 3u) + 1;
+      acc += read_le(s, o, len);
+      o += len;
+      v[k] = acc;
+    }
+  }
+  return acc;
+}
+
+// The prefix of the maxima of x over the block's threads before this one
+// (0 for thread 0). Every thread takes part; `sums` holds kWarpsPerBlock
+// entries.
+__device__ __forceinline__ uint32_t block_max_before(uint32_t x,
+                                                     uint32_t* sums) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const uint32_t y = __shfl_up_sync(kFull, x, d);
+    if (lane >= d) x = x > y ? x : y;
+  }
+  uint32_t before = __shfl_up_sync(kFull, x, 1);
+  if (lane == 0) before = 0;
+  if (lane == 31) sums[warp] = x;
+  __syncthreads();
+  for (int w = 0; w < warp; ++w) before = before > sums[w] ? before : sums[w];
+  __syncthreads();
+  return before;
+}
+
+// The collected ids of the slots cbase .. cbase + kValSlots (cbase a
+// multiple of 4) whose flags are set, into col: 16 bytes a store where all
+// four of an aligned quad are set, else one by one. Every thread takes part.
+__device__ __forceinline__ void flush_ids(const int32_t* ids,
+                                          const uint8_t* flag, int64_t cbase,
+                                          int32_t* __restrict__ col,
+                                          int64_t ncol) {
+  const bool aligned = (reinterpret_cast<uintptr_t>(col) & 15) == 0;
+  for (int i = threadIdx.x; i < kValSlots / 4; i += kThreads) {
+    const uint32_t f = reinterpret_cast<const uint32_t*>(flag)[i];
+    if (f == 0) continue;
+    const int64_t q = cbase + 4 * i;
+    if (f == 0x01010101u && aligned && q >= 0 && q + 4 <= ncol) {
+      *reinterpret_cast<int4*>(col + q) =
+          *reinterpret_cast<const int4*>(ids + 4 * i);
+      continue;
+    }
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      if (((f >> (8 * k)) & 1u) && q + k >= 0 && q + k < ncol) {
+        col[q + k] = ids[4 * i + k];
+      }
+    }
+  }
+}
+
+// A row's ids from a long row's block, kValLongStep groups at a time: the
+// groups' tag positions and their span of the stream are staged, thread t
+// decodes groups kValPerThread t .., a block scan of the group sums (and
+// the carry of the groups before) gives the ids, which are collected in
+// shared memory and stored in order.
+__device__ void vgb_values_long(const Bytes& s,
+                                const int32_t* __restrict__ tagpos,
+                                int64_t n_g, int64_t g0, int64_t n,
+                                int64_t slot0, int32_t* __restrict__ col,
+                                int64_t ncol, VgbValues& sm) {
+  const int t = threadIdx.x;
+  n = n < 0 ? 0 : n;
+  const int64_t ng = (n + 3) >> 2;
+  const int lead = static_cast<int>(slot0 & 3);  // the ids' place in a quad
+  uint32_t carry = 0;
+  for (int64_t j0 = 0; j0 < ng; j0 += kValLongStep) {
+    const int m = ng - j0 < kValLongStep ? static_cast<int>(ng - j0)
+                                         : kValLongStep;
+    for (int i = t; i < m; i += kThreads) {
+      const int64_t gi = g0 + j0 + i;
+      sm.tp[i] = gi >= 0 && gi < n_g ? __ldg(tagpos + gi) : 0;
+    }
+    for (int i = t; i < kValSlots / 16; i += kThreads) {
+      reinterpret_cast<uint4*>(sm.flag)[i] = make_uint4(0, 0, 0, 0);
+    }
+    __syncthreads();
+    const int64_t b_lo = sm.tp[0];
+    const int64_t a = b_lo - (b_lo & 15);
+    const int64_t span = static_cast<int64_t>(sm.tp[m - 1]) + 17 - a;
+    const int nwin = span <= 0 ? 0 : (span > kValWin ? kValWin
+                                                       : static_cast<int>(span));
+    stage_async(s, a, nwin, sm.win);
+    __pipeline_wait_prior(0);
+    __syncthreads();
+    uint32_t v[kValPerThread][4];
+    uint32_t gsum[kValPerThread];
+    uint32_t total = 0;
+#pragma unroll
+    for (int u = 0; u < kValPerThread; ++u) {
+      const int p = kValPerThread * t + u;
+      gsum[u] = 0;
+      if (p < m) gsum[u] = vgb_group(s, sm.win, a, nwin, sm.tp[p], v[u]);
+      total += gsum[u];
+    }
+    uint32_t all;
+    uint32_t x = carry + block_prefix(total, sm.sums, &all) - total;
+    const int64_t left = n - 4 * j0;  // the ids still to come
+#pragma unroll
+    for (int u = 0; u < kValPerThread; ++u) {
+      const int p = kValPerThread * t + u;
+      if (p < m) {
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          const int e = 4 * p + k;
+          if (e < left) {
+            sm.ids[lead + e] = static_cast<int32_t>(x + v[u][k]);
+            sm.flag[lead + e] = 1;
+          }
+        }
+      }
+      x += gsum[u];
+    }
+    __syncthreads();
+    flush_ids(sm.ids, sm.flag, slot0 + 4 * j0 - lead, col, ncol);
+    carry += all;
+    __syncthreads();  // before the next groups are staged over these
+  }
+}
+
+// Row r's ids (n of them, groups from g0, slots from slot0) decoded from
+// the stream, not from a tile's spans, each stored through put.
+template <typename Put>
+__device__ __forceinline__ void vgb_values_row(
+    const Bytes& s, const int32_t* __restrict__ tagpos, int64_t n_g,
+    const uint8_t* win, int64_t a, int nwin, int64_t g0, int64_t n,
+    int64_t slot0, Put put) {
+  const int64_t ng = n > 0 ? (n + 3) >> 2 : 0;
+  uint32_t x = 0;
+  for (int64_t j = 0; j < ng; ++j) {
+    const int64_t gi = g0 + j;
+    const int64_t o = gi >= 0 && gi < n_g ? __ldg(tagpos + gi) : 0;
+    uint32_t v[4];
+    const uint32_t sum = vgb_group(s, win, a, nwin, o, v);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      if (4 * j + k < n) put(slot0 + 4 * j + k, x + v[k]);
+    }
+    x += sum;
+  }
+}
+
+// The ids of the rows [r_lo, r_hi) of at most long_groups groups, decoded
+// flat over the tile's groups: the groups g_lo .. g_lo + g_len (cut to
+// kValGroups and to tagpos) have their tag positions staged, and their
+// span of the stream; a row whose groups all lie there and hold no other
+// row's first group (its owner: the largest row whose first group lies at
+// or before) is flat. Thread t decodes the flat rows' groups among
+// kValPerThread t .. (another group's sum is 0: a flat row's groups are
+// its own, so its prefix differences take in no other); a block scan of
+// the group sums gives each group's prefix, less the prefix at its row's
+// first group; its ids go to the row's slots, collected in shared memory
+// from s_lo (rounded down to a quad) and stored in order; a slot outside
+// is written directly. A row that is not flat, or past the tile's first
+// kThreads rows, is decoded by its thread from the stream.
+__device__ void vgb_values_tile(
+    const Bytes& s, const int32_t* __restrict__ tagpos, int64_t n_g,
+    const int32_t* __restrict__ gbase, const int32_t* __restrict__ counts,
+    const int32_t* __restrict__ out_slot, int64_t r_lo, int64_t r_hi,
+    int64_t g_lo, int64_t g_len, int64_t s_lo, int long_groups,
+    int32_t* __restrict__ col, int64_t ncol, VgbValues& sm) {
+  const int t = threadIdx.x;
+  g_len = g_len < n_g - g_lo ? g_len : n_g - g_lo;
+  const int gspan = g_lo < 0 || g_len <= 0
+                        ? 0
+                        : (g_len < kValGroups ? static_cast<int>(g_len)
+                                              : kValGroups);
+  const int64_t cbase = s_lo - (s_lo & 3);
+  for (int i = t; i < kValSlots / 16; i += kThreads) {
+    reinterpret_cast<uint4*>(sm.flag)[i] = make_uint4(0, 0, 0, 0);
+  }
+  for (int i = t; i < kValGroups; i += kThreads) sm.own[i] = 0;
+  for (int i = t; i < gspan; i += kThreads) sm.tp[i] = __ldg(tagpos + g_lo + i);
+  const int64_t r = r_lo + t;
+  int64_t n = 0, g0 = 0, slot0 = 0;
+  if (r < r_hi) {
+    n = __ldg(counts + r);
+    g0 = __ldg(gbase + r);
+    slot0 = __ldg(out_slot + r);
+  }
+  const int64_t ng = n > 0 ? (n + 3) >> 2 : 0;
+  const bool mine = r < r_hi && ng > 0 && ng <= long_groups;
+  const int64_t h = g0 - g_lo;
+  const bool in_span = mine && h >= 0 && h + ng <= gspan;
+  __syncthreads();
+  if (in_span) sm.own[h] = static_cast<uint16_t>(t + 1);
+  // the stream's span of the staged groups
+  int64_t a = 0;
+  int nwin = 0;
+  if (gspan > 0) {
+    const int64_t b_lo = sm.tp[0];
+    a = b_lo - (b_lo & 15);
+    const int64_t span = static_cast<int64_t>(sm.tp[gspan - 1]) + 17 - a;
+    nwin = span <= 0 ? 0 : (span > kValWin ? kValWin : static_cast<int>(span));
+  }
+  stage_async(s, a, nwin, sm.win);
+  __syncthreads();
+  // each group's owner: the largest row whose first group lies at or
+  // before it
+  uint32_t own[kValPerThread];
+  uint32_t m = 0;
+#pragma unroll
+  for (int u = 0; u < kValPerThread; ++u) {
+    const uint32_t o = sm.own[kValPerThread * t + u];
+    m = m > o ? m : o;
+    own[u] = m;
+  }
+  const uint32_t before = block_max_before(m, sm.sums);
+#pragma unroll
+  for (int u = 0; u < kValPerThread; ++u) {
+    own[u] = own[u] > before ? own[u] : before;
+    sm.own[kValPerThread * t + u] = static_cast<uint16_t>(own[u]);
+  }
+  __syncthreads();
+  const bool flat = in_span && sm.own[h + ng - 1] == t + 1;
+  sm.flat[t] = flat;
+  sm.head[t] = static_cast<int32_t>(h);
+  sm.n[t] = static_cast<int32_t>(n);
+  sm.slot[t] = static_cast<int32_t>(slot0);
+  __pipeline_wait_prior(0);
+  __syncthreads();
+  // the flat rows' groups, and the prefix of their sums over the tile
+  uint32_t v[kValPerThread][4];
+  uint32_t gsum[kValPerThread];
+  uint32_t total = 0;
+#pragma unroll
+  for (int u = 0; u < kValPerThread; ++u) {
+    const int p = kValPerThread * t + u;
+    const int o = static_cast<int>(own[u]) - 1;
+    gsum[u] = 0;
+    if (p < gspan && o >= 0 && sm.flat[o] && 4 * (p - sm.head[o]) < sm.n[o]) {
+      gsum[u] = vgb_group(s, sm.win, a, nwin, sm.tp[p], v[u]);
+    }
+    total += gsum[u];
+  }
+  uint32_t all;
+  uint32_t x = block_prefix(total, sm.sums, &all) - total;
+#pragma unroll
+  for (int u = 0; u < kValPerThread; ++u) {
+    sm.pre[kValPerThread * t + u] = x;
+    x += gsum[u];
+  }
+  __syncthreads();
+  auto put = [&](int64_t slot, uint32_t id) {
+    const int64_t rel = slot - cbase;
+    if (rel >= 0 && rel < kValSlots) {
+      sm.ids[rel] = static_cast<int32_t>(id);
+      sm.flag[rel] = 1;
+    } else if (slot >= 0 && slot < ncol) {
+      col[slot] = static_cast<int32_t>(id);
+    }
+  };
+#pragma unroll
+  for (int u = 0; u < kValPerThread; ++u) {
+    const int p = kValPerThread * t + u;
+    if (own[u] == 0 || p >= gspan) continue;
+    const int w = static_cast<int>(own[u]) - 1;
+    if (!sm.flat[w]) continue;
+    const int j = p - sm.head[w];
+    const int64_t rn = sm.n[w];
+    if (4 * static_cast<int64_t>(j) >= rn) continue;
+    const uint32_t base = sm.pre[p] - sm.pre[sm.head[w]];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int64_t e = 4 * static_cast<int64_t>(j) + k;
+      if (e < rn) put(sm.slot[w] + e, base + v[u][k]);
+    }
+  }
+  if (mine && !flat) {
+    vgb_values_row(s, tagpos, n_g, sm.win, a, nwin, g0, n, slot0, put);
+  }
+  for (int64_t r2 = r + kThreads; r2 < r_hi; r2 += kThreads) {
+    const int64_t n2 = __ldg(counts + r2);
+    const int64_t ng2 = n2 > 0 ? (n2 + 3) >> 2 : 0;
+    if (ng2 <= 0 || ng2 > long_groups) continue;
+    vgb_values_row(s, tagpos, n_g, sm.win, a, nwin, __ldg(gbase + r2), n2,
+                   __ldg(out_slot + r2), put);
+  }
+  __syncthreads();
+  flush_ids(sm.ids, sm.flag, cbase, col, ncol);
+}
+
+// A block a long row (widest first) and then a block a tile: row k of
+// tiles (kValCols int32) is the tile's first row, its first group and
+// groups, and its first slot; its last row is the next row's first.
 __global__ void __launch_bounds__(kThreads)
 vgb_values_kernel(const Bytes s, const int32_t* __restrict__ tagpos,
                   int64_t n_g, const int32_t* __restrict__ gbase,
                   const int32_t* __restrict__ counts,
                   const int32_t* __restrict__ out_slot, int64_t rows,
+                  const int32_t* __restrict__ long_rows, int64_t n_long,
+                  const int32_t* __restrict__ tiles, int long_groups,
                   int32_t* __restrict__ col, int64_t ncol) {
-  const int64_t r =
-      static_cast<int64_t>(blockIdx.x) * kWarpsPerBlock + (threadIdx.x >> 5);
-  if (r >= rows) return;
-  const int lane = threadIdx.x & 31;
-  const int64_t n = __ldg(counts + r);
-  const int64_t g0 = __ldg(gbase + r);
-  const int64_t slot0 = __ldg(out_slot + r);
-  const int64_t ng = (n + 3) >> 2;
-  uint32_t carry = 0;
-  for (int64_t c = 0; c < ng; c += 32) {
-    const int64_t j = c + lane;
-    uint32_t v[4] = {0, 0, 0, 0};   // the prefix within the group
-    if (j < ng) {
-      const int64_t gi = g0 + j;
-      int64_t o = (gi >= 0 && gi < n_g) ? __ldg(tagpos + gi) : 0;
-      const uint32_t t = byte_at(s, o);
-      ++o;
-      uint32_t acc = 0;
-#pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        const int len = static_cast<int>((t >> (2 * k)) & 3) + 1;
-        acc += read_le(s, o, len);
-        o += len;
-        v[k] = acc;
-      }
+  __shared__ VgbValues sm;
+  const int64_t b = blockIdx.x;
+  if (b < n_long) {
+    const int64_t r = __ldg(long_rows + b);
+    if (r >= 0 && r < rows) {
+      vgb_values_long(s, tagpos, n_g, __ldg(gbase + r), __ldg(counts + r),
+                      __ldg(out_slot + r), col, ncol, sm);
     }
-    const uint32_t incl = warp_prefix(v[3], lane);
-    const uint32_t base = carry + incl - v[3];
-    if (j < ng) {
-#pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        const int64_t e = 4 * j + k;
-        const int64_t slot = slot0 + e;
-        if (e < n && slot >= 0 && slot < ncol) {
-          col[slot] = static_cast<int32_t>(base + v[k]);
-        }
-      }
-    }
-    carry += __shfl_sync(kFull, incl, 31);
+    return;
   }
-}
-
-unsigned blocks_for(int64_t n, int64_t per_block) {
-  return static_cast<unsigned>((n + per_block - 1) / per_block);
-}
-
-bool bad_grid(int64_t n, int64_t per_block) {
-  return n < 0 || (n + per_block - 1) / per_block > 0x7fffffff;
+  const int32_t* t = tiles + (b - n_long) * kValCols;
+  int64_t lo = __ldg(t);
+  int64_t hi = __ldg(t + kValCols);
+  lo = lo < 0 ? 0 : lo;
+  hi = hi > rows ? rows : hi;
+  vgb_values_tile(s, tagpos, n_g, gbase, counts, out_slot, lo, hi,
+                  __ldg(t + 1), __ldg(t + 2), __ldg(t + 3), long_groups, col,
+                  ncol, sm);
 }
 
 }  // namespace
@@ -898,24 +1244,36 @@ extern "C" int gab_vgb_tags(const void* bytes, int64_t nbytes,
 
 // col[out_slot[r] + i] for i < counts[r]: row r's ids from its groups
 // gbase[r] .. gbase[r] + ceil(counts[r] / 4), whose tags are at tagpos (n_g).
+// The rows of more than long_groups groups are long_rows (n_long of them,
+// widest first: a block each); the others are covered by the tiles (a
+// block each): row k of tiles (n_tiles + 1 rows of kValCols int32) is the
+// tile's first row, its first group, the groups to stage and its first
+// slot; its last row is tiles[k + 1][0], so row n_tiles holds the end. A
+// row left out of both is not written.
 extern "C" int gab_vgb_values(const void* bytes, int64_t nbytes,
                               const void* tagpos, int64_t n_g,
                               const void* gbase, const void* counts,
-                              const void* out_slot, int64_t rows, void* col,
-                              int64_t ncol, int device, void* stream) {
-  if (nbytes < 1 || bad_grid(rows, kWarpsPerBlock)) {
+                              const void* out_slot, int64_t rows,
+                              const void* long_rows, int64_t n_long,
+                              const void* tiles, int64_t n_tiles,
+                              int long_groups, void* col, int64_t ncol,
+                              int device, void* stream) {
+  if (nbytes < 1 || rows < 0 || n_long < 0 || n_tiles < 0 ||
+      n_long + n_tiles > 0x7fffffff) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (rows > 0) {
-    vgb_values_kernel<<<blocks_for(rows, kWarpsPerBlock), kThreads, 0,
+  if (rows > 0 && n_long + n_tiles > 0) {
+    vgb_values_kernel<<<static_cast<unsigned>(n_long + n_tiles), kThreads, 0,
                         static_cast<cudaStream_t>(stream)>>>(
         Bytes{static_cast<const uint8_t*>(bytes), nbytes},
         static_cast<const int32_t*>(tagpos), n_g,
         static_cast<const int32_t*>(gbase),
         static_cast<const int32_t*>(counts),
         static_cast<const int32_t*>(out_slot), rows,
+        static_cast<const int32_t*>(long_rows), n_long,
+        static_cast<const int32_t*>(tiles), long_groups,
         static_cast<int32_t*>(col), ncol);
   }
   return static_cast<int>(cudaGetLastError());

@@ -80,7 +80,10 @@ _SIGNATURES = {
         # words, nwords, then per entry: positions or lanes, their count, the
         # kind / zeta_k / min_itv_len, the outputs; device, stream
         "gab_cgr_gamma": [_vp, _i64, _vp, _i64, _int, _vp, _vp, _int, _vp],
-        "gab_cgr_residual": [_vp, _i64] + [_vp] * 4 + [_i64, _int, _vp, _vp,
+        # words, nwords, data_p, counts, lane_v, base, lanes, tiles,
+        # n_tiles, order, zeta_k, col, ncol, pfin
+        "gab_cgr_residual": [_vp, _i64] + [_vp] * 4 + [_i64, _vp, _i64, _vp,
+                                                       _int, _vp, _i64, _vp,
                                                        _int, _vp],
         "gab_cgr_interval": [_vp, _i64] + [_vp] * 4 + [_i64, _int, _vp, _vp,
                                                        _vp, _int, _vp],
@@ -99,10 +102,10 @@ _SIGNATURES = {
                                                      _int, _vp],
         "gab_vgb_tags": [_vp, _i64] + [_vp] * 3 + [_i64, _vp, _i64, _vp, _i64,
                                                    _int, _vp, _i64, _int, _vp],
-        # bytes, nbytes, tagpos, n_g, gbase, counts, out_slot, rows, col, ncol
-        "gab_vgb_values": [_vp, _i64, _vp, _i64] + [_vp] * 3 + [_i64, _vp,
-                                                               _i64, _int,
-                                                               _vp],
+        # bytes, nbytes, tagpos, n_g, gbase, counts, out_slot, rows,
+        # long_rows, n_long, tiles, n_tiles, long_groups, col, ncol
+        "gab_vgb_values": [_vp, _i64, _vp, _i64] + [_vp] * 3 + [
+            _i64, _vp, _i64, _vp, _i64, _int, _vp, _i64, _int, _vp],
     },
 }
 

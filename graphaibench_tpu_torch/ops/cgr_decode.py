@@ -15,7 +15,9 @@ position stays inside it. Every pass works on lanes given by bit positions:
   (value, the bit after what was read).
 - ``cgr_residual``: a (vertex, segment) lane decodes ``count`` zeta_k codes
   (gamma for k = 1): the first is ``v + nat2int(x)``, the rest ``prev + x +
-  1``; writes ``col[base + i]`` and the lane's final bit position.
+  1``; writes ``col[base + i]`` and the lane's final bit position. The
+  kernel takes two tables (``residual_tables``): tiles of consecutive lanes,
+  a block each, and the order in which a tile's threads take its lanes.
 - ``cgr_interval``: an interval-segment lane decodes ``count`` (left, len)
   pairs of gammas: the first left ``v + nat2int(x)``, the rest ``prev_left +
   prev_len + 1 + x``, each len ``x + min_itv_len``; writes them at ``base +
@@ -52,6 +54,13 @@ COUNT, HEADER, HEADER_DEG = 0, 1, 2
 PAD_BYTES = 16
 # the slots of col a warp of cgr_merge fills
 MERGE_TILE_SLOTS = 256
+# cgr_residual's tiles: a tile ends where the lanes' first ids (their
+# counts' prefix) cross a multiple of RESIDUAL_TILE_IDS or their indices
+# one of RESIDUAL_TILE_LANES (the kernel's threads), so that its ids mostly
+# fit the kernel's collected ones (kResSlots, 4,096); its bits mostly fit
+# the staged words (kResWords, 3,072: 12 KB)
+RESIDUAL_TILE_LANES = 256
+RESIDUAL_TILE_IDS = 3072
 
 
 def stream_tensor(data: bytes, device) -> torch.Tensor:
@@ -274,10 +283,36 @@ def _lanes_ok(lanes, n_out: int, what: str):
         raise ValueError(f"{what}: output past int32 slots")
 
 
-def cgr_residual(stream, data_p, counts, lane_v, base, ne: int, zeta_k: int):
+def residual_tables(counts) -> dict:
+    """``cgr_residual``'s tables for lanes of ``counts`` codes (int32, on
+    any device; the tables on the same one): ``tiles`` (n_tiles + 1,), each tile's first lane and then the
+    end: a tile ends where the lanes' first ids (their counts' exclusive
+    prefix) cross a multiple of RESIDUAL_TILE_IDS or their indices one of
+    RESIDUAL_TILE_LANES; and
+    ``order`` (L,), the lanes tile by tile, in each the largest count first
+    (a negative count as 0; ties in lane order). int32."""
+    c = counts.long().clamp(min=0)
+    n = c.numel()
+    lane = torch.arange(n, device=c.device)
+    key = ((torch.cumsum(c, 0) - c) // RESIDUAL_TILE_IDS
+           + lane // RESIDUAL_TILE_LANES)
+    cut = torch.nonzero(key.diff()).flatten() + 1
+    tiles = torch.cat([cut.new_zeros(1), cut, cut.new_full((1,), n)])
+    tile = torch.repeat_interleave(torch.arange(tiles.numel() - 1,
+                                                device=c.device),
+                                   tiles.diff(), output_size=n)
+    order = torch.argsort(tile * 2**32 - c, stable=True)
+    return {"tiles": tiles.to(torch.int32), "order": order.to(torch.int32)}
+
+
+def cgr_residual(stream, data_p, counts, lane_v, base, ne: int, zeta_k: int,
+                 *, tiles=None, order=None):
     """(col (ne,) int32, pfin (L,) int32): every lane's residuals written
     at ``col[base + i]``, slots no lane writes left as they were allocated
-    (the callers' lanes cover every slot), and each lane's final bit."""
+    (the callers' lanes cover every slot), and each lane's final bit.
+    ``tiles`` and ``order``: the kernel's tables (``residual_tables``,
+    which builds them on the card when they are not given); the plain
+    version takes none."""
     lanes = (data_p, counts, lane_v, base)
     dev = _check(lanes, stream)
     _lanes_ok(lanes, ne, "cgr_residual")
@@ -285,13 +320,23 @@ def cgr_residual(stream, data_p, counts, lane_v, base, ne: int, zeta_k: int):
         raise ValueError(f"zeta_k must be at least 1, not {zeta_k}")
     if dev.type == "cpu":
         return cgr_residual_plain(stream, *lanes, ne, zeta_k)
+    if tiles is None or order is None:
+        tables = residual_tables(counts)
+        tiles, order = tables["tiles"], tables["order"]
+    if (tiles.dim() != 1 or tiles.numel() < 1 or order.dim() != 1
+            or order.numel() != data_p.numel()
+            or any(t.dtype != torch.int32 or not t.is_contiguous()
+                   or t.device != dev for t in (tiles, order))):
+        raise ValueError("cgr_residual: tiles (n_tiles + 1,) and order (L,) "
+                         "must be contiguous int32 on the stream's device")
     lib = _build.load_library("cgr_decode")
     col = torch.empty(ne, dtype=torch.int32, device=dev)
     pfin = torch.empty_like(data_p)
     rc = lib.gab_cgr_residual(stream.data_ptr(), _nwords(stream),
                               *(t.data_ptr() for t in lanes), data_p.numel(),
-                              zeta_k, col.data_ptr(), pfin.data_ptr(),
-                              *_launch_tail(stream))
+                              tiles.data_ptr(), tiles.numel() - 1,
+                              order.data_ptr(), zeta_k, col.data_ptr(), ne,
+                              pfin.data_ptr(), *_launch_tail(stream))
     _raise_on(rc, lib, "cgr_residual", f"{data_p.numel()} lanes")
     LAUNCHES["cgr_residual"] += 1
     return col, pfin

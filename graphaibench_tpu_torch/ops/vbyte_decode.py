@@ -25,7 +25,10 @@ works on rows given by int32 arrays:
 - ``vgb_values``: a VarintGB row of ``counts[r]`` ids in the groups
   ``gbase[r] ..`` reads each group's tag and four values (a prefix within the
   group), a prefix of the group sums across the row, and writes the row's ids
-  at ``col[out_slot[r] + i]``; the padding of the last group is dropped.
+  at ``col[out_slot[r] + i]``; the padding of the last group is dropped. The
+  kernel takes two tables (``vgb_value_tables``): the rows of more than
+  ``VGB_LONG_GROUPS`` groups, widest first, a block each, and tiles of the
+  other rows, runs of consecutive rows whose groups a block decodes flat.
 
 The arithmetic is the same in both versions, garbage included: byte reads
 clamped to the stream, sums modulo 2^32 stored as int32, a slot outside the
@@ -69,6 +72,13 @@ SVB_TILE_QUADS = 112
 SVB_TILE_ROWS = 32
 VGB_TILE_BYTES = 11264
 VGB_TILE_ROWS = 256
+# vgb_values' tables: a tile ends where its rows' first groups (counted over
+# the rows of 1 to VGB_LONG_GROUPS groups) cross a multiple of
+# VGB_VALUE_TILE_GROUPS, the rows' indices one of VGB_VALUE_TILE_ROWS (the
+# kernel's threads), and at every long row, so that its groups fit the
+# kernel's kValGroups (1,024: VGB_VALUE_TILE_GROUPS plus a short row's most)
+VGB_VALUE_TILE_GROUPS = 768
+VGB_VALUE_TILE_ROWS = 256
 
 
 def _check(stream: torch.Tensor, rows, outs) -> torch.device:
@@ -330,17 +340,79 @@ def vgb_tags(stream, pos, ngroups, gbase, n_g: int, *, long_rows=None,
     return tagpos
 
 
-def vgb_values(stream, tagpos, gbase, counts, out_slot, col):
-    """``col`` with every row's ids written at ``col[out_slot[r] + i]``."""
+def vgb_value_tables(gbase, counts, out_slot) -> dict:
+    """``vgb_values``' tables for rows of ``counts`` ids in the groups from
+    ``gbase``, the ids from slot ``out_slot`` (int32, on any device; the
+    tables on the same one): ``long_rows``, the rows of more than
+    VGB_LONG_GROUPS groups, widest first, and ``tiles``, (n_tiles + 1, 4):
+    each tile's first row, first group, groups to stage and first slot
+    (over its rows of 1 to VGB_LONG_GROUPS groups: from the least first
+    group to the farthest last, the least first slot; 0 without such
+    rows); the last row holds the end. A tile ends where those rows' first
+    groups, counted over them, cross a multiple of VGB_VALUE_TILE_GROUPS,
+    where the rows' indices cross one of VGB_VALUE_TILE_ROWS, and at every
+    long row, which begins its tile and is skipped there. int32."""
+    n = counts.long().clamp(min=0)
+    ng = (n + 3) >> 2
+    dev = ng.device
+    g = gbase.long()
+    long = ng > VGB_LONG_GROUPS
+    short = (ng > 0) & ~long
+    q = torch.where(short, ng, 0)
+    key = ((torch.cumsum(q, 0) - q) // VGB_VALUE_TILE_GROUPS
+           + torch.arange(ng.numel(), device=dev) // VGB_VALUE_TILE_ROWS
+           + torch.cumsum(long.long(), 0))
+    cut = torch.nonzero(key.diff()).flatten() + 1
+    tile_ptr = torch.cat([cut.new_zeros(1), cut,
+                          cut.new_full((1,), ng.numel())])
+    n_tiles = tile_ptr.numel() - 1
+    tile = torch.repeat_interleave(torch.arange(n_tiles, device=dev),
+                                   tile_ptr.diff(), output_size=ng.numel())
+
+    def per_tile(x, how):
+        """The min or max of x over each tile's short rows (0 without)."""
+        return torch.zeros(n_tiles, dtype=torch.long, device=dev).scatter_reduce(
+            0, tile[short], x.long()[short], how, include_self=False)
+
+    tiles = torch.zeros((n_tiles + 1, 4), dtype=torch.long, device=dev)
+    tiles[:, 0] = tile_ptr
+    g_lo = per_tile(g, "amin")
+    tiles[:-1, 1] = g_lo
+    tiles[:-1, 2] = (per_tile(g + ng, "amax") - g_lo).clamp(0, 2**31 - 1)
+    tiles[:-1, 3] = per_tile(out_slot, "amin")
+    rows = torch.nonzero(long).flatten()
+    rows = rows[torch.argsort(ng[rows], descending=True, stable=True)]
+    return {"long_rows": rows.to(torch.int32),
+            "tiles": tiles.clamp(-2**31, 2**31 - 1).to(torch.int32)}
+
+
+def vgb_values(stream, tagpos, gbase, counts, out_slot, col, *,
+               long_rows=None, tiles=None):
+    """``col`` with every row's ids written at ``col[out_slot[r] + i]``.
+    ``long_rows`` and ``tiles``: the kernel's tables (``vgb_value_tables``,
+    which builds them on the card when they are not given); the plain
+    version takes none."""
     dev = _check(stream, (gbase, counts, out_slot), (tagpos, col))
     if dev.type == "cpu":
         return vgb_values_plain(stream, tagpos, gbase, counts, out_slot, col)
+    if long_rows is None or tiles is None:
+        tables = vgb_value_tables(gbase, counts, out_slot)
+        long_rows, tiles = tables["long_rows"], tables["tiles"]
+    if (long_rows.dim() != 1 or tiles.dim() != 2 or tiles.shape[1] != 4
+            or tiles.shape[0] < 1
+            or any(t.dtype != torch.int32 or not t.is_contiguous()
+                   or t.device != dev for t in (long_rows, tiles))):
+        raise ValueError("vgb_values: long_rows (n,) and tiles (n_tiles + 1, "
+                         "4) must be contiguous int32 on the stream's device")
     lib = _build.load_library("vbyte_decode")
     rc = lib.gab_vgb_values(stream.data_ptr(), stream.numel(),
                             tagpos.data_ptr(), tagpos.numel(),
                             gbase.data_ptr(), counts.data_ptr(),
-                            out_slot.data_ptr(), gbase.numel(), col.data_ptr(),
-                            col.numel(), *_launch_tail(stream))
+                            out_slot.data_ptr(), gbase.numel(),
+                            long_rows.data_ptr(), long_rows.numel(),
+                            tiles.data_ptr(), tiles.shape[0] - 1,
+                            VGB_LONG_GROUPS, col.data_ptr(), col.numel(),
+                            *_launch_tail(stream))
     _raise_on(rc, lib, "vgb_values", f"{gbase.numel()} rows")
     LAUNCHES["vgb_values"] += 1
     return col

@@ -16,10 +16,8 @@ The graphs and configurations are those of ``tests/test_compress.py``
 (:392-545).
 """
 
-import ctypes
-import re
 import shutil
-import subprocess
+from unittest import mock
 
 import jax.numpy as jnp
 import numpy as np
@@ -33,6 +31,8 @@ from graphaibench_tpu.graph import generators as jgen
 from graphaibench_tpu.graph import transforms as JT
 from graphaibench_tpu_torch.compress import cgr as tcgr
 from graphaibench_tpu_torch.compress import cgr_device as CD
+from graphaibench_tpu_torch.compress import device_decode as DD
+from graphaibench_tpu_torch.compress import hybrid as thybrid
 from graphaibench_tpu_torch.compress.unary import (
     BitWriter,
     int_2_nat,
@@ -44,6 +44,8 @@ from graphaibench_tpu_torch.graph import transforms as T
 from graphaibench_tpu_torch.ops import _build
 from graphaibench_tpu_torch.ops import cgr_decode as K12
 from test_torch_compress import _runs
+from test_torch_device_decode import EMULATION as DEVICE_EMULATION
+from test_torch_device_decode import build_emulated
 
 torch.set_num_threads(2)
 
@@ -344,25 +346,10 @@ def test_wrappers_refuse_bad_operands():
 
 # ---- the kernels' source, emulated on the host -----------------------------
 
-EMULATION = r"""
-#pragma once
-#include <cstdint>
-#include <functional>
-#define __global__
-#define __device__
-#define __forceinline__ inline
-#define __restrict__
-#define __launch_bounds__(x)
-typedef int cudaError_t;
-typedef void* cudaStream_t;
-enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
-struct dim3 { unsigned x = 0; };
-static dim3 blockIdx, threadIdx;
-inline cudaError_t cudaSetDevice(int) { return cudaSuccess; }
-inline cudaError_t cudaGetLastError() { return cudaSuccess; }
-inline const char* cudaGetErrorString(cudaError_t) { return ""; }
-template <class T> inline T __ldg(const T* p) { return *p; }
-struct int4 { int x, y, z, w; };
+# the threaded emulation of tests/test_torch_device_decode.py (a block's
+# threads as host threads meeting at __syncthreads, shared memory static,
+# an asynchronous copy done at once), with the bit operations K12 uses
+EMULATION = DEVICE_EMULATION + r"""
 inline unsigned __byte_perm(unsigned a, unsigned b, unsigned s) {
   const unsigned long long x = ((unsigned long long)b << 32) | a;
   unsigned r = 0;
@@ -374,41 +361,36 @@ inline unsigned __funnelshift_l(unsigned lo, unsigned hi, unsigned s) {
   const unsigned long long x = ((unsigned long long)hi << 32) | lo;
   return (unsigned)((x << (s & 31)) >> 32);
 }
-inline int __clz(unsigned x) { return x ? __builtin_clz(x) : 32; }
-inline void emulate(unsigned grid, unsigned block, std::function<void()> f) {
-  for (unsigned b = 0; b < grid; ++b)
-    for (unsigned t = 0; t < block; ++t) {
-      blockIdx.x = b;
-      threadIdx.x = t;
-      f();
-    }
+inline unsigned __funnelshift_lc(unsigned lo, unsigned hi, unsigned s) {
+  const unsigned long long x = ((unsigned long long)hi << 32) | lo;
+  return (unsigned)((x << (s > 32 ? 32 : s)) >> 32);
 }
+inline int __clz(unsigned x) { return x ? __builtin_clz(x) : 32; }
 """
 
 
 @pytest.fixture(scope="module")
 def emulated(tmp_path_factory):
     """The library of ``csrc/cgr_decode.cu`` built by g++ for the host,
-    each launch ``k<<<grid, block, 0, s>>>(args)`` run as a loop over the
-    grid's threads."""
+    each launch ``k<<<grid, block, 0, s>>>(args)`` run block after block,
+    a block's threads as host threads that meet at ``__syncthreads``."""
     if shutil.which("g++") is None:
         pytest.skip("no g++ on this host")
-    d = tmp_path_factory.mktemp("cgr_emulated")
-    (d / "cuda_runtime.h").write_text(EMULATION)
-    src = (_build.CSRC / "cgr_decode.cu").read_text()
-    src, n = re.subn(r"(\w+)<<<(.*?),\s*(\w+),\s*0,\s*(.*?)>>>\((.*?)\);",
-                     r"emulate(\2, \3, [&] { \1(\5); });", src,
-                     flags=re.S)
-    assert n == 4
-    (d / "k.cpp").write_text(src)
-    subprocess.run(["g++", "-O1", "-std=c++17", "-shared", "-fPIC",
-                    f"-I{d}", str(d / "k.cpp"), "-o", str(d / "k.so")],
-                   check=True, capture_output=True, timeout=300)
-    lib = ctypes.CDLL(str(d / "k.so"))
-    for fn, argtypes in _build._SIGNATURES["cgr_decode"].items():
-        getattr(lib, fn).argtypes = argtypes
-        getattr(lib, fn).restype = ctypes.c_int
-    return lib
+    return build_emulated(tmp_path_factory.mktemp("cgr_emulated"),
+                          "cgr_decode.cu", 4, EMULATION)
+
+
+@pytest.fixture(scope="module")
+def emulated_small(tmp_path_factory):
+    """The same library with cgr_residual's block spans cut down: 8 staged
+    words and 64 collected ids a tile, so that a lane's codes leave the
+    staged words and its ids the collected slots under the shipped
+    tables."""
+    if shutil.which("g++") is None:
+        pytest.skip("no g++ on this host")
+    return build_emulated(tmp_path_factory.mktemp("cgr_small"),
+                          "cgr_decode.cu", 4, EMULATION,
+                          {"kResWords": 8, "kResSlots": 64})
 
 
 def _emulated_merge(lib, args, tile_row, tile_slots: int):
@@ -425,6 +407,23 @@ def _emulated_merge(lib, args, tile_row, tile_slots: int):
     return col
 
 
+def _emulated_residual(lib, stream, lanes, ne, k, tiles=None, order=None):
+    """``gab_cgr_residual`` of the emulated library on ``lanes``, under
+    ``residual_tables``' tables when none are given; col starts zeroed, as
+    the plain version's."""
+    if tiles is None or order is None:
+        t = K12.residual_tables(lanes[1])
+        tiles, order = t["tiles"], t["order"]
+    col = torch.zeros(ne, dtype=torch.int32)
+    pf = torch.full_like(lanes[0], -1)
+    assert lib.gab_cgr_residual(
+        stream.data_ptr(), stream.numel() // 4,
+        *(a.data_ptr() for a in lanes), lanes[0].numel(), tiles.data_ptr(),
+        tiles.numel() - 1, order.data_ptr(), k, col.data_ptr(), ne,
+        pf.data_ptr(), 0, None) == 0
+    return col, pf
+
+
 def _emulated_passes(lib, monkeypatch):
     """Route every wrapper through the emulated library and hold each call
     against the plain version on the same inputs."""
@@ -438,14 +437,17 @@ def _emulated_passes(lib, monkeypatch):
                                  v.data_ptr(), n.data_ptr(), 0, None) == 0
         return v, n
 
-    def residual(stream, dp, c, lv, b, ne, k):
-        col, pf = torch.zeros(ne, dtype=torch.int32), torch.empty_like(dp)
-        assert lib.gab_cgr_residual(stream.data_ptr(), words(stream),
-                                    dp.data_ptr(), c.data_ptr(), lv.data_ptr(),
-                                    b.data_ptr(), dp.numel(), k,
-                                    col.data_ptr(), pf.data_ptr(), 0,
-                                    None) == 0
-        return col, pf
+    def residual(stream, dp, c, lv, b, ne, k, tiles=None, order=None):
+        # the caller's tables, then tiles of a few lanes and few ids: a
+        # lane's codes past the staged words, ids past the collected slots
+        got = _emulated_residual(lib, stream, (dp, c, lv, b), ne, k,
+                                 tiles, order)
+        with mock.patch.multiple(K12, RESIDUAL_TILE_LANES=3,
+                                 RESIDUAL_TILE_IDS=40):
+            small = _emulated_residual(lib, stream, (dp, c, lv, b), ne, k)
+        for a, b_ in zip(got, small):
+            assert torch.equal(a, b_)
+        return got
 
     def interval(stream, dp, c, lv, b, n_itv, m):
         lf = torch.empty(n_itv, dtype=torch.int32)
@@ -598,6 +600,124 @@ def test_star_decodes_through_the_emulated_kernels(emulated, monkeypatch):
     assert calls["cgr_merge"] == 1
 
 
+def test_residual_tables():
+    """Tiles cut where the lanes' first ids cross a multiple of
+    RESIDUAL_TILE_IDS or their indices one of RESIDUAL_TILE_LANES; the
+    order takes each tile's lanes by count, largest first, ties in lane
+    order (a negative count as 0); the preps' tables are these."""
+    counts = np.array([5, 0, 30, 7, 7, 2, 40, 1, -3, 9, 12, 3])
+    c = np.maximum(counts, 0)
+    for ids, lanes in ((3072, 256), (20, 256), (1000, 4), (1, 1)):
+        with mock.patch.multiple(K12, RESIDUAL_TILE_IDS=ids,
+                                 RESIDUAL_TILE_LANES=lanes):
+            t = K12.residual_tables(_i32(counts))
+        key = (np.cumsum(c) - c) // ids + np.arange(len(c)) // lanes
+        ptr = np.r_[0, np.flatnonzero(np.diff(key)) + 1, len(c)]
+        np.testing.assert_array_equal(t["tiles"].numpy(), ptr)
+        want = np.concatenate([lo + np.argsort(-c[lo:hi], kind="stable")
+                               for lo, hi in zip(ptr[:-1], ptr[1:])])
+        np.testing.assert_array_equal(t["order"].numpy(), want)
+        assert all(x.dtype == torch.int32 for x in t.values())
+    with mock.patch.multiple(K12, RESIDUAL_TILE_IDS=20):
+        t = K12.residual_tables(_i32(counts))
+    # first ids 0 5 5 35 42 49 51 91 92 92 101 113: windows of 20
+    assert t["tiles"].tolist() == [0, 3, 4, 7, 10, 12]
+    assert t["order"].tolist() == [2, 0, 1, 3, 6, 4, 5, 9, 7, 8, 10, 11]
+    _, tt, _ = _streams("rmat9", PLAIN_CONFIGS["default"])
+    prep = CD.cgr_device_prep(tt, device="cpu")
+    want = K12.residual_tables(prep["counts"])
+    for k in ("tiles", "order"):
+        assert torch.equal(prep["res_tables"][k], want[k])
+    hp = DD.hybrid_device_prep(thybrid.encode_graph(_pair("rmat9")[0],
+                                                    threshold=8),
+                               device="cpu")
+    low = hp["low"]
+    want = K12.residual_tables(low[1])
+    for k in ("tiles", "order"):
+        assert torch.equal(hp["res_tables"][k], want[k])
+
+
+@pytest.mark.parametrize("threshold", [4, 32])
+def test_hybrid_low_rows_through_the_emulated_kernel(emulated, monkeypatch,
+                                                     threshold):
+    """Hybrid's low rows are not consecutive (high rows lie between them in
+    the stream and in col): through the emulated cgr_residual, under the
+    prep's tables and under tiles of 3 lanes and 40 ids, they equal the
+    plain version, and the decode the graph."""
+    calls = _emulated_passes(emulated, monkeypatch)
+    g = _pair("rmat9")[0]
+    hg = thybrid.encode_graph(g, threshold=threshold)
+    got = DD.decode_hybrid_device(hg, device="cpu")
+    np.testing.assert_array_equal(got.col_idx, g.col_idx)
+    assert calls["cgr_residual"] == 1
+
+
+def _garbage_lanes():
+    """Random bytes under lanes at random bits (negative ones and ones past
+    the stream among them), counts of 0 to 60, slots in order."""
+    rng = np.random.default_rng(4)
+    stream = K12.stream_tensor(rng.integers(0, 256, 2000, dtype=np.uint8)
+                               .tobytes(), "cpu")
+    n = 700
+    counts = rng.integers(0, 61, n)
+    counts[::97] = 0
+    data_p = rng.integers(-40, 2000 * 8 + 200, n)
+    data_p[5:60] = np.sort(data_p[5:60])
+    base = np.cumsum(counts) - counts
+    lanes = (_i32(data_p), _i32(counts), _i32(rng.integers(0, 5000, n)),
+             _i32(base))
+    return stream, lanes, int(counts.sum())
+
+
+@pytest.mark.parametrize("k", [1, 3])
+def test_residual_source_emulated_on_a_stream_that_does_not_parse(
+        emulated, emulated_small, k):
+    """Random bits under random lanes: every read stays inside the stream
+    and every id lands in its slot, as the plain version's, under the
+    shipped tables, tiny tiles, one tile of every lane, an order that
+    names lanes twice and lanes outside their tile, and in the kernel with
+    8 staged words and 64 collected ids."""
+    stream, lanes, ne = _garbage_lanes()
+    want = K12.cgr_residual_plain(stream, *lanes, ne, k)
+    t = K12.residual_tables(lanes[1])
+    n = lanes[0].numel()
+    order = t["order"].clone()
+    order[10:20] = order[10]
+    order[30:40] = torch.arange(600, 610, dtype=torch.int32)
+    tables = [(t["tiles"], t["order"]), (None, None),
+              (_i32([0, n]), torch.arange(n, dtype=torch.int32)),
+              (t["tiles"], order)]
+    with mock.patch.multiple(K12, RESIDUAL_TILE_LANES=3,
+                             RESIDUAL_TILE_IDS=40):
+        tiny = K12.residual_tables(lanes[1])
+    tables.append((tiny["tiles"], tiny["order"]))
+    for lib in (emulated, emulated_small):
+        for tiles, order in tables:
+            got = _emulated_residual(lib, stream, lanes, ne, k, tiles, order)
+            for a, b in zip(got, want):
+                assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("name,cfg", [("rmat9", "default"),
+                                      ("uniform", "zeta1"),
+                                      ("rmat9", "seg64")])
+def test_residual_source_emulated_with_small_spans(emulated_small, name,
+                                                   cfg):
+    """The plain stream's lanes under the prep's tables, in the kernel with
+    8 staged words and 64 collected ids a tile: a lane's codes past the
+    staged words are read from the stream, its ids past the collected
+    slots written directly; still the plain version's."""
+    _, t, _ = _streams(name, PLAIN_CONFIGS[cfg])
+    prep = CD.cgr_device_prep(t, device="cpu")
+    lanes = [prep[k] for k in ("data_p", "counts", "lane_v_d", "base")]
+    want = K12.cgr_residual_plain(prep["stream"], *lanes, t.ne,
+                                  t.cfg.zeta_k)
+    got = _emulated_residual(emulated_small, prep["stream"], lanes, t.ne,
+                             t.cfg.zeta_k, **prep["res_tables"])
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
 # ---- on the card -----------------------------------------------------------
 
 @pytest.mark.cuda
@@ -629,6 +749,17 @@ def test_kernels_match_plain_on_cuda(name, cfg, interval):
     col, pfin = K12.cgr_residual(stream, *lanes, t.ne, t.cfg.zeta_k)
     pcol, ppfin = K12.cgr_residual_plain(stream, *lanes, t.ne, t.cfg.zeta_k)
     assert torch.equal(pfin, ppfin)
+    tcol, tpfin = K12.cgr_residual(stream, *lanes, t.ne, t.cfg.zeta_k,
+                                   **prep["res_tables"])
+    assert torch.equal(tpfin, ppfin)
+    if interval:
+        # the residual lanes leave the interval ids' slots as allocated
+        margs = (prep["row_ptr_d"], prep["nres"], prep["itv_ptr"],
+                 prep["left"], prep["length"], prep["itv_pre"])
+        assert torch.equal(K12.cgr_merge(tcol, *margs),
+                           K12.cgr_merge_plain(pcol, *margs))
+    else:
+        assert torch.equal(tcol, pcol)
     if interval:
         ilanes = prep["itv_lanes"]
         n_itv = prep["left"].numel()
@@ -641,3 +772,143 @@ def test_kernels_match_plain_on_cuda(name, cfg, interval):
     else:
         assert torch.equal(col, pcol)
     _same(CD.cgr_decode_device(t, device="cuda"), g, cfg)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["plain", "hybrid", "garbage"])
+def test_residual_routes_on_cuda(case):
+    """cgr_residual on the card against the plain version: the plain
+    stream's lanes, hybrid's low rows (not consecutive), random lanes on
+    random bits; under the prep's tables, the tables the wrapper builds,
+    tiles of 3 lanes and 40 ids, one tile of every lane, and an order that
+    names lanes twice and lanes outside their tile."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels of csrc/cgr_decode.cu "
+                    "have no CPU route")
+    if case == "garbage":
+        stream, lanes, ne = _garbage_lanes()
+        k, tables = 3, None
+    elif case == "plain":
+        _, t, _ = _streams("rmat9", PLAIN_CONFIGS["default"])
+        prep = CD.cgr_device_prep(t, device="cpu")
+        stream, ne, k = prep["stream"], t.ne, t.cfg.zeta_k
+        lanes = [prep[x] for x in ("data_p", "counts", "lane_v_d", "base")]
+        tables = prep["res_tables"]
+    else:
+        hp = DD.hybrid_device_prep(thybrid.encode_graph(
+            _pair("rmat9")[0], threshold=8), device="cpu")
+        stream, lanes, ne, k = hp["stream"], hp["low"], hp["ne"], hp["zeta_k"]
+        tables = hp["res_tables"]
+    stream, lanes = stream.cuda(), [a.cuda() for a in lanes]
+    want = K12.cgr_residual_plain(stream, *lanes, ne, k)
+    n = lanes[0].numel()
+    t = K12.residual_tables(lanes[1])
+    order = t["order"].clone()
+    order[10:20] = order[10]
+    order[30:40] = torch.arange(n - 10, n, dtype=torch.int32, device="cuda")
+    with mock.patch.multiple(K12, RESIDUAL_TILE_LANES=3,
+                             RESIDUAL_TILE_IDS=40):
+        tiny = K12.residual_tables(lanes[1])
+    cases = [{}, tiny, dict(t, order=order),
+             {"tiles": torch.tensor([0, n], dtype=torch.int32, device="cuda"),
+              "order": torch.arange(n, dtype=torch.int32, device="cuda")}]
+    if tables is not None:
+        cases.append({x: v.cuda() for x, v in tables.items()})
+    for tb in cases:
+        col, pfin = K12.cgr_residual(stream, *lanes, ne, k, **tb)
+        torch.cuda.synchronize()
+        if case == "hybrid":   # the high rows' slots are not cgr_residual's
+            keep = torch.zeros(ne, dtype=torch.bool, device="cuda")
+            keep[(lanes[3].long().repeat_interleave(lanes[1].long())
+                  + torch.arange(int(lanes[1].sum()), device="cuda")
+                  - (torch.cumsum(lanes[1].long(), 0)
+                     - lanes[1].long()).repeat_interleave(
+                         lanes[1].long()))] = True
+            assert torch.equal(col[keep], want[0][keep])
+        else:
+            assert torch.equal(col, want[0])
+        assert torch.equal(pfin, want[1])
+
+
+class _CardOnHost:
+    """A device the wrappers take for a card (its ``type`` is cuda and it
+    equals every tensor's device): their kernel route, on host tensors."""
+
+    type = "cuda"
+
+    def __eq__(self, other):
+        return True
+
+    def __ne__(self, other):
+        return False
+
+
+class _HostTorch:
+    """torch, with ``empty`` allocating on the host whatever device it is
+    given."""
+
+    def __getattr__(self, name):
+        return getattr(torch, name)
+
+    def empty(self, *args, device=None, **kw):
+        return torch.empty(*args, **kw)
+
+
+def test_the_wrappers_kernel_route_through_the_emulated_kernels(
+        emulated, tmp_path, monkeypatch):
+    """The decodes through the wrappers' kernel route (their table checks,
+    the tables they build without the prep's, their launches), each kernel
+    the emulated source of csrc/: VarintGB (with vgb_values' tables and
+    without), plain and interval CGR, hybrid, the streamed count and BFS
+    equal the graph, each wrapper counting its launches."""
+    from graphaibench_tpu_torch.analytics import bfs
+    from graphaibench_tpu_torch.analytics import tc_stream as TS
+    from graphaibench_tpu_torch.compress import vbyte as tvbyte
+    from graphaibench_tpu_torch.ops import vbyte_decode as K11
+    from graphaibench_tpu_torch.ops.device_graph import to_device_graph
+    from test_torch_device_decode import EMULATION as VBYTE_EMULATION
+
+    vbyte = build_emulated(tmp_path, "vbyte_decode.cu", 3, VBYTE_EMULATION)
+    libs = {"cgr_decode": emulated, "vbyte_decode": vbyte}
+    monkeypatch.setattr(_build, "load_library", libs.__getitem__)
+    for mod in (K11, K12):
+        check = mod._check
+
+        def on_card(*args, check=check):
+            check(*args)
+            return _CardOnHost()
+
+        monkeypatch.setattr(mod, "_check", on_card)
+        monkeypatch.setattr(mod, "_launch_tail", lambda t: (0, None))
+        monkeypatch.setattr(mod, "torch", _HostTorch())
+    g = _pair("rmat9")[0]
+    before = {**K11.LAUNCHES, **K12.LAUNCHES}
+    vg = tvbyte.encode_graph(g, "varintgb")
+    prep = DD.varintgb_device_prep(vg, device="cpu")
+    np.testing.assert_array_equal(DD.varintgb_device_run(prep).numpy(),
+                                  g.col_idx)
+    tags = K11.vgb_tags(prep["stream"], prep["pos"], prep["ngroups"],
+                        prep["gbase"], prep["n_g"])
+    col = K11.vgb_values(prep["stream"], tags, prep["gbase"], prep["counts"],
+                         prep["out_slot"], torch.empty(g.ne,
+                                                       dtype=torch.int32))
+    np.testing.assert_array_equal(col.numpy(), g.col_idx)
+    for interval in (False, True):
+        cg = tcgr.encode_graph(g, _cfg({}, interval)[0])
+        _same(CD.cgr_decode_device(cg, device="cpu"), g, str(interval))
+    hg = thybrid.encode_graph(g, threshold=8)
+    np.testing.assert_array_equal(
+        DD.hybrid_device_run(DD.hybrid_device_prep(hg, device="cpu")).numpy(),
+        g.col_idx)
+    cg = tcgr.encode_graph(g)
+    n, stats = TS.triangle_count_streaming(cg, block_bytes=1 << 14,
+                                           device="cpu")
+    assert n == TS.triangle_count_streaming(cg, block_bytes=1 << 30,
+                                            device="cpu")[0]
+    assert stats["blocks"] >= 2
+    got = TS.bfs_streaming(cg, 0, block_bytes=1 << 14, device="cpu")
+    assert np.array_equal(got, bfs(to_device_graph(g, device="cpu"),
+                                   0).numpy())
+    after = {**K11.LAUNCHES, **K12.LAUNCHES}
+    assert after["vgb_values"] - before["vgb_values"] == 2
+    assert after["cgr_residual"] - before["cgr_residual"] >= 4 + stats["blocks"]

@@ -28,6 +28,7 @@ import ctypes
 import re
 import shutil
 import subprocess
+from unittest import mock
 
 import jax.numpy as jnp
 import numpy as np
@@ -496,6 +497,10 @@ enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
 struct dim3 { unsigned x = 0; };
 static thread_local dim3 blockIdx, threadIdx;
 struct uint4 { unsigned x, y, z, w; };
+struct int4 { int x, y, z, w; };
+inline uint4 make_uint4(unsigned x, unsigned y, unsigned z, unsigned w) {
+  return {x, y, z, w};
+}
 inline cudaError_t cudaSetDevice(int) { return cudaSuccess; }
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
 inline const char* cudaGetErrorString(cudaError_t) { return ""; }
@@ -598,32 +603,60 @@ inline void __pipeline_wait_prior(size_t) {}
 """
 
 
-@pytest.fixture(scope="module")
-def emulated(tmp_path_factory):
-    """The library of ``csrc/vbyte_decode.cu`` built by g++ for the host,
-    each launch ``k<<<grid, block, 0, s>>>(args)`` run block after block,
-    a block's threads as host threads that meet at ``__syncthreads``; only
-    ``gab_vgb_tags`` and ``gab_svb_decode`` are called."""
-    if shutil.which("g++") is None:
-        pytest.skip("no g++ on this host")
-    d = tmp_path_factory.mktemp("vbyte_emulated")
-    (d / "cuda_runtime.h").write_text(EMULATION)
+def build_emulated(d, source: str, launches: int, header: str,
+                   consts=None) -> ctypes.CDLL:
+    """The library of ``csrc/<source>`` built by g++ for the host in ``d``
+    against ``header`` (as ``cuda_runtime.h``) and PIPELINE, each launch
+    ``k<<<grid, block, 0, s>>>(args)`` (``launches`` of them) run by
+    ``emulate``; ``consts`` gives some of its ``constexpr int`` constants
+    other values (each must be found once)."""
+    (d / "cuda_runtime.h").write_text(header)
     (d / "cuda_pipeline.h").write_text(PIPELINE)
-    src = (_build.CSRC / "vbyte_decode.cu").read_text()
+    src = (_build.CSRC / source).read_text()
+    for name, value in (consts or {}).items():
+        src, n = re.subn(rf"constexpr int {name} = [^;]+;",
+                         f"constexpr int {name} = {value};", src)
+        assert n == 1, name
     src, n = re.subn(r"(\w+)<<<(.*?),\s*(\w+),\s*0,\s*(.*?)>>>\((.*?)\);",
                      r"emulate(\2, \3, [&] { \1(\5); });", src,
                      flags=re.S)
-    assert n == 3
+    assert n == launches
     (d / "k.cpp").write_text(src)
     subprocess.run(["g++", "-O1", "-std=c++17", "-pthread", "-shared",
                     "-fPIC", f"-I{d}", str(d / "k.cpp"), "-o",
                     str(d / "k.so")],
                    check=True, capture_output=True, timeout=300)
     lib = ctypes.CDLL(str(d / "k.so"))
-    for fn, argtypes in _build._SIGNATURES["vbyte_decode"].items():
+    for fn, argtypes in _build._SIGNATURES[source[:-3]].items():
         getattr(lib, fn).argtypes = argtypes
         getattr(lib, fn).restype = ctypes.c_int
     return lib
+
+
+@pytest.fixture(scope="module")
+def emulated(tmp_path_factory):
+    """The library of ``csrc/vbyte_decode.cu`` built by g++ for the host,
+    each launch ``k<<<grid, block, 0, s>>>(args)`` run block after block,
+    a block's threads as host threads that meet at ``__syncthreads``; only
+    ``gab_vgb_tags``, ``gab_svb_decode`` and ``gab_vgb_values`` are
+    called."""
+    if shutil.which("g++") is None:
+        pytest.skip("no g++ on this host")
+    return build_emulated(tmp_path_factory.mktemp("vbyte_emulated"),
+                          "vbyte_decode.cu", 3, EMULATION)
+
+
+@pytest.fixture(scope="module")
+def emulated_small(tmp_path_factory):
+    """The same library with vgb_values' block spans cut down: a group a
+    thread (256 a tile, 1,024 collected ids, a long row 255 groups a round)
+    and 48 staged bytes, so that the shipped tables' rows leave the tile's
+    groups and its groups the staged bytes."""
+    if shutil.which("g++") is None:
+        pytest.skip("no g++ on this host")
+    return build_emulated(tmp_path_factory.mktemp("vbyte_small"),
+                          "vbyte_decode.cu", 3, EMULATION,
+                          {"kValPerThread": 1, "kValWin": 48})
 
 
 def _emulated_tags(lib, stream, pos, ngroups, gbase, n_g, tables):
@@ -902,6 +935,164 @@ def test_vgb_tag_tables():
 
 # ---- on the card -----------------------------------------------------------
 
+def _emulated_values(lib, stream, tagpos, rows, ncol, tables,
+                     long_groups=None):
+    col = torch.full((ncol,), -7, dtype=torch.int32)
+    lr, tiles = tables["long_rows"], tables["tiles"]
+    assert lib.gab_vgb_values(
+        stream.data_ptr(), stream.numel(), tagpos.data_ptr(), tagpos.numel(),
+        *(a.data_ptr() for a in rows), rows[0].numel(), lr.data_ptr(),
+        lr.numel(), tiles.data_ptr(), tiles.shape[0] - 1,
+        long_groups or K11.VGB_LONG_GROUPS, col.data_ptr(), col.numel(), 0,
+        None) == 0
+    return col
+
+
+def _value_case(name):
+    """(stream, tagpos, (gbase, counts, out_slot), ncol) of a VarintGB
+    decode's vgb_values: a graph's through its prep, the handmade rows, or
+    random bytes under random tag positions (negative ones, ones past the
+    stream and past tagpos among them) with a slot past col."""
+    if name == "garbage":
+        rng = np.random.default_rng(3)
+        counts = torch.tensor([7, 0, 40, 3, 1500, 77, 5, 600, 1],
+                              dtype=torch.int32)
+        ng = (counts + 3) // 4
+        gbase = torch.cumsum(ng, 0, dtype=torch.int32) - ng
+        slot = torch.cumsum(counts, 0, dtype=torch.int32) - counts
+        slot[-1] += 5
+        n_g = int(ng.sum()) - 3
+        tagpos = torch.from_numpy(rng.integers(-20, 3100, n_g).astype(
+            np.int32))
+        data = rng.integers(0, 256, 3000, dtype=np.uint8).tobytes()
+        return (K12.stream_tensor(data, "cpu"), tagpos, (gbase, counts, slot),
+                int(counts.sum()))
+    if name == "hub":
+        stream, pos, ngroups, gbase, n_g, _ = _vgb_rows(_hub_rows())
+        counts = torch.tensor([len(a) for a in _hub_rows()], dtype=torch.int32)
+    else:
+        vg = _encoded(name, "varintgb")
+        prep = DD.varintgb_device_prep(vg, device="cpu")
+        stream, pos, ngroups, gbase, n_g = (prep["stream"], prep["pos"],
+                                            prep["ngroups"], prep["gbase"],
+                                            prep["n_g"])
+        counts = prep["counts"]
+    tagpos = K11.vgb_tags_plain(stream, pos, ngroups, gbase, n_g)
+    slot = torch.cumsum(counts, 0, dtype=torch.int32) - counts
+    return stream, tagpos, (gbase, counts, slot), int(counts.sum())
+
+
+@pytest.mark.parametrize("name", ["rmat9", "rmat10", "vgb_cases", "hub",
+                                  "garbage"])
+def test_vgb_values_source_emulated_equals_plain(emulated, name,
+                                                 monkeypatch):
+    """vgb_values' kernel against the plain version, and so against JAX's
+    ``_vgb_flat_values`` (test_vgb_plain_passes_equal_jax_tag_chain_and_
+    flat_values), under the tables vgb_value_tables builds at the shipped
+    sizes (the prep's, and what the wrapper builds without them); on all but
+    the 70,000 rows of vgb_cases (a block's 256 host threads meet at every
+    barrier) also under tiny tables (a long row from 9 groups, tiles of 5
+    groups or 3 rows), under tables whose first group and slot are shifted
+    off the rows (rows that leave the staged groups, ids that leave the
+    collected slots, decoded from the stream and written directly), under
+    tables that stage and collect nothing, and under one tile of every row
+    (rows past a block's first 256 decoded by their threads). The slots no
+    row covers keep what they held; the hub's row of 12,000 ids takes
+    several rounds of a long row's block."""
+    stream, tagpos, rows, ncol = _value_case(name)
+    want = K11.vgb_values_plain(stream, tagpos, *rows, torch.full(
+        (ncol,), -7, dtype=torch.int32))
+    tables = [K11.vgb_value_tables(*rows)]
+    if name != "vgb_cases":
+        with monkeypatch.context() as m:
+            for k, v in {"VGB_LONG_GROUPS": 8, "VGB_VALUE_TILE_GROUPS": 5,
+                         "VGB_VALUE_TILE_ROWS": 3}.items():
+                m.setattr(K11, k, v)
+            tiny = K11.vgb_value_tables(*rows)
+            assert torch.equal(_emulated_values(
+                emulated, stream, tagpos, rows, ncol, tiny, 8), want)
+        off = tables[0]["tiles"].clone()
+        off[:-1, 1:] += torch.tensor([5, 0, 1], dtype=torch.int32)
+        none = tables[0]["tiles"].clone()
+        none[:-1, 1:] = torch.tensor([2**30, 0, 2**30], dtype=torch.int32)
+        n = rows[0].numel()
+        one = torch.tensor([[0, 0, 0, 0], [n, 0, 0, 0]], dtype=torch.int32)
+        tables += [dict(tables[0], tiles=off), dict(tables[0], tiles=none),
+                   dict(tables[0], tiles=one)]
+    for t in tables:
+        got = _emulated_values(emulated, stream, tagpos, rows, ncol, t)
+        assert torch.equal(got, want), name
+
+
+@pytest.mark.parametrize("name", ["rmat9", "hub", "garbage"])
+def test_vgb_values_source_emulated_with_small_spans(emulated_small, name):
+    """Under the shipped tables, the kernel with a tile of 256 groups and
+    48 staged bytes: rows past the tile's groups decoded by their threads,
+    groups past the staged bytes read from the stream, long rows in many
+    rounds; still the plain version's ids."""
+    stream, tagpos, rows, ncol = _value_case(name)
+    want = K11.vgb_values_plain(stream, tagpos, *rows, torch.full(
+        (ncol,), -7, dtype=torch.int32))
+    got = _emulated_values(emulated_small, stream, tagpos, rows, ncol,
+                           K11.vgb_value_tables(*rows))
+    assert torch.equal(got, want), name
+
+
+def test_vgb_value_tables():
+    """The long rows widest first; tiles cut where the short rows' first
+    groups, counted over them, cross a multiple of VGB_VALUE_TILE_GROUPS,
+    the rows' indices one of VGB_VALUE_TILE_ROWS, and at each long row,
+    which begins its tile and is left out of its extents (first group,
+    groups, first slot); the prep's tables are these, and each tile's
+    groups fit the kernel's 1,024."""
+    counts = np.array([3, 2000, 400, 0, 1800, 900, 1, 4, 1025, 17, 30])
+    ng = (counts + 3) // 4
+    gbase = np.cumsum(ng) - ng
+    slot = np.cumsum(counts) - counts
+    i32 = lambda a: torch.from_numpy(a.astype(np.int32))  # noqa: E731
+    t = K11.vgb_value_tables(i32(gbase), i32(counts), i32(slot))
+    assert t["long_rows"].tolist() == [1, 4, 8]
+    # groups 1, 500 (long), 100, 0, 450 (long), 225, 1, 1, 257 (long), 5,
+    # 8; the short rows' first groups counted over them 0, -, 1, 101, -,
+    # 101, 326, 327, -, 328, 333
+    assert t["tiles"].tolist() == [[0, 0, 1, 0], [1, 501, 100, 2003],
+                                   [4, 1051, 227, 4203], [8, 1535, 13, 6133],
+                                   [11, 0, 0, 0]]
+    long = ng > K11.VGB_LONG_GROUPS
+    short = (ng > 0) & ~long
+    q = np.where(short, ng, 0)
+    for groups, nrows in ((100, 256), (5, 2), (768, 1), (768, 256)):
+        with mock.patch.multiple(K11, VGB_VALUE_TILE_GROUPS=groups,
+                                 VGB_VALUE_TILE_ROWS=nrows):
+            tiles = K11.vgb_value_tables(i32(gbase), i32(counts),
+                                         i32(slot))["tiles"].numpy()
+        key = ((np.cumsum(q) - q) // groups + np.arange(len(ng)) // nrows
+               + np.cumsum(long))
+        ptr = np.r_[0, np.flatnonzero(np.diff(key)) + 1, len(ng)]
+        np.testing.assert_array_equal(tiles[:, 0], ptr)
+        for k in range(len(ptr) - 1):
+            sel = np.flatnonzero(short[ptr[k]:ptr[k + 1]]) + ptr[k]
+            want = ((gbase[sel].min(),
+                     (gbase + ng)[sel].max() - gbase[sel].min(),
+                     slot[sel].min()) if len(sel) else (0, 0, 0))
+            assert tuple(tiles[k, 1:]) == want
+    vg = _encoded("rmat10", "varintgb")
+    prep = DD.varintgb_device_prep(vg, device="cpu")
+    want = K11.vgb_value_tables(prep["gbase"], prep["counts"],
+                                prep["out_slot"])
+    for k in ("long_rows", "tiles"):
+        assert torch.equal(prep["value_tables"][k], want[k])
+        assert prep["value_tables"][k].dtype == torch.int32
+    tiles = want["tiles"].long()
+    for (lo, g0, g_len, _), hi in zip(tiles[:-1].tolist(),
+                                      tiles[1:, 0].tolist()):
+        g = prep["ngroups"][lo:hi].long()
+        keep = (g > 0) & (g <= K11.VGB_LONG_GROUPS)
+        if keep.any():
+            assert int((prep["gbase"][lo:hi].long() + g)[keep].max()) - g0 \
+                == g_len <= 1024
+
+
 def _need_cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels of csrc/vbyte_decode.cu "
@@ -972,6 +1163,45 @@ def test_svb_decode_routes_on_cuda(name, monkeypatch):
                                  device="cuda")}
     col = torch.full((ncol,), -7, dtype=torch.int32, device="cuda")
     assert torch.equal(K11.svb_decode(stream, *rows, col, **one), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["rmat10", "vgb_cases", "hub", "garbage"])
+def test_vgb_values_routes_on_cuda(name, monkeypatch):
+    """vgb_values' long rows (a block each, in rounds) and tiles on the card
+    against the plain version, under the tables vgb_value_tables builds (by
+    the wrapper, and given), at small sizes, shifted off the rows, staging
+    and collecting nothing, and as one tile of every row."""
+    _need_cuda()
+    stream, tagpos, rows, ncol = _value_case(name)
+    stream, tagpos = stream.cuda(), tagpos.cuda()
+    rows = tuple(a.cuda() for a in rows)
+    want = K11.vgb_values_plain(stream, tagpos, *rows, torch.full(
+        (ncol,), -7, dtype=torch.int32, device="cuda"))
+
+    def check(**tables):
+        col = torch.full((ncol,), -7, dtype=torch.int32, device="cuda")
+        got = K11.vgb_values(stream, tagpos, *rows, col, **tables)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), (name, tables)
+
+    check()
+    t = K11.vgb_value_tables(*rows)
+    check(**t)
+    off = t["tiles"].clone()
+    off[:-1, 1:] += torch.tensor([5, 0, 1], dtype=torch.int32, device="cuda")
+    check(long_rows=t["long_rows"], tiles=off)
+    none = t["tiles"].clone()
+    none[:-1, 1:] = torch.tensor([2**30, 0, 2**30], dtype=torch.int32,
+                                 device="cuda")
+    check(long_rows=t["long_rows"], tiles=none)
+    n = rows[0].numel()
+    check(long_rows=t["long_rows"], tiles=torch.tensor(
+        [[0, 0, 0, 0], [n, 0, 0, 0]], dtype=torch.int32, device="cuda"))
+    for k, v in {"VGB_LONG_GROUPS": 8, "VGB_VALUE_TILE_GROUPS": 5,
+                 "VGB_VALUE_TILE_ROWS": 3}.items():
+        monkeypatch.setattr(K11, k, v)
+    check()
 
 
 @pytest.mark.cuda

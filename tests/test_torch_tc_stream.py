@@ -333,3 +333,38 @@ def test_block_bytes_is_a_working_set_budget():
                                            device="cpu")
     _, jstats = JS.triangle_count_streaming(jc, block_bytes=budget)
     assert stats["blocks"] == len(bounds) >= 3 > jstats["blocks"]
+
+
+def test_block_tables_are_residual_tables_of_the_blocks_lanes(monkeypatch):
+    """Each block's cgr_residual tables are built once, on the host, from
+    its own lanes' counts (``K12.residual_tables``, relative to its first
+    lane), and the block
+    decode passes them with its lanes: the ids are the graph's, and a
+    second pass builds nothing new."""
+    g, _, cg, _ = _pair("rmat11")
+    st = TS.open_cgr_stream(cg, device="cpu")
+    bounds = TS.block_bounds(st, BLOCK_BYTES)
+    assert len(bounds) >= 3
+    seen = []
+    real = K12.cgr_residual
+
+    def spy(*args, tiles=None, order=None):
+        seen.append((tiles.clone(), order.clone()))
+        return real(*args, tiles=tiles, order=order)
+
+    monkeypatch.setattr(K12, "cgr_residual", spy)
+    for vlo, vhi in bounds:
+        col = TS.decode_block(st, vlo, vhi)
+        lo, hi = g.row_ptr[vlo], g.row_ptr[vhi]
+        np.testing.assert_array_equal(col.numpy(), g.col_idx[lo:hi])
+        l0, l1 = int(st.lane_start[vlo]), int(st.lane_start[vhi])
+        want = K12.residual_tables(torch.from_numpy(st.lanes[1, l0:l1]))
+        tiles, order = seen[-1]
+        assert torch.equal(tiles, want["tiles"])
+        assert torch.equal(order, want["order"])
+        assert tiles.dtype == order.dtype == torch.int32
+    built = dict(st.tables)
+    assert len(built) == len(bounds)
+    for vlo, vhi in bounds:
+        TS.decode_block(st, vlo, vhi)
+    assert all(st.tables[k] is v for k, v in built.items())

@@ -84,8 +84,8 @@ alone (VarintGB: a subset of the row lists; CGR: the other rows given no
 residuals and no intervals), with the rows' shape (widest rows, rows
 above each threshold, the longest interval). The turns run as
 ``--tc-cold``'s, per scale; the decoded columns of every turn must agree.
-One ``DECODE {json}`` line a turn. ``--decoders`` picks some of the three
-readings (``vgb,cgr,svb``, the default all): ``svb`` times K11's
+One ``DECODE {json}`` line a turn. ``--decoders`` picks some of the four
+readings (``vgb,cgr,svb,res``, the default all): ``svb`` times K11's
 ``svb_decode`` on rmat(scale, 16) in StreamVByte (every row) and in hybrid
 at threshold 32 (its high rows), each a decode, beside the unchanged
 ``chip_smoke._svb_decode_bound``, with the warm ``streamvbyte_device_run``
@@ -94,10 +94,27 @@ and ``hybrid_device_run``, and split into the rows above each of
 
     python3 tools/analytics_probe.py --decode-kernels --decoders svb [--parent DIR]
 
+The VarintGB reading also times ``vgb_values`` (its tag positions from
+``vgb_tags``) a decode beside ``chip_smoke._vgb_values_bound``, and on the
+rows of each class of ``VALUE_CLASSES`` (groups a row) alone. ``res`` times
+K12's ``cgr_residual`` on rmat(scale, 16) in plain CGR
+(``chip_smoke.CGR_STREAMS["plain"]``, every lane, with the warm
+``cgr_device_run``) and on hybrid's low rows at threshold 32 (a lane a row,
+with the warm ``hybrid_device_run``), each beside
+``chip_smoke._cgr_residual_bound`` and the warps' wait for their longest
+lane (32 times the sum of each warp's largest count over the codes, the
+lane table as it is), on the lanes sorted by count within windows of 256
+lanes (a checkout whose kernel takes a thread a lane) or with its tiles
+taking their lanes in lane order, not by count (a checkout whose kernel
+takes tiles), and on the lanes of each class of ``CODE_CLASSES`` (codes a
+lane) alone:
+
+    python3 tools/analytics_probe.py --decode-kernels --decoders vgb,res --scale 19 [--parent DIR]
+
 ``--variants`` works here as for ``--pull-kernels`` below, over
 ``csrc/vbyte_decode.cu`` and ``csrc/cgr_decode.cu``; a choice named like a
-constant of ``ops/vbyte_decode.py`` (``SVB_TILE_QUADS=112``) sets it before
-the preps build their tables.
+constant of ``ops/vbyte_decode.py`` or ``ops/cgr_decode.py``
+(``SVB_TILE_QUADS=112``) sets it before the preps build their tables.
 
 ``--pull-kernels`` times K8 ``neighbor_reduce`` at rmat(19, 16) (or
 ``--scale``):
@@ -154,6 +171,13 @@ KERNEL_SOLVES = 3
 KERNEL_CALLS = 20
 DECODE_RUNS = 7
 VGB_SPLITS = (64, 256, 1024)      # groups a row
+# vgb_values' row classes by groups a row, and cgr_residual's lane classes
+# by codes a lane: (name, least, most)
+VALUE_CLASSES = (("1", 1, 1), ("2-8", 2, 8), ("9-256", 9, 256),
+                 ("257+", 257, 2**31 - 1))
+CODE_CLASSES = (("0-8", 0, 8), ("9-16", 9, 16), ("17-32", 17, 32),
+                ("33+", 33, 2**31 - 1))
+WARP = 32
 CGR_SPLITS = (256, 1024, 4096)    # ids a row
 SVB_SPLITS = (256, 1024)          # values a row
 HYBRID_THRESHOLD = 32             # hybrid's default degree threshold
@@ -713,6 +737,142 @@ def _digest(t) -> str:
     return hashlib.sha256(t.cpu().numpy().tobytes()).hexdigest()[:16]
 
 
+def _vgb_values_reading(C, K11, prep) -> dict:
+    """vgb_values as the VarintGB decode calls it, beside its bound, and on
+    the rows of each of VALUE_CLASSES alone (under the tables built for
+    them, where the checkout's wrapper takes tables)."""
+    import torch
+
+    stream, n_g = prep["stream"], prep["n_g"]
+    tagpos = K11.vgb_tags(stream, prep["pos"], prep["ngroups"], prep["gbase"],
+                          n_g, **prep.get("tag_tables", {}))
+    rows = (prep["gbase"], prep["counts"], prep["out_slot"])
+    col = torch.empty(prep["ne"], dtype=torch.int32, device="cuda")
+    tables = prep.get("value_tables", {})
+    out = _pass_ms(C, lambda: K11.vgb_values(stream, tagpos, *rows, col,
+                                             **tables), "vgb_values")
+    out["bound_ms"], out["bound_by"], out["bound_bytes"] = (
+        C._vgb_values_bound(prep))
+    out["share_of_bound"] = out["bound_ms"] / out["device_ms"]
+    ng = prep["ngroups"].long()
+    out["classes"] = {}
+    for name, lo, hi in VALUE_CLASSES:
+        keep = (ng >= lo) & (ng <= hi)
+        sub = tuple(a[keep].contiguous() for a in rows)
+        sub_tables = (K11.vgb_value_tables(*sub)
+                      if hasattr(K11, "vgb_value_tables") else {})
+        out["classes"][name] = {
+            "device_ms": _pass_ms(C, lambda: K11.vgb_values(
+                stream, tagpos, *sub, col, **sub_tables), "vgb_values",
+                whole=False)["device_ms"],
+            "rows": int(keep.sum()), "groups": int(ng[keep].sum())}
+    torch.cuda.synchronize()
+    return out
+
+
+def _warp_max_factor(counts) -> float:
+    """32 times the sum over warps of a warp's largest count, over the sum
+    of the counts: how many lanes' codes the warps of a thread-a-lane pass
+    take for each code decoded."""
+    import torch
+
+    c = counts.long().clamp(min=0)
+    pad = (-c.numel()) % WARP
+    warps = torch.cat([c, c.new_zeros(pad)]).view(-1, WARP)
+    return float(WARP * warps.max(1).values.sum()) / max(float(c.sum()), 1.0)
+
+
+def _sorted_in_windows(lanes, width: int = 256):
+    """The lane tables with each window of ``width`` consecutive lanes
+    ordered by count, largest first: the same output, warps of like
+    counts."""
+    import torch
+
+    c = lanes[1].long().clamp(min=0)
+    win = torch.arange(c.numel(), device=c.device) // width
+    order = torch.argsort(win * 2**32 - c, stable=True)
+    return tuple(a[order].contiguous() for a in lanes)
+
+
+def _residual_reading(C, K12, stream, lanes, ne: int, zeta_k: int,
+                      tables: dict) -> dict:
+    """cgr_residual on ``lanes`` (data_p, counts, lane_v, base) beside its
+    bound and the warps' wait for their longest lane (the lane table as it
+    is); on the lanes sorted by count within windows of 256 (a thread a
+    lane) or with each tile's lanes in lane order (tiles); and on the
+    lanes of each of CODE_CLASSES alone."""
+    import torch
+
+    def fn(ls=lanes, t=tables):
+        return K12.cgr_residual(stream, *ls, ne, zeta_k, **t)
+
+    out = _pass_ms(C, fn, "cgr_residual")
+    _, pfin = fn()
+    bits = float((pfin.long() - lanes[0].long()).sum())
+    counts = lanes[1].long()
+    ids = int(counts.clamp(min=0).sum())
+    out["bound_ms"], out["bound_by"], out["bound_bytes"] = (
+        C._cgr_residual_bound(lanes[0].numel(), ids, bits))
+    out["share_of_bound"] = out["bound_ms"] / out["device_ms"]
+    out["lanes"], out["ids"] = int(counts.numel()), ids
+    out["warp_max_factor"] = _warp_max_factor(counts)
+    q = torch.quantile(counts.double(), torch.tensor(
+        [0.5, 0.9, 0.99], dtype=torch.float64, device=counts.device))
+    out["codes_p50_p90_p99_max"] = [*map(float, q), int(counts.max())]
+    if not hasattr(K12, "residual_tables"):
+        # a thread a lane: the lanes sorted by count within 256
+        srt = _sorted_in_windows(lanes)
+        out["sorted_in_256"] = {
+            "device_ms": _pass_ms(C, lambda: fn(srt, {}), "cgr_residual",
+                                  whole=False)["device_ms"],
+            "warp_max_factor": _warp_max_factor(srt[1])}
+    else:
+        # the tables' tiles with each tile's lanes taken in lane order
+        t = tables or K12.residual_tables(lanes[1])
+        ident = dict(t, order=torch.arange(counts.numel(), dtype=torch.int32,
+                                           device=counts.device))
+        out["lane_order"] = _pass_ms(C, lambda: fn(lanes, ident),
+                                     "cgr_residual", whole=False)["device_ms"]
+    out["classes"] = {}
+    for name, lo, hi in CODE_CLASSES:
+        keep = (counts >= lo) & (counts <= hi)
+        sub = tuple(a[keep].contiguous() for a in lanes)
+        sub_tables = (K12.residual_tables(sub[1])
+                      if hasattr(K12, "residual_tables") else {})
+        out["classes"][name] = {
+            "device_ms": _pass_ms(C, lambda: fn(sub, sub_tables),
+                                  "cgr_residual", whole=False)["device_ms"],
+            "lanes": int(keep.sum()), "ids": int(counts[keep].sum()),
+            "warp_max_factor": _warp_max_factor(sub[1])}
+    torch.cuda.synchronize()
+    return out
+
+
+def _cgr_plain_reading(C, CD, K12, cg) -> dict:
+    """cgr_residual on the plain CGR stream's lanes, as its decode calls
+    it, with the warm cgr_device_run."""
+    prep = CD.cgr_device_prep(cg, device="cuda")
+    lanes = (prep["data_p"], prep["counts"], prep["lane_v_d"], prep["base"])
+    out = _residual_reading(C, K12, prep["stream"], lanes, prep["ne"],
+                            prep["zeta_k"], prep.get("res_tables", {}))
+    out["warm_run_s"] = C._solve_seconds(lambda: CD.cgr_device_run(prep),
+                                         DECODE_RUNS)
+    out["col"] = _digest(CD.cgr_device_run(prep)[1])
+    return out
+
+
+def _hybrid_low_reading(C, DD, K12, hg) -> dict:
+    """cgr_residual on hybrid's low rows (a lane a row), as its decode
+    calls it, with the warm hybrid_device_run."""
+    prep = DD.hybrid_device_prep(hg, device="cuda")
+    out = _residual_reading(C, K12, prep["stream"], prep["low"], prep["ne"],
+                            prep["zeta_k"], prep.get("res_tables", {}))
+    out["warm_run_s"] = C._solve_seconds(lambda: DD.hybrid_device_run(prep),
+                                         DECODE_RUNS)
+    out["col"] = _digest(DD.hybrid_device_run(prep))
+    return out
+
+
 def _vgb_reading(C, DD, K11, vg) -> dict:
     import torch
 
@@ -743,6 +903,7 @@ def _vgb_reading(C, DD, K11, vg) -> dict:
             part[f"{side}_groups"] = int(ng[keep].long().sum())
         out["split"][t] = part
     torch.cuda.synchronize()
+    out["values"] = _vgb_values_reading(C, K11, prep)
     return out
 
 
@@ -871,12 +1032,15 @@ def _svb_reading(C, DD, K11, obj, hybrid: bool) -> dict:
     return out
 
 
-def decode_kernels_worker(tree: str, path: str, defines: str = "") -> None:
-    """One turn of ``--decode-kernels``: ``vgb_tags`` and ``cgr_merge`` of
-    the checkout at ``tree`` on the streams under ``path``; each of the
-    comma-separated ``defines`` sets a constant of the two decode sources
-    (``_use_variant``) or a table size of ``ops/vbyte_decode.py``
+def decode_kernels_worker(tree: str, path: str, decoders: str,
+                          defines: str = "") -> None:
+    """One turn of ``--decode-kernels``: the ``decoders``' readings (comma-
+    separated) of the checkout at ``tree`` on the streams under ``path``;
+    each of the comma-separated ``defines`` sets a constant of the two
+    decode sources (``_use_variant``) or a table size of
+    ``ops/vbyte_decode.py`` or ``ops/cgr_decode.py``
     (``SVB_TILE_QUADS=112``)."""
+    decoders = decoders.split(",")
     sys.path.insert(0, ROOT)                 # chip_smoke's bounds
     sys.path.insert(0, os.path.abspath(tree))
     import chip_smoke as C
@@ -892,10 +1056,11 @@ def decode_kernels_worker(tree: str, path: str, defines: str = "") -> None:
 
     for name, value in _use_variant(defines, ("vbyte_decode.cu",
                                               "cgr_decode.cu")):
-        if not hasattr(K11, name):
-            raise SystemExit(f"no constant {name} in the decode sources or "
-                             "ops/vbyte_decode.py")
-        setattr(K11, name, int(value))
+        mods = [m for m in (K11, K12) if hasattr(m, name)]
+        if not mods:
+            raise SystemExit(f"no constant {name} in the decode sources, "
+                             "ops/vbyte_decode.py or ops/cgr_decode.py")
+        setattr(mods[0], name, int(value))
     res = {"tree": tree, "defines": defines,
            "ptxas": _ptxas(("vbyte_decode", "cgr_decode"))}
     here = lambda name: os.path.exists(os.path.join(  # noqa: E731
@@ -904,6 +1069,15 @@ def decode_kernels_worker(tree: str, path: str, defines: str = "") -> None:
         res["vgb_tags"] = _vgb_reading(
             C, DD, K11, load_compressed(os.path.join(path, "vgb")))
         res["vgb_col"] = res["vgb_tags"].pop("col")
+        res["vgb_values"] = res["vgb_tags"].pop("values")
+    if here("cgrp"):
+        res["cgr_residual"] = _cgr_plain_reading(
+            C, CD, K12, load_compressed(os.path.join(path, "cgrp")))
+        res["cgrp_col"] = res["cgr_residual"].pop("col")
+    if here("hybrid") and "res" in decoders:
+        res["cgr_residual_hybrid"] = _hybrid_low_reading(
+            C, DD, K12, load_compressed(os.path.join(path, "hybrid")))
+        res["hybrid_col"] = res["cgr_residual_hybrid"].pop("col")
     if here("cgr"):
         res["cgr_merge"] = _cgr_reading(
             C, CD, K12, load_compressed(os.path.join(path, "cgr")))
@@ -912,7 +1086,7 @@ def decode_kernels_worker(tree: str, path: str, defines: str = "") -> None:
         res["svb_decode"] = _svb_reading(
             C, DD, K11, load_compressed(os.path.join(path, "svb")), False)
         res["svb_col"] = res["svb_decode"].pop("col")
-    if here("hybrid"):
+    if here("hybrid") and "svb" in decoders:
         res["svb_decode_hybrid"] = _svb_reading(
             C, DD, K11, load_compressed(os.path.join(path, "hybrid")), True)
         res["hybrid_col"] = res["svb_decode_hybrid"].pop("col")
@@ -950,28 +1124,33 @@ def decode_kernels(parent: str | None, scales, decoders,
         "svb": {"svb": lambda g: vbyte.encode_graph(g, "streamvbyte"),
                 "hybrid": lambda g: hybrid.encode_graph(
                     g, threshold=HYBRID_THRESHOLD)},
+        "res": {"cgrp": lambda g: cgr.encode_graph(g, C.CGR_STREAMS["plain"]),
+                "hybrid": lambda g: hybrid.encode_graph(
+                    g, threshold=HYBRID_THRESHOLD)},
     }
     unknown = set(decoders) - set(encoders)
     if unknown:
         raise SystemExit(f"unknown decoders {sorted(unknown)}: of "
                          f"{sorted(encoders)}")
     cols = {"vgb": ("vgb_col",), "cgr": ("cgr_col",),
-            "svb": ("svb_col", "hybrid_col")}
+            "svb": ("svb_col", "hybrid_col"), "res": ("cgrp_col", "hybrid_col")}
     C.phase_device()         # the card's name and power limit
     with tempfile.TemporaryDirectory() as tmp:
         for scale in scales:
             t0 = time.perf_counter()
             d = os.path.join(tmp, f"rmat{scale}")
             g = sort_and_clean(rmat(scale, 16, seed=0, cache=False))
-            for dec in decoders:
-                for name, enc in encoders[dec].items():
-                    save_compressed(enc(g), os.path.join(d, name))
+            streams = {n: e for dec in decoders
+                       for n, e in encoders[dec].items()}
+            for name, enc in streams.items():
+                save_compressed(enc(g), os.path.join(d, name))
             del g
             print(f"rmat({scale}, 16) encoded in "
                   f"{time.perf_counter() - t0:.1f} s")
             _turns(parent, "--decode-kernels-worker", d, "DECODE",
-                   agree=tuple(c for dec in decoders for c in cols[dec]),
-                   variants=variants)
+                   agree=tuple(dict.fromkeys(
+                       c for dec in decoders for c in cols[dec])),
+                   variants=variants, args=(",".join(decoders),))
 
 
 def kernels(parent: str | None, scales) -> None:
@@ -991,10 +1170,11 @@ def kernels(parent: str | None, scales) -> None:
 
 
 def _turns(parent: str | None, worker: str, path: str, tag: str,
-           agree=(), variants=()) -> None:
+           agree=(), variants=(), args=()) -> None:
     """Run ``worker`` on ``path`` with the change alone, or with the
     parents (``parent``, checkouts split by ``,``), the change twice and
-    the parents in reverse; print each turn's ``tag`` line. The keys in
+    the parents in reverse, each turn given ``args`` after ``path``; print
+    each turn's ``tag`` line. The keys in
     ``agree`` must be equal in every turn. With ``variants`` (constants,
     comma-separated, a string each), a turn of each variant comes between
     the change's two."""
@@ -1008,7 +1188,7 @@ def _turns(parent: str | None, worker: str, path: str, tag: str,
     for name, tree, defines in order:
         r = subprocess.run(
             [sys.executable, os.path.abspath(__file__), worker, tree, path,
-             *([defines] if defines else [])],
+             *args, *([defines] if defines else [])],
             capture_output=True, text=True, timeout=600)
         lines = [ln for ln in r.stdout.splitlines()
                  if ln.startswith(tag + " ")]
@@ -1072,9 +1252,9 @@ def main() -> int:
     ap.add_argument("--decode-kernels", action="store_true",
                     help="K11's vgb_tags and K12's cgr_merge a decode, at "
                     "rmat19 and rmat17 (or --scale)")
-    ap.add_argument("--decoders", default="vgb,cgr,svb",
+    ap.add_argument("--decoders", default="vgb,cgr,svb,res",
                     help="with --decode-kernels: the readings to take, of "
-                    "vgb, cgr and svb")
+                    "vgb, cgr, svb and res")
     ap.add_argument("--pull-kernels", action="store_true",
                     help="K8 over each pull solve, a sweep of each case and "
                     "split by row class, at rmat19 (or --scale)")
