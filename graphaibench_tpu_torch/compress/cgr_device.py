@@ -16,10 +16,10 @@ interval segments, whose final positions give the residual headers, read by
 segment), its first code's bit, count, vertex and first slot) and the row
 pointers, derived from the counts, and ``cgr_residual``'s tables (tiles of
 consecutive lanes, each tile's lanes by count). ``cgr_device_run`` is the
-decode proper: one ``cgr_residual`` launch over every lane, the check of the final
-positions, and, for interval streams, one ``cgr_merge`` (its tile table
-built by the prep). There are no count buckets: a thread loops over its
-own count.
+decode proper: one ``cgr_residual`` launch over every lane, the check of
+the final positions, and, for interval streams, one ``cgr_merge`` (its tile
+table built by the prep). There are no count buckets: a thread loops over
+its own count.
 
 Refused with ``StreamRefused`` (a ``ValueError``) by the prep, before the
 residual pass, as the JAX package refuses them: an unsegmented (unary)

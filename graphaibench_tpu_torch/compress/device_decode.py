@@ -16,8 +16,8 @@ uploads), and a run, the kernels alone:
   4`` into the groups' tag positions (its tables, the long rows and the
   tiles cut at the rows' byte offsets, built by the prep), then
   ``vgb_values`` decodes every group given its tag (its tables, the long
-  rows and the tiles of consecutive rows, built by the prep); the chain is serial
-  within a row, so its two passes are the counterpart of JAX's
+  rows and the tiles of consecutive rows, built by the prep); the chain is
+  serial within a row, so its two passes are the counterpart of JAX's
   ``_vgb_tag_chain`` and ``_vgb_flat_values``;
 - hybrid: the rows of degree below the threshold are unsegmented zeta_k
   streams after a gamma degree, one ``cgr_residual`` lane a row from the bit

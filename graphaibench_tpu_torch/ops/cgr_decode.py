@@ -285,10 +285,10 @@ def _lanes_ok(lanes, n_out: int, what: str):
 
 def residual_tables(counts) -> dict:
     """``cgr_residual``'s tables for lanes of ``counts`` codes (int32, on
-    any device; the tables on the same one): ``tiles`` (n_tiles + 1,), each tile's first lane and then the
-    end: a tile ends where the lanes' first ids (their counts' exclusive
-    prefix) cross a multiple of RESIDUAL_TILE_IDS or their indices one of
-    RESIDUAL_TILE_LANES; and
+    any device; the tables on the same one): ``tiles`` (n_tiles + 1,), each
+    tile's first lane and then the end: a tile ends where the lanes' first
+    ids (their counts' exclusive prefix) cross a multiple of
+    RESIDUAL_TILE_IDS or their indices one of RESIDUAL_TILE_LANES; and
     ``order`` (L,), the lanes tile by tile, in each the largest count first
     (a negative count as 0; ties in lane order). int32."""
     c = counts.long().clamp(min=0)

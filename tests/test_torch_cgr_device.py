@@ -911,4 +911,5 @@ def test_the_wrappers_kernel_route_through_the_emulated_kernels(
                                    0).numpy())
     after = {**K11.LAUNCHES, **K12.LAUNCHES}
     assert after["vgb_values"] - before["vgb_values"] == 2
-    assert after["cgr_residual"] - before["cgr_residual"] >= 4 + stats["blocks"]
+    launched = after["cgr_residual"] - before["cgr_residual"]
+    assert launched >= 4 + stats["blocks"]

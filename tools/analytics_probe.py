@@ -1133,7 +1133,8 @@ def decode_kernels(parent: str | None, scales, decoders,
         raise SystemExit(f"unknown decoders {sorted(unknown)}: of "
                          f"{sorted(encoders)}")
     cols = {"vgb": ("vgb_col",), "cgr": ("cgr_col",),
-            "svb": ("svb_col", "hybrid_col"), "res": ("cgrp_col", "hybrid_col")}
+            "svb": ("svb_col", "hybrid_col"),
+            "res": ("cgrp_col", "hybrid_col")}
     C.phase_device()         # the card's name and power limit
     with tempfile.TemporaryDirectory() as tmp:
         for scale in scales:
