@@ -211,7 +211,7 @@ cgr_gamma_kernel(const Stream s, const int32_t* __restrict__ pos, int64_t n,
 // the tile's span of the stream (from its first lane's first code to the
 // next tile's, at most kResWords words) staged, its ids collected from its
 // first lane's first slot on.
-constexpr int kResWords = 3072;
+constexpr int kResWords = 2048;
 constexpr int kResSlots = 4096;
 
 struct ResTile {

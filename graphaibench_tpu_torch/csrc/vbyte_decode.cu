@@ -806,6 +806,8 @@ struct VgbValues {
   uint8_t flat[kThreads];
   uint32_t sums[kWarpsPerBlock];
 };
+static_assert(sizeof(VgbValues) <= 48 * 1024,
+              "vgb_values' static shared memory is at most 48 KB");
 
 // The prefix within the group (v) of the four values of the group whose tag
 // is at o, and their sum: from the staged bytes (win holds the stream's

@@ -58,7 +58,7 @@ MERGE_TILE_SLOTS = 256
 # counts' prefix) cross a multiple of RESIDUAL_TILE_IDS or their indices
 # one of RESIDUAL_TILE_LANES (the kernel's threads), so that its ids mostly
 # fit the kernel's collected ones (kResSlots, 4,096); its bits mostly fit
-# the staged words (kResWords, 3,072: 12 KB)
+# the staged words (kResWords, 2,048: 8 KB)
 RESIDUAL_TILE_LANES = 256
 RESIDUAL_TILE_IDS = 3072
 
