@@ -28,9 +28,10 @@ non-zero exit code and no result line:
              card's bound for the same work and the library call
              (torch.sparse.mm on a CSR tensor of the same graph and
              weights), which is timed here and used nowhere in the port.
-             Then F = 7 (the kernel's scalar instantiation), and the
-             graph without self-loops, which has rows of degree 0, behind
-             an allocator dirtied with NaN: both against the plain version.
+             Then F = 7 (the kernel's scalar instantiation), F = 1-3 (its
+             narrow one), and the graph without self-loops, which has rows
+             of degree 0, behind an allocator dirtied with NaN: all against
+             the plain version.
              The GAT passes (gat_rowmax, gat_v2_fwd, gat_v2_bwd_sl,
              gat_v2_bwd_h, and gat_v2_bwd, the backward in one pass): the
              same graph, F in {128, 16}, each kernel against its plain
@@ -215,7 +216,31 @@ non-zero exit code and no result line:
              its first loss that of the in-memory trainer (within rtol
              1e-6: K1 adds a split row's pieces with atomics, in an order
              no launch fixes).
-12. result — a JSON line of the nineteen kernels, then the last line
+12. dist_analytics — the distributed solvers (``parallel/dist_analytics.py``)
+             on the analytics graph, rmat(19, 16) symmetric: BFS, SSSP
+             (random asymmetric weights), CC, k-core, BC from vertex 0,
+             PageRank and the two triangle counts, (a) at one nccl rank
+             in this process and (b) at two gloo ranks spawned on the one
+             card (the halo exchange host-staged), each solver twice
+             (checked, then warm), every count set to 0 just before each:
+             BFS, CC, k-core and the counts equal to the single-device
+             solvers' answers on the card, SSSP within rtol 1e-5,
+             PageRank within rtol 1e-4, atol 1e-7 (its iterations equal),
+             BC within the analytics phase's tolerance; two ranks equal to
+             one alike, with equal sweep, iteration and level counts; the
+             set-up and solve seconds, seconds a pull, launches a solve by
+             kernel, the transport and each rank's peak memory. (c) The
+             2-D count's real layout, which s = isqrt(P) = 1 never
+             reaches: the four blocks of a 2 x 2 grid of the DAG, laid out
+             as their ranks lay them out, each counted with K9 and its
+             plain version, summing to the single-device count. (d) K8 in
+             the solvers' four cases (int32 min, int32 sum, float32 sum,
+             float32 min-plus with packed slot weights) on each rank's
+             forward table at P = 2, and K1 at F = 1 on its own and halo
+             tables, against their plain versions behind a NaN-dirtied
+             allocator; rank 0's timed beside the bound, the plain version
+             and, for the float32 sum and K1, torch.sparse.mm.
+13. result — a JSON line of the nineteen kernels, then the last line
              {"ok": true, "device": {...}}. Each phase prints its seconds.
 """
 
@@ -254,6 +279,7 @@ from graphaibench_tpu_torch.graph.io import save_graph
 from graphaibench_tpu_torch.graph.transforms import (
     is_symmetric,
     orientation,
+    reverse,
     sort_and_clean,
 )
 from graphaibench_tpu_torch.nn import Model, make_config
@@ -460,6 +486,15 @@ TP_GRAD_RTOL, TP_GRAD_ATOL = 1e-4, 1e-6
 TP_FILE_RTOL = 1e-6
 DP_RANKS = 2
 DP_STEPS = 3
+# The dist_analytics phase: the distributed solvers on the analytics graph
+# at one nccl rank and at DIST_RANKS gloo ranks sharing the card, BC from
+# one source; BFS's "unreached" in their form; PageRank against the
+# single-device solver within the CPU tests' tolerance against JAX (K1's
+# and K8's float sums add in other orders).
+DIST_RANKS = 2
+DIST_BC_SOURCE = 0
+DIST_INF = 2**30
+DIST_PR_RTOL, DIST_PR_ATOL = 1e-4, 1e-7
 # the CLI's analytics on each scheme's prefix, decoded on the card
 CLI_DECODED = {"cgr": ("tc", "bfs"), "streamvbyte": ("tc",),
                "varintgb": ("tc", "bfs"), "hybrid": ("tc", "bfs")}
@@ -677,6 +712,13 @@ def phase_kernel(g) -> tuple[list[dict], float]:
     err7 = _compare(dg, wp.fwd, x7, "F=7 (scalar)", dirty=True)
     print(f"[kernel] F=7 scalar instantiation: max_abs_err {err7}, "
           f"{_batch_ms(lambda: K1.ell_spmm(dg, wp.fwd, x7)):.4f} ms")
+    # F < 4 takes its narrow instantiation (a thread a virtual row)
+    errn = []
+    for f in (1, 2, 3):
+        xn = torch.randn(dg.nv, f, device="cuda", generator=gen)
+        errn.append(_compare(dg, wp.fwd, xn, f"F={f} (narrow)", dirty=True))
+    print(f"[kernel] F=1-3 narrow instantiation: max_abs_err {max(errn)}, "
+          f"F=3 {_batch_ms(lambda: K1.ell_spmm(dg, wp.fwd, xn)):.4f} ms")
     # no self-loops (the SAGE preparation): rows of degree 0 have no
     # virtual row, so only the wrapper's zeroing covers them
     gs = prepare_graph(g, "sage")
@@ -688,15 +730,15 @@ def phase_kernel(g) -> tuple[list[dict], float]:
     wps = pack_edge_values(dgs, torch.from_numpy(
         aggregation_weights(gs, "sage")).cuda())
     errs = []
-    for f in (CLASSES, 7):
+    for f in (CLASSES, 7, 1):
         xs = torch.randn(dgs.nv, f, device="cuda", generator=gen)
         for view in ("fwd", "t"):
             errs.append(_compare(dgs, getattr(wps, view), xs,
                                  f"no self-loops F={f} view={view}", dirty=True))
     print(f"[kernel] no self-loops: {empty} rows of degree 0, "
           f"{dgs.zero_rows.numel()} zeroed rows, dirtied allocator, "
-          f"F in (16, 7) x (fwd, t): max_abs_err {max(errs)}")
-    return cases, max(err7, *errs)
+          f"F in (16, 7, 1) x (fwd, t): max_abs_err {max(errs)}")
+    return cases, max(err7, *errn, *errs)
 
 
 def _gat_close(got, want, what: str) -> float:
@@ -3730,6 +3772,381 @@ def phase_tp_dp(g) -> dict:
     return {"one": one, "halo": halo, "rect_err": rect, "dp": dp}
 
 
+# ---- the dist_analytics phase ---------------------------------------------
+
+def _dist_solves(g, w, device) -> dict:
+    """The distributed solvers on this rank of the current group, each
+    twice (a checked solve, then a warm one), every count set to 0 just
+    before each: set-up seconds of the three rank graphs (the pull
+    graph, the weighted one and PageRank's), then per solver its result
+    (gathered in vertex order; the count for the triangle counts), its
+    sweep or level count, its launches by kernel (both solves equal),
+    the seconds of each solve and the warm solve's seconds per pull; the
+    peak memory over the set-up and the solves, over what was allocated
+    before."""
+    from graphaibench_tpu_torch.parallel import dist_analytics as DA
+
+    torch.cuda.set_device(device)
+    base = _mark()
+    setup = {}
+    t0 = time.perf_counter()
+    pull = DA.pull_graph(g, device=device)
+    setup["pull"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    wpull = DA.pull_graph(g, w, device=device)
+    setup["pull_weighted"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    prg = DA.pagerank_graph(g, device=device)
+    setup["pagerank"] = time.perf_counter() - t0
+    runs = {
+        "bfs": lambda: DA.distributed_bfs(pull, 0),
+        "sssp": lambda: DA.distributed_sssp(wpull, None, 0),
+        "cc": lambda: DA.distributed_cc(pull),
+        "kcore": lambda: DA.distributed_kcore(pull),
+        "bc": lambda: (DA.distributed_bc(pull, [DIST_BC_SOURCE]), None),
+        "pagerank": lambda: DA.distributed_pagerank(prg),
+        "tc": lambda: (DA.distributed_triangle_count(g, device=device), None),
+        "tc_2d": lambda: (DA.distributed_triangle_count_2d(g, device=device),
+                          None),
+    }
+    solves = {}
+    for name, fn in runs.items():
+        rec = {}
+        for turn in ("first", "warm"):
+            torch.cuda.synchronize(device)
+            _zero_counts()
+            t0 = time.perf_counter()
+            x, count = fn()
+            torch.cuda.synchronize(device)
+            rec[f"s_{turn}"] = time.perf_counter() - t0
+            launches = {k: v for k, v in _counts().items() if v}
+            if turn == "first":
+                rec.update(count=count, launches=launches)
+                result = x
+            elif launches != rec["launches"]:
+                raise RuntimeError(f"[dist_analytics] {name}: launches "
+                                   f"{launches}, the first solve's "
+                                   f"{rec['launches']}")
+        pulls = (rec["launches"].get("neighbor_reduce", 0)
+                 or (count if name == "pagerank" else 0))
+        rec["s_per_pull"] = rec["s_warm"] / pulls if pulls else None
+        rec["result"] = (result if name.startswith("tc") else
+                         DA.gather_own(result, g.nv).cpu().numpy())
+        solves[name] = rec
+    return {"setup_s": setup, "solves": solves, "peak_gib": _peak_gib(base),
+            "nv_pad": pull.nv_pad,
+            "halo_rows": int(pull.tables["all"].fwd.n_cols - pull.nv_pad)}
+
+
+def _dist_rank(rank: int, n: int, row_ptr, col_idx, w) -> dict:
+    """One of the ranks spawned on the one card: the solvers (rank 0 keeps
+    the gathered results, the others only their counts and times) and
+    the transport of its collectives."""
+    from graphaibench_tpu_torch import CSRGraph
+    from graphaibench_tpu_torch.parallel.multihost import rank_device, transport
+
+    dev = rank_device(rank, "cuda")
+    res = _dist_solves(CSRGraph(row_ptr=row_ptr, col_idx=col_idx), w, dev)
+    res["transport"] = transport(None, dev)
+    if rank:
+        for rec in res["solves"].values():
+            rec["result"] = None
+    return res
+
+
+def _dist_refs(g, dg, w) -> dict:
+    """The single-device solvers' answers on the card, in the distributed
+    solvers' form (BFS's unreached 2**30, not -1)."""
+    t0 = time.perf_counter()
+    bfs = TR.bfs(dg, 0).cpu().numpy()
+    scores, iters = PRM.pagerank(dg)
+    refs = {
+        "bfs": np.where(bfs < 0, DIST_INF, bfs),
+        "sssp": TR.sssp_bellman_ford(dg, torch.from_numpy(w).cuda(),
+                                     0).cpu().numpy(),
+        "cc": CCM.connected_components(dg).cpu().numpy(),
+        "kcore": KCM.k_core_hindex(g, device="cuda").cpu().numpy(),
+        "bc": BCM.bc_single_source(dg, DIST_BC_SOURCE).cpu().numpy(),
+        "pagerank": scores.cpu().numpy(), "pagerank_iterations": iters,
+        "tc": TCM.triangle_count(g, device="cuda")}
+    refs["tc_2d"] = refs["tc"]
+    print(f"[dist_analytics] single-device answers on the card in "
+          f"{time.perf_counter() - t0:.2f} s")
+    return refs
+
+
+def _dist_hold(tag: str, solves: dict, want: dict) -> dict:
+    """Each solver's result against ``want`` (a dict of results): exact
+    for BFS, CC, k-core and the counts, SSSP within rtol 1e-5, PageRank
+    within rtol 1e-4, atol 1e-7, BC within BC_RTOL, BC_ATOL; returns the
+    max |diff| of the float results."""
+    errs = {}
+    for name, rec in solves.items():
+        got, ref = rec["result"], want[name]
+        if name in ("bfs", "cc", "kcore", "tc", "tc_2d"):
+            if not np.array_equal(got, ref):
+                raise RuntimeError(f"{tag} {name} differs from the reference"
+                                   f" ({got if np.ndim(got) == 0 else ''})")
+            continue
+        fin = np.isfinite(ref)
+        if not np.array_equal(fin, np.isfinite(got)):
+            raise RuntimeError(f"{tag} {name}: other vertices reached")
+        errs[name] = float(np.abs(got[fin] - ref[fin]).max())
+        tol = {"sssp": dict(rtol=SSSP_RTOL, atol=0.0),
+               "pagerank": dict(rtol=DIST_PR_RTOL, atol=DIST_PR_ATOL),
+               "bc": dict(rtol=BC_RTOL, atol=BC_ATOL)}[name]
+        if not np.allclose(got[fin], ref[fin], **tol):
+            raise RuntimeError(f"{tag} {name}: max |diff| {errs[name]} "
+                               f"beyond {tol}")
+    return errs
+
+
+def _dist_report(tag: str, res: dict) -> dict:
+    """The printed record of one rank's run, without its results."""
+    solves = {k: {f: v for f, v in rec.items() if f != "result"}
+              for k, rec in res["solves"].items()}
+    rec = {k: v for k, v in res.items() if k != "solves"}
+    print(f"{tag} {json.dumps(dict(rec, solves=solves))}")
+    return solves
+
+
+def _rect_pull_bound(t, n_edges: int, edge_vals: bool):
+    """The least time of one neighbor_reduce on a rank's table: per real
+    edge its id (and value), per virtual row its row id and count, per
+    row its split flag and output, per gathered row its value; against
+    one operation a slot (two with edge values), as ``_pull_bound``."""
+    rows = sum(b.rows for b in t.ell)
+    nbytes = (n_edges * (8 if edge_vals else 4) + rows * 8 + t.nv * 5
+              + t.n_cols * 4)
+    return _bound_of(nbytes, n_edges * (2 if edge_vals else 1))
+
+
+def _rect_spmm_bound(t, n_edges: int, f: int):
+    """One K1 SpMM on a rank's table at width ``f``: x's gathered rows
+    read and the output written once, per real edge its id and weight,
+    per virtual row its row id, per row its split flag, over the memory
+    rate; 2 FLOP a real edge and column. The pad slots belong to the
+    layout, not to the function, as in ``_pull_bound``."""
+    rows = sum(b.rows for b in t.ell)
+    nbytes = (t.n_cols + t.nv) * f * 4 + n_edges * 8 + rows * 4 + t.nv
+    return _bound_of(nbytes, 2 * n_edges * f)
+
+
+def _table_csr(shard, part: str, w: torch.Tensor) -> torch.Tensor:
+    """A rank's table of ``part`` with slot weights ``w`` as one CSR tensor
+    on the card (the library call's operand)."""
+    rows, cols, eids, n_cols = SE.shard_edges(shard, part)
+    idx = torch.from_numpy(np.stack([rows, cols])).cuda()
+    coo = torch.sparse_coo_tensor(idx, w[torch.from_numpy(eids).cuda()],
+                                  size=(shard.nv_pad, n_cols))
+    return coo.coalesce().to_sparse_csr()
+
+
+def _timed_case(name: str, fn, plain, library, kernel: str, bound) -> dict:
+    """One kernel on a rank's table, timed beside ``bound``. A trace that
+    reads the kernel below its bound is taken again; half the batch ms,
+    the floor where the kernel holds its call's time, does not hold for a
+    table so small that the wrapper's host work sets the batch."""
+    ms = _batch_ms(fn)
+    bound_ms, bound_by, nbytes = bound
+    device_ms = _kernel_device_ms(fn, kernel, at_least_ms=bound_ms)
+    return {"case": name, "ms": ms, "device_ms": device_ms,
+            "plain_ms": _batch_ms(plain, calls=3, batches=3),
+            "library_ms": None if library is None else _batch_ms(library),
+            "bound_ms": bound_ms, "bound_by": bound_by, "bound_bytes": nbytes,
+            "share_of_bound": bound_ms / ms,
+            "share_of_bound_device": (bound_ms / device_ms if device_ms
+                                      else None)}
+
+
+def _dist_rect_kernels(g) -> dict:
+    """K8 in the four cases of the solvers (int32 min, int32 sum, float32
+    sum, float32 min with packed slot weights) on each rank's forward
+    table at P = 2, and K1 at F = 1 on each rank's own and halo tables,
+    against their plain versions behind a NaN-dirtied allocator; rank
+    0's tables timed beside the bound, the plain version and, for the
+    float32 sum and K1, torch.sparse.mm. The slot weights are PageRank's
+    (1/outdeg of the original edge)."""
+    rg = reverse(g)
+    out_deg = np.maximum(g.degrees(), 1).astype(np.float32)
+    sg = PAR.build_sharded_graph(
+        rg, (1.0 / out_deg[rg.col_idx]).astype(np.float32), DIST_RANKS)
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    k8, k1 = {"cases": [], "max_abs_err": 0.0}, {"cases": [],
+                                                 "max_abs_err": 0.0}
+    for rank in range(DIST_RANKS):
+        shard = sg.shard(rank)
+        w = torch.from_numpy(shard.edge_w).cuda()
+        se = SE.build_shard_ell(shard, with_trans=False, device="cuda")
+        t = se.fwd
+        n_real = len(SE.shard_edges(shard, "all")[0])
+        vals = {"int32": torch.randint(-10**6, 10**6, (t.n_cols,),
+                                       dtype=torch.int32, device="cuda",
+                                       generator=gen),
+                "float32": torch.randn(t.n_cols, device="cuda",
+                                       generator=gen)}
+        packed = SE.pack_shard_values(se, w).fwd
+        ones = _table_csr(shard, "all", torch.ones_like(w))
+        print(f"[dist_analytics] K8 rank {rank} table: nv {t.nv}, n_cols "
+              f"{t.n_cols}, {n_real} edges, buckets "
+              f"{[(b.width, b.rows) for b in t.ell]}, split rows "
+              f"{int(t.is_split.sum())}")
+        for name, (v, kind, e) in {
+                "int32 min": (vals["int32"], "min", None),
+                "int32 sum": (vals["int32"], "sum", None),
+                "float32 sum": (vals["float32"], "sum", None),
+                "float32 min packed": (vals["float32"], "min", packed)}.items():
+            _dirty(t.nv)
+            got = (SE.ell_gather_reduce(t, v, t.nv, kind, se.sentinel)
+                   if e is None else
+                   SE.ell_gather_reduce_plus(t, e, v, t.nv, kind, se.sentinel))
+            want = K8.neighbor_reduce_plain(t, v, kind, e)
+            torch.cuda.synchronize()
+            k8["max_abs_err"] = max(k8["max_abs_err"], _pull_close(
+                got, want, f"{name} rank {rank} table"))
+            if rank:
+                continue
+            library = None
+            if name == "float32 sum":
+                col = v[:, None]
+                library = lambda: torch.sparse.mm(ones, col)  # noqa: E731
+                _pull_close(library()[:, 0], want,
+                            "float32 sum: the library call on the table")
+            case = _timed_case(
+                name, lambda: K8.neighbor_reduce(t, v, kind, e),
+                lambda: K8.neighbor_reduce_plain(t, v, kind, e), library,
+                "neighbor_reduce_kernel",
+                _rect_pull_bound(t, n_real, e is not None))
+            print(f"[dist_analytics] K8 rank 0 {json.dumps(case)}")
+            k8["cases"].append(case)
+        for part in ("own", "halo"):
+            sp = SE.build_shard_ell(shard, part=part, with_trans=False,
+                                    device="cuda")
+            tp = sp.fwd
+            if not tp.has_ell_layout:
+                raise RuntimeError(f"[dist_analytics] rank {rank}'s {part} "
+                                   "table has no edges: K1 checks nothing")
+            wp = SE.pack_shard_values(sp, w).fwd
+            x = torch.randn(tp.n_cols, 1, device="cuda", generator=gen)
+            _dirty(tp.nv)
+            got = K1.ell_spmm(tp, wp, x)
+            want = K1.ell_spmm_plain(tp, wp, x)
+            k1["max_abs_err"] = max(k1["max_abs_err"], _rect_compare(
+                got, want, f"ell_spmm F=1 rank {rank} {part}", False))
+            csr = _table_csr(shard, part, w)
+            if not torch.allclose(torch.sparse.mm(csr, x), want,
+                                  rtol=KERNEL_RTOL, atol=KERNEL_ATOL):
+                raise RuntimeError("[dist_analytics] torch.sparse.mm "
+                                   f"disagrees with plain on {part}")
+            if rank:
+                continue
+            case = _timed_case(
+                f"F=1 {part}", lambda: K1.ell_spmm(tp, wp, x),
+                lambda: K1.ell_spmm_plain(tp, wp, x),
+                lambda: torch.sparse.mm(csr, x), "ell_spmm_kernel",
+                _rect_spmm_bound(tp, len(SE.shard_edges(shard, part)[0]), 1))
+            print(f"[dist_analytics] K1 rank 0 {json.dumps(case)}")
+            k1["cases"].append(case)
+    print(f"[dist_analytics] rank tables at P={DIST_RANKS} (nv_pad "
+          f"{sg.nv_pad}, h_max {sg.h_max}, halo {sg.halo_counts.tolist()}), "
+          f"dirtied allocator: K8 max_abs_err {k8['max_abs_err']}, K1 F=1 "
+          f"max_abs_err {k1['max_abs_err']}")
+    return {"neighbor_reduce": k8, "ell_spmm": k1}
+
+
+def _dist_tc_blocks(g, want: int) -> list:
+    """The 2-D count's real layout, which one card's runs (P = 1 and 2,
+    s = 1) never reach: the four blocks of a 2 x 2 grid of the DAG, each
+    laid out as its rank lays it out (``block_edges_2d``: local rows,
+    global neighbour ids), counted with K9 and with its plain version;
+    the four counts sum to the single-device count. Returns them."""
+    from graphaibench_tpu_torch.parallel import dist_analytics as DA
+
+    t0 = time.perf_counter()
+    dag = TCM.sorted_dag(g)
+    counts = []
+    for i, j in ((0, 0), (0, 1), (1, 0), (1, 1)):
+        edges = DA.block_edges_2d(dag, 2, i, j, device="cuda")
+        got, plain = int(K9.tc_count(edges)), int(K9.tc_count_plain(edges))
+        if got != plain:
+            raise RuntimeError(f"[dist_analytics] 2 x 2 block ({i}, {j}): "
+                               f"tc_count {got}, plain {plain}")
+        counts.append(got)
+    if sum(counts) != want or max(counts) == want:
+        raise RuntimeError(f"[dist_analytics] 2 x 2 blocks count {counts}, "
+                           f"the single-device count {want}")
+    print(f"[dist_analytics] 2 x 2 grid of the DAG: blocks {counts} (K9 = "
+          f"plain), sum {sum(counts)} = the single-device count, in "
+          f"{time.perf_counter() - t0:.2f} s")
+    return counts
+
+
+def phase_dist_analytics(g, dg) -> dict:
+    """The distributed analytics on the analytics graph: the solvers at one
+    nccl rank in this process, then at two gloo ranks spawned on the one
+    card (the exchange host-staged), each held to the single-device
+    answers and the two ranks to the one; then the 2-D count's blocks of
+    a 2 x 2 grid, and K8 and K1 on the rank tables. Returns what the
+    kernels line reports of it."""
+    t0 = time.perf_counter()
+    w = np.random.default_rng(2).uniform(0.1, 2.0, g.ne).astype(np.float32)
+    refs = _dist_refs(g, dg, w)
+    PAR.initialize(0, 1, port=PAR.multihost.free_port(), backend="nccl",
+                   device=torch.device("cuda", 0))
+    try:
+        one = _dist_solves(g, w, torch.device("cuda", 0))
+    finally:
+        PAR.multihost.dist.destroy_process_group()
+    one_solves = _dist_report("[dist_analytics P=1 nccl]", one)
+    errs = _dist_hold("[dist_analytics P=1 nccl]", one["solves"], refs)
+    if one["solves"]["pagerank"]["count"] != refs["pagerank_iterations"]:
+        raise RuntimeError("[dist_analytics] pagerank iterations "
+                           f"{one['solves']['pagerank']['count']} against "
+                           f"{refs['pagerank_iterations']} single-device")
+    launched = {}
+    for rec in one_solves.values():
+        for k, v in rec["launches"].items():
+            launched[k] = launched.get(k, 0) + v
+    for k in ("neighbor_reduce", "ell_spmm", "tc_count"):
+        if not launched.get(k):
+            raise RuntimeError(f"[dist_analytics] the one-rank solves launched "
+                               f"no {k}: {launched}")
+    for name in ("bfs", "sssp", "cc"):
+        rec = one_solves[name]
+        if rec["launches"].get("neighbor_reduce") != rec["count"]:
+            raise RuntimeError(f"[dist_analytics] {name}: "
+                               f"{rec['launches']} for {rec['count']} sweeps")
+    print(f"[dist_analytics] P=1 nccl equal to the single-device answers "
+          f"(max |diff| {json.dumps(errs)}); launches of the solves "
+          f"{json.dumps(launched)}")
+    t1 = time.perf_counter()
+    ranks = PAR.launch(_dist_rank, DIST_RANKS, g.row_ptr, g.col_idx, w,
+                       device="cuda", backend="gloo",
+                       timeout_s=SHARDED_SPAWN_TIMEOUT_S)
+    two = [_dist_report(f"[dist_analytics P={DIST_RANKS} gloo rank {r}]", res)
+           for r, res in enumerate(ranks)]
+    if ranks[0]["transport"] != "host-staged":
+        raise RuntimeError(f"[dist_analytics] transport {ranks[0]['transport']}")
+    errs2 = _dist_hold(f"[dist_analytics P={DIST_RANKS} gloo]",
+                       ranks[0]["solves"], refs)
+    errs21 = _dist_hold(f"[dist_analytics P={DIST_RANKS} against P=1]",
+                        ranks[0]["solves"],
+                        {k: r["result"] for k, r in one["solves"].items()})
+    for name, rec in one_solves.items():
+        counts = {r["solves"][name]["count"] for r in ranks}
+        if counts != {rec["count"]}:
+            raise RuntimeError(f"[dist_analytics] {name}: counts {counts} at "
+                               f"P={DIST_RANKS}, {rec['count']} at P=1")
+    print(f"[dist_analytics] P={DIST_RANKS} gloo on one card in "
+          f"{time.perf_counter() - t1:.2f} s: equal to the single-device "
+          f"answers (max |diff| {json.dumps(errs2)}) and to P=1 "
+          f"({json.dumps(errs21)})")
+    _dist_tc_blocks(g, refs["tc"])
+    kernels = _dist_rect_kernels(g)
+    print(f"[dist_analytics] phase took {time.perf_counter() - t0:.2f} s")
+    return {"one_rank": one_solves, "two_ranks": two, **kernels}
+
+
 def _timed(name: str, fn, *args):
     """fn(*args), with its seconds printed."""
     t0 = time.perf_counter()
@@ -3765,6 +4182,18 @@ def main() -> None:
     k12 = _timed("compress", phase_compress, ag, adg)
     sharded = _timed("sharded", phase_sharded, g)
     tp_dp = _timed("tp_dp", phase_tp_dp, g)
+    dist = _timed("dist_analytics", phase_dist_analytics, ag, adg)
+
+    def dist_launches(kname):
+        """A kernel's launches a solve of the distributed solvers: at one
+        rank, and at each of the two ranks."""
+        return {"one_rank_per_solve": {
+                    k: r["launches"].get(kname, 0)
+                    for k, r in dist["one_rank"].items()},
+                "two_ranks_per_solve": {
+                    k: [r[k]["launches"].get(kname, 0)
+                        for r in dist["two_ranks"]]
+                    for k in dist["one_rank"]}}
     rect_err = {k: max(v, tp_dp["rect_err"][k])
                 for k, v in sharded["rect_err"].items()}
 
@@ -3794,6 +4223,7 @@ def main() -> None:
         "replaces": "graphaibench_tpu/ops/pallas_spmm.py:43",
         "launches": launches["ell_spmm"],
         "max_abs_err": max(other_err, rect_err["ell_spmm"],
+                           dist["ell_spmm"]["max_abs_err"],
                            *(c["max_abs_err"] for c in cases)),
         "ms": head["ms"],
         "plain_ms": head["plain_ms"],
@@ -3802,6 +4232,8 @@ def main() -> None:
         "library_ms": head["library_ms"],
         "cases": cases,
         "sharded": sharded_launches("ell_spmm"),
+        "dist_analytics": dict(dist_launches("ell_spmm"),
+                               f1_cases=dist["ell_spmm"]["cases"]),
     }]
     for kname, line in GAT_KERNELS.items():
         res = gat_kernels[kname]
@@ -3848,13 +4280,17 @@ def main() -> None:
         "source": "graphaibench_tpu_torch/csrc/ell_pull.cu",
         "replaces": PULL_REPLACES,
         "launches": pull["launches"],
-        "max_abs_err": pull["max_abs_err"],
+        "max_abs_err": max(pull["max_abs_err"],
+                           dist["neighbor_reduce"]["max_abs_err"]),
         "ms": head["ms"],
         "plain_ms": head["plain_ms"],
         "bound_ms": head["bound_ms"],
         "bound_by": head["bound_by"],
         "library_ms": head["library_ms"],
         "cases": pull["cases"],
+        "dist_analytics": dict(dist_launches("neighbor_reduce"),
+                               rank_table_cases=dist["neighbor_reduce"][
+                                   "cases"]),
     })
     for kname, source, replaces, res in (
             ("tc_count", "tc_count.cu", TC_REPLACES, tc),
@@ -3874,6 +4310,8 @@ def main() -> None:
             # h-index sweep
             "library_ms": None,
             "device_ms": res["device_ms"],
+            **({"dist_analytics": dist_launches(kname)}
+               if kname == "tc_count" else {}),
         })
     for kname, source, replaces in (
             *((k, "cgr_decode.cu", r) for k, r in CGR_KERNELS.items()),

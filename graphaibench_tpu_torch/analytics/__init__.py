@@ -13,9 +13,11 @@ StreamVByte, VarintGB and hybrids of StreamVByte chunks through K11
 (``compress/device_decode.py``); on the host where the device route refuses
 the stream's shape (a hybrid of VarintGB chunks, for one). With
 ``GAB_TC_STREAM=1`` the triangles of a CGR prefix are counted block by
-block off the stream (``tc_stream.py``). The other solvers (ROADMAP P15)
-and ``GAB_SHARDS`` (P14c) are not ported yet: asked for, ``run_benchmark``
-exits with code 2 and names the item.
+block off the stream (``tc_stream.py``). ``GAB_SHARDS=<n|auto>`` runs the
+distributed solvers (``parallel/dist_analytics.py``) on n ranks spawned on
+this host, the graph vertex-sharded over them (``_run_distributed``). The
+other solvers (ROADMAP P15) are not ported yet: asked for,
+``run_benchmark`` exits with code 2 and names the item.
 """
 
 from __future__ import annotations
@@ -121,6 +123,120 @@ def _load_compressed(kernel: str, prefix: str, device):
     return g
 
 
+def _edge_weights(g) -> np.ndarray:
+    return (np.asarray(g.elabels, dtype=np.float32)
+            if g.elabels is not None else np.ones(g.ne, np.float32))
+
+
+def _dist_rank(rank: int, n: int, kernel: str, row_ptr, col_idx, weights,
+               source: int, device: str):
+    """One rank of ``GAB_SHARDS``: its solver's share, the result gathered
+    in vertex order. Rank 0 returns (result, sweep or iteration count,
+    seconds), the others None."""
+    import torch
+
+    from graphaibench_tpu_torch import parallel as PAR
+    from graphaibench_tpu_torch.graph.csr import CSRGraph
+    from graphaibench_tpu_torch.parallel.multihost import rank_device
+
+    g = CSRGraph(row_ptr=row_ptr, col_idx=col_idx)
+    dev = rank_device(rank, device)
+    t0 = time.perf_counter()
+    count = None
+    if kernel == "tc":
+        out = PAR.distributed_triangle_count(g, device=dev)
+    else:
+        if kernel == "bfs":
+            x, count = PAR.distributed_bfs(g, source, device=dev)
+        elif kernel == "sssp":
+            x, count = PAR.distributed_sssp(g, weights, source, device=dev)
+        elif kernel == "pr":
+            x, count = PAR.distributed_pagerank(g, device=dev)
+        elif kernel == "cc":
+            x, count = PAR.distributed_cc(g, device=dev)
+        elif kernel == "bc":
+            x = PAR.distributed_bc(g, [source], device=dev)
+        else:
+            x, count = PAR.distributed_kcore(g, device=dev)
+        out = PAR.gather_own(x, g.nv).cpu().numpy()
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    return (out, count, time.perf_counter() - t0) if rank == 0 else None
+
+
+def _run_distributed(kernel: str, g, args: list[str], shards: str,
+                     device) -> int:
+    """``GAB_SHARDS`` routing: the distributed solver on n ranks spawned
+    here (``parallel/multihost.py::launch``; nccl where each rank has a
+    card of its own, gloo on the CPU and where ranks share a card), the
+    graph given to them as numpy arrays; the same serial verifiers gate
+    the result as in JAX's ``_run_distributed``. The runtime is rank 0's
+    solve, partition and gather included, spawning not."""
+    import torch
+
+    from graphaibench_tpu_torch.graph.transforms import orientation, reverse
+    from graphaibench_tpu_torch.parallel.multihost import (
+        choose_backend,
+        count_ranks,
+        launch,
+    )
+
+    if device == "cuda" and not torch.cuda.is_available():
+        print("GAB_SHARDS: no CUDA device (--device=cpu runs the ranks on "
+              "the CPU)", file=sys.stderr)
+        return 1
+    try:
+        n = count_ranks(shards, str(device))
+    except ValueError as e:
+        return _refuse(str(e))
+    backend = choose_backend(n, str(device))
+    print(f"distributed over {n} rank(s) on {device} ({backend})")
+    source = int(args[0]) if args else 0
+    w = _edge_weights(g) if kernel == "sssp" else None
+    sys.stdout.flush()
+    out, count, dt = launch(_dist_rank, n, kernel, np.asarray(g.row_ptr),
+                            np.asarray(g.col_idx), w, source, str(device),
+                            device=str(device), backend=backend,
+                            timeout_s=None)[0]
+    ok = None
+    if kernel == "tc":
+        print(f"total_num_triangles = {out}")
+        if g.ne <= 200_000:
+            ok = out == verifiers.triangle_count_serial(orientation(g))
+    elif kernel == "bfs":
+        reach = out < 2**30
+        print(f"reached = {reach.sum()}, sweeps = {count}")
+        ref = verifiers.bfs_serial(g, source)
+        unreach = ref < 0
+        ok = (np.array_equal(out[~unreach], ref[~unreach])
+              and bool(np.all(~reach[unreach])))
+    elif kernel == "sssp":
+        print(f"reached = {np.isfinite(out).sum()}, sweeps = {count}")
+        ref = verifiers.dijkstra_serial(g, w, source)
+        fin = np.isfinite(ref)
+        ok = (np.allclose(out[fin], ref[fin], rtol=1e-5)
+              and bool(np.all(~np.isfinite(out[~fin]))))
+    elif kernel == "pr":
+        print(f"iterations = {count}")
+        ok = np.allclose(out, verifiers.pagerank_serial(g, reverse(g)),
+                         atol=1e-4)
+    elif kernel == "cc":
+        print(f"num_components = {len(np.unique(out))}")
+        # both labelings are the least vertex id of each component
+        ok = np.array_equal(out, verifiers.cc_serial(g))
+    elif kernel == "bc":
+        ok = np.allclose(out, verifiers.bc_serial(g, [source]), rtol=1e-4,
+                         atol=1e-5)
+    else:  # kcore
+        print(f"max_coreness = {out.max()}")
+        ok = np.array_equal(out, verifiers.kcore_serial(g))
+    print(f"runtime = {dt:.4f} sec")
+    if ok is None:      # a triangle count above the serial check's size
+        return 0
+    print("Correct" if ok else "Wrong")
+    return 0 if ok else 1
+
+
 def run_benchmark(kernel: str, dataset_path: str, args: list[str], *,
                   device="cuda") -> int:
     """The CLI route: load, solve on ``device``, verify, print Correct/Wrong
@@ -144,9 +260,15 @@ def run_benchmark(kernel: str, dataset_path: str, args: list[str], *,
     else:
         g = load_graph(dataset_path)
     print(f"|V| {g.nv} |E| {g.ne}")
-    if os.environ.get("GAB_SHARDS", ""):
-        return _refuse("GAB_SHARDS: the distributed analytics are not "
-                       "ported yet (ROADMAP queue 1, P14c)")
+    shards = os.environ.get("GAB_SHARDS", "")
+    if shards:
+        # cc, kcore and bc pull over in-edges and are right on symmetric
+        # graphs only: directed inputs stay on the single-device push
+        # route, as the pull_ok gate below keeps them
+        if kernel in ("tc", "bfs", "sssp", "pr") or is_symmetric(g):
+            return _run_distributed(kernel, g, args, shards, device)
+        print("directed input: distributed "
+              f"{kernel} needs a symmetric graph; running single-device")
     print(f"device = {device}")
     # pull-mode frontier kernels (neighbor_reduce over row buckets) assume
     # a structurally symmetric graph; directed inputs keep the scatter push
@@ -172,8 +294,7 @@ def run_benchmark(kernel: str, dataset_path: str, args: list[str], *,
         print(f"reached = {(dist >= 0).sum()}, max_depth = {dist.max()}")
         ok = np.array_equal(dist, verifiers.bfs_serial(g, source))
     elif kernel == "sssp":
-        w = (np.asarray(g.elabels, dtype=np.float32)
-             if g.elabels is not None else np.ones(g.ne, np.float32))
+        w = _edge_weights(g)
         # the pull gathers each slot's REVERSE-edge weight through
         # trans_perm, so the transpose permutation rides along whenever
         # the pull is taken

@@ -40,13 +40,20 @@ def _pack_padded(g: CSRGraph, sentinel: int):
 _TC_CACHE: dict = {}
 
 
-def _tc_device_state(g: CSRGraph, device) -> K9.DagEdges:
-    if _TC_CACHE.get("graph") is g and _TC_CACHE.get("device") == str(device):
-        return _TC_CACHE["state"]
+def sorted_dag(g: CSRGraph) -> CSRGraph:
+    """The degree-ordered DAG of ``g`` with its rows sorted, as K9 reads
+    them."""
     dag = T.orientation(g)
     if not dag.has_sorted_neighbors():
         src, dst = dag.coo()
         dag = from_edges(src, dst, dag.nv)
+    return dag
+
+
+def _tc_device_state(g: CSRGraph, device) -> K9.DagEdges:
+    if _TC_CACHE.get("graph") is g and _TC_CACHE.get("device") == str(device):
+        return _TC_CACHE["state"]
+    dag = sorted_dag(g)
     state = K9.dag_edges(dag.row_ptr, dag.col_idx, device=device)
     _TC_CACHE.update(graph=g, device=str(device), state=state)
     return state

@@ -11,10 +11,10 @@ GraphSAINT-sampled training (``subg_size > 0``, which turns ``inductive``
 on), ``--timers`` (the stage time breakdown after training, train.cpp:60-76)
 and ``--profile=DIR`` (a torch.profiler Chrome trace of the whole run in
 ``DIR/trace.json``). ``GAB_SHARDS=<n|auto>`` routes full-batch training
-onto the sharded trainer (``parallel/``): n ranks, spawned on this host,
-each holding one vertex block and exchanging its halo over
-``torch.distributed`` (nccl where each rank has a card of its own, gloo
-on the CPU and where ranks share a card); ``auto`` is one rank per
+(and the analytics, below) onto the sharded trainer (``parallel/``): n
+ranks, spawned on this host, each holding one vertex block and exchanging
+its halo over ``torch.distributed`` (nccl where each rank has a card of
+its own, gloo on the CPU and where ranks share a card); ``auto`` is one rank per
 visible card, or one rank with ``--device=cpu``. ``GAB_TP=m`` beside it
 lays max(n // m, 1) x m ranks out as a (graph x model) grid and splits
 the feature dimension over the m ranks of each vertex block (the
@@ -31,10 +31,13 @@ directories, byte-equal), on the host.
 ``python -m graphaibench_tpu_torch.cli analytics
 tc|bfs|sssp|pr|cc|bc|kcore <dataset> [source] [--device=cuda|cpu]`` runs the
 JAX CLI's ``analytics`` route for those solvers (``analytics.run_benchmark``),
-with the same default device and no fallback; a compressed-graph prefix in
-the CGR scheme decodes on that device (``GAB_TC_STREAM=1`` counts triangles
-off the stream); the other analytics kernels, the other schemes' prefixes
-and ``GAB_SHARDS`` exit with code 2 and name their ROADMAP item.
+with the same default device and no fallback; a compressed-graph prefix
+decodes on that device (``GAB_TC_STREAM=1`` counts triangles off a CGR
+stream); ``GAB_SHARDS=<n|auto>`` runs the distributed solvers
+(``parallel/dist_analytics.py``) on n ranks counted as for training, rank
+0 printing the JAX CLI's lines (``cc``, ``bc`` and ``kcore`` on a directed
+graph run single-device, as in the JAX CLI); the other analytics kernels
+exit with code 2 and name their ROADMAP item.
 
 ``python -m graphaibench_tpu_torch.cli info <dataset>`` prints the JAX
 CLI's ``info`` lines (sizes, degrees, labels, mask ranges, a pow2 degree
@@ -75,7 +78,8 @@ def resolve_dataset(name: str) -> str:
 
 
 ANALYTICS_USAGE = ("usage: analytics tc|bfs|sssp|pr|cc|bc|kcore <dataset> "
-                   "[source=0] [--device=cuda|cpu]")
+                   "[source=0] [--device=cuda|cpu] (GAB_SHARDS=<n|auto> "
+                   "runs it on n ranks)")
 
 
 def _refuse(msg: str) -> int:
@@ -200,22 +204,17 @@ def _train_ranks(cfg, path: str, epochs: int, val_interval: int,
     ``GAB_DP`` ranks."""
     import torch
 
-    from graphaibench_tpu_torch.parallel.multihost import launch
+    from graphaibench_tpu_torch.parallel.multihost import count_ranks, launch
 
     route = "GAB_SHARDS" if shards else "GAB_DP"
     if device == "cuda" and not torch.cuda.is_available():
         print(f"{route}: no CUDA device (--device=cpu runs the ranks on "
               "the CPU)", file=sys.stderr)
         return 1
-    if not shards:
-        n = dp
-    elif shards == "auto":
-        n = torch.cuda.device_count() if device == "cuda" else 1
-    else:
-        n = int(shards)
-    if n < 1:
-        return _refuse(f"GAB_SHARDS must be a positive count or auto, not "
-                       f"{shards!r}")
+    try:
+        n = count_ranks(shards, device) if shards else dp
+    except ValueError as e:
+        return _refuse(str(e))
     if tp > 1:
         n = max(n // tp, 1) * tp
     sys.stdout.flush()

@@ -9,9 +9,10 @@
 //                             vals[nbr_j], or vals[nbr_j] + ev_j (min, max),
 //                             or vals[nbr_j] * ev_j (sum)
 //
-// with reduce one of min, max and sum, vals int32 or float32 of shape (nv,),
-// and ev the per-slot edge values of the bucket (float32 only), packed once
-// per solve by the wrapper in the layout of the slot ids. A row with no
+// with reduce one of min, max and sum, vals int32 or float32 with one value
+// per gathered row (n_cols; nv but in a rank's rectangular table), and ev
+// the per-slot edge values of the bucket (float32 only), packed once per
+// solve by the wrapper in the layout of the slot ids. A row with no
 // edge keeps the reduction's identity (INT_MAX / INT_MIN / 0, +-inf / 0),
 // which the wrapper writes. BFS, SSSP, connected components and PageRank
 // spend their sweeps here: one launch a sweep.
@@ -259,8 +260,10 @@ void launch_kind(int kind, int64_t blocks, cudaStream_t stream,
 // The per-bucket arrays (GAB_TABLE_PARAMS of csrc/ell_table.cuh; the edge ids
 // are not read), then is_split (nv,) uint8 and edge_vals: null, or one
 // float32 slot array per bucket in the table's order, (rows[i] * widths[i],),
-// 16-byte aligned. vals and out (nv,) of int32 (dtype 0) or float32 (dtype
-// 1); out holds the identity of `kind` (0 min, 1 max, 2 sum) in split and
+// 16-byte aligned. vals (n_cols,) and out (nv,) of int32 (dtype 0) or float32
+// (dtype 1): vals is read only at the slots' ids and out written only at
+// the virtual rows' row ids, so a rectangular table needs nothing else; out
+// holds the identity of `kind` (0 min, 1 max, 2 sum) in split and
 // edgeless rows. Edge values go with float32 only. Every pointer on CUDA
 // device `device`, stream a cudaStream_t of that device. Every bucket's width
 // is a multiple of 4 and its nbr 16-byte aligned. The library links its own

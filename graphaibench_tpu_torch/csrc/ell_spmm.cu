@@ -53,10 +53,21 @@
 //     tiling is right for any order and only faster for the usual one. The
 //     wrapper picks the tile from nv and F; a piece is never narrower than
 //     one 128-byte line (32 floats).
+//   * A narrow instantiation for F < 4 (PageRank's F = 1 on a rank's
+//     tables): lanes a virtual row by the bucket's width, as K8 has them
+//     (one at widths 4 and 8, then one a chunk of 8 slots: 8 lanes at 64),
+//     each lane reading its chunk's ids and weights as int4 / float4 and
+//     having its 4-8 gathers in flight; the row's lanes add by shuffles.
+//     On an H100 at F = 1, on the own table of rank 0 of rmat(19, 16) at
+//     two ranks, where rmat's hubs lie: 0.057 ms of device time, against
+//     0.090 for a thread a row (8 chunks one after the other at width 64)
+//     and 0.258 for the scalar instantiation (PERF.md).
+//     It needs the listed widths and 16-byte aligned ids and weights.
 //   * A scalar instantiation (run-time width, one warp per virtual row,
-//     lanes over the features, 4-byte loads) takes F % 4 != 0, unaligned
-//     tensors and widths outside the list above, with the same table, the
-//     same store-or-add rule and one launch.
+//     lanes over the features, 4-byte loads) takes the rest: F % 4 != 0
+//     from F = 5 on, unaligned tensors and widths outside the list above,
+//     with the same table, the same store-or-add rule and one launch. At
+//     F = 1 one lane of its 32 would work, which the narrow one avoids.
 //
 // Not used: shared memory, cp.async, TMA. The gathered rows are used once
 // per block, TMA copies tiles and not rows chosen by index, and at 34
@@ -136,9 +147,82 @@ __device__ __forceinline__ void row_vec(const Bucket& b, int64_t r,
   }
 }
 
-// kVec: `lg` is log2 of the lanes per virtual row, `tile_f4` the float4
-// columns of a tile and f4 = F / 4. Scalar: lg = 5, one tile, f = F.
-template <bool kVec>
+// Lanes a virtual row in the narrow instantiation, by the bucket's width:
+// one at widths 4 and 8, then one a chunk of 8 slots (2 at 16, 4 at 32, 8
+// at 64). Returns their log2.
+__host__ __device__ inline int narrow_lg(int width) {
+  return width <= 8 ? 0 : width == 16 ? 1 : width == 32 ? 2 : 3;
+}
+
+// One lane's chunk of C slots (4 or 8) of virtual row r at F < 4: the
+// chunk's ids and weights as int4 / float4, its C gathers of a column in
+// flight. The row's 1 << lg lanes, aligned in the warp, add by shuffles,
+// and the first stores (or adds, where the row is split). Every lane of the
+// warp takes part in the shuffles: those past the bucket's rows come with
+// valid false and load nothing.
+template <int C>
+__device__ __forceinline__ void row_narrow(const Bucket& b, int64_t r,
+                                           bool valid, int gl, int lg, int f,
+                                           const float* __restrict__ x,
+                                           float* __restrict__ out,
+                                           const uint8_t* __restrict__ is_split) {
+  float acc[3] = {0.0f, 0.0f, 0.0f};
+  if (valid) {
+    const int64_t s0 = r * b.width + gl * C;
+    const int4* ids = reinterpret_cast<const int4*>(b.nbr + s0);
+    const float4* ws = reinterpret_cast<const float4*>(b.w + s0);
+    int32_t id[C];
+    float wt[C];
+#pragma unroll
+    for (int q = 0; q < C / 4; ++q) {
+      const int4 i4 = __ldg(ids + q);
+      const float4 w4 = __ldg(ws + q);
+      id[4 * q + 0] = i4.x; id[4 * q + 1] = i4.y;
+      id[4 * q + 2] = i4.z; id[4 * q + 3] = i4.w;
+      wt[4 * q + 0] = w4.x; wt[4 * q + 1] = w4.y;
+      wt[4 * q + 2] = w4.z; wt[4 * q + 3] = w4.w;
+    }
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      if (c < f) {
+        float v[C];
+#pragma unroll
+        for (int k = 0; k < C; ++k) {
+          v[k] = __ldg(x + static_cast<int64_t>(id[k]) * f + c);
+        }
+#pragma unroll
+        for (int k = 0; k < C; ++k) acc[c] = fmaf(wt[k], v[k], acc[c]);
+      }
+    }
+  }
+  for (int off = 1; off < (1 << lg); off <<= 1) {
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      if (c < f) acc[c] += __shfl_xor_sync(0xffffffffu, acc[c], off);
+    }
+  }
+  if (!valid || gl != 0) return;
+  const int32_t row = __ldg(b.row_ids + r);
+  const bool split = __ldg(is_split + row) != 0;
+  float* dst = out + static_cast<int64_t>(row) * f;
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    if (c < f) {
+      if (split) {
+        atomicAdd(dst + c, acc[c]);
+      } else {
+        dst[c] = acc[c];
+      }
+    }
+  }
+}
+
+enum Mode { kScalar = 0, kVector = 1, kNarrow = 2 };
+
+// kVector: `lg` is log2 of the lanes per virtual row, `tile_f4` the float4
+// columns of a tile and f4 = F / 4. kNarrow: lanes a row by the bucket's
+// width (narrow_lg), one tile, f = F < 4. kScalar: lg = 5, one tile, f = F.
+template <int kMode>
 __global__ void __launch_bounds__(kThreads)
 ell_spmm_kernel(const __grid_constant__ Table tab,
                 const uint8_t* __restrict__ is_split,
@@ -149,11 +233,25 @@ ell_spmm_kernel(const __grid_constant__ Table tab,
   int i = 0;
   while (i + 1 < tab.n && blk >= tab.b[i + 1].first_block) ++i;
   const Bucket& b = tab.b[i];
+  if constexpr (kMode == kNarrow) {
+    const int nlg = narrow_lg(b.width);
+    const int64_t rn =
+        (static_cast<int64_t>(blk - b.first_block) * kThreads + threadIdx.x) >> nlg;
+    const int gln = threadIdx.x & ((1 << nlg) - 1);
+    const bool valid = rn < b.rows;
+    const int fi = static_cast<int>(f);
+    if (b.width == 4) {
+      row_narrow<4>(b, rn, valid, gln, nlg, fi, x, out, is_split);
+    } else {
+      row_narrow<8>(b, rn, valid, gln, nlg, fi, x, out, is_split);
+    }
+    return;
+  }
   const int64_t r =
       (static_cast<int64_t>(blk - b.first_block) * kThreads + threadIdx.x) >> lg;
   const int gl = threadIdx.x & ((1 << lg) - 1);
   if (r >= b.rows) return;
-  if constexpr (kVec) {
+  if constexpr (kMode == kVector) {
     const int64_t f4 = f >> 2;
     const int64_t col4 = tile * tile_f4 + gl;
     if (gl >= tile_f4 || col4 >= f4) return;
@@ -204,8 +302,10 @@ bool vec_width(int w) {
 // tile_f4 > 0 asks for the vector instantiation with tiles of tile_f4
 // float4 columns (at most 32): it needs f % 4 == 0, every width in
 // {4, 8, 16, 32, 64}, and x, out, nbr[i] and w[i] aligned to 16 bytes.
-// tile_f4 == 0 asks for the scalar instantiation, which takes any f,
-// width and alignment.
+// tile_f4 == -1 asks for the narrow instantiation: it needs f < 4, every
+// width in that list and nbr[i] and w[i] aligned to 16 bytes. tile_f4 == 0
+// asks for the scalar instantiation, which takes any f, width and
+// alignment.
 //
 // The library links its own CUDA runtime, whose current device is not the
 // caller's, so the entry selects `device` before launching. Returns the
@@ -216,14 +316,14 @@ extern "C" int gab_ell_spmm(const void* const* row_ids, const void* const* nbr,
                             const void* is_split, const void* x, void* out,
                             int64_t f, int tile_f4, int device, void* stream) {
   if (n_buckets <= 0 || f <= 0) return 0;
-  if (n_buckets > kMaxBuckets || tile_f4 < 0 || tile_f4 > 32 ||
-      (tile_f4 > 0 && f % 4 != 0)) {
+  if (n_buckets > kMaxBuckets || tile_f4 < -1 || tile_f4 > 32 ||
+      (tile_f4 > 0 && f % 4 != 0) || (tile_f4 < 0 && f >= 4)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const bool vec = tile_f4 > 0;
+  const int mode = tile_f4 > 0 ? kVector : tile_f4 < 0 ? kNarrow : kScalar;
   int lg = 5;
   int64_t tiles = 1;
-  if (vec) {
+  if (mode == kVector) {
     lg = 0;
     while ((1 << lg) < tile_f4) ++lg;
     tiles = (f / 4 + tile_f4 - 1) / tile_f4;
@@ -233,7 +333,8 @@ extern "C" int gab_ell_spmm(const void* const* row_ids, const void* const* nbr,
   tab.n = n_buckets;
   int64_t blocks = 0;
   for (int i = 0; i < n_buckets; ++i) {
-    if (rows[i] <= 0 || widths[i] <= 0 || (vec && !vec_width(widths[i]))) {
+    if (rows[i] <= 0 || widths[i] <= 0 ||
+        (mode != kScalar && !vec_width(widths[i]))) {
       return static_cast<int>(cudaErrorInvalidValue);
     }
     tab.b[i].row_ids = static_cast<const int32_t*>(row_ids[i]);
@@ -245,7 +346,9 @@ extern "C" int gab_ell_spmm(const void* const* row_ids, const void* const* nbr,
       return static_cast<int>(cudaErrorInvalidConfiguration);
     }
     tab.b[i].first_block = static_cast<int32_t>(blocks);
-    blocks += (rows[i] + rows_per_block - 1) / rows_per_block;
+    const int64_t per = mode == kNarrow ? kThreads >> narrow_lg(widths[i])
+                                        : rows_per_block;
+    blocks += (rows[i] + per - 1) / per;
   }
   if (blocks * tiles > 0x7fffffff) {
     return static_cast<int>(cudaErrorInvalidConfiguration);
@@ -258,12 +361,15 @@ extern "C" int gab_ell_spmm(const void* const* row_ids, const void* const* nbr,
   const uint8_t* split = static_cast<const uint8_t*>(is_split);
   const float* xf = static_cast<const float*>(x);
   float* of = static_cast<float*>(out);
-  if (vec) {
-    ell_spmm_kernel<true><<<grid, dim3(kThreads), 0, s>>>(tab, split, xf, of,
-                                                          f, tile_f4, lg);
+  if (mode == kVector) {
+    ell_spmm_kernel<kVector><<<grid, dim3(kThreads), 0, s>>>(
+        tab, split, xf, of, f, tile_f4, lg);
+  } else if (mode == kNarrow) {
+    ell_spmm_kernel<kNarrow><<<grid, dim3(kThreads), 0, s>>>(
+        tab, split, xf, of, f, 0, lg);
   } else {
-    ell_spmm_kernel<false><<<grid, dim3(kThreads), 0, s>>>(tab, split, xf, of,
-                                                           f, 0, lg);
+    ell_spmm_kernel<kScalar><<<grid, dim3(kThreads), 0, s>>>(
+        tab, split, xf, of, f, 0, lg);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -11,6 +11,9 @@ Counterpart of ``graphaibench_tpu/ops/segment.py::neighbor_reduce`` and
 
 with reduce one of min, max and sum, ``vals`` int32 or float32 of shape
 (nv,), and the identity (the int32 extremes, +-inf, 0) on edgeless rows.
+A table may be rectangular (``ops/device_graph.py::local_table``, a rank's
+forward table in ``parallel/``): ``vals`` then has one value per gathered
+row, (n_cols,), and the output one per row of the table, (nv,).
 The per-edge values are float32, with float32 ``vals`` only: an (ne,)
 array, or the per-bucket slot arrays of ``pack_neighbor_edge_vals``, which
 a fixpoint solver packs once per solve instead of once per sweep. They are
@@ -98,9 +101,10 @@ def _edge_slots(g: DeviceGraph, vals: torch.Tensor, edge_vals):
 
 def neighbor_reduce_plain(g: DeviceGraph, vals: torch.Tensor, kind: str,
                           slots: tuple | None = None) -> torch.Tensor:
-    """Per bucket: the slots' gather, the combine with the packed edge
-    values ``slots``, the identity in the pads, the reduction over the
-    slots and the scatter into the identity-filled output."""
+    """Per bucket: the slots' gather from the (n_cols,) ``vals``, the
+    combine with the packed edge values ``slots``, the identity in the
+    pads, the reduction over the slots and the scatter into the
+    identity-filled (nv,) output."""
     ident = identity(kind, vals.dtype)
     out = vals.new_full((g.nv,), ident)
     for i, b in enumerate(g.ell):
@@ -130,7 +134,9 @@ def neighbor_reduce(g: DeviceGraph, vals: torch.Tensor, kind: str,
     for sum); ``edge_vals`` is an (ne,) array or the per-bucket tuple of
     ``pack_neighbor_edge_vals``. N(i) are the row-i neighbours of the
     bucket layout, the out-neighbours: pass the reverse graph for
-    in-neighbour pulls on directed graphs."""
+    in-neighbour pulls on directed graphs. ``vals`` holds a value per
+    gathered row ((g.n_cols,), which is (g.nv,) but in a rectangular
+    table); the result one per row, (g.nv,)."""
     if kind not in KINDS:
         raise ValueError(f"unknown reduction {kind!r}: one of min, max, sum")
     if vals.dtype not in DTYPES:
@@ -138,7 +144,7 @@ def neighbor_reduce(g: DeviceGraph, vals: torch.Tensor, kind: str,
     if not g.has_ell_layout:
         raise ValueError("neighbor_reduce needs the graph's ELL buckets "
                          "(to_device_graph(..., with_ell=True))")
-    dev = _check(g, vectors=(vals,), dtype=vals.dtype)
+    dev = _check(g, gathered=(vals,), dtype=vals.dtype)
     slots = _edge_slots(g, vals, edge_vals)
     if dev.type == "cpu":
         return neighbor_reduce_plain(g, vals, kind, slots)

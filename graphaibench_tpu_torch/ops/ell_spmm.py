@@ -147,12 +147,14 @@ def _ell_spmm_cuda(table: _LaunchTable, x: torch.Tensor) -> torch.Tensor:
     if g.zero_rows.numel():
         out.index_fill_(0, g.zero_rows, 0.0)
     # float4 loads need F % 4 == 0 and 16-byte alignment (a contiguous
-    # view with a storage offset is legal input); the scalar instantiation
-    # of the kernel takes the rest
+    # view with a storage offset is legal input); below F = 4 the narrow
+    # instantiation (a thread a row) takes the aligned tables (-1), the
+    # scalar instantiation (a warp a row) the rest (0)
     vec = (table.vec_ok and f % 4 == 0 and x.data_ptr() % 16 == 0
            and out.data_ptr() % 16 == 0)
     # the budget is for the slice of x a tile gathers from
-    tile_f4 = _tile_floats(g.n_cols, f) // 4 if vec else 0
+    tile_f4 = (_tile_floats(g.n_cols, f) // 4 if vec
+               else -1 if table.vec_ok and f < 4 else 0)
     rc = lib.gab_ell_spmm(
         table.row_ids, table.nbr, table.w, table.rows, table.widths, table.n,
         g.is_split.data_ptr(), x.data_ptr(), out.data_ptr(), f, tile_f4,

@@ -40,6 +40,25 @@ def choose_backend(n: int, device: str) -> str:
     return "nccl" if n <= torch.cuda.device_count() else "gloo"
 
 
+def count_ranks(spec: str, device: str) -> int:
+    """The ranks that ``GAB_SHARDS=<n|auto>`` asks for, in the training
+    and the analytics routes alike: ``auto`` is one rank a visible card
+    on ``cuda`` and one rank on the CPU (gloo ranks may share a card, so
+    a count above the cards is taken as it is). ValueError unless the
+    result is a positive count."""
+    if spec == "auto":
+        n = torch.cuda.device_count() if device == "cuda" else 1
+    else:
+        try:
+            n = int(spec)
+        except ValueError:
+            n = 0
+    if n < 1:
+        raise ValueError(f"GAB_SHARDS must be a positive count or auto, "
+                         f"not {spec!r}")
+    return n
+
+
 def rank_device(rank: int, device: str) -> torch.device:
     """The device of ``rank``: the CPU, or card ``rank`` modulo the
     visible cards (several ranks share a card when there are fewer)."""

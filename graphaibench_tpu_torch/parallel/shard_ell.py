@@ -14,7 +14,11 @@ column (``ops/device_graph.py::local_table``), and:
     per-slot weights packed per table (GCN, SAGE and GGNN aggregation);
   * ``gat_fused_local_v2`` is the fused GAT attention v2
     (``ops/fused_gat.py``) with the transpose table in its backward's
-    transpose role.
+    transpose role;
+  * ``ell_gather_reduce`` and ``ell_gather_reduce_plus``, the pull steps
+    of the distributed analytics (``parallel/dist_analytics.py``), are K8
+    (``csrc/ell_pull.cu``) on the forward table: a min or a sum over the
+    gathered rows, and the min-plus with packed slot weights.
 
 Edge ids are the shard's slot indices [0, e_max), e_max the pad slots'
 sentinel, as in the JAX package. Each rank builds and ships only its own
@@ -38,6 +42,7 @@ from graphaibench_tpu_torch.ops.device_graph import (
     local_table,
     pack_slot_values,
 )
+from graphaibench_tpu_torch.ops.ell_pull import identity, neighbor_reduce
 from graphaibench_tpu_torch.ops.ell_spmm import ell_spmm
 from graphaibench_tpu_torch.ops.fused_gat import gat_attention_spmm_v2
 
@@ -162,3 +167,44 @@ def gat_fused_local_v2(n_out: int, se: ShardEll, sl: torch.Tensor,
     if se.trans is None:
         raise ValueError("gat_fused_local_v2 needs the transpose table")
     return gat_attention_spmm_v2(se.fwd, sl, sr_ext, h_ext, trans=se.trans)
+
+
+def _pull(fwd: DeviceGraph, x_ext: torch.Tensor, n_out: int, kind: str,
+          sentinel: int, packed=None) -> torch.Tensor:
+    if n_out != fwd.nv:
+        raise ValueError(f"n_out {n_out}, the table has {fwd.nv} rows")
+    if sentinel != fwd.ne:
+        raise ValueError(f"sentinel {sentinel}, the table's pad slots are "
+                         f"{fwd.ne}")
+    if not fwd.has_ell_layout:      # a rank without edges: no launch
+        if x_ext.shape != (fwd.n_cols,):
+            raise ValueError(f"x_ext of shape {tuple(x_ext.shape)}, the "
+                             f"table gathers from {fwd.n_cols} rows")
+        return x_ext.new_full((n_out,), identity(kind, x_ext.dtype))
+    return neighbor_reduce(fwd, x_ext, kind, packed)
+
+
+def ell_gather_reduce(fwd: DeviceGraph, x_ext: torch.Tensor, n_out: int,
+                      kind: str, sentinel: int) -> torch.Tensor:
+    """out (n_out,) [r] = reduce over the rank's edges (r -> c) of
+    x_ext[c]: K8 on the forward table ``fwd`` (n_out rows over the
+    gathered rows of the 1-D ``x_ext``, int32 or float32), ``kind`` min,
+    max or sum. Pad slots (edge id ``sentinel``) and rows without edges
+    give the identity: the int32 extremes, +-inf, 0. JAX's float min
+    starts from the largest finite float where K8 starts from +inf; no
+    caller of either package takes a float min without edge values."""
+    return _pull(fwd, x_ext, n_out, kind, sentinel)
+
+
+def ell_gather_reduce_plus(fwd: DeviceGraph, packed, x_ext: torch.Tensor,
+                           n_out: int, kind: str,
+                           sentinel: int) -> torch.Tensor:
+    """out (n_out,) [r] = reduce over the rank's edges (r -> c) of
+    x_ext[c] + w(slot): the min-plus (or max-plus) pull behind the
+    distributed SSSP, K8 with edge values. ``packed`` are the float32 slot
+    weights packed per bucket of ``fwd`` (``pack_shard_values(se, w).fwd``,
+    packed once a solve); ``x_ext`` float32."""
+    if kind not in ("min", "max"):
+        raise ValueError(f"ell_gather_reduce_plus takes min or max, not "
+                         f"{kind!r}")
+    return _pull(fwd, x_ext, n_out, kind, sentinel, packed)

@@ -188,6 +188,25 @@ def test_kernel_matches_plain_on_cuda(graphs):
                                rtol=1e-4, atol=1e-4)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("f", [1, 2, 3, 7])
+def test_narrow_kernel_matches_plain_on_cuda(graphs, f):
+    """K1 below F = 4 (its narrow instantiation, a thread a virtual row)
+    and at F = 7 (its scalar one) against the plain version on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: K1 has no CPU mode")
+    g, _, _ = graphs
+    dg = tdgm.to_device_graph(g, device="cuda")
+    w, x, _ = _inputs(g, f)
+    wp = tdgm.pack_edge_values(dg, torch.from_numpy(w).cuda())
+    xc = torch.from_numpy(x).cuda()
+    before = K1.LAUNCHES
+    out = K1.ell_spmm(dg, wp.fwd, xc)
+    assert K1.LAUNCHES == before + 1
+    torch.testing.assert_close(out, K1.ell_spmm_plain(dg, wp.fwd, xc),
+                               rtol=1e-4, atol=1e-4)
+
+
 # ---- the kernel's design, as far as the CPU reaches it --------------------
 
 ROW_RULE_GRAPHS = {

@@ -7,6 +7,7 @@ card:
 
     python3 tools/sharded_probe.py [--scale 17] [--runs 3] [--steps 10]
     python3 tools/sharded_probe.py --ranks 4     # on a machine with 4 cards
+    python3 tools/sharded_probe.py --ranks 4 --analytics
     python3 tools/sharded_probe.py --sensitivity
 
 For GCN and GAT of chip_smoke.py's main path (2 layers, 128/128/16 on
@@ -37,6 +38,17 @@ holds them, with the launches a step. With ``--ranks N --dp``:
 data-parallel GraphSAINT on N ranks, one a card, the first step's
 averaged gradients held to the serial mean (chip_smoke's ``_tp_dp_dp``).
 Either skips the 1-D run above.
+
+With ``--ranks N --analytics``: the distributed analytics on
+chip_smoke's analytics graph (rmat(19, 16), symmetric; ``--scale`` sets
+another): the solvers of
+chip_smoke's dist_analytics phase at one nccl rank in this process on
+card 0, held to the single-device solvers, then at N ranks spawned one a
+card (nccl), held to the one rank as that phase holds two gloo ranks (the
+same sweep, iteration and level counts), with each rank's set-up and
+solve seconds, launches a solve and peak memory; then ``cli analytics
+<kernel>`` with ``GAB_SHARDS=auto`` for the seven kernels on rmat(13, 8),
+four processes at a time, each of which must print Correct.
 
 With ``--sensitivity`` instead: how far a wrong GAT gradient reads
 against chip_smoke's limits. One ``Model`` run of GAT is the reference;
@@ -214,6 +226,61 @@ def _multi_rank(g, n: int) -> None:
                                f"{r.stderr[-3000:]}")
 
 
+def _analytics_multi_rank(n: int, scale: int) -> None:
+    from graphaibench_tpu_torch.graph.io import save_graph
+    from graphaibench_tpu_torch.ops.device_graph import to_device_graph
+
+    g = rmat(scale, cs.EDGE_FACTOR, seed=0)
+    dg = to_device_graph(g, device="cuda")
+    w = np.random.default_rng(2).uniform(0.1, 2.0, g.ne).astype(np.float32)
+    refs = cs._dist_refs(g, dg, w)
+    del dg
+    card0 = torch.device("cuda", 0)
+    cs.PAR.initialize(0, 1, port=cs.PAR.multihost.free_port(),
+                      backend="nccl", device=card0)
+    try:
+        one = cs._dist_solves(g, w, card0)
+    finally:
+        cs.PAR.multihost.dist.destroy_process_group()
+    one_solves = cs._dist_report("[analytics 1 rank nccl]", one)
+    errs = cs._dist_hold("[analytics 1 rank nccl]", one["solves"], refs)
+    print(json.dumps({"one_rank_against_single_device_max_abs_diff": errs}))
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = cs.PAR.launch(cs._dist_rank, n, g.row_ptr, g.col_idx, w,
+                          device="cuda", timeout_s=900)
+    print(json.dumps({"ranks": n, "launch_s": time.perf_counter() - t0}))
+    for r, res in enumerate(ranks):
+        cs._dist_report(f"[analytics {n} ranks rank {r}]", res)
+    errs = cs._dist_hold(f"[analytics {n} ranks against 1]",
+                         ranks[0]["solves"],
+                         {k: v["result"] for k, v in one["solves"].items()})
+    for name, rec in one_solves.items():
+        counts = {r["solves"][name]["count"] for r in ranks}
+        if counts != {rec["count"]}:
+            raise RuntimeError(f"{name}: counts {counts} at {n} ranks, "
+                               f"{rec['count']} at 1")
+    print(json.dumps({"ranks": n, "transport": ranks[0]["transport"],
+                      "against_one_rank_max_abs_diff": errs}))
+    with tempfile.TemporaryDirectory() as tmp:
+        save_graph(rmat(13, 8, seed=0), tmp)
+        env = dict(os.environ, GAB_SHARDS="auto")
+        kernels = list(cs.CLI_KERNELS)
+        for lo in range(0, len(kernels), 4):
+            procs = {k: subprocess.Popen(
+                [sys.executable, "-m", "graphaibench_tpu_torch.cli",
+                 "analytics", k, tmp, "0"], stdout=subprocess.PIPE,
+                stderr=subprocess.PIPE, text=True, env=env)
+                for k in kernels[lo:lo + 4]}
+            for k, p in procs.items():
+                out, err = p.communicate(timeout=600)
+                print(f"[cli analytics {k} GAB_SHARDS=auto]\n{out}")
+                if (p.returncode != 0 or "Correct" not in out.splitlines()
+                        or f"distributed over {n} rank(s)" not in out):
+                    raise RuntimeError(f"cli analytics {k}: exit "
+                                       f"{p.returncode}\n{err[-3000:]}")
+
+
 def _tp_multi_rank(g, n: int, tps: list[int]) -> None:
     models = cs._tp_models(g)
     for m in tps:
@@ -232,7 +299,9 @@ def _tp_multi_rank(g, n: int, tps: list[int]) -> None:
 
 def main() -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--scale", type=int, default=cs.SCALE)
+    ap.add_argument("--scale", type=int, default=None,
+                    help=f"rmat scale (default {cs.SCALE}; with "
+                         f"--analytics {cs.ANALYTICS_SCALE})")
     ap.add_argument("--runs", type=int, default=3)
     ap.add_argument("--steps", type=int, default=10)
     ap.add_argument("--ranks", type=int, default=0,
@@ -244,6 +313,8 @@ def main() -> None:
                          "comma-separated")
     ap.add_argument("--dp", action="store_true",
                     help="with --ranks: data-parallel GraphSAINT")
+    ap.add_argument("--analytics", action="store_true",
+                    help="with --ranks: the distributed analytics")
     args = ap.parse_args()
     cards = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -257,11 +328,14 @@ def main() -> None:
 
 def _run(args) -> None:
     cs.phase_build()
-    g = rmat(args.scale, cs.EDGE_FACTOR, seed=0)
+    if args.ranks and torch.cuda.device_count() < args.ranks:
+        raise SystemExit(f"--ranks {args.ranks}: "
+                         f"{torch.cuda.device_count()} card(s)")
+    if args.ranks and args.analytics:
+        _analytics_multi_rank(args.ranks, args.scale or cs.ANALYTICS_SCALE)
+        return
+    g = rmat(args.scale or cs.SCALE, cs.EDGE_FACTOR, seed=0)
     if args.ranks:
-        if torch.cuda.device_count() < args.ranks:
-            raise SystemExit(f"--ranks {args.ranks}: "
-                             f"{torch.cuda.device_count()} card(s)")
         if args.tp:
             _tp_multi_rank(g, args.ranks,
                            [int(m) for m in args.tp.split(",")])
