@@ -10,7 +10,7 @@ non-zero exit code and no result line:
 
 1. device  — requires a CUDA device; prints the nvidia-smi name and power
              limit line and torch's device name.
-2. build   — compiles the eight sources of ``graphaibench_tpu_torch/csrc``
+2. build   — compiles the nine sources of ``graphaibench_tpu_torch/csrc``
              (``ell_spmm.cu``: K1; ``fused_gat.cu``: the five passes of
              the fused GAT attention v2; ``ell_edge.cu``: the three passes
              over per-edge values that v1 runs on; ``ell_pull.cu``: K8,
@@ -19,7 +19,8 @@ non-zero exit code and no result line:
              ``kcore_hindex.cu``: K10, k-core's h-index sweep;
              ``cgr_decode.cu``: K12, the four CGR decode passes;
              ``vbyte_decode.cu``: K11, the byte codecs' three decode
-             passes) with nvcc,
+             passes; ``coloring.cu``: K14, coloring's first-fit step) with
+             nvcc,
              side by side, and loads them; prints the build seconds and
              the compiler's register report for each kernel.
 3. kernel  — K1: on rmat(17, 16) with self-loops, for F in {128, 16} and both
@@ -240,13 +241,43 @@ non-zero exit code and no result line:
              tables, against their plain versions behind a NaN-dirtied
              allocator; rank 0's timed beside the bound, the plain version
              and, for the float32 sum and K1, torch.sparse.mm.
-13. result — a JSON line of the nineteen kernels, then the last line
+13. remat  — ``cfg.remat`` (each gconv layer under torch.utils.checkpoint)
+             on rmat17: GCN, GAT (no head) and GGNN at 2 x 128 and SAGE at
+             3 x 256, feat_drop 0.5: for each, the loss and every gradient
+             of one step with remat held to those without it, from one
+             dropout generator state (rtol 1e-4 of each tensor's largest:
+             the recompute's atomics add in another order), and GAT's
+             unfused path at score_drop 0.3 alike, with the spread of two
+             runs without remat beside it; then 3 steps each way, every
+             count set to 0 just before them and read just after: K1 3 and
+             4 a step (GCN), 5 and 8 (SAGE), 1 and 2 (GGNN); GAT's
+             gat_rowmax and gat_v2_fwd 2 and 4, the backward's passes 1
+             each way; each step's host ms and its peak memory over what
+             the model holds, with remat and without.
+14. p15a   — the device analytics solvers on the analytics graph,
+             rmat(19, 16) symmetric: K14 first_fit against its plain
+             version on the solve's first round, on random colours with
+             60% of the rows active and on random colours below 3 (every
+             colour taken), exactly, at rmat19 and at rmat13 behind the
+             NaN-dirtied allocator, timed beside its bound; color, every
+             count set to 0 just before it, valid by coloring_valid, one K14
+             launch a round, with its rounds and seconds; cf_train on
+             seeded ratings, its RMSE falling, one sddmm_dot_ell and one K1
+             launch an iteration, and at rmat16 equal to its CPU run
+             within rtol 1e-4; boruvka_mst's total equal to scipy's minimum
+             spanning tree (and at rmat13 to kruskal_oracle); khop_sample
+             and random_walk, every drawn pair an edge; deepwalk and
+             node2vec at rmat14, finite; knn_search against a float64
+             brute force; ``cli analytics color|cf|sample|embed`` side by
+             side, each Correct on the card.
+15. result — a JSON line of the twenty kernels, then the last line
              {"ok": true, "device": {...}}. Each phase prints its seconds.
 """
 
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import os
 import statistics
@@ -260,9 +291,15 @@ import torch
 
 from graphaibench_tpu_torch import GnnDataset, native, rmat
 from graphaibench_tpu_torch import parallel as PAR
+from graphaibench_tpu_torch.analytics import ann as ANNM
 from graphaibench_tpu_torch.analytics import bc as BCM
 from graphaibench_tpu_torch.analytics import cc as CCM
+from graphaibench_tpu_torch.analytics import cf as CFM
+from graphaibench_tpu_torch.analytics import coloring as COL
+from graphaibench_tpu_torch.analytics import embedding as EMBM
 from graphaibench_tpu_torch.analytics import kcore as KCM
+from graphaibench_tpu_torch.analytics import khop as KHOPM
+from graphaibench_tpu_torch.analytics import mst as MSTM
 from graphaibench_tpu_torch.analytics import pr as PRM
 from graphaibench_tpu_torch.analytics import tc as TCM
 from graphaibench_tpu_torch.analytics import tc_stream as TS
@@ -292,6 +329,7 @@ from graphaibench_tpu_torch.ops import cgr_decode as K12
 from graphaibench_tpu_torch.ops import ell_edge as EE
 from graphaibench_tpu_torch.ops import ell_pull as K8
 from graphaibench_tpu_torch.ops import ell_spmm as K1
+from graphaibench_tpu_torch.ops import first_fit as FF
 from graphaibench_tpu_torch.ops import fused_gat as FG
 from graphaibench_tpu_torch.ops import hindex as K10
 from graphaibench_tpu_torch.ops import math as gmath
@@ -496,6 +534,34 @@ DIST_BC_SOURCE = 0
 DIST_INF = 2**30
 DIST_PR_RTOL, DIST_PR_ATOL = 1e-4, 1e-7
 # the CLI's analytics on each scheme's prefix, decoded on the card
+REMAT_FEAT_DROP = 0.5
+REMAT_SCORE_DROP = 0.3
+REMAT_SAGE_LAYERS, REMAT_SAGE_HIDDEN = 3, 256   # the convergence recipe
+REMAT_STEPS = 3
+# remat gradients against plain, over each tensor's largest: the recompute
+# runs K1 and gat_v2_bwd again, whose atomics add in no fixed order
+REMAT_GRAD_RTOL = 1e-4
+# launches a step, without remat and with it, by arch (held on the CPU by
+# tests/test_torch_remat.py): a remat step runs a layer's forward SpMM or
+# GAT v2 passes again where the backward needs a tensor saved after them
+REMAT_STEP_LAUNCHES = {
+    "gcn": ({"ell_spmm": 3}, {"ell_spmm": 4}),
+    "sage": ({"ell_spmm": 5}, {"ell_spmm": 8}),
+    "ggnn": ({"ell_spmm": 1}, {"ell_spmm": 2}),
+    "gat": ({"gat_rowmax": 2, "gat_v2_fwd": 2, "gat_v2_bwd": 1,
+             "gat_v2_bwd_sl": 1, "gat_v2_bwd_h": 1},
+            {"gat_rowmax": 4, "gat_v2_fwd": 4, "gat_v2_bwd": 1,
+             "gat_v2_bwd_sl": 1, "gat_v2_bwd_h": 1}),
+}
+FIRST_FIT_REPLACES = "graphaibench_tpu/analytics/coloring.py:23"
+CF_CPU_SCALE = 16          # cf_train on the card against the CPU
+CF_RTOL = 1e-4
+WALK_LENGTH = 10
+EMBED_SCALE = 14           # deepwalk and node2vec: 16,384 vertices
+KNN_N, KNN_Q, KNN_K = 100_000, 256, 10
+KNN_GAP = 1e-3             # float64 scores this far apart order alike
+P15A_CLI = (("color",), ("cf",), ("sample",), ("embed", "deepwalk"),
+            ("embed", "node2vec"))
 CLI_DECODED = {"cgr": ("tc", "bfs"), "streamvbyte": ("tc",),
                "varintgb": ("tc", "bfs"), "hybrid": ("tc", "bfs")}
 CLI_SCHEMES = {"cgr": ("-s", "cgr"), "cgr_word_p": ("-s", "cgr", "-a", "word",
@@ -1247,7 +1313,7 @@ def phase_small_trainer() -> None:
 def _zero_counts() -> None:
     K1.LAUNCHES = 0
     for counts in (FG.LAUNCHES, EE.LAUNCHES, K8.LAUNCHES, K9.LAUNCHES,
-                   K10.LAUNCHES, K12.LAUNCHES, K11.LAUNCHES):
+                   K10.LAUNCHES, K12.LAUNCHES, K11.LAUNCHES, FF.LAUNCHES):
         for name in counts:
             counts[name] = 0
 
@@ -1255,7 +1321,7 @@ def _zero_counts() -> None:
 def _counts() -> dict[str, int]:
     return {"ell_spmm": K1.LAUNCHES, **FG.LAUNCHES, **EE.LAUNCHES,
             **K8.LAUNCHES, **K9.LAUNCHES, **K10.LAUNCHES, **K12.LAUNCHES,
-            **K11.LAUNCHES}
+            **K11.LAUNCHES, **FF.LAUNCHES}
 
 
 def _drive(g, cfg, want_train: dict, want_eval: dict):
@@ -1468,8 +1534,8 @@ class _plain_kernels:
     def __enter__(self):
         self.saved = (K1._ell_spmm_cuda, FG.gat_rowmax, FG.gat_v2_fwd,
                       FG.gat_v2_bwd_sl, FG.gat_v2_bwd_h, FG.gat_v2_bwd)
-        K1._ell_spmm_cuda = lambda table, x: K1.ell_spmm_plain(
-            table.graph, table.w_slots, x)
+        K1._ell_spmm_cuda = lambda table, w_slots, x: K1.ell_spmm_plain(
+            table.graph, w_slots, x)
         FG.gat_rowmax = FG.gat_rowmax_plain
         FG.gat_v2_fwd = FG.gat_v2_fwd_plain
         FG.gat_v2_bwd_sl = FG.gat_v2_bwd_sl_plain
@@ -4147,6 +4213,379 @@ def phase_dist_analytics(g, dg) -> dict:
     return {"one_rank": one_solves, "two_ranks": two, **kernels}
 
 
+# ---- the remat phase --------------------------------------------------------
+
+def remat_configs() -> dict:
+    """The remat phase's models (``cfg.remat`` off; the phase turns it on):
+    the main phase's GCN, GAT (no head) and GGNN at 2 x 128, and SAGE at the
+    convergence recipe's 3 x 256, each at feat_drop REMAT_FEAT_DROP."""
+    kw = dict(lr=0.01, feat_drop=REMAT_FEAT_DROP)
+    return {
+        "gcn": make_config("gcn", 2, FEAT, HIDDEN, CLASSES, **kw),
+        "gat": make_config("gat", GAT_LAYERS, FEAT, HIDDEN, CLASSES,
+                           use_l2norm=False, use_dense=False, **kw),
+        "sage": make_config("sage", REMAT_SAGE_LAYERS, FEAT,
+                            REMAT_SAGE_HIDDEN, CLASSES, **kw),
+        "ggnn": make_config("ggnn", 1, FEAT, HIDDEN, CLASSES, **kw),
+    }
+
+
+def _remat_grads(model, seed: int) -> tuple[float, dict]:
+    """One forward with dropout drawn from a fresh generator seeded with
+    ``seed`` and the backward: (reported loss, {name: gradient})."""
+    model.params.zero_grad()
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    b = model.training
+    logits = apply_model(model.cfg, model.params, b.device, b.edge_w_agg,
+                         model.feats, train=True, generator=gen,
+                         trivial_w=True)
+    begin, end, _ = model.ranges["train"]
+    lg, rep, _ = masked_softmax_loss(logits, model.labels, begin, end,
+                                     model.masks["train"])
+    lg.backward()
+    return float(rep.detach()), {
+        n: p.grad.clone() if p.grad is not None else torch.zeros_like(p)
+        for n, p in model.params.named_parameters()}
+
+
+def _grads_err(a: dict, b: dict) -> float:
+    """The largest |a - b| over the gradients, each over the largest
+    |b| of its tensor (at least 1e-30)."""
+    return max(float((a[n] - b[n]).abs().max())
+               / max(float(b[n].abs().max()), 1e-30) for n in b)
+
+
+def phase_remat(g) -> dict:
+    """``cfg.remat`` on rmat17: for each model of ``remat_configs``, with
+    remat off and on, one loss and its gradients at feat_drop 0.5 (and
+    GAT's unfused path at score_drop 0.3) from one generator state, the
+    remat gradients held to the plain ones; then REMAT_STEPS steps, every
+    count set to 0 just before them and read just after, each kernel
+    launched as ``REMAT_STEP_LAUNCHES`` says a step, with the step's
+    median host ms and its peak memory over what the model holds. Returns
+    each arch's launches a step and peaks."""
+    ds = _dataset(g, FEAT, CLASSES)
+    out = {}
+    for arch, cfg in remat_configs().items():
+        tag = f"[remat {arch}]"
+        grads, info = {}, {}
+        cases = [(cfg, "feat_drop")]
+        if arch == "gat":
+            cases.append((dataclasses.replace(cfg, score_drop=REMAT_SCORE_DROP),
+                          "score_drop"))
+        for c, what in cases:
+            for remat in (False, True, False):
+                model = Model(dataclasses.replace(c, remat=remat), ds,
+                              device="cuda")
+                grads.setdefault(what, []).append(_remat_grads(model, 5))
+                del model
+            (l0, g0), (l1, g1), (l2, g2) = grads[what]
+            err, spread = _grads_err(g1, g0), _grads_err(g2, g0)
+            if abs(l1 - l0) > REMAT_GRAD_RTOL * abs(l0) or err > REMAT_GRAD_RTOL:
+                raise RuntimeError(f"{tag} {what}: remat loss {l1} against "
+                                   f"{l0}, gradients off by {err:.3e} of "
+                                   f"their largest (limit {REMAT_GRAD_RTOL})")
+            info[f"{what}_grad_err"] = err
+            info[f"{what}_grad_spread_of_two_plain_runs"] = spread
+        want = REMAT_STEP_LAUNCHES[arch]
+        for remat in (False, True):
+            model = Model(dataclasses.replace(cfg, remat=remat), ds,
+                          device="cuda")
+            model.train_epoch()                       # warm
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            _zero_counts()
+            log = model.train(REMAT_STEPS, verbose=False)
+            counts = _counts()
+            peak = torch.cuda.max_memory_allocated() - base
+            _assert_counts(f"{tag} remat={remat}", counts,
+                           {k: REMAT_STEPS * v
+                            for k, v in want[int(remat)].items()})
+            losses = [l for l, _, _ in log]
+            if not all(np.isfinite(losses)):
+                raise RuntimeError(f"{tag} non-finite loss: {losses}")
+            key = "remat" if remat else "plain"
+            info[f"{key}_launches_per_step"] = want[int(remat)]
+            info[f"{key}_peak_gib_over_model"] = peak / 2**30
+            info[f"{key}_step_ms_median"] = statistics.median(
+                dt for _, _, dt in log) * 1e3
+            del model
+        print(f"{tag} {json.dumps(info)}")
+        out[arch] = info
+    return out
+
+
+# ---- the p15a phase ----------------------------------------------------------
+
+def _first_fit_bound(g) -> tuple[float, str, int]:
+    """The least time the card could take for one first-fit round with
+    every row active, in ms, what bounds it, and the bytes: the row
+    pointers, ids, colours and active flags read once, the colours
+    written once; against one compare an id over the float32 rate."""
+    nbytes = 4 * (g.nv + 1) + 4 * g.ne + 4 * g.nv + g.nv + 4 * g.nv
+    return _bound_of(nbytes, g.ne)
+
+
+def _first_fit_states(dg, seed: int):
+    """(name, colours, active, max_colors) of three rounds: the solve's
+    first (every row active, all colours 0), random colours below the
+    default max_colors on 60% of the rows, and random colours below 3
+    (most rows with every colour taken)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    mc = int(dg.deg.max()) + 2
+    nv = dg.nv
+    zeros = torch.zeros(nv, dtype=torch.int32, device="cuda")
+    act = torch.rand(nv, generator=gen, device="cuda") < 0.6
+    return [("first round", zeros, torch.ones_like(act), mc),
+            ("random", torch.randint(0, mc, (nv,), generator=gen,
+                                     device="cuda", dtype=torch.int32), act, mc),
+            ("max_colors 3", torch.randint(0, 3, (nv,), generator=gen,
+                                           device="cuda", dtype=torch.int32),
+             act, 3)]
+
+
+def _first_fit_compare(dg, tag: str, dirty: bool) -> None:
+    for name, colors, active, mc in _first_fit_states(dg, 3):
+        if dirty:
+            _dirty(dg.nv)
+        got = FF.first_fit(dg, colors, active, mc)
+        want = FF.first_fit_plain(dg, colors, active, mc)
+        if not torch.equal(got, want):
+            raise RuntimeError(f"[p15a] first_fit {tag} {name}: "
+                               f"{int((got != want).sum())} rows differ")
+
+
+def _p15a_color(g, dg) -> dict:
+    """K14 against first_fit_plain at the analytics size and at rmat13
+    behind the dirtied allocator, timed beside its bound; ``color`` held to
+    ``coloring_valid``, its K14 launches to the rounds it reports (one
+    launch a round), and its seconds."""
+    _first_fit_compare(dg, f"rmat{ANALYTICS_SCALE}", False)
+    small = rmat(PULL_DIRTY_SCALE, EDGE_FACTOR, seed=0)
+    _first_fit_compare(to_device_graph(small, device="cuda",
+                                       with_transpose=False, with_ell=False),
+                       f"rmat{PULL_DIRTY_SCALE}", True)
+    _zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    colors, rounds = COL.color(dg, return_rounds=True)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    _assert_counts("[p15a] color", _counts(), {"first_fit": rounds})
+    colors_np = colors.cpu().numpy()
+    if rounds < 1 or not verifiers.coloring_valid(g, colors_np):
+        raise RuntimeError(f"[p15a] color: an invalid colouring after "
+                           f"{rounds} rounds")
+    _, zeros, ones, mc = _first_fit_states(dg, 3)[0]
+    bound_ms, bound_by, nbytes = _first_fit_bound(dg)
+    info = {
+        "rounds": rounds, "num_colors": int(len(np.unique(colors_np))),
+        "first_solve_s": first_s,
+        "warm_s_per_solve": _solve_seconds(lambda: COL.color(dg)),
+        "hubs": int(FF._hubs(dg).numel()),
+        "ms": _batch_ms(lambda: FF.first_fit(dg, zeros, ones, mc)),
+        "device_ms": _kernel_device_ms(
+            lambda: FF.first_fit(dg, zeros, ones, mc), "first_fit_kernel"),
+        "plain_ms": _batch_ms(lambda: FF.first_fit_plain(dg, zeros, ones, mc),
+                              calls=1, batches=3),
+        "bound_ms": bound_ms, "bound_by": bound_by, "bound_bytes": nbytes}
+    info["share_of_bound"] = bound_ms / info["ms"]
+    print(f"[p15a] color {json.dumps(info)}")
+    return dict(info, launches=rounds, max_abs_err=0)
+
+
+def _p15a_cf(g) -> dict:
+    """cf_train on seeded ratings at the analytics size: the RMSE falls,
+    one sddmm_dot_ell and one K1 launch an iteration; at rmat16 equal to
+    its CPU run (plain versions) within CF_RTOL."""
+    ratings = np.random.default_rng(7).integers(1, 6, g.ne).astype(np.float32)
+    _zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, hist = CFM.cf_train(g, ratings, device="cuda")
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = _counts()
+    _assert_counts("[p15a] cf_train", launches,
+                   {"sddmm_dot_ell": len(hist), "ell_spmm": len(hist)})
+    if not hist[-1] < hist[0]:
+        raise RuntimeError(f"[p15a] cf_train: RMSE did not fall: {hist}")
+    small = rmat(CF_CPU_SCALE, EDGE_FACTOR, seed=1)
+    r = np.random.default_rng(8).integers(1, 6, small.ne).astype(np.float32)
+    lat_g, hist_g = CFM.cf_train(small, r, device="cuda")
+    lat_c, hist_c = CFM.cf_train(small, r, device="cpu")
+    lat_err = float(np.abs(lat_g - lat_c).max() / np.abs(lat_c).max())
+    hist_err = float(np.max(np.abs(np.subtract(hist_g, hist_c))
+                            / np.abs(hist_c)))
+    if lat_err > CF_RTOL or hist_err > CF_RTOL:
+        raise RuntimeError(f"[p15a] cf_train rmat{CF_CPU_SCALE}: the card "
+                           f"against the CPU, latents {lat_err:.3e}, RMSE "
+                           f"{hist_err:.3e} (limit {CF_RTOL})")
+    info = {"rmse": hist, "s_per_solve": dt, "launches_per_solve": launches,
+            f"rmat{CF_CPU_SCALE}_latents_err": lat_err,
+            f"rmat{CF_CPU_SCALE}_rmse_err": hist_err}
+    print(f"[p15a] cf {json.dumps(info)}")
+    return info
+
+
+def _undirected_weights(g, seed: int) -> np.ndarray:
+    """One weight in [0.5, 1.5) an undirected edge, both directions alike."""
+    src, dst = g.coo()
+    key = np.minimum(src, dst).astype(np.int64) * g.nv + np.maximum(src, dst)
+    uniq, inv = np.unique(key, return_inverse=True)
+    w = np.random.default_rng(seed).random(len(uniq)) + 0.5
+    return w[inv.reshape(-1)]
+
+
+def _p15a_mst(g) -> dict:
+    """boruvka_mst's total at the analytics size against scipy's minimum
+    spanning tree (float64), and at rmat13 against kruskal_oracle."""
+    from scipy.sparse import csr_matrix
+    from scipy.sparse.csgraph import minimum_spanning_tree
+
+    w = _undirected_weights(g, 2)
+    t0 = time.perf_counter()
+    ids, total = MSTM.boruvka_mst(g, w, device="cuda")
+    dt = time.perf_counter() - t0
+    want = float(minimum_spanning_tree(csr_matrix(
+        (w, g.col_idx, g.row_ptr), shape=(g.nv, g.nv))).sum())
+    if abs(total - want) > 1e-9 * want:
+        raise RuntimeError(f"[p15a] boruvka_mst total {total}, scipy {want}")
+    small = rmat(PULL_DIRTY_SCALE, EDGE_FACTOR, seed=0)
+    ws = _undirected_weights(small, 3)
+    _, small_total = MSTM.boruvka_mst(small, ws, device="cuda")
+    oracle = MSTM.kruskal_oracle(small, ws)
+    if abs(small_total - oracle) > 1e-9 * oracle:
+        raise RuntimeError(f"[p15a] boruvka_mst rmat{PULL_DIRTY_SCALE} "
+                           f"total {small_total}, kruskal {oracle}")
+    info = {"edges": len(ids), "total": total, "scipy": want, "s": dt,
+            f"rmat{PULL_DIRTY_SCALE}_total": small_total}
+    print(f"[p15a] boruvka_mst {json.dumps(info)}")
+    return info
+
+
+def _are_edges(g, src, dst) -> bool:
+    """Every (src, dst) an edge of g (whose rows are sorted), or a
+    self-edge at a vertex without neighbours."""
+    src, dst = np.asarray(src, np.int64), np.asarray(dst, np.int64)
+    s, d = g.coo()
+    keys = s.astype(np.int64) * g.nv + d
+    q = src * g.nv + dst
+    pos = np.clip(np.searchsorted(keys, q), 0, max(len(keys) - 1, 0))
+    hit = keys[pos] == q if len(keys) else np.zeros(len(q), bool)
+    stall = (src == dst) & (g.degrees()[src] == 0)
+    return bool((hit | stall).all())
+
+
+def _p15a_walks(g) -> dict:
+    """khop_sample and random_walk at the analytics size: every sampled and
+    walked edge an edge; then deepwalk and node2vec at EMBED_SCALE, their
+    embeddings finite."""
+    seeds = np.arange(64)
+    t0 = time.perf_counter()
+    hops = KHOPM.khop_sample(g, seeds, device="cuda")
+    sample_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    walks = KHOPM.random_walk(g, np.arange(g.nv), WALK_LENGTH, device="cuda")
+    walk_s = time.perf_counter() - t0
+    if not all(_are_edges(g, s, d) for s, d in hops):
+        raise RuntimeError("[p15a] khop_sample drew a pair that is no edge")
+    if not _are_edges(g, walks[:, :-1].ravel(), walks[:, 1:].ravel()):
+        raise RuntimeError("[p15a] random_walk took a step along no edge")
+    eg = rmat(EMBED_SCALE, EDGE_FACTOR, seed=0)
+    emb_s = {}
+    for name, fn in (("deepwalk", EMBM.deepwalk), ("node2vec", EMBM.node2vec)):
+        t0 = time.perf_counter()
+        emb = (fn(eg, device="cuda") if name == "deepwalk"
+               else fn(eg, p=0.5, q=2.0, device="cuda"))
+        emb_s[name] = time.perf_counter() - t0
+        if emb.shape != (eg.nv, 64) or not np.isfinite(emb).all():
+            raise RuntimeError(f"[p15a] {name} rmat{EMBED_SCALE}: embeddings "
+                               f"of shape {emb.shape}, finite "
+                               f"{bool(np.isfinite(emb).all())}")
+    info = {"sampled_edges_per_hop": [len(s) for s, _ in hops],
+            "sample_s": sample_s, "walks": list(walks.shape),
+            "walk_s": walk_s, f"rmat{EMBED_SCALE}_embed_s": emb_s}
+    print(f"[p15a] walks {json.dumps(info)}")
+    return info
+
+
+def _p15a_knn() -> dict:
+    """knn_search against a float64 brute force on random embeddings: the
+    indices of every query whose float64 top k + 1 scores lie at least
+    KNN_GAP apart, and the scores within KNN_GAP."""
+    rng = np.random.default_rng(4)
+    x = rng.standard_normal((KNN_N, 64)).astype(np.float32)
+    q = rng.standard_normal((KNN_Q, 64)).astype(np.float32)
+    t0 = time.perf_counter()
+    idx, scores = ANNM.knn_search(x, q, KNN_K, device="cuda")
+    dt = time.perf_counter() - t0
+    x64, q64 = x.astype(np.float64), q.astype(np.float64)
+    ref = 2.0 * (q64 @ x64.T) - (x64 * x64).sum(1)[None, :]
+    order = np.argsort(-ref, axis=1)[:, :KNN_K + 1]
+    top = np.take_along_axis(ref, order, 1)
+    clear = (np.diff(-top, axis=1) >= KNN_GAP).all(1)
+    if clear.mean() < 0.5:
+        raise RuntimeError(f"[p15a] knn: only {clear.sum()} queries without "
+                           "near ties")
+    if not np.array_equal(idx[clear], order[clear, :KNN_K]):
+        raise RuntimeError("[p15a] knn_search indices differ from float64")
+    err = float(np.abs(scores - top[:, :KNN_K]).max())
+    if err > KNN_GAP:
+        raise RuntimeError(f"[p15a] knn_search scores off by {err}")
+    info = {"n": KNN_N, "queries": KNN_Q, "k": KNN_K,
+            "queries_checked": int(clear.sum()), "score_err": err, "s": dt}
+    print(f"[p15a] knn {json.dumps(info)}")
+    return info
+
+
+def _p15a_cli() -> None:
+    """``cli analytics color|cf|sample|embed <dir>`` side by side, without
+    --device, on a dataset written by save_graph: each prints ``device =
+    cuda`` and ``Correct`` and exits 0."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = {k: v for k, v in os.environ.items() if k != "GAB_SHARDS"}
+    cli = [sys.executable, "-m", "graphaibench_tpu_torch.cli"]
+    with tempfile.TemporaryDirectory() as tmp:
+        save_graph(rmat(PULL_DIRTY_SCALE, CLI_EDGE_FACTOR, seed=0), tmp)
+        t0 = time.perf_counter()
+        outs = _run_cli(cli, root, env, [["analytics", a[0], tmp, *a[1:]]
+                                         for a in P15A_CLI])
+        dt = time.perf_counter() - t0
+    for args, (rc, out, err) in zip(P15A_CLI, outs):
+        lines = out.splitlines()
+        if rc != 0 or "device = cuda" not in lines or "Correct" not in lines:
+            raise RuntimeError(f"cli analytics {' '.join(args)}: exit {rc}"
+                               f"\n{out}\n{err[-3000:]}")
+        runtime = next(l for l in lines if l.startswith("runtime"))
+        print(f"[p15a] cli analytics {' '.join(args)}: device = cuda, "
+              f"Correct, {runtime}")
+    print(f"[p15a] the {len(P15A_CLI)} CLI runs side by side in {dt:.2f} s")
+
+
+def phase_p15a(g, dg) -> dict:
+    """P15a's solvers on the analytics graph (``color``'s, ``cf_train``'s,
+    ``boruvka_mst``'s, the samplers' and ``knn_search``'s checks above) and
+    their CLI routes. Returns K14's entry data and CF's launches."""
+    t0 = time.perf_counter()
+
+    def step(name, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        print(f"[p15a] {name} took {time.perf_counter() - t:.2f} s")
+        return out
+
+    color = step("color", _p15a_color, g, dg)
+    cf = step("cf", _p15a_cf, g)
+    step("boruvka_mst", _p15a_mst, g)
+    step("walks", _p15a_walks, g)
+    step("knn", _p15a_knn)
+    step("cli", _p15a_cli)
+    print(f"[p15a] phase took {time.perf_counter() - t0:.2f} s")
+    return {"first_fit": color, "cf_launches": cf["launches_per_solve"]}
+
+
 def _timed(name: str, fn, *args):
     """fn(*args), with its seconds printed."""
     t0 = time.perf_counter()
@@ -4183,6 +4622,15 @@ def main() -> None:
     sharded = _timed("sharded", phase_sharded, g)
     tp_dp = _timed("tp_dp", phase_tp_dp, g)
     dist = _timed("dist_analytics", phase_dist_analytics, ag, adg)
+    remat = _timed("remat", phase_remat, g)
+    p15a = _timed("p15a", phase_p15a, ag, adg)
+
+    def remat_launches(kname):
+        """A kernel's launches a step of the remat phase, without remat and
+        with it, by arch."""
+        return {arch: [r[f"{k}_launches_per_step"].get(kname, 0)
+                       for k in ("plain", "remat")]
+                for arch, r in remat.items()}
 
     def dist_launches(kname):
         """A kernel's launches a solve of the distributed solvers: at one
@@ -4234,6 +4682,8 @@ def main() -> None:
         "sharded": sharded_launches("ell_spmm"),
         "dist_analytics": dict(dist_launches("ell_spmm"),
                                f1_cases=dist["ell_spmm"]["cases"]),
+        "remat_per_step": remat_launches("ell_spmm"),
+        "cf_per_solve": p15a["cf_launches"]["ell_spmm"],
     }]
     for kname, line in GAT_KERNELS.items():
         res = gat_kernels[kname]
@@ -4253,6 +4703,7 @@ def main() -> None:
             "library_ms": None,
             "cases": res["cases"],
             "sharded": sharded_launches(kname),
+            "remat_per_step": remat_launches(kname),
         })
     for kname, replaces in EDGE_KERNELS.items():
         res = edge_kernels[kname]
@@ -4272,6 +4723,8 @@ def main() -> None:
             "bound_by": head["bound_by"],
             "library_ms": head["library_ms"],
             "cases": res["cases"],
+            **({"cf_per_solve": p15a["cf_launches"][kname]}
+               if kname == "sddmm_dot_ell" else {}),
         })
     head = next(c for c in pull["cases"] if c["case"] == PULL_HEAD)
     kernels.append({
@@ -4334,6 +4787,22 @@ def main() -> None:
             **({"cases": [res, k12["cases"][f"{kname}_hybrid"]]}
                if kname in ("svb_decode", "cgr_residual") else {}),
         })
+    res = p15a["first_fit"]
+    kernels.append({
+        "name": "first_fit",
+        "route": "cuda",
+        "source": "graphaibench_tpu_torch/csrc/coloring.cu",
+        "replaces": FIRST_FIT_REPLACES,
+        "launches": res["launches"],
+        "max_abs_err": res["max_abs_err"],
+        "ms": res["ms"],
+        "plain_ms": res["plain_ms"],
+        "bound_ms": res["bound_ms"],
+        "bound_by": res["bound_by"],
+        # no PyTorch call takes a row's smallest absent value
+        "library_ms": None,
+        "device_ms": res["device_ms"],
+    })
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

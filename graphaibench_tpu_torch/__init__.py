@@ -19,13 +19,15 @@ graph CSR container, transforms, generators, dataset readers
 ops   device graph (degree-bucketed ELL), the kernels (CUDA C++ in
       ``csrc/``: the ELL SpMM, the fused GAT attention's passes, the
       passes over per-edge values, the analytics' neighbour reduction,
-      the triangle count, the h-index sweep, the CGR decode) with their
-      plain PyTorch versions, SpMM and attention autograd, segment ops,
-      math
+      the triangle count, the h-index sweep, the CGR and byte-codec
+      decodes, coloring's first fit) with their plain PyTorch versions,
+      SpMM and attention autograd, segment ops, math
 nn    layers of the four architectures, losses, the reference's
       optimizers, the GraphSAINT sampler, the training Model
 analytics  the solvers (BFS, SSSP, PageRank, CC, triangles, k-core,
-      betweenness; triangles and BFS also streamed off a CGR stream) with
+      betweenness; triangles and BFS also streamed off a CGR stream;
+      coloring, collaborative filtering, Boruvka's spanning forest, k-hop
+      sampling and random walks, DeepWalk and node2vec, kNN search) with
       their serial verifiers and ``run_benchmark``
 compress  the compressed-graph codecs (CGR, StreamVByte, VarintGB,
       hybrid), their files, and CGR's decode on the device

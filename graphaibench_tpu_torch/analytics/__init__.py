@@ -15,9 +15,13 @@ the stream's shape (a hybrid of VarintGB chunks, for one). With
 ``GAB_TC_STREAM=1`` the triangles of a CGR prefix are counted block by
 block off the stream (``tc_stream.py``). ``GAB_SHARDS=<n|auto>`` runs the
 distributed solvers (``parallel/dist_analytics.py``) on n ranks spawned on
-this host, the graph vertex-sharded over them (``_run_distributed``). The
-other solvers (ROADMAP P15) are not ported yet: asked for,
-``run_benchmark`` exits with code 2 and names the item.
+this host, the graph vertex-sharded over them (``_run_distributed``).
+Coloring runs on the kernel ``first_fit`` (``ops/first_fit.py``);
+collaborative filtering on ``sddmm_dot_ell`` and K1; Borůvka's spanning
+forest, k-hop sampling, random walks, DeepWalk, node2vec and kNN search in
+plain PyTorch on the device. The pattern solvers (motif, FSM; ROADMAP P15b)
+are not ported yet: asked for, ``run_benchmark`` exits with code 2 and
+names the item.
 """
 
 from __future__ import annotations
@@ -29,6 +33,7 @@ import time
 import numpy as np
 
 from graphaibench_tpu_torch.analytics import verifiers  # noqa: F401
+from graphaibench_tpu_torch.analytics.ann import knn_search  # noqa: F401
 from graphaibench_tpu_torch.analytics.bc import (  # noqa: F401
     bc_single_source,
     betweenness_centrality,
@@ -37,11 +42,22 @@ from graphaibench_tpu_torch.analytics.cc import (  # noqa: F401
     connected_components,
     connected_components_afforest,
 )
+from graphaibench_tpu_torch.analytics.cf import cf_train  # noqa: F401
+from graphaibench_tpu_torch.analytics.coloring import color  # noqa: F401
+from graphaibench_tpu_torch.analytics.embedding import (  # noqa: F401
+    deepwalk,
+    node2vec,
+)
 from graphaibench_tpu_torch.analytics.kcore import (  # noqa: F401
     k_core,
     k_core_hindex,
     k_core_peel,
 )
+from graphaibench_tpu_torch.analytics.khop import (  # noqa: F401
+    khop_sample,
+    random_walk,
+)
+from graphaibench_tpu_torch.analytics.mst import boruvka_mst  # noqa: F401
 from graphaibench_tpu_torch.analytics.pr import pagerank  # noqa: F401
 from graphaibench_tpu_torch.analytics.tc import triangle_count  # noqa: F401
 from graphaibench_tpu_torch.analytics.tc_stream import (  # noqa: F401
@@ -56,11 +72,14 @@ from graphaibench_tpu_torch.analytics.traversal import (  # noqa: F401
     sssp_delta_stepping,
 )
 
-PORTED = ("tc", "bfs", "sssp", "pr", "cc", "bc", "kcore")
+PORTED = ("tc", "bfs", "sssp", "pr", "cc", "bc", "kcore", "color", "cf",
+          "embed", "sample")
 # the JAX package's other analytics kernels, by the ROADMAP item that ports
 # them
-NOT_PORTED = dict.fromkeys(
-    ("color", "cf", "motif", "fsm", "embed", "sample"), "P15")
+NOT_PORTED = dict.fromkeys(("motif", "fsm"), "P15b")
+DISTRIBUTED = ("tc", "bfs", "sssp", "pr", "cc", "bc", "kcore")
+# the pull-mode solvers, which take the ELL pull route on symmetric graphs
+PULL = ("bfs", "sssp", "pr", "cc", "bc", "kcore")
 
 
 def _refuse(msg: str) -> int:
@@ -258,10 +277,10 @@ def run_benchmark(kernel: str, dataset_path: str, args: list[str], *,
         if isinstance(g, int):
             return g
     else:
-        g = load_graph(dataset_path)
+        g = load_graph(dataset_path, with_elabels=(kernel == "cf"))
     print(f"|V| {g.nv} |E| {g.ne}")
     shards = os.environ.get("GAB_SHARDS", "")
-    if shards:
+    if shards and kernel in DISTRIBUTED:
         # cc, kcore and bc pull over in-edges and are right on symmetric
         # graphs only: directed inputs stay on the single-device push
         # route, as the pull_ok gate below keeps them
@@ -273,10 +292,10 @@ def run_benchmark(kernel: str, dataset_path: str, args: list[str], *,
     # pull-mode frontier kernels (neighbor_reduce over row buckets) assume
     # a structurally symmetric graph; directed inputs keep the scatter push
     # formulation, which stays correct
-    pull_ok = kernel != "tc" and is_symmetric(g)
-    if kernel != "tc" and not pull_ok:
+    pull_ok = kernel in PULL and is_symmetric(g)
+    if kernel in PULL and not pull_ok:
         print("directed input: push/scatter kernels (no pull ELL)")
-    source = int(args[0]) if args else 0
+    source = int(args[0]) if args and kernel in PULL else 0
     t0 = time.perf_counter()
     ok = None
 
@@ -332,7 +351,7 @@ def run_benchmark(kernel: str, dataset_path: str, args: list[str], *,
         scores = bc_single_source(dg, source).cpu().numpy()
         dt = time.perf_counter() - t0
         ok = np.allclose(scores, verifiers.bc_serial(g, [source]), rtol=1e-4)
-    else:  # kcore
+    elif kernel == "kcore":
         if pull_ok:
             # the h-index fixpoint
             core = k_core(None, host=g, device=device).cpu().numpy()
@@ -343,6 +362,32 @@ def run_benchmark(kernel: str, dataset_path: str, args: list[str], *,
         dt = time.perf_counter() - t0
         print(f"max_coreness = {core.max()}")
         ok = np.array_equal(core, verifiers.kcore_serial(g))
+    elif kernel == "color":
+        dg = to_device_graph(g, device=device, with_transpose=False,
+                             with_ell=False)
+        colors = color(dg).cpu().numpy()
+        dt = time.perf_counter() - t0
+        print(f"num_colors = {len(np.unique(colors))}")
+        ok = verifiers.coloring_valid(g, colors)
+    elif kernel == "cf":
+        lat, hist = cf_train(g, _edge_weights(g), device=device)
+        dt = time.perf_counter() - t0
+        print("RMSE history:", " ".join(f"{h:.4f}" for h in hist))
+        ok = hist[-1] <= hist[0]
+    elif kernel == "embed":
+        algo = args[0] if args else "deepwalk"
+        dim = int(args[1]) if len(args) > 1 else 64
+        fn = node2vec if algo == "node2vec" else deepwalk
+        emb = fn(g, dim=dim, device=device)
+        dt = time.perf_counter() - t0
+        print(f"{algo} embeddings {emb.shape}, mean norm "
+              f"{np.linalg.norm(emb, axis=1).mean():.4f}")
+        ok = bool(np.isfinite(emb).all())
+    else:  # sample
+        hops = khop_sample(g, np.arange(min(64, g.nv)), device=device)
+        dt = time.perf_counter() - t0
+        print("sampled edges per hop:", [len(s) for s, _ in hops])
+        ok = True
 
     print(f"runtime = {dt:.4f} sec")
     if ok is None:      # a triangle count above the serial check's size

@@ -31,13 +31,15 @@ directories, byte-equal), on the host.
 ``python -m graphaibench_tpu_torch.cli analytics
 tc|bfs|sssp|pr|cc|bc|kcore <dataset> [source] [--device=cuda|cpu]`` runs the
 JAX CLI's ``analytics`` route for those solvers (``analytics.run_benchmark``),
-with the same default device and no fallback; a compressed-graph prefix
+with the same default device and no fallback, and so do ``analytics
+color|cf|sample <dataset>`` and ``analytics embed <dataset>
+[deepwalk|node2vec] [dim]``; a compressed-graph prefix
 decodes on that device (``GAB_TC_STREAM=1`` counts triangles off a CGR
 stream); ``GAB_SHARDS=<n|auto>`` runs the distributed solvers
 (``parallel/dist_analytics.py``) on n ranks counted as for training, rank
 0 printing the JAX CLI's lines (``cc``, ``bc`` and ``kcore`` on a directed
-graph run single-device, as in the JAX CLI); the other analytics kernels
-exit with code 2 and name their ROADMAP item.
+graph run single-device, as in the JAX CLI); ``motif`` and ``fsm`` exit
+with code 2 and name their ROADMAP item.
 
 ``python -m graphaibench_tpu_torch.cli info <dataset>`` prints the JAX
 CLI's ``info`` lines (sizes, degrees, labels, mask ranges, a pow2 degree
@@ -79,7 +81,8 @@ def resolve_dataset(name: str) -> str:
 
 ANALYTICS_USAGE = ("usage: analytics tc|bfs|sssp|pr|cc|bc|kcore <dataset> "
                    "[source=0] [--device=cuda|cpu] (GAB_SHARDS=<n|auto> "
-                   "runs it on n ranks)")
+                   "runs it on n ranks); analytics color|cf|sample <dataset>; "
+                   "analytics embed <dataset> [deepwalk|node2vec] [dim=64]")
 
 
 def _refuse(msg: str) -> int:

@@ -20,6 +20,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.utils.checkpoint
 from torch import nn
 
 from graphaibench_tpu_torch.ops import math as gmath
@@ -288,6 +289,34 @@ _LAYER_FWD = {
 }
 
 
+def _remat_layer(fwd, p: _GConv, dg, edge_w, h, *, generator, **kw):
+    """One gconv layer under ``torch.utils.checkpoint``: its activations are
+    dropped after the forward and recomputed in the backward, as JAX's
+    ``jax.checkpoint`` of the layer (graphaibench_tpu/nn/layers.py:247-251).
+
+    The checkpoint restores only the global RNGs, and the layer's dropout
+    masks come from ``generator``. So the layer draws from a generator of
+    its own, set to ``generator``'s state on every call: the recompute draws
+    the forward's masks. After the forward ``generator`` takes the local
+    one's state, so that the next draws are those of a run without remat."""
+    local = state = None
+    if generator is not None:
+        local = torch.Generator(device=generator.device)
+        state = generator.get_state()
+
+    def layer(h):
+        if local is not None:
+            local.set_state(state)
+        return fwd(p, dg, edge_w, h, generator=local, **kw)
+
+    # the layers draw only from ``local``: no global RNG state to keep
+    out = torch.utils.checkpoint.checkpoint(layer, h, use_reentrant=False,
+                                            preserve_rng_state=False)
+    if local is not None:
+        generator.set_state(local.get_state())
+    return out
+
+
 def apply_model(cfg: ModelConfig, params: GcnParams, dg: DeviceGraph,
                 edge_w, x: torch.Tensor, *, train: bool = False,
                 generator: Optional[torch.Generator] = None,
@@ -299,19 +328,22 @@ def apply_model(cfg: ModelConfig, params: GcnParams, dg: DeviceGraph,
     ``trivial_w`` is a static promise that ``edge_w`` is all ones
     (full-batch graphs), which lets GAT compute its logits inside the
     fused attention; without it GAT's fused attention takes ``edge_w`` as
-    per-edge weights or a mask. With ``return_intermediates`` every
-    activation is kept anyway, so ``cfg.remat`` is ignored there, as in
-    the JAX package."""
-    if cfg.remat and not return_intermediates:
-        raise NotImplementedError(
-            "layer remat is not ported (ROADMAP queue 1, P11 measures "
-            "whether 80 GB still needs it)")
+    per-edge weights or a mask. ``cfg.remat`` recomputes each gconv layer
+    in the backward (``_remat_layer``) where autograd records the forward;
+    with ``return_intermediates`` every activation is kept anyway, so
+    ``cfg.remat`` is ignored there, as in the JAX package."""
     fwd = _LAYER_FWD[cfg.arch]
+    remat = (cfg.remat and not return_intermediates
+             and torch.is_grad_enabled())
     acts = []
     h = x
     for l, (_, _, act) in enumerate(cfg.gconv_dims):
-        h = fwd(params.gconv[l], dg, edge_w, h, act=act, cfg=cfg,
-                train=train, generator=generator, trivial_w=trivial_w)
+        kw = dict(act=act, cfg=cfg, train=train, trivial_w=trivial_w)
+        if remat:
+            h = _remat_layer(fwd, params.gconv[l], dg, edge_w, h,
+                             generator=generator, **kw)
+        else:
+            h = fwd(params.gconv[l], dg, edge_w, h, generator=generator, **kw)
         acts.append(h)
     if cfg.use_l2norm:
         h = gmath.l2norm_rows(h)

@@ -27,7 +27,7 @@ import torch
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("ell_spmm.cu", "fused_gat.cu", "ell_edge.cu", "ell_pull.cu",
            "tc_count.cu", "kcore_hindex.cu", "cgr_decode.cu",
-           "vbyte_decode.cu")
+           "vbyte_decode.cu", "coloring.cu")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 # No --use_fast_math: it flushes subnormals to zero and swaps expf for
 # __expf; the GAT passes rely on a normal 1e-30 floor and on expf.
@@ -75,6 +75,11 @@ _SIGNATURES = {
         # row_ptr, col_idx, core, rows, class_start (host), out, changed,
         # device, stream
         "gab_hindex_sweep": [_vp] * 4 + [_i64p, _vp, _vp, _int, _vp],
+    },
+    "coloring": {
+        # row_ptr, col_idx, colors, active, hubs, n_hubs, nv, max_colors,
+        # out, device, stream
+        "gab_first_fit": [_vp] * 5 + [_i64, _i64, _int, _vp, _int, _vp],
     },
     "cgr_decode": {
         # words, nwords, then per entry: positions or lanes, their count, the

@@ -58,8 +58,10 @@ class _LaunchTable:
     """What one (graph, weight view) pair hands the kernel at every call:
     the per-bucket pointer, row-count and width arrays in launch order
     (widest bucket first), validated once when the table is built. It
-    keeps the graph and the weights alive, since it holds their
-    addresses."""
+    keeps the graph alive, since it holds its addresses; the weights keep
+    the table (it lives on their ``SlotWeights``, or for one call), so it
+    holds no reference to them, which would make a cycle that only the
+    garbage collector frees, the graph with it."""
 
     def __init__(self, g: DeviceGraph, w_slots):
         if len(w_slots) != len(g.ell):
@@ -68,7 +70,7 @@ class _LaunchTable:
         if len(g.ell) > MAX_BUCKETS:
             raise ValueError(f"{len(g.ell)} buckets, the kernel's table "
                              f"holds {MAX_BUCKETS}")
-        self.graph, self.w_slots = g, w_slots
+        self.graph = g
         self.device = g.is_split.device
         if g.is_split.dtype != torch.uint8 or g.is_split.shape != (g.nv,):
             raise ValueError("is_split must be uint8 of shape (nv,)")
@@ -136,7 +138,10 @@ def ell_spmm_plain(g: DeviceGraph, w_slots, x: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def _ell_spmm_cuda(table: _LaunchTable, x: torch.Tensor) -> torch.Tensor:
+def _ell_spmm_cuda(table: _LaunchTable, w_slots,
+                   x: torch.Tensor) -> torch.Tensor:
+    """The kernel's launch; ``w_slots`` are the weights whose addresses the
+    table holds, kept alive by the caller for the call."""
     global LAUNCHES
     g = table.graph
     f = x.shape[1]
@@ -182,4 +187,4 @@ def ell_spmm(g: DeviceGraph, w_slots, x: torch.Tensor) -> torch.Tensor:
         return ell_spmm_plain(g, w_slots, x)
     if x.device.type != "cuda":
         raise ValueError(f"ell_spmm runs on cpu or cuda, not {x.device}")
-    return _ell_spmm_cuda(table, x)
+    return _ell_spmm_cuda(table, w_slots, x)

@@ -393,20 +393,23 @@ def test_run_benchmark_in_process(datasets, capsys):
 
 
 @pytest.mark.parametrize("case,item", [
-    ("cf", "P15"), ("motif", "P15"), ("sample", "P15"), ("color", "P15"),
+    ("cf", "P15a"), ("motif", "P15b"), ("sample", "P15a"), ("color", "P15a"),
     ("shards", "P14c")])
 def test_unported_routes_exit_2_and_name_their_item(datasets, case, item):
-    """The unported solvers exit 2 naming their item. ``GAB_SHARDS`` (P14c)
-    is ported since: it runs the distributed solver, with no refusal."""
+    """The unported solvers (motif, fsm: P15b) exit 2 naming their item.
+    ``GAB_SHARDS`` (P14c) and ``cf``, ``sample`` and ``color`` (P15a) are
+    ported since: they run, exit 0 and print ``Correct``, with no
+    refusal."""
     env, kernel = {}, case
     if case == "shards":
         env, kernel = {"GAB_SHARDS": "2"}, "bfs"
     r = _cli("analytics", kernel, datasets["sym"], "--device=cpu", **env)
-    if case == "shards":
+    if item in ("P14c", "P15a"):
         assert r.returncode == 0, r.stderr
         lines = r.stdout.splitlines()
-        assert "distributed over 2 rank(s) on cpu (gloo)" in lines
-        assert "Correct" in lines and item not in r.stderr
+        if case == "shards":
+            assert "distributed over 2 rank(s) on cpu (gloo)" in lines
+        assert "Correct" in lines and "ROADMAP" not in r.stderr
         return
     assert r.returncode == 2
     assert item in r.stderr and "ROADMAP" in r.stderr

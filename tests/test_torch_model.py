@@ -145,9 +145,11 @@ def test_model_refuses_unported_routes():
     cfg = tl.make_config("gcn", 2, 8, 8, 3)
     with pytest.raises(ValueError, match="optimizer"):
         tm.Model(dataclasses.replace(cfg, optimizer="lbfgs"), ds, device="cpu")
-    with pytest.raises(NotImplementedError, match="P11"):
-        tm.Model(dataclasses.replace(cfg, remat=True), ds,
-                 device="cpu").train_epoch()
+    # layer remat is ported: a remat Model trains as the plain one does
+    remat = tm.Model(dataclasses.replace(cfg, remat=True), ds, device="cpu")
+    plain = tm.Model(cfg, ds, device="cpu")
+    assert [remat.train_epoch() for _ in range(2)] == [
+        plain.train_epoch() for _ in range(2)]
     # the fused GAT attention on per-edge weights (v1) is what the
     # default ``trivial_w`` reaches on an ELL graph: equal to JAX's
     gat = tl.make_config("gat", 2, 8, 8, 3, spmm_impl="ell")
@@ -203,9 +205,10 @@ def test_model_seed_seeds_the_dropout_masks():
 
 @pytest.mark.parametrize("arch", ["gcn", "gat"])
 def test_apply_model_ignores_remat_with_intermediates(arch):
-    """``cfg.remat`` is refused on the plain forward, but with
-    ``return_intermediates`` nothing can be rematerialized and the flag is
-    ignored, as ``graphaibench_tpu/nn/layers.py::apply_model`` does."""
+    """With ``return_intermediates`` nothing can be rematerialized and
+    ``cfg.remat`` is ignored, as ``graphaibench_tpu/nn/layers.py::apply_model``
+    does; on the plain forward (ported since P11) it checkpoints each layer
+    under autograd and gives the same logits."""
     g = rmat(8, 4, seed=0)
     x = np.random.default_rng(0).standard_normal((g.nv, 8)).astype(np.float32)
     cfg = tl.make_config(arch, 2, 8, 8, 3, spmm_impl="ell")
@@ -223,9 +226,9 @@ def test_apply_model_ignores_remat_with_intermediates(arch):
                                    params, tb.device, tb.edge_w_agg,
                                    torch.from_numpy(x),
                                    return_intermediates=True)
-        with pytest.raises(NotImplementedError, match="P11"):
-            tl.apply_model(dataclasses.replace(cfg, remat=True), params,
+    remat = tl.apply_model(dataclasses.replace(cfg, remat=True), params,
                            tb.device, tb.edge_w_agg, torch.from_numpy(x))
+    assert remat.requires_grad and torch.equal(remat.detach(), want)
     assert torch.equal(got, want) and len(acts) == len(want_acts)
     jout, jacts = jl.apply_model(jcfg, jparams, jb.device, jb.edge_w_agg,
                                  jnp.asarray(x), return_intermediates=True)

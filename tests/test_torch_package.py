@@ -30,14 +30,16 @@ def test_port_imports_leave_jax_out():
         "import importlib, pkgutil, sys\n"
         "import graphaibench_tpu_torch as pkg\n"
         "names = [m.name for m in pkgutil.walk_packages(pkg.__path__, 'graphaibench_tpu_torch.')]\n"
-        "assert len(names) >= 49, names\n"
+        "assert len(names) >= 56, names\n"
         "for new in ('nn.sampler', 'utils.timers', 'utils.checkpoint', 'entry', 'ops.ell_edge', 'ops._ell_launch',\n"
         "            'ops.ell_pull', 'analytics', 'analytics.verifiers', 'analytics.traversal', 'analytics.pr', 'analytics.cc',\n"
         "            'compress', 'compress.unary', 'compress.vbyte', 'compress.cgr', 'compress.hybrid', 'compress.cli',\n"
         "            'compress.cgr_device', 'ops.cgr_decode', 'analytics.tc_stream',\n"
         "            'compress.device_decode', 'ops.vbyte_decode', 'parallel', 'parallel.partition',\n"
         "            'parallel.multihost', 'parallel.halo', 'parallel.shard_ell', 'parallel.train',\n"
-        "            'parallel.tp', 'parallel.dp_saint', 'parallel.shard_io', 'graph.partition'):\n"
+        "            'parallel.tp', 'parallel.dp_saint', 'parallel.shard_io', 'graph.partition',\n"
+        "            'ops.first_fit', 'analytics.coloring', 'analytics.cf', 'analytics.mst',\n"
+        "            'analytics.khop', 'analytics.embedding', 'analytics.ann'):\n"
         "    assert 'graphaibench_tpu_torch.' + new in names, new\n"
         "for n in names:\n"
         "    importlib.import_module(n)\n"
@@ -99,14 +101,32 @@ def test_params_from_jax_equal_port_init(use_dense):
 
 @pytest.mark.parametrize("arch", ["sage", "gat", "ggnn"])
 def test_unported_archs_name_their_roadmap_item(arch):
-    """Every architecture initialises now; what each still refuses (layer
-    remat) names its ROADMAP item."""
-    cfg = tl.make_config(arch, 2, 8, 8, 3, remat=True)
+    """Every architecture initialises, and layer remat (P11), the last
+    knob each refused, is ported: the remat forward under autograd equals
+    JAX's ``cfg.remat`` forward (rate 0, COO strategy) within 1e-5."""
+    from graphaibench_tpu.graph.generators import rmat as jrmat
+    from graphaibench_tpu.ops import device_graph as jdg
+    from graphaibench_tpu_torch.graph.generators import rmat as trmat
+    from graphaibench_tpu_torch.ops.device_graph import to_device_graph
+
+    cfg = tl.make_config(arch, 2, 8, 8, 3, remat=True, spmm_impl="coo")
     params = tl.init_params(cfg, device="cpu")
     assert [n.split(".")[-1] for n, _ in params.gconv[0].named_parameters()
             ] == list(tl.LAYER_PARAMS[arch])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tl.apply_model(cfg, params, None, None, torch.zeros(4, 8))
+    jg, tg = jrmat(6, 4, seed=0), trmat(6, 4, seed=0)
+    x = np.random.default_rng(0).standard_normal((tg.nv, 8)).astype(
+        np.float32)
+    w = np.random.default_rng(1).random(tg.ne).astype(np.float32)
+    jcfg = jl.make_config(arch, 2, 8, 8, 3, remat=True, spmm_impl="coo")
+    want = jl.apply_model(jcfg, jl.init_params(jcfg), jdg.to_device_graph(jg),
+                          jax.numpy.asarray(w), jax.numpy.asarray(x),
+                          train=True, key=jax.random.PRNGKey(0))
+    got = tl.apply_model(cfg, params, to_device_graph(tg, device="cpu"),
+                         torch.from_numpy(w), torch.from_numpy(x), train=True,
+                         generator=torch.Generator().manual_seed(0))
+    assert got.requires_grad
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want),
+                               rtol=1e-5, atol=1e-5)
 
 
 @pytest.mark.parametrize("arch,layers,dims", [

@@ -5,6 +5,8 @@ Tolerances: float32 sums taken in another order, rtol = atol = 1e-5
 (the row-rule emulation: rtol 1e-5, atol 1e-6)."""
 
 import dataclasses
+import gc
+import weakref
 
 import jax
 import jax.numpy as jnp
@@ -279,6 +281,26 @@ def test_launch_table_is_built_once_per_weight_view(graphs, monkeypatch):
     other = dataclasses.replace(tdg)
     K1.ell_spmm(other, wp.fwd, x)
     assert len(built) == 5 and wp.fwd.launch_table.graph is other
+
+
+def test_weights_and_graph_die_with_their_last_reference(graphs):
+    """A weight view's launch table holds no reference back to the view, so
+    a model's packed weights and its graph are freed when the last
+    reference goes, with the garbage collector off: no cycle holds device
+    memory until a collection."""
+    g = tdgm.to_device_graph(graphs[0], device="cpu")
+    wp = tdgm.pack_edge_values(g, torch.ones(g.ne))
+    K1.ell_spmm(g, wp.fwd, torch.ones(g.nv, 4))
+    assert wp.fwd.launch_table.graph is g
+    slot, ids = weakref.ref(wp.fwd[0]), weakref.ref(g.ell[0].nbr)
+    enabled = gc.isenabled()
+    gc.disable()
+    try:
+        del wp, g
+        assert slot() is None and ids() is None
+    finally:
+        if enabled:
+            gc.enable()
 
 
 def test_launch_table_lists_the_widest_bucket_first(graphs):
