@@ -139,7 +139,9 @@ non-zero exit code and no result line:
              same lanes at rmat19 (timed beside its bound) and at rmat13
              behind the dirtied allocator; cgr_residual under the prep's
              tables and under those it builds itself, on the plain
-             stream's lanes and the interval stream's residual lanes. The
+             stream's lanes and the interval stream's residual lanes;
+             cgr_gamma also on the interval stream's residual headers as
+             the prep finds them and in a random order. The
              same graph in StreamVByte,
              VarintGB and hybrid (threshold 32, StreamVByte chunks) by the
              host encoders (seconds, bytes, ratio), each decoded on the card
@@ -172,10 +174,12 @@ non-zero exit code and no result line:
 10. sharded — the sharded trainer (``parallel/``) on rmat17 at the main
              path's widths, GCN and GAT (2 layers, 128/128/16): (a) in this
              process as the one rank of an nccl group, 5 steps, losses
-             within rtol 1e-4 and weights within atol 1e-4 (GCN) and
-             5e-4 (GAT: Model's own run-to-run spread is 1.7e-4, the
-             sharded trainer's from Model up to 3.2e-4) of Model's,
-             beside the spread of a second Model run,
+             within rtol 1e-4 of Model's, the weights' distance from
+             Model's printed beside the spread of a second Model run;
+             then 5 steps from fresh weights, each followed by a Model
+             step from the trainer's weights and optimizer state, the
+             gradients within rtol 1e-4 and atol 1e-6 and the weights
+             within atol 1e-4 of Model's,
              the launches per step Model's (K1 3 for GCN; for GAT
              gat_rowmax and gat_v2_fwd 2, gat_v2_bwd, gat_v2_bwd_sl and
              gat_v2_bwd_h 1), device time per step under the profiler
@@ -184,7 +188,8 @@ non-zero exit code and no result line:
              it; (b) two ranks
              spawned on the one card over gloo (the halo exchange
              host-staged), 3 steps, each rank's loss and the summed
-             weights held to Model's alike, both ranks equal, with
+             weights held to Model's alike (rank 0 followed by Model),
+             both ranks equal, with
              halo_counts, h_max, the launches per step (K1 6: own and halo
              tables, forward and adjoint) and halo_probe's seconds; (c)
              each rank's rectangular tables at P = 2, of rmat17 (those
@@ -261,7 +266,10 @@ non-zero exit code and no result line:
              colour taken), exactly, at rmat19 and at rmat13 behind the
              NaN-dirtied allocator, timed beside its bound; color, every
              count set to 0 just before it, valid by coloring_valid, one K14
-             launch a round, with its rounds and seconds; cf_train on
+             launch a round, with its rounds and seconds, K14's device ms
+             summed over a warm solve and the active rows of its first five
+             rounds (its loop repeated with the rows read, equal to
+             color's colours); cf_train on
              seeded ratings, its RMSE falling, one sddmm_dot_ell and one K1
              launch an iteration, and at rmat16 equal to its CPU run
              within rtol 1e-4; boruvka_mst's total equal to scipy's minimum
@@ -486,15 +494,23 @@ DECODE_STAR_LEAVES = 50_000
 SHARDED_STEPS = 5
 SHARDED_STEPS_TWO = 3
 SHARDED_RTOL = 1e-4
-# Weights after the steps: atomics add split rows' pieces (and the single
-# backward pass's d_sl) in an order that changes from run to run, and
-# Adam's first steps turn the noise of a gradient near 0 into up to about
-# lr / sqrt(eps) times it. Two runs of Model itself differ by up to
-# 1.3e-5 (GCN) and 1.7e-4 (GAT) after 5 steps on an H100, the sharded
-# trainer from Model by up to 3.2e-4 (GAT; tools/sharded_probe.py,
-# PERF.md): GCN is held to 1e-4, GAT to 5e-4, and the phase prints
-# Model's own spread beside each error.
+# Weights after free-running steps: atomics add split rows' pieces (and
+# the single backward pass's d_sl) in an order that changes from run to
+# run, and each Adam step turns the noise of a gradient near 0 into up to
+# lr / sqrt(eps) times it, which the next steps compound. Two runs of
+# Model itself differ by up to 7.6e-6 (GCN) and 9.0e-4 (GAT) after 5
+# steps on an H100, as far as a 0.1% fault in one of GAT's gradients
+# moves them (tools/sharded_probe.py, PERF.md). So the sharded phase
+# prints that distance beside Model's own spread and holds the trainer
+# where nothing compounds: Model follows it, taking its weights and its
+# optimizer's state before each step, and both step. There the gradients
+# are held element by element to the tensor-parallel phase's limits
+# (TP_GRAD_RTOL, TP_GRAD_ATOL) and the weights within SHARDED_FOLLOW_ATOL,
+# lr / sqrt(eps) = 100 times TP_GRAD_ATOL: the most one Adam step can make
+# of a gradient difference at TP_GRAD_ATOL. The tensor-parallel trainers
+# hold their weights after TP_STEPS to SHARDED_ATOL.
 SHARDED_ATOL = {"gcn": 1e-4, "gat": 5e-4}
+SHARDED_FOLLOW_ATOL = 1e-4
 SHARDED_STEP_LAUNCHES = {"gcn": {"ell_spmm": SPMMS_PER_STEP},
                          "gat": GAT_STEP_LAUNCHES}
 SHARDED_TWO_RANK_LAUNCHES = {"gcn": {"ell_spmm": 6}, "gat": GAT_STEP_LAUNCHES}
@@ -2521,6 +2537,26 @@ def _k12_cases(plain_prep, itv_prep, tag: str, timed: bool) -> dict:
     got = K12.cgr_gamma(stream, bit_off, K12.HEADER)
     check("cgr_gamma header", got,
           K12.cgr_gamma_plain(stream, bit_off, K12.HEADER))
+    # the interval stream's residual headers (0 for a vertex without an
+    # interval section, out of order), as the prep finds them and in a
+    # random order
+    istream = itv_prep["stream"]
+    ilanes = itv_prep["itv_lanes"]
+    n_itv, m = int(itv_prep["left"].numel()), itv_prep["min_itv_len"]
+    _, _, ipfin = K12.cgr_interval(istream, *ilanes, n_itv, m)
+    res_pos = torch.from_numpy(CD.residual_header_pos(
+        np.bincount(ilanes[2].cpu().numpy(), minlength=itv_prep["nv"]),
+        ipfin.cpu().numpy()).astype(np.int32)).cuda()
+    shuffled = res_pos[torch.randperm(res_pos.numel(), device="cuda",
+                                      generator=torch.Generator(
+                                          device="cuda").manual_seed(0))]
+    for what, pos in (("res_pos", res_pos), ("res_pos shuffled", shuffled)):
+        if not timed:
+            _dirty(2 * pos.numel())
+        got = K12.cgr_gamma(istream, pos, K12.HEADER)
+        torch.cuda.synchronize()
+        check(f"cgr_gamma {what}", got,
+              K12.cgr_gamma_plain(istream, pos, K12.HEADER))
     lanes = [plain_prep[k] for k in ("data_p", "counts", "lane_v_d", "base")]
     ne, k = plain_prep["ne"], plain_prep["zeta_k"]
     rt = plain_prep["res_tables"]
@@ -2533,10 +2569,6 @@ def _k12_cases(plain_prep, itv_prep, tag: str, timed: bool) -> dict:
     check("cgr_residual under the tables it builds itself",
           K12.cgr_residual(stream, *lanes, ne, k),
           K12.cgr_residual_plain(stream, *lanes, ne, k))
-    istream = itv_prep["stream"]
-    ilanes = itv_prep["itv_lanes"]
-    n_itv, m = int(itv_prep["left"].numel()), itv_prep["min_itv_len"]
-    _, _, ipfin = K12.cgr_interval(istream, *ilanes, n_itv, m)
     bits = float((ipfin.long() - ilanes[0].long()).sum())
     n_i = ilanes[0].numel()
     run("cgr_interval", lambda: K12.cgr_interval(istream, *ilanes, n_itv, m),
@@ -3234,7 +3266,9 @@ def _sharded_steps(trainer, params, opt, steps: int, first_grads=None):
 
 def _sharded_rank(rank: int, n: int, row_ptr, col_idx, steps: int) -> dict:
     """One rank of the 2-rank run on one card (gloo): GCN and GAT,
-    ``steps`` steps each; what the parent holds against ``Model``."""
+    ``steps`` steps each, then ``steps`` from fresh weights, on rank 0
+    each followed by ``Model`` (``_follow``); what the parent holds
+    against ``Model``."""
     from graphaibench_tpu_torch import CSRGraph
     from graphaibench_tpu_torch.parallel.multihost import rank_device
 
@@ -3251,7 +3285,60 @@ def _sharded_rank(rank: int, n: int, row_ptr, col_idx, steps: int) -> dict:
                      "h_max": sg.h_max, "nv_pad": sg.nv_pad,
                      "transport": trainer.transport,
                      "halo_probe_s": trainer.halo_probe()}
+        model = (Model(cfg, _dataset(g, cfg.dim_init, cfg.num_cls),
+                       device=dev) if rank == 0 else None)
+        params = init_params(cfg, device=dev)
+        opt = OPTIMIZERS[cfg.optimizer](params.parameters(), lr=cfg.lr)
+        out[arch]["follow"] = _follow(
+            lambda trainer=trainer, params=params, opt=opt:
+            trainer.train_step(params, opt), params, opt, model, steps)
     return out
+
+
+def _follow(step, params, opt, model, steps: int) -> dict | None:
+    """``steps`` calls of ``step`` (one step of a trainer on ``params`` and
+    ``opt``), each followed by one ``model.train_epoch`` from the same
+    state: ``model`` takes the weights and the optimizer's state just
+    before the trainer steps. Returns the largest |weight difference| and
+    |gradient difference| over the steps, and the gradients (by name, with
+    the step) that leave the limits TP_GRAD_RTOL and TP_GRAD_ATOL; None
+    where ``model`` is None (the trainer only steps)."""
+    mine = list(params.named_parameters())
+    theirs = list(model.params.named_parameters()) if model else []
+    if model and [k for k, _ in mine] != [k for k, _ in theirs]:
+        raise RuntimeError(f"parameters {[k for k, _ in mine]}, Model's "
+                           f"{[k for k, _ in theirs]}")
+    weights = grads = 0.0
+    outside = []
+    for i in range(steps):
+        if model:
+            with torch.no_grad():
+                for (_, p), (_, q) in zip(mine, theirs):
+                    q.copy_(p)
+            model.opt.load_state_dict(opt.state_dict())
+        step()
+        if not model:
+            continue
+        model.train_epoch()
+        for (k, p), (_, q) in zip(mine, theirs):
+            weights = max(weights, float((p - q).detach().abs().max()))
+            grads = max(grads, float((p.grad - q.grad).abs().max()))
+            if not torch.allclose(p.grad, q.grad, rtol=TP_GRAD_RTOL,
+                                  atol=TP_GRAD_ATOL):
+                outside.append(f"{k} (step {i + 1})")
+    return ({"weights": weights, "grads": grads, "grads_outside": outside}
+            if model else None)
+
+
+def _hold_follow(tag: str, follow: dict) -> None:
+    """``_follow``'s gradients within TP_GRAD_RTOL and TP_GRAD_ATOL and its
+    weights within SHARDED_FOLLOW_ATOL."""
+    if follow["grads_outside"] or follow["weights"] > SHARDED_FOLLOW_ATOL:
+        raise RuntimeError(
+            f"{tag} Model from the trainer's state: gradients outside rtol "
+            f"{TP_GRAD_RTOL} atol {TP_GRAD_ATOL}: {follow['grads_outside']} "
+            f"(max |diff| {follow['grads']}); weights max |diff| "
+            f"{follow['weights']} (limit {SHARDED_FOLLOW_ATOL})")
 
 
 def _weights_err(params: dict, want: dict) -> float:
@@ -3273,7 +3360,8 @@ def _hold_to_model(tag: str, arch: str, losses, params: dict, want_losses,
 
 def _sharded_one_rank(g, models: dict) -> dict:
     """(a): the trainer in this process as the one rank of an nccl group;
-    GCN and GAT held to ``Model`` and their launches per step to
+    GCN and GAT: losses held to ``Model``'s, then ``Model`` following the
+    trainer step by step (``_follow``), and their launches per step to
     ``Model``'s; device time per step under the profiler, beside Model's,
     and the peak memory."""
     res = {}
@@ -3293,9 +3381,18 @@ def _sharded_one_rank(g, models: dict) -> dict:
             want = {k: v * SHARDED_STEPS for k, v in
                     SHARDED_STEP_LAUNCHES[arch].items()}
             _assert_counts(tag, launches, want)
-            err = _hold_to_model(tag, arch, losses, _params_by_name(params),
-                                 ref["losses"], ref["params"])
+            np.testing.assert_allclose(losses, ref["losses"],
+                                       rtol=SHARDED_RTOL,
+                                       err_msg=f"{tag} losses")
+            err = _weights_err(_params_by_name(params), ref["params"])
             step_ms = statistics.median(ms[1:])
+            fresh = init_params(cfg, device="cuda")
+            fresh_opt = OPTIMIZERS[cfg.optimizer](fresh.parameters(),
+                                                  lr=cfg.lr)
+            follow = _follow(
+                lambda: trainer.train_step(fresh, fresh_opt), fresh,
+                fresh_opt, ref["model"], SHARDED_STEPS)
+            _hold_follow(tag, follow)
 
             def steps(k, trainer=trainer, params=params, opt=opt):
                 for _ in range(k):
@@ -3311,6 +3408,8 @@ def _sharded_one_rank(g, models: dict) -> dict:
             res[arch] = {"losses": losses, "model_losses": ref["losses"],
                          "weights_max_abs_err": err,
                          "model_spread": ref["spread"],
+                         "follow_weights_max_abs_err": follow["weights"],
+                         "follow_grads_max_abs_err": follow["grads"],
                          "launches_per_step": {k: v // SHARDED_STEPS
                                                for k, v in launches.items()
                                                if v},
@@ -3331,7 +3430,8 @@ def _sharded_one_rank(g, models: dict) -> dict:
 
 def _sharded_two_ranks(g, models: dict) -> dict:
     """(b): 2 ranks spawned on the one card over gloo (the exchange
-    host-staged), held to ``Model`` after SHARDED_STEPS_TWO steps."""
+    host-staged): losses held to ``Model``'s after SHARDED_STEPS_TWO
+    steps, and rank 0 followed by ``Model`` step by step."""
     t0 = time.perf_counter()
     ranks = PAR.launch(_sharded_rank, 2, g.row_ptr, g.col_idx,
                        SHARDED_STEPS_TWO, device="cuda", backend="gloo",
@@ -3349,9 +3449,11 @@ def _sharded_two_ranks(g, models: dict) -> dict:
             raise RuntimeError(f"{tag} transport {r0['transport']}")
         if min(r0["halo_counts"]) == 0:
             raise RuntimeError(f"{tag} no halo: the run checks nothing")
-        err = _hold_to_model(tag, arch, r0["losses"], r0["params"],
-                             ref["losses"][:SHARDED_STEPS_TWO],
-                             ref["params_two"])
+        np.testing.assert_allclose(r0["losses"],
+                                   ref["losses"][:SHARDED_STEPS_TWO],
+                                   rtol=SHARDED_RTOL, err_msg=f"{tag} losses")
+        err = _weights_err(r0["params"], ref["params_two"])
+        _hold_follow(tag, r0["follow"])
         per_step = [{k: v // SHARDED_STEPS_TWO for k, v in r["launches"].items()
                      if v} for r in (r0, r1)]
         for r, counts in enumerate(per_step):
@@ -3361,6 +3463,8 @@ def _sharded_two_ranks(g, models: dict) -> dict:
                                    f"{counts}, expected {want}")
         res[arch] = {"losses": r0["losses"], "weights_max_abs_err": err,
                      "model_spread": ref["spread_two"],
+                     "follow_weights_max_abs_err": r0["follow"]["weights"],
+                     "follow_grads_max_abs_err": r0["follow"]["grads"],
                      "halo_counts": r0["halo_counts"], "h_max": r0["h_max"],
                      "nv_pad": r0["nv_pad"],
                      "launches_per_step": per_step,
@@ -4356,11 +4460,35 @@ def _first_fit_compare(dg, tag: str, dirty: bool) -> None:
                                f"{int((got != want).sum())} rows differ")
 
 
+def _color_rounds(dg) -> tuple:
+    """``analytics/coloring.py::color``'s loop with each round's active rows
+    read: (colours, [active rows a round])."""
+    nv, dev = dg.nv, dg.col_idx.device
+    src, dst = dg.edge_src.long(), dg.col_idx.long()
+    mc = int(dg.deg.max()) + 2
+    colors = torch.zeros(nv, dtype=torch.int32, device=dev)
+    active = torch.ones(nv, dtype=torch.bool, device=dev)
+    counts = []
+    while len(counts) < mc + 2:
+        n = int(active.sum())
+        if n == 0:
+            break
+        counts.append(n)
+        colors = FF.first_fit(dg, colors, active, mc)
+        conflict = (colors[src] == colors[dst]) & (src != dst)
+        loser = torch.minimum(src, dst)[conflict]
+        active = torch.zeros(nv, dtype=torch.bool, device=dev)
+        active[loser] = True
+    return colors, counts
+
+
 def _p15a_color(g, dg) -> dict:
     """K14 against first_fit_plain at the analytics size and at rmat13
     behind the dirtied allocator, timed beside its bound; ``color`` held to
     ``coloring_valid``, its K14 launches to the rounds it reports (one
-    launch a round), and its seconds."""
+    launch a round), its seconds, K14's device ms summed over a warm solve
+    and the active rows of its first rounds (``_color_rounds``, whose
+    colours must be ``color``'s)."""
     _first_fit_compare(dg, f"rmat{ANALYTICS_SCALE}", False)
     small = rmat(PULL_DIRTY_SCALE, EDGE_FACTOR, seed=0)
     _first_fit_compare(to_device_graph(small, device="cuda",
@@ -4377,13 +4505,22 @@ def _p15a_color(g, dg) -> dict:
     if rounds < 1 or not verifiers.coloring_valid(g, colors_np):
         raise RuntimeError(f"[p15a] color: an invalid colouring after "
                            f"{rounds} rounds")
+    again, active = _color_rounds(dg)
+    if not torch.equal(again, colors) or len(active) != rounds:
+        raise RuntimeError("[p15a] color: the probe loop's colours or rounds "
+                           "differ from color()'s")
+    by = _device_ms_by_name(lambda: COL.color(dg), 1)
     _, zeros, ones, mc = _first_fit_states(dg, 3)[0]
     bound_ms, bound_by, nbytes = _first_fit_bound(dg)
     info = {
         "rounds": rounds, "num_colors": int(len(np.unique(colors_np))),
         "first_solve_s": first_s,
         "warm_s_per_solve": _solve_seconds(lambda: COL.color(dg)),
-        "hubs": int(FF._hubs(dg).numel()),
+        "k14_device_ms_per_solve": sum(v for k, v in by.items()
+                                       if "first_fit" in k) if by else None,
+        "solve_device_ms": sum(by.values()) if by else None,
+        "active_first_rounds": active[:5],
+        "hubs": int(FF._tables(dg)["hubs"].numel()),
         "ms": _batch_ms(lambda: FF.first_fit(dg, zeros, ones, mc)),
         "device_ms": _kernel_device_ms(
             lambda: FF.first_fit(dg, zeros, ones, mc), "first_fit_kernel"),

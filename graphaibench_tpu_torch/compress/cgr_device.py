@@ -138,6 +138,18 @@ def lane_bases(counts: np.ndarray, lane_v: np.ndarray,
     return (row_ptr[lane_v] + (gidx - res_start[lane_v])).astype(np.int64)
 
 
+def residual_header_pos(itv_nsegs: np.ndarray,
+                        ipfin: np.ndarray) -> np.ndarray:
+    """The bit of each vertex's residual header: where its last (unpadded)
+    interval segment ends (``ipfin``, a lane's final bit, the lanes in CSR
+    order), or 0 for a vertex without an interval section, which has no
+    residual one either (a stream with degrees, a vertex of degree 0): the
+    positions rise but for those zeros."""
+    istarts = np.cumsum(itv_nsegs) - itv_nsegs
+    last = np.clip(istarts + itv_nsegs - 1, 0, None)
+    return np.where(itv_nsegs > 0, ipfin[last] if len(ipfin) else 0, 0)
+
+
 def _interval_sections(cg, stream, bit_off, device):
     """The interval sections of every vertex: their headers, counts and
     (left, len) pairs through ``cgr_interval``, the final positions checked.
@@ -171,11 +183,7 @@ def _interval_sections(cg, stream, bit_off, device):
     ipfin = ipfin.cpu().numpy()
     _check_closed_segments_fit(ipfin, iseg_start, ilane_k, itv_nsegs,
                                ilane_v, cfg.itv_seg_len, "interval")
-    # the residual header sits where the last (unpadded) interval segment
-    # ends; a vertex without an interval section has no residual one either
-    istarts = np.cumsum(itv_nsegs) - itv_nsegs
-    last = np.clip(istarts + itv_nsegs - 1, 0, None)
-    res_pos = np.where(itv_nsegs > 0, ipfin[last], 0)
+    res_pos = residual_header_pos(itv_nsegs, ipfin)
     ns, segs_base = headers(stream, int32_on(res_pos, device), False)
     nsegs = np.where(itv_nsegs > 0, ns, 0)
     itv_vertex = np.repeat(ilane_v, icnt)

@@ -24,6 +24,14 @@
 // their shape): the JAX package buckets lanes by code count and pads them
 // to powers of two because a lax.scan needs static lengths; here a thread
 // is a lane and loops over its own count, and one launch covers every lane.
+// cgr_gamma reads one code (two for a header with a degree) at each of its
+// positions, four positions a thread where the launch has four for every
+// thread the card holds (else one), their windows loaded before any is
+// decoded. Its stream reads are set by the data: residual segments' counts
+// lie 256 bits apart, a 32-byte sector each, so a launch on every segment
+// reads every sector of the residuals once; staging a tile's span in
+// shared memory reads the same sectors and, on the card, lost to reading
+// the windows directly (PERF.md).
 // A lane's codes are serial (where a code starts depends on every code
 // before it), but consecutive lanes have consecutive stream bits and
 // consecutive output slots. So cgr_residual takes a block a tile of
@@ -182,27 +190,67 @@ __device__ __forceinline__ int64_t nat2int(int64_t x) {
   return (x & 1) ? -((x + 1) >> 1) : (x >> 1);
 }
 
+// cgr_gamma's positions a thread where a launch has enough of them: a warp
+// takes 32 * kGammaPer consecutive positions, lane l those at l, l + 32,
+// ..., so that each load and store of a warp stays on consecutive positions
+// (and, for residual segments' counts 256 bits apart, consecutive lines of
+// the stream). A launch of fewer than kGammaPer positions for every thread
+// the card holds (kResidentThreads an SM) takes one a thread: four a thread
+// would leave SMs idle.
+constexpr int kGammaPer = 4;
+constexpr int kResidentThreads = 2048;
+
+// The gamma code(s) at PER positions a thread: every position's window
+// loaded before any is decoded, PER * 3 independent loads in flight (a
+// header with a degree loads its second windows the same way).
+template <int PER>
 __global__ void __launch_bounds__(kThreads)
 cgr_gamma_kernel(const Stream s, const int32_t* __restrict__ pos, int64_t n,
                  int kind, int32_t* __restrict__ value,
                  int32_t* __restrict__ next) {
-  const int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-  if (i >= n) return;
-  const int64_t p = __ldg(pos + i);
-  int nb;
-  const int64_t x = read_code(s, p, 1, nb);
-  if (kind == kCount) {
-    value[i] = static_cast<int32_t>(x);
-    next[i] = static_cast<int32_t>(p + nb);
-  } else if (kind == kHeader) {
-    value[i] = static_cast<int32_t>(x + 1);
-    next[i] = static_cast<int32_t>(p + nb);
-  } else {
-    const int64_t p2 = p + nb;
-    int nb2;
-    const int64_t ns = read_code(s, p2, 1, nb2);
-    value[i] = static_cast<int32_t>(x == 0 ? 0 : ns + 1);
-    next[i] = static_cast<int32_t>(x == 0 ? p2 : p2 + nb2);
+  const int64_t i0 =
+      (static_cast<int64_t>(blockIdx.x) * kWarpsPerBlock + (threadIdx.x >> 5)) *
+          32 * PER +
+      (threadIdx.x & 31);
+  if (i0 >= n) return;
+  int64_t p[PER];
+#pragma unroll
+  for (int k = 0; k < PER; ++k) {
+    const int64_t i = i0 + 32 * k;
+    p[k] = i < n ? __ldg(pos + i) : 0;
+  }
+  uint32_t hi[PER], lo[PER];
+#pragma unroll
+  for (int k = 0; k < PER; ++k) window(s, p[k], hi[k], lo[k]);
+  int64_t x[PER], q[PER];
+#pragma unroll
+  for (int k = 0; k < PER; ++k) {
+    int h = __clz(hi[k]);
+    h = h > 31 ? 31 : h;
+    x[k] = first_bits(hi[k], lo[k], 2 * h + 1) - 1;
+    q[k] = p[k] + 2 * h + 1;
+  }
+  if (kind == kHeaderDeg) {
+#pragma unroll
+    for (int k = 0; k < PER; ++k) window(s, q[k], hi[k], lo[k]);
+  }
+#pragma unroll
+  for (int k = 0; k < PER; ++k) {
+    const int64_t i = i0 + 32 * k;
+    if (i >= n) break;
+    if (kind == kCount) {
+      value[i] = static_cast<int32_t>(x[k]);
+      next[i] = static_cast<int32_t>(q[k]);
+    } else if (kind == kHeader) {
+      value[i] = static_cast<int32_t>(x[k] + 1);
+      next[i] = static_cast<int32_t>(q[k]);
+    } else {
+      int h = __clz(hi[k]);
+      h = h > 31 ? 31 : h;
+      const int64_t ns = first_bits(hi[k], lo[k], 2 * h + 1) - 1;
+      value[i] = static_cast<int32_t>(x[k] == 0 ? 0 : ns + 1);
+      next[i] = static_cast<int32_t>(x[k] == 0 ? q[k] : q[k] + 2 * h + 1);
+    }
   }
 }
 
@@ -566,8 +614,15 @@ extern "C" int gab_cgr_gamma(const void* words, int64_t nwords,
   }
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
+  int sms = 0;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const bool wide =
+      n >= static_cast<int64_t>(kGammaPer) * kResidentThreads * sms;
+  const int per = wide ? kGammaPer : 1;
+  auto kernel = wide ? cgr_gamma_kernel<kGammaPer> : cgr_gamma_kernel<1>;
   if (n > 0) {
-    cgr_gamma_kernel<<<blocks_for(n, kThreads), kThreads, 0,
+    kernel<<<blocks_for(n, kThreads * per), kThreads, 0,
                        static_cast<cudaStream_t>(stream)>>>(
         Stream{static_cast<const uint32_t*>(words), nwords},
         static_cast<const int32_t*>(pos), n, kind,

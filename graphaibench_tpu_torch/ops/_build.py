@@ -77,9 +77,11 @@ _SIGNATURES = {
         "gab_hindex_sweep": [_vp] * 4 + [_i64p, _vp, _vp, _int, _vp],
     },
     "coloring": {
-        # row_ptr, col_idx, colors, active, hubs, n_hubs, nv, max_colors,
-        # out, device, stream
-        "gab_first_fit": [_vp] * 5 + [_i64, _i64, _int, _vp, _int, _vp],
+        # row_ptr, col_idx, colors, active, hubs, n_hubs, slices,
+        # n_slices, hub_words, order, n_chunks, max_colors, out, device,
+        # stream
+        "gab_first_fit": [_vp] * 5 + [_i64, _vp, _i64, _vp, _vp, _i64, _int,
+                                      _vp, _int, _vp],
     },
     "cgr_decode": {
         # words, nwords, then per entry: positions or lanes, their count, the

@@ -366,6 +366,12 @@ inline unsigned __funnelshift_lc(unsigned lo, unsigned hi, unsigned s) {
   return (unsigned)((x << (s > 32 ? 32 : s)) >> 32);
 }
 inline int __clz(unsigned x) { return x ? __builtin_clz(x) : 32; }
+// one SM: cgr_gamma takes four positions a thread from 4 * 2048 of them
+enum cudaDeviceAttr { cudaDevAttrMultiProcessorCount = 16 };
+inline cudaError_t cudaDeviceGetAttribute(int* v, cudaDeviceAttr, int) {
+  *v = 1;
+  return cudaSuccess;
+}
 """
 
 
@@ -391,6 +397,79 @@ def emulated_small(tmp_path_factory):
     return build_emulated(tmp_path_factory.mktemp("cgr_small"),
                           "cgr_decode.cu", 4, EMULATION,
                           {"kResWords": 8, "kResSlots": 64})
+
+
+@pytest.fixture(scope="module")
+def emulated_small_gamma(tmp_path_factory):
+    """The same library with cgr_gamma's threads taking 3 positions each in
+    every launch, so that a warp's last positions fall short of its 96."""
+    if shutil.which("g++") is None:
+        pytest.skip("no g++ on this host")
+    return build_emulated(tmp_path_factory.mktemp("cgr_small_gamma"),
+                          "cgr_decode.cu", 4, EMULATION,
+                          {"kGammaPer": 3, "kResidentThreads": 0})
+
+
+def _gamma_case(case):
+    """(stream, positions, kind) of a cgr_gamma launch of the decode: the
+    vertices' headers (HEADER, HEADER_DEG), every residual segment's count,
+    the residual headers of an interval stream with degrees (0 where a
+    vertex has no interval section: out of order), the counts of rmat13 in
+    a random order and from the second on (not 16-byte aligned, a count not
+    a multiple of 4)."""
+    name, cfg, interval = {
+        "header": ("rmat9", "default", False),
+        "header_deg": ("rmat9", "add_degree", False),
+        "count": ("rmat9", "default", False),
+        "res_pos": ("runs", "add_degree", True),
+    }.get(case, ("rmat13", "default", False))
+    if name == "rmat13" and "rmat13" not in GRAPHS:
+        GRAPHS["rmat13"] = lambda gen, tr, csr: tr.sort_and_clean(
+            gen.rmat(13, 16, seed=4))
+    _, t, _ = _streams(name, (INTERVAL_CONFIGS if interval
+                              else PLAIN_CONFIGS)[cfg], interval)
+    prep = CD.cgr_device_prep(t, device="cpu")
+    stream = prep["stream"]
+    if case in ("header", "header_deg"):
+        return stream, prep["bit_off"], (K12.HEADER_DEG if t.cfg.add_degree
+                                         else K12.HEADER)
+    if case == "res_pos":
+        ilanes = prep["itv_lanes"]
+        _, _, ipfin = K12.cgr_interval(stream, *ilanes,
+                                       prep["left"].numel(),
+                                       t.cfg.min_itv_len)
+        nsegs = np.bincount(ilanes[2].numpy(), minlength=t.nv)
+        pos = CD.residual_header_pos(nsegs, ipfin.numpy())
+        assert (np.diff(pos) < 0).any()
+        return stream, _i32(pos), K12.HEADER
+    seg = _i32(prep["seg_start"])
+    if case == "count_shuffled":
+        seg = seg[torch.from_numpy(np.random.default_rng(0).permutation(
+            seg.numel()))].contiguous()
+    elif case == "count_unaligned":
+        m = seg.numel() - 1
+        seg = seg[1:m if m % 4 == 0 else m + 1]
+        assert seg.data_ptr() % 16 and seg.numel() % 4
+    return stream, seg, K12.COUNT
+
+
+@pytest.mark.parametrize("case", ["header", "header_deg", "count", "res_pos",
+                                  "count_shuffled", "count_unaligned"])
+def test_gamma_source_emulated_equals_plain(emulated, emulated_small_gamma,
+                                            case):
+    """cgr_gamma equals the plain version on each kind of launch: a
+    position a thread below 8,192 positions (on the emulation's one SM),
+    four a thread above, three a thread in every launch."""
+    stream, pos, kind = _gamma_case(case)
+    if case == "count_shuffled":
+        assert pos.numel() >= 4 * 2048
+    want = K12.cgr_gamma_plain(stream, pos, kind)
+    for lib in (emulated, emulated_small_gamma):
+        v, n = torch.full_like(pos, -7), torch.full_like(pos, -7)
+        assert lib.gab_cgr_gamma(stream.data_ptr(), stream.numel() // 4,
+                                 pos.data_ptr(), pos.numel(), kind,
+                                 v.data_ptr(), n.data_ptr(), 0, None) == 0
+        assert torch.equal(v, want[0]) and torch.equal(n, want[1])
 
 
 def _emulated_merge(lib, args, tile_row, tile_slots: int):
@@ -772,6 +851,22 @@ def test_kernels_match_plain_on_cuda(name, cfg, interval):
     else:
         assert torch.equal(col, pcol)
     _same(CD.cgr_decode_device(t, device="cuda"), g, cfg)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["header", "header_deg", "count", "res_pos",
+                                  "count_shuffled", "count_unaligned"])
+def test_gamma_cases_on_cuda(case):
+    """cgr_gamma on the card against its plain version on each kind of
+    launch, exactly."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels of csrc/cgr_decode.cu "
+                    "have no CPU route")
+    stream, pos, kind = _gamma_case(case)
+    want = K12.cgr_gamma_plain(stream, pos, kind)
+    got = K12.cgr_gamma(stream.cuda(), pos.cuda(), kind)
+    assert torch.equal(got[0].cpu(), want[0])
+    assert torch.equal(got[1].cpu(), want[1])
 
 
 @pytest.mark.cuda

@@ -36,9 +36,55 @@ from test_torch_device_decode import EMULATION, build_emulated
 
 torch.set_num_threads(2)
 
-# what K14's emulation adds to the header: a warp's vote, find-first-set and
-# an atomic OR (under the header's mutex)
+# what K14's emulation adds to the header: a warp's vote, its OR and max
+# reductions and its xor shuffle (each an exchange between two meetings of
+# the warp), find-first-set, population count, an atomic OR and add (under
+# the header's mutex), the fence (blocks run one after another) and the
+# stream's memset
 EMULATION_K14 = EMULATION + r"""
+#include <cstring>
+inline unsigned __reduce_or_sync(unsigned, unsigned v) {
+  const unsigned t = threadIdx.x;
+  shuffled[t] = v;
+  __syncwarp();
+  unsigned r = 0;
+  for (unsigned i = 0; i < 32; ++i)
+    r |= static_cast<unsigned>(shuffled[(t & ~31u) + i]);
+  __syncwarp();
+  return r;
+}
+inline int __reduce_max_sync(unsigned, int v) {
+  const unsigned t = threadIdx.x;
+  shuffled[t] = static_cast<unsigned long long>(v);
+  __syncwarp();
+  int r = INT_MIN;
+  for (unsigned i = 0; i < 32; ++i) {
+    const int x = static_cast<int>(shuffled[(t & ~31u) + i]);
+    r = x > r ? x : r;
+  }
+  __syncwarp();
+  return r;
+}
+template <class T> inline T __shfl_xor_sync(unsigned, T v, int m) {
+  const unsigned t = threadIdx.x;
+  shuffled[t] = static_cast<unsigned long long>(v);
+  __syncwarp();
+  const T r = static_cast<T>(shuffled[t ^ static_cast<unsigned>(m)]);
+  __syncwarp();
+  return r;
+}
+inline int __popc(unsigned x) { return __builtin_popcount(x); }
+inline unsigned atomicAdd(unsigned* p, unsigned v) {
+  std::lock_guard<std::mutex> g(atomics);
+  const unsigned o = *p;
+  *p = o + v;
+  return o;
+}
+inline void __threadfence() {}
+inline cudaError_t cudaMemsetAsync(void* p, int v, size_t n, cudaStream_t) {
+  std::memset(p, v, n);
+  return cudaSuccess;
+}
 inline unsigned __ballot_sync(unsigned, int pred) {
   const unsigned t = threadIdx.x;
   shuffled[t] = pred != 0;
@@ -84,8 +130,22 @@ def _disconnected(gen, tr, csr):
         np.r_[src, src + n], np.r_[dst, dst + n], 2 * n + 9)))
 
 
+def _widths(gen, tr, csr):
+    """Stars whose centres have the degrees at each edge of K14's lane
+    widths and row classes (their leaves a path), symmetric."""
+    src, dst, n = [], [], 0
+    for d in (1, 3, 4, 5, 8, 9, 16, 17, 31, 33, 128, 129, 300):
+        leaves = np.arange(n + 1, n + d + 1)
+        src += [np.full(d, n), leaves[:-1]]
+        dst += [leaves, leaves[1:]]
+        n += d + 1
+    return tr.sort_and_clean(tr.symmetrize(csr.from_edges(
+        np.concatenate(src), np.concatenate(dst), n)))
+
+
 GRAPHS = {
     "rmat10": lambda gen, tr, csr: gen.rmat(10, 8, seed=0),
+    "widths": _widths,
     "directed": lambda gen, tr, csr: gen.rmat(8, 6, seed=2, undirected=False),
     "selfloops": _with_selfloops,
     "disconnected": _disconnected,
@@ -219,25 +279,41 @@ def emulated(tmp_path_factory):
 
 @pytest.fixture(scope="module")
 def emulated_small_hubs(tmp_path_factory):
-    """The same with kHubDegree 8: every row of more than 8 neighbours a
-    block."""
+    """The same with kHubDegree 8 and kHubSlice 16: every row of more than 8
+    neighbours a hub, a block every 16 of its ids."""
     if shutil.which("g++") is None:
         pytest.skip("no g++ on this host")
     return build_emulated(tmp_path_factory.mktemp("k14_hubs"), "coloring.cu",
-                          1, EMULATION_K14, {"kHubDegree": 8})
+                          1, EMULATION_K14, {"kHubDegree": 8,
+                                             "kHubSlice": 16})
 
 
-def _emulated_first_fit(lib, g, colors, active, max_colors, hub_degree):
+@pytest.fixture(scope="module")
+def emulated_wide_rows(tmp_path_factory):
+    """The same with kHubDegree 4096: rows of up to 4,096 neighbours a warp,
+    so that a warp's row can need a second shared window."""
+    if shutil.which("g++") is None:
+        pytest.skip("no g++ on this host")
+    return build_emulated(tmp_path_factory.mktemp("k14_wide"), "coloring.cu",
+                          1, EMULATION_K14, {"kHubDegree": 4096})
+
+
+def _emulated_first_fit(lib, g, colors, active, max_colors, hub_degree,
+                        classes=FF.ROW_CLASSES, hub_slice=FF.HUB_SLICE):
     rp = torch.from_numpy(np.asarray(g.row_ptr, np.int32))
     col = torch.from_numpy(np.asarray(g.col_idx, np.int32))
-    hubs = torch.from_numpy(np.flatnonzero(g.degrees() > hub_degree)
-                            .astype(np.int32))
+    t = FF.first_fit_tables(torch.from_numpy(g.degrees()), hub_degree,
+                            classes, hub_slice)
+    t["hub_words"].fill_(-1)   # the entry zeroes the scratch
     act = torch.from_numpy(active.astype(np.uint8))
     c = torch.from_numpy(colors)
     out = torch.full((g.nv,), -7, dtype=torch.int32)
-    assert lib.gab_first_fit(rp.data_ptr(), col.data_ptr(), c.data_ptr(),
-                             act.data_ptr(), hubs.data_ptr(), hubs.numel(),
-                             g.nv, max_colors, out.data_ptr(), 0, None) == 0
+    assert lib.gab_first_fit(
+        rp.data_ptr(), col.data_ptr(), c.data_ptr(), act.data_ptr(),
+        t["hubs"].data_ptr(), t["hubs"].numel(), t["slices"].data_ptr(),
+        t["slices"].shape[0], t["hub_words"].data_ptr(),
+        t["order"].data_ptr(), t["n_chunks"], max_colors, out.data_ptr(), 0,
+        None) == 0
     return out
 
 
@@ -263,7 +339,7 @@ def _star_of_colours(leaves: int, extra_rows: int):
 
 
 @pytest.mark.parametrize("name", ["rmat10", "selfloops", "disconnected",
-                                  "edgeless"])
+                                  "edgeless", "widths"])
 @pytest.mark.parametrize("max_colors", [3, None])
 def test_k14_source_equals_plain(emulated, name, max_colors):
     _, g = _pair(GRAPHS[name])
@@ -291,21 +367,140 @@ def test_k14_source_second_windows(emulated):
         assert int(got[0]) == (leaves if mc > leaves else 0)
 
 
+# K14 built with fewer ids a lane at once, and so narrower lane groups: one
+# (groups of 4, 8, 16 lanes for rows of up to 4, 8, 16 neighbours) and two
+VARIANTS = {"an id a lane": {"kUnroll": 1}, "two ids a lane": {"kUnroll": 2}}
+
+
+@pytest.fixture(scope="module")
+def emulated_variants(tmp_path_factory):
+    if shutil.which("g++") is None:
+        pytest.skip("no g++ on this host")
+    return {name: build_emulated(tmp_path_factory.mktemp("k14_variant"),
+                                 "coloring.cu", 1, EMULATION_K14, consts)
+            for name, consts in VARIANTS.items()}
+
+
+@pytest.mark.parametrize("variant", sorted(VARIANTS))
+@pytest.mark.parametrize("name", ["rmat10", "selfloops", "widths"])
+def test_k14_source_variants_equal_plain(emulated_variants, name, variant):
+    """The colours do not depend on how many ids a lane has in flight, nor
+    on the lane groups that follow from it."""
+    _, g = _pair(GRAPHS[name])
+    mc = int(g.degrees().max(initial=0)) + 2
+    for seed, m in ((2, mc), (3, 17)):
+        colors, active = _inputs(g.nv, m, seed)
+        got = _emulated_first_fit(emulated_variants[variant], g, colors,
+                                  active, m, FF.HUB_DEGREE)
+        assert torch.equal(got, _plain(g, colors, active, m))
+
+
+# other tables for the kernel: every row in one class, in id order (a chunk's
+# rows of any degrees), and a row a chunk
+TABLES = {"one class": ((0, FF.HUB_DEGREE, FF.CHUNK),),
+          "a row a chunk": ((0, FF.HUB_DEGREE, 1),)}
+
+
+@pytest.mark.parametrize("table", sorted(TABLES))
+@pytest.mark.parametrize("name", ["rmat10", "selfloops", "widths"])
+def test_k14_source_any_table_equals_plain(emulated, name, table):
+    """The colours do not depend on the table: a chunk whose rows mix every
+    lane width takes the groups its widest row allows."""
+    _, g = _pair(GRAPHS[name])
+    mc = int(g.degrees().max(initial=0)) + 2
+    for seed, m in ((2, mc), (3, 17)):
+        colors, active = _inputs(g.nv, m, seed)
+        got = _emulated_first_fit(emulated, g, colors, active, m,
+                                  FF.HUB_DEGREE, TABLES[table])
+        assert torch.equal(got, _plain(g, colors, active, m))
+
+
+@pytest.mark.parametrize("centre_active", [True, False])
+@pytest.mark.parametrize("leaves,max_colors", [
+    (3, 3), (3, 4), (16, 16), (16, 17), (17, 18), (31, 32), (32, 33),
+    (33, 34), (64, 64), (64, 65), (65, 66), (127, 200), (128, 128),
+    (128, 129), (200, 300), (1030, 1200), (1030, 129), (8400, 9000)])
+def test_k14_source_low_words_full(emulated, leaves, max_colors,
+                                   centre_active):
+    """A centre whose leaves hold 0..leaves-1 finds ``leaves``: in its
+    group's register words at up to 16, 32 and 64 leaves (groups of 4, 8
+    and 16 lanes), in the warp's, and past the 128 colours they hold in
+    its warp's (or, past 1,024 leaves, its hub block's) first shared window
+    (8,400 leaves: the hub's second); or 0 at every max_colors edge. A
+    centre flagged inactive keeps its colour, a hub's in its block."""
+    g, colors = _star_of_colours(leaves, 3)
+    colors[0] = 5
+    active = np.ones(g.nv, bool)
+    active[0] = centre_active
+    got = _emulated_first_fit(emulated, g, colors, active, max_colors,
+                              FF.HUB_DEGREE)
+    assert torch.equal(got, _plain(g, colors, active, max_colors))
+    want = leaves if max_colors > leaves else 0
+    assert int(got[0]) == (want if centre_active else 5)
+
+
+@pytest.mark.parametrize("leaves,max_colors", [(2000, 2100), (2000, 1500),
+                                               (1160, 1200)])
+def test_k14_source_warp_second_window(emulated_wide_rows, leaves,
+                                       max_colors):
+    """A warp's row whose leaves hold 0..leaves-1 past its first shared
+    window (colours 128..1151) finds ``leaves`` in the second, or 0."""
+    g, colors = _star_of_colours(leaves, 3)
+    active = np.ones(g.nv, bool)
+    got = _emulated_first_fit(emulated_wide_rows, g, colors, active,
+                              max_colors, 4096)
+    assert torch.equal(got, _plain(g, colors, active, max_colors))
+    assert int(got[0]) == (leaves if max_colors > leaves else 0)
+
+
+@pytest.mark.parametrize("name", sorted(GRAPHS))
+def test_first_fit_tables(name):
+    """The hubs are the rows above HUB_DEGREE neighbours, each cut into
+    slices of HUB_SLICE ids; the table lists every other row once, in
+    chunks of CHUNK entries whose rows share a class, each class's rows in
+    id order."""
+    _, g = _pair(GRAPHS[name])
+    deg = g.degrees()
+    t = FF.first_fit_tables(torch.from_numpy(deg), hub_slice=7)
+    for k in ("hubs", "order", "slices", "hub_words"):
+        assert t[k].dtype == torch.int32
+    hubs = np.flatnonzero(deg > FF.HUB_DEGREE)
+    assert np.array_equal(t["hubs"].numpy(), hubs)
+    want = [(h, k) for h, v in enumerate(hubs)
+            for k in range(-(-int(deg[v]) // 7))]
+    assert t["slices"].tolist() == [list(x) for x in want]
+    assert t["hub_words"].numel() == (FF.LOW_WORDS + 1) * len(hubs)
+    order = t["order"].numpy()
+    assert len(order) == FF.CHUNK * t["n_chunks"]
+    rows = order[order >= 0]
+    assert np.array_equal(np.sort(rows), np.flatnonzero(deg <= FF.HUB_DEGREE))
+    cls = np.full(g.nv, -1)
+    for i, (least, most, _) in reversed(list(enumerate(FF.ROW_CLASSES))):
+        cls[(deg >= least) & (deg <= most)] = i
+    for chunk in order.reshape(-1, FF.CHUNK):
+        assert len(set(cls[chunk[chunk >= 0]])) <= 1
+    assert (np.diff(cls[rows]) >= 0).all()
+
+
 @pytest.mark.parametrize("name", ["rmat10", "selfloops", "disconnected"])
 def test_k14_source_hub_blocks_equal_plain(emulated_small_hubs, name):
-    """Every row of more than 8 neighbours a block of its own."""
+    """Every row of more than 8 neighbours a hub, its slices of 16 ids a
+    block each, the last to finish answering."""
     _, g = _pair(GRAPHS[name])
     mc = int(g.degrees().max(initial=0)) + 2
     for seed, m in ((0, mc), (1, 4)):
         colors, active = _inputs(g.nv, m, seed)
         got = _emulated_first_fit(emulated_small_hubs, g, colors, active, m,
-                                  8)
+                                  8, hub_slice=16)
         assert torch.equal(got, _plain(g, colors, active, m))
 
 
 def test_k14_hub_degree_matches_source():
     src = (FF._build.CSRC / "coloring.cu").read_text()
     assert f"constexpr int kHubDegree = {FF.HUB_DEGREE};" in src
+    for name, value in (("kHubSlice", FF.HUB_SLICE), ("kChunk", FF.CHUNK),
+                        ("kLowWords", FF.LOW_WORDS)):
+        assert f"constexpr int {name} = {value};" in src
 
 
 # ---- the kernel on the card -----------------------------------------------
@@ -340,3 +535,23 @@ def test_k14_second_windows_on_cuda():
         got = FF.first_fit(dgc, torch.from_numpy(colors).cuda(),
                            torch.from_numpy(active).cuda(), mc).cpu()
         assert torch.equal(got, _plain(g, colors, active, mc))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["rmat10", "widths", "disconnected"])
+def test_color_on_cuda_equals_cpu(name):
+    """A whole ``color`` solve on the card: the rounds and the colours of
+    the CPU path (K14's plain version), K14 launched once a round."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: K14 first_fit has no CPU mode")
+    _, g = _pair(GRAPHS[name])
+    want, rounds = color(to_device_graph(g, device="cpu",
+                                         with_transpose=False,
+                                         with_ell=False), return_rounds=True)
+    dgc = to_device_graph(g, device="cuda", with_transpose=False,
+                          with_ell=False)
+    before = FF.LAUNCHES["first_fit"]
+    got, got_rounds = color(dgc, return_rounds=True)
+    assert got_rounds == rounds
+    assert FF.LAUNCHES["first_fit"] - before == rounds
+    assert torch.equal(got.cpu(), want)

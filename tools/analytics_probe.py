@@ -116,6 +116,37 @@ lane) alone:
 constant of ``ops/vbyte_decode.py`` or ``ops/cgr_decode.py``
 (``SVB_TILE_QUADS=112``) sets it before the preps build their tables.
 
+``--first-fit`` times K14 ``first_fit`` and K12 ``cgr_gamma``, at
+rmat(19, 16) seed 0 (``chip_smoke``'s analytics graph; or ``--scale``):
+
+    python3 tools/analytics_probe.py --first-fit [--parent DIR]
+
+The graph is written once, and through ``sort_and_clean`` in CGR three
+times: the default config, the same with a degree in each header, and with
+intervals in 64-bit interval segments. Each turn is a process of its own
+that builds K14 and K12 of its checkout (the compiler's register report
+printed) and reads: K14 on the three states of
+``chip_smoke._first_fit_states`` (round 1, random colours on 60% of the
+rows, random colours below 3), each its device ms (the mean of
+``KERNEL_CALLS`` launches under torch.profiler, every kernel the call
+launches by name), batch ms and bound (the ids of the active rows read
+once); one warm ``color`` solve round by round (``coloring.py``'s loop
+repeated by ``chip_smoke._color_rounds``, ``int(active.sum())`` read each
+round): the active rows and K14's device ms of every round, the solve's
+device ms by kernel name, and the warm seconds of ``color`` itself (median
+of ``SOLVES_WARM``); and ``cgr_gamma`` on its four launch kinds (HEADER on
+the default stream's vertices, HEADER_DEG on the degree stream's, COUNT on
+every residual segment of the default stream, and the interval stream's
+residual headers at ``res_pos``, 0 for a vertex with no interval section,
+as the prep finds them and in a random order), each against its plain
+version, its device ms, batch ms and bound, with how far its positions are
+sorted. The turns run as ``--tc-cold``'s; the colours, the rounds and
+every ``cgr_gamma`` output must agree. One ``FIRST_FIT {json}`` line a
+turn. ``--variants`` works as for ``--pull-kernels``, over
+``csrc/coloring.cu`` and ``csrc/cgr_decode.cu``; a choice named like a
+constant of ``ops/first_fit.py`` (``HUB_SLICE=1048576``) sets it before the
+tables are built.
+
 ``--pull-kernels`` times K8 ``neighbor_reduce`` at rmat(19, 16) (or
 ``--scale``):
 
@@ -169,6 +200,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TC_COLD_SOLVES = 3
 KERNEL_SOLVES = 3
 KERNEL_CALLS = 20
+SOLVES_WARM = 5
 DECODE_RUNS = 7
 VGB_SPLITS = (64, 256, 1024)      # groups a row
 # vgb_values' row classes by groups a row, and cgr_residual's lane classes
@@ -1093,6 +1125,178 @@ def decode_kernels_worker(tree: str, path: str, decoders: str,
     print("DECODE " + json.dumps(res))
 
 
+def _state_bound(C, dg, active) -> tuple:
+    """K14's bound on one round: chip_smoke._first_fit_bound's bytes with
+    the ids of the active rows alone read (an inactive row keeps its
+    colour), against one compare an id."""
+    ids = int(dg.deg.long()[active].sum())
+    nv = dg.nv
+    return C._bound_of(4 * (nv + 1) + 4 * ids + 9 * nv, ids)
+
+
+def _solve_reading(C, COL, dg) -> dict:
+    """One warm solve under torch.profiler: K14's device ms a round (its
+    launches in order), every kernel's device ms by name over the solve,
+    and the rounds' active rows; asked up to five times while the profiler
+    hands back fewer K14 launches than rounds."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    want, counts = C._color_rounds(dg)
+    if not torch.equal(want, COL.color(dg)):
+        raise SystemExit("the probe's loop and color() disagree")
+    for _ in range(5):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            colors, _ = C._color_rounds(dg)
+            torch.cuda.synchronize()
+        ev = sorted((e for e in prof.events()
+                     if e.device_type == torch.autograd.DeviceType.CUDA),
+                    key=lambda e: e.time_range.start)
+        k14 = [e.time_range.elapsed_us() / 1e3 for e in ev
+               if "first_fit" in e.name]
+        if len(k14) == len(counts):
+            break
+    by = {}
+    for e in ev:
+        by[e.name] = by.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+    span = (ev[-1].time_range.end - ev[0].time_range.start) / 1e3 if ev else 0
+    return {"rounds": len(counts), "active": counts, "k14_ms": k14,
+            "k14_launches_read": len(k14), "k14_sum_ms": sum(k14),
+            "k14_round1_ms": k14[0] if k14 else None,
+            "k14_later_sum_ms": sum(k14[1:]),
+            "device_ms_by_name": dict(sorted(by.items(),
+                                             key=lambda kv: -kv[1])),
+            "device_busy_ms": sum(by.values()),
+            "device_span_ms": span,
+            "colors": _digest(colors),
+            "num_colors": int(colors.max()) + 1}
+
+
+def _gamma_reading(C, K12, stream, pos, kind: int) -> dict:
+    """cgr_gamma at ``pos`` against its plain version, with its device ms,
+    batch ms and bound (the positions read, both outputs written, the
+    codes' bits read once; OPS_PER_CODE a code), and how sorted ``pos``
+    is."""
+    import torch
+
+    fn = lambda: K12.cgr_gamma(stream, pos, kind)  # noqa: E731
+    got = fn()
+    want = K12.cgr_gamma_plain(stream, pos, kind)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        if not torch.equal(a, b):
+            raise SystemExit(f"cgr_gamma kind {kind} differs from plain in "
+                             f"{int((a != b).sum())} of {a.numel()}")
+    n = pos.numel()
+    p = pos.long()
+    bits = float((got[1].long() - p).sum())
+    codes = n + (int((got[0] != 0).sum()) if kind == K12.HEADER_DEG else 0)
+    out = _pass_ms(C, fn, "cgr_gamma", whole=False)
+    out["bound_ms"], out["bound_by"], out["bound_bytes"] = C._bound_of(
+        12 * n + bits / 8, codes * C.OPS_PER_CODE)
+    out["share_of_bound"] = (out["bound_ms"] / out["device_ms"]
+                             if out["device_ms"] else None)
+    out["positions"] = n
+    out["ascending"] = float((p[1:] >= p[:-1]).float().mean()) if n > 1 else 1.0
+    spans = {}
+    for tile in (256, 1024):
+        m = n // tile * tile
+        if m:
+            q = p[:m].view(-1, tile)
+            words = (q.max(1).values - q.min(1).values) // 32 + 3
+            spans[tile] = {f"<= {kb} KB": float((words * 4 <= kb * 1024)
+                                                .float().mean())
+                           for kb in (8, 16, 32)}
+    out["tile_spans"] = spans
+    out["value"], out["next"] = _digest(got[0]), _digest(got[1])
+    return out
+
+
+def first_fit_worker(tree: str, path: str, defines: str = "") -> None:
+    """One turn of ``--first-fit``: K14 and ``cgr_gamma`` of the checkout
+    at ``tree`` on the graph and the streams under ``path``, built with the
+    constants ``defines`` (``_use_variant``)."""
+    sys.path.insert(0, ROOT)                 # chip_smoke's bounds
+    sys.path.insert(0, os.path.abspath(tree))
+    import torch
+
+    import chip_smoke as C
+    from graphaibench_tpu_torch import CSRGraph
+    from graphaibench_tpu_torch.analytics import coloring as COL
+    from graphaibench_tpu_torch.compress import cgr_device as CD
+    from graphaibench_tpu_torch.compress.cli import load_compressed
+    from graphaibench_tpu_torch.ops import cgr_decode as K12
+    from graphaibench_tpu_torch.ops import first_fit as FF
+    from graphaibench_tpu_torch.ops.device_graph import to_device_graph
+
+    import graphaibench_tpu_torch
+    assert graphaibench_tpu_torch.__file__.startswith(os.path.abspath(tree))
+    for name, value in _use_variant(defines, ("coloring.cu",
+                                              "cgr_decode.cu")):
+        mods = [m for m in (FF, K12) if hasattr(m, name)]
+        if not mods:
+            raise SystemExit(f"no constant {name} in coloring.cu, "
+                             "cgr_decode.cu, ops/first_fit.py or "
+                             "ops/cgr_decode.py")
+        setattr(mods[0], name, int(value))
+    res = {"tree": tree, "defines": defines,
+           "ptxas": _ptxas(("coloring", "cgr_decode"))}
+    z = np.load(os.path.join(path, "graph.npz"))
+    g = CSRGraph(row_ptr=z["row_ptr"], col_idx=z["col_idx"])
+    dg = to_device_graph(g, device="cuda", with_transpose=False,
+                         with_ell=False)
+    res["hubs"] = int((g.degrees() > 1024).sum())
+    res["states"] = {}
+    for name, colors, active, mc in C._first_fit_states(dg, 3):
+        fn = lambda: FF.first_fit(dg, colors, active, mc)  # noqa: E731
+        if not torch.equal(fn(), FF.first_fit_plain(dg, colors, active, mc)):
+            raise SystemExit(f"K14 differs from plain on {name}")
+        by = C._device_ms_by_name(fn, KERNEL_CALLS)
+        st = {"device_ms": sum(v for k, v in by.items() if "first_fit" in k),
+              "by_name": by, "batch_ms": C._batch_ms(fn),
+              "active": int(active.sum())}
+        st["bound_ms"], st["bound_by"], st["bound_bytes"] = _state_bound(
+            C, dg, active)
+        st["share_of_bound"] = st["bound_ms"] / st["device_ms"]
+        res["states"][name] = st
+    res["solve"] = _solve_reading(C, COL, dg)
+    res["solve"]["warm_s"] = C._solve_seconds(lambda: COL.color(dg),
+                                              SOLVES_WARM)
+    res["colors"] = res["solve"]["colors"]
+    res["rounds"] = res["solve"]["rounds"]
+    del dg
+    torch.cuda.empty_cache()
+    preps = {tag: CD.cgr_device_prep(load_compressed(os.path.join(path, tag)),
+                                     device="cuda")
+             for tag in ("cgr", "cgr_deg", "cgr_itv")}
+    plain, deg, itv = preps["cgr"], preps["cgr_deg"], preps["cgr_itv"]
+    ilanes = itv["itv_lanes"]
+    _, _, ipfin = K12.cgr_interval(itv["stream"], *ilanes,
+                                   int(itv["left"].numel()),
+                                   itv["min_itv_len"])
+    # the residual headers' positions as the interval prep finds them
+    nsegs = np.bincount(ilanes[2].cpu().numpy(), minlength=itv["nv"])
+    last = np.clip(np.cumsum(nsegs) - 1, 0, None)
+    res_pos = np.where(nsegs > 0, ipfin.cpu().numpy()[last], 0)
+    i32 = lambda a: torch.from_numpy(  # noqa: E731
+        np.ascontiguousarray(a, np.int32)).cuda()
+    cases = {
+        "header": (plain["stream"], plain["bit_off"], K12.HEADER),
+        "header_deg": (deg["stream"], deg["bit_off"], K12.HEADER_DEG),
+        "count": (plain["stream"], i32(plain["seg_start"]), K12.COUNT),
+        "res_pos": (itv["stream"], i32(res_pos), K12.HEADER),
+        "res_pos_shuffled": (itv["stream"], i32(
+            res_pos[np.random.default_rng(0).permutation(len(res_pos))]),
+            K12.HEADER),
+    }
+    res["cgr_gamma"] = {name: _gamma_reading(C, K12, *args)
+                        for name, args in cases.items()}
+    res["gamma_outputs"] = {name: [r.pop("value"), r.pop("next")]
+                            for name, r in res["cgr_gamma"].items()}
+    print("FIRST_FIT " + json.dumps(res))
+
+
 def pull_kernels(parent: str | None, scale: int, variants=()) -> None:
     sys.path.insert(0, ROOT)
     import chip_smoke as C
@@ -1168,6 +1372,34 @@ def kernels(parent: str | None, scales) -> None:
             del g
             _turns(parent, "--kernels-worker", npz, "KERNELS",
                    agree=("triangles", "core_sum", "core_max", "sweeps"))
+
+
+def first_fit(parent: str | None, scale: int, variants=()) -> None:
+    sys.path.insert(0, ROOT)
+    import chip_smoke as C
+    from graphaibench_tpu_torch import rmat
+    from graphaibench_tpu_torch.compress import cgr
+    from graphaibench_tpu_torch.compress.cli import save_compressed
+    from graphaibench_tpu_torch.graph.transforms import sort_and_clean
+
+    C.phase_device()         # the card's name and power limit
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        g = rmat(scale, 16, seed=0, cache=False)
+        np.savez(os.path.join(tmp, "graph.npz"), row_ptr=g.row_ptr,
+                 col_idx=g.col_idx)
+        gs = sort_and_clean(g)
+        del g
+        for name, cfg in (("cgr", C.CGR_STREAMS["plain"]),
+                          ("cgr_deg", cgr.CgrConfig(add_degree=True)),
+                          ("cgr_itv", C.CGR_STREAMS["interval"])):
+            save_compressed(cgr.encode_graph(gs, cfg), os.path.join(tmp, name))
+        del gs
+        print(f"rmat({scale}, 16) written and encoded in "
+              f"{time.perf_counter() - t0:.1f} s")
+        _turns(parent, "--first-fit-worker", tmp, "FIRST_FIT",
+               agree=("colors", "rounds", "gamma_outputs"),
+               variants=variants)
 
 
 def _turns(parent: str | None, worker: str, path: str, tag: str,
@@ -1260,15 +1492,23 @@ def main() -> int:
                     help="K8 over each pull solve, a sweep of each case and "
                     "split by row class, at rmat19 (or --scale)")
     ap.add_argument("--variants", default="",
-                    help="with --pull-kernels or --decode-kernels: turns "
+                    help="with --pull-kernels, --decode-kernels or "
+                    "--first-fit: turns "
                     "of the change with these constants of its sources "
                     "(NAME=VALUE; or, for the decode, table sizes of "
                     "ops/vbyte_decode.py), ';' between variants, ',' "
                     "between the choices of one")
+    ap.add_argument("--first-fit", action="store_true",
+                    help="K14 on three states and over a color solve, and "
+                    "K12's cgr_gamma on its four launch kinds, at rmat19 "
+                    "(or --scale)")
+    ap.add_argument("--first-fit-worker", nargs="+", metavar="ARG",
+                    help=argparse.SUPPRESS)
     ap.add_argument("--pull-kernels-worker", nargs="+",
                     metavar="ARG", help=argparse.SUPPRESS)
     ap.add_argument("--parent", help="with --tc-cold, --tc-stream-mem, "
-                    "--kernels, --decode-kernels or --pull-kernels: "
+                    "--kernels, --decode-kernels, --pull-kernels or "
+                    "--first-fit: "
                     "root of the parent commit's checkout (several split "
                     "by ',')")
     ap.add_argument("--tc-cold-worker", nargs=2, metavar=("TREE", "NPZ"),
@@ -1296,6 +1536,13 @@ def main() -> int:
         decode_kernels(args.parent, [args.scale] if args.scale else [19, 17],
                        [d for d in args.decoders.split(",") if d],
                        [v for v in args.variants.split(";") if v])
+        return 0
+    if args.first_fit_worker:
+        first_fit_worker(*args.first_fit_worker)
+        return 0
+    if args.first_fit:
+        first_fit(args.parent, args.scale or 19,
+                  [v for v in args.variants.split(";") if v])
         return 0
     if args.pull_kernels_worker:
         pull_kernels_worker(*args.pull_kernels_worker)

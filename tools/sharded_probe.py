@@ -9,6 +9,8 @@ card:
     python3 tools/sharded_probe.py --ranks 4     # on a machine with 4 cards
     python3 tools/sharded_probe.py --ranks 4 --analytics
     python3 tools/sharded_probe.py --sensitivity
+    python3 tools/sharded_probe.py --grads
+    python3 tools/sharded_probe.py --phase 3
 
 For GCN and GAT of chip_smoke.py's main path (2 layers, 128/128/16 on
 rmat(scale, 16) with self-loops):
@@ -16,9 +18,13 @@ rmat(scale, 16) with self-loops):
 1. spread: ``--runs`` fresh ``Model`` runs and ``--runs`` one-rank sharded
    runs (an nccl group of one, in this process) of chip_smoke's
    SHARDED_STEPS steps each; the largest |weight difference| of each from
-   the first ``Model`` run, per parameter. Atomics add in an order that
-   changes from run to run, so this is the noise a weight comparison
-   between the two trainers has to allow.
+   the first ``Model`` run, per parameter, and after each step, and each
+   gradient's largest |difference| over its tensor's largest |gradient|
+   at each step. Atomics add in an order that changes from run to run,
+   so this is the noise a weight comparison between the two trainers has
+   to allow. Each sharded run then takes SHARDED_STEPS steps from fresh
+   weights with ``Model`` following it (chip_smoke's ``_follow``): the
+   noise left where nothing compounds.
 2. host: ``--steps`` warm steps of each trainer under torch.profiler (CPU
    and CUDA): the host clock a step, the device's busy time a step, and
    the host ops that take the most self CPU time a step.
@@ -56,7 +62,21 @@ then one-rank sharded runs of SHARDED_STEPS steps, each with one gradient
 of the fused attention's backward (d_sl, d_sr or d_h) scaled by a
 factor inside this process only, and a run with none; each run's losses'
 largest relative error and its weights' largest |difference| from the
-reference, beside SHARDED_RTOL and SHARDED_ATOL["gat"].
+reference, the first step's gradients' differences, and ``_follow``'s
+differences with the fault in the trainer's steps only, beside
+SHARDED_RTOL, SHARDED_ATOL["gat"], SHARDED_FOLLOW_ATOL, TP_GRAD_RTOL and
+TP_GRAD_ATOL.
+
+With ``--grads`` instead: the first step's gradients of GCN and GAT at
+one rank (in this process) and at two gloo ranks on the card against
+``Model``'s, per parameter: the largest |difference| and |gradient|,
+whether chip_smoke's tensor-parallel gradient limits hold element by
+element, and the difference's largest singular value's share of its
+norm.
+
+With ``--phase N`` instead: chip_smoke's sharded phase N times, with
+every check of that phase (the one-rank and two-rank runs against
+``Model``, ``Model`` following each, the rank tables' kernels).
 
 Prints one JSON object per measurement, and the cards' nvidia-smi lines
 first and last.
@@ -85,27 +105,66 @@ def _model(g, cfg):
     return Model(cfg, cs._dataset(g, cfg.dim_init, cfg.num_cls), device="cuda")
 
 
+def _fresh(cfg):
+    """Fresh weights and optimizer on the card."""
+    params = cs.init_params(cfg, device="cuda")
+    return params, cs.OPTIMIZERS[cfg.optimizer](params.parameters(),
+                                                 lr=cfg.lr)
+
+
+def _trajectory(params, step) -> dict:
+    """SHARDED_STEPS calls of ``step``; the weights and the gradients by
+    name after each."""
+    out = {"params": [], "grads": []}
+    for _ in range(cs.SHARDED_STEPS):
+        step()
+        out["params"].append(cs._params_by_name(params))
+        out["grads"].append(cs._grads_by_name(params))
+    return out
+
+
 def _spread(g, cfg, runs: int) -> list[dict]:
     def trained_model():
         m = _model(g, cfg)
-        for _ in range(cs.SHARDED_STEPS):
-            m.train_epoch()
-        return cs._params_by_name(m.params)
+        return _trajectory(m.params, m.train_epoch)
 
     def trained_sharded():
         _, trainer, params, opt = cs._sharded_setup(g, cfg, 1, "cuda")
-        for _ in range(cs.SHARDED_STEPS):
-            trainer.train_step(params, opt)
-        return cs._params_by_name(params)
+        out = _trajectory(params, lambda: trainer.train_step(params, opt))
+        params, opt = _fresh(cfg)
+        out["follow"] = cs._follow(lambda: trainer.train_step(params, opt),
+                                   params, opt, follower,
+                                   cs.SHARDED_STEPS)
+        return out
 
     ref = trained_model()
+    follower = _model(g, cfg)
     out = []
     for kind, fn in (("model", trained_model), ("sharded", trained_sharded)):
         for run in range(runs):
             got = fn()
-            out.append({"arch": cfg.arch, "kind": kind, "run": run,
-                        "max_abs_diff": {k: float(np.abs(got[k] - v).max())
-                                         for k, v in ref.items()}})
+            out.append({
+                "arch": cfg.arch, "kind": kind, "run": run,
+                "max_abs_diff": {k: float(np.abs(got["params"][-1][k] - v)
+                                          .max())
+                                 for k, v in ref["params"][-1].items()},
+                # each step: the largest |weight difference| over the
+                # parameters, and each gradient's largest |difference|
+                # over its tensor's largest |gradient|
+                "weights_by_step": [
+                    cs._weights_err(a, b)
+                    for a, b in zip(got["params"], ref["params"])],
+                "grad_rel_by_step": [
+                    {k: float(np.abs(a[k] - v).max())
+                     / max(float(np.abs(v).max()), 1e-30)
+                     for k, v in b.items()}
+                    for a, b in zip(got["grads"], ref["grads"])],
+                "grad_abs_step1": {
+                    k: float(np.abs(got["grads"][0][k] - v).max())
+                    for k, v in ref["grads"][0].items()},
+                "grad_max_step1": {k: float(np.abs(v).max())
+                                   for k, v in ref["grads"][0].items()},
+                "follow": got.get("follow")})
     return out
 
 
@@ -119,9 +178,11 @@ def _sensitivity(g) -> None:
 
     cfg = cs._sharded_cfgs()["gat"]
     model = _model(g, cfg)
-    want_losses = [model.train_epoch()[0] for _ in range(cs.SHARDED_STEPS)]
+    want_losses, want_grads = [], None
+    for _ in range(cs.SHARDED_STEPS):
+        want_losses.append(model.train_epoch()[0])
+        want_grads = want_grads or cs._grads_by_name(model.params)
     want = cs._params_by_name(model.params)
-    del model
     backward = FG._GatV2.backward
     try:
         for grad, factor in FAULTS:
@@ -134,9 +195,24 @@ def _sensitivity(g) -> None:
 
             FG._GatV2.backward = staticmethod(scaled)
             _, trainer, params, opt = cs._sharded_setup(g, cfg, 1, "cuda")
-            losses = [float(trainer.train_step(params, opt))
-                      for _ in range(cs.SHARDED_STEPS)]
+            grads = {}
+            losses, _, _ = cs._sharded_steps(trainer, params, opt,
+                                             cs.SHARDED_STEPS,
+                                             first_grads=grads)
             got = cs._params_by_name(params)
+            # the fault in the trainer's steps only, Model following it
+            FG._GatV2.backward = backward
+            params, opt = _fresh(cfg)
+
+            def faulty_step(params=params, opt=opt, scaled=scaled):
+                FG._GatV2.backward = staticmethod(scaled)
+                try:
+                    trainer.train_step(params, opt)
+                finally:
+                    FG._GatV2.backward = backward
+
+            follow = cs._follow(faulty_step, params, opt, model,
+                                cs.SHARDED_STEPS)
             print(json.dumps({
                 "arch": "gat", "grad": grad, "factor": factor,
                 "losses_max_rel_err": max(
@@ -144,9 +220,72 @@ def _sensitivity(g) -> None:
                 "weights_max_abs_err": cs._weights_err(got, want),
                 "by_param": {k: float(np.abs(got[k] - v).max())
                              for k, v in want.items()},
-                "rtol": cs.SHARDED_RTOL, "atol": cs.SHARDED_ATOL["gat"]}))
+                # the first step's gradients: each one's largest
+                # |difference| over its tensor's largest |gradient|
+                "grad_rel_step1": {
+                    k: float(np.abs(grads[k] - v).max())
+                    / max(float(np.abs(v).max()), 1e-30)
+                    for k, v in want_grads.items()},
+                "follow": follow,
+                "rtol": cs.SHARDED_RTOL, "atol": cs.SHARDED_ATOL["gat"],
+                "follow_atol": cs.SHARDED_FOLLOW_ATOL,
+                "grad_rtol": cs.TP_GRAD_RTOL, "grad_atol": cs.TP_GRAD_ATOL}))
     finally:
         FG._GatV2.backward = backward
+
+
+def _first_grads(rank: int, n: int, row_ptr, col_idx) -> dict:
+    """One rank of ``--grads``: GCN and GAT, one step from fresh weights
+    on ``n`` shards; the gradients by name (summed over the ranks)."""
+    from graphaibench_tpu_torch import CSRGraph
+    from graphaibench_tpu_torch.parallel.multihost import rank_device
+
+    g = CSRGraph(row_ptr=row_ptr, col_idx=col_idx)
+    dev = rank_device(rank, "cuda") if n > 1 else "cuda"
+    out = {}
+    for arch, cfg in cs._sharded_cfgs().items():
+        _, trainer, params, opt = cs._sharded_setup(g, cfg, n, dev)
+        trainer.train_step(params, opt)
+        out[arch] = cs._grads_by_name(params)
+    return out
+
+
+def _grads_against_model(g) -> None:
+    """``--grads``: the first step's gradients of the one-rank trainer (in
+    this process) and of rank 0 of two gloo ranks on the card, each
+    against ``Model``'s: per parameter the largest |difference|, the
+    largest |gradient|, whether chip_smoke's tensor-parallel limits
+    (TP_GRAD_RTOL, TP_GRAD_ATOL) hold element by element, and for a matrix
+    the share of the difference's Frobenius norm in its largest singular
+    value (about 2 / sqrt(n) for rounding noise, near 1 for a fault in a
+    few rows)."""
+    want = {}
+    for arch, cfg in cs._sharded_cfgs().items():
+        m = _model(g, cfg)
+        m.train_epoch()
+        want[arch] = cs._grads_by_name(m.params)
+        del m
+    one = _first_grads(0, 1, g.row_ptr, g.col_idx)
+    two = cs.PAR.launch(_first_grads, 2, g.row_ptr, g.col_idx,
+                        device="cuda", backend="gloo",
+                        timeout_s=cs.SHARDED_SPAWN_TIMEOUT_S)[0]
+    for ranks, got in ((1, one), (2, two)):
+        for arch, grads in got.items():
+            rec = {}
+            for k, w in want[arch].items():
+                d = grads[k] - w
+                share = None
+                if d.ndim == 2 and np.abs(d).max() > 0:
+                    sv = np.linalg.svd(d.astype(np.float64),
+                                       compute_uv=False)
+                    share = float(sv[0] / np.sqrt((sv ** 2).sum()))
+                rec[k] = {"max_abs_diff": float(np.abs(d).max()),
+                          "max_abs_grad": float(np.abs(w).max()),
+                          "tp_limits_hold": bool(np.allclose(
+                              grads[k], w, rtol=cs.TP_GRAD_RTOL,
+                              atol=cs.TP_GRAD_ATOL)),
+                          "top_singular_share": share}
+            print(json.dumps({"arch": arch, "ranks": ranks, "grads": rec}))
 
 
 def _host(tag: str, step, steps: int) -> dict:
@@ -315,6 +454,11 @@ def main() -> None:
                     help="with --ranks: data-parallel GraphSAINT")
     ap.add_argument("--analytics", action="store_true",
                     help="with --ranks: the distributed analytics")
+    ap.add_argument("--grads", action="store_true",
+                    help="first-step gradients at one and two ranks "
+                         "against Model's")
+    ap.add_argument("--phase", type=int, default=0,
+                    help="run chip_smoke's sharded phase this many times")
     args = ap.parse_args()
     cards = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -335,6 +479,10 @@ def _run(args) -> None:
         _analytics_multi_rank(args.ranks, args.scale or cs.ANALYTICS_SCALE)
         return
     g = rmat(args.scale or cs.SCALE, cs.EDGE_FACTOR, seed=0)
+    if args.phase:
+        for _ in range(args.phase):
+            cs._timed("sharded", cs.phase_sharded, g)
+        return
     if args.ranks:
         if args.tp:
             _tp_multi_rank(g, args.ranks,
@@ -349,6 +497,9 @@ def _run(args) -> None:
     try:
         if args.sensitivity:
             _sensitivity(g)
+            return
+        if args.grads:
+            _grads_against_model(g)
             return
         for cfg in cs._sharded_cfgs().values():
             for rec in _spread(g, cfg, args.runs):
