@@ -278,7 +278,25 @@ non-zero exit code and no result line:
              node2vec at rmat14, finite; knn_search against a float64
              brute force; ``cli analytics color|cf|sample|embed`` side by
              side, each Correct on the card.
-15. result — a JSON line of the twenty kernels, then the last line
+15. p15b   — the pattern solvers. The NLF's SpMM on K1 at rmat(13, 16)
+             with 4 seeded labels (unit weights, the (nv, 4) one-hot)
+             behind the NaN-dirtied allocator, equal to the plain
+             index_add_ exactly, timed beside its bound, its plain version,
+             index_add_ and torch.sparse.mm; neighborhood_label_frequency,
+             one K1 launch, equal to the host route. motif_counts(g, 3 and
+             4) and induced_motif_counts at rmat13, every count equal to an
+             exact oracle of scipy's int64 sparse products; motif_counts(g,
+             4) at rmat(14, 16) (16,384 vertices, the dense path's full
+             width) timed cold and warm with its device ms by kernel and
+             its peak memory, its triangle equal to K9's triangle_count and
+             its wedge and 3-star to the degree forms. fsm at rmat10 on the
+             card equal to the same call on the CPU; at rmat13 timed, two
+             K1 launches (one NLF each for the edges and the wedges), its
+             edge supports equal to the fsm route's edge-list check. ``cli
+             analytics motif <dir> 4`` and ``analytics fsm <dir>`` side by
+             side on rmat(12, 16) with vertex labels, each Correct on the
+             card.
+16. result — a JSON line of the twenty kernels, then the last line
              {"ok": true, "device": {...}}. Each phase prints its seconds.
 """
 
@@ -305,8 +323,10 @@ from graphaibench_tpu_torch.analytics import cc as CCM
 from graphaibench_tpu_torch.analytics import cf as CFM
 from graphaibench_tpu_torch.analytics import coloring as COL
 from graphaibench_tpu_torch.analytics import embedding as EMBM
+from graphaibench_tpu_torch.analytics import fsm as FSMM
 from graphaibench_tpu_torch.analytics import kcore as KCM
 from graphaibench_tpu_torch.analytics import khop as KHOPM
+from graphaibench_tpu_torch.analytics import motif as MOTM
 from graphaibench_tpu_torch.analytics import mst as MSTM
 from graphaibench_tpu_torch.analytics import pr as PRM
 from graphaibench_tpu_torch.analytics import tc as TCM
@@ -318,7 +338,8 @@ from graphaibench_tpu_torch.compress import cgr_device as CD
 from graphaibench_tpu_torch.compress import device_decode as DD
 from graphaibench_tpu_torch.compress import hybrid as HYB
 from graphaibench_tpu_torch.compress import vbyte as VB
-from graphaibench_tpu_torch.graph.csr import from_edges
+from graphaibench_tpu_torch.graph import labels as LAB
+from graphaibench_tpu_torch.graph.csr import CSRGraph, from_edges
 from graphaibench_tpu_torch.graph.generators import grid2d
 from graphaibench_tpu_torch.graph.io import save_graph
 from graphaibench_tpu_torch.graph.transforms import (
@@ -343,7 +364,12 @@ from graphaibench_tpu_torch.ops import hindex as K10
 from graphaibench_tpu_torch.ops import math as gmath
 from graphaibench_tpu_torch.ops import tc_count as K9
 from graphaibench_tpu_torch.ops import vbyte_decode as K11
-from graphaibench_tpu_torch.ops.device_graph import pack_edge_values, to_device_graph
+from graphaibench_tpu_torch.ops.device_graph import (
+    pack_edge_values,
+    pack_slot_values,
+    to_device_graph,
+    undirected_pairs,
+)
 from graphaibench_tpu_torch.ops.segment import segment_softmax
 from graphaibench_tpu_torch.ops.spmm import sddmm_add, spmm
 from graphaibench_tpu_torch.parallel import shard_ell as SE
@@ -578,6 +604,13 @@ KNN_N, KNN_Q, KNN_K = 100_000, 256, 10
 KNN_GAP = 1e-3             # float64 scores this far apart order alike
 P15A_CLI = (("color",), ("cf",), ("sample",), ("embed", "deepwalk"),
             ("embed", "node2vec"))
+P15B_SCALE = 13            # NLF on K1, motif against the oracle, FSM timed
+P15B_FULL_SCALE = 14       # motif k = 4 at 16,384 vertices: the dense width
+P15B_FSM_CPU_SCALE = 10    # fsm on the card against the CPU
+P15B_CLI_SCALE = 12        # ne 101,406: the motif route checks to 200,000
+P15B_LABELS = 4
+# rmat(13, 16, seed=0): 6T, tr(A^4) and 24 K4 in scipy's int64 products
+P15B_ORACLE_SUMS = (1_692_990, 196_745_886, 12_979_728)
 CLI_DECODED = {"cgr": ("tc", "bfs"), "streamvbyte": ("tc",),
                "varintgb": ("tc", "bfs"), "hybrid": ("tc", "bfs")}
 CLI_SCHEMES = {"cgr": ("-s", "cgr"), "cgr_word_p": ("-s", "cgr", "-a", "word",
@@ -4723,6 +4756,278 @@ def phase_p15a(g, dg) -> dict:
     return {"first_fit": color, "cf_launches": cf["launches_per_solve"]}
 
 
+# ---- the p15b phase ----------------------------------------------------------
+
+def _labeled(g, seed: int):
+    """``g`` with P15B_LABELS vertex labels drawn from ``seed``."""
+    lab = np.random.default_rng(seed).integers(0, P15B_LABELS, g.nv)
+    return CSRGraph(row_ptr=g.row_ptr, col_idx=g.col_idx,
+                    vlabels=lab.astype(np.uint8))
+
+
+def _p15b_nlf(g) -> dict:
+    """K1 on the NLF's SpMM: unit weights against the (nv, 4) one-hot of
+    seeded labels, behind the NaN-dirtied allocator, equal exactly to the
+    plain index_add_, to K1's plain version and to torch.sparse.mm (sums
+    of ones); timed beside its bound, its plain version, index_add_ and
+    torch.sparse.mm. Then neighborhood_label_frequency on the card: one K1
+    launch, equal to the host route."""
+    gl = _labeled(g, 11)
+    lab = torch.from_numpy(gl.vlabels.astype(np.int64)).cuda()
+    dg = to_device_graph(g, device="cuda", with_transpose=False)
+    x = torch.zeros((g.nv, P15B_LABELS), device="cuda")
+    x[torch.arange(g.nv, device="cuda"), lab] = 1.0
+    ones = torch.ones(g.ne, device="cuda")
+    w = pack_slot_values(dg, ones)
+    src, dst = dg.edge_src.long(), dg.col_idx.long()
+
+    def index_add():
+        return torch.zeros_like(x).index_add_(0, src, x[dst])
+
+    csr = torch.sparse_csr_tensor(dg.row_ptr, dg.col_idx, ones,
+                                  size=(g.nv, g.nv))
+    want = index_add()
+    _dirty(g.nv * P15B_LABELS)
+    for name, got in (("K1", K1.ell_spmm(dg, w, x)),
+                      ("K1's plain version", K1.ell_spmm_plain(dg, w, x)),
+                      ("torch.sparse.mm", torch.sparse.mm(csr, x))):
+        if not torch.equal(got, want):
+            raise RuntimeError(f"[p15b] nlf rmat{P15B_SCALE}: {name} differs "
+                               f"from index_add_ in "
+                               f"{int((got != want).any(1).sum())} rows")
+    _zero_counts()
+    nlf = LAB.neighborhood_label_frequency(gl, device="cuda")
+    _assert_counts("[p15b] neighborhood_label_frequency", _counts(),
+                   {"ell_spmm": 1})
+    if not np.array_equal(nlf, LAB.neighborhood_label_frequency(gl,
+                                                                device=False)):
+        raise RuntimeError("[p15b] neighborhood_label_frequency on the card "
+                           "differs from the host route")
+    bound_ms, bound_by, nbytes = _bound(dg, P15B_LABELS)
+    ms = _batch_ms(lambda: K1.ell_spmm(dg, w, x))
+    device_ms = _kernel_device_ms(lambda: K1.ell_spmm(dg, w, x),
+                                  "ell_spmm_kernel")
+    case = {"case": f"nlf rmat{P15B_SCALE} F={P15B_LABELS}",
+            "F": P15B_LABELS, "tile": K1._tile_floats(dg.nv, P15B_LABELS),
+            "max_abs_err": 0.0, "ms": ms, "device_ms": device_ms,
+            "plain_ms": _batch_ms(lambda: K1.ell_spmm_plain(dg, w, x),
+                                  calls=5, batches=3),
+            "index_add_ms": _batch_ms(index_add),
+            "library_ms": _batch_ms(lambda: torch.sparse.mm(csr, x)),
+            "bound_ms": bound_ms, "bound_by": bound_by, "bound_bytes": nbytes,
+            "share_of_bound": bound_ms / ms,
+            "share_of_bound_device": (bound_ms / device_ms if device_ms
+                                      else None)}
+    print(f"[p15b] nlf {json.dumps(case)}")
+    return case
+
+
+def _motif_oracle(g) -> tuple[dict, tuple]:
+    """Every count of ``motif_counts(g, 4)`` in exact integers: scipy's int64
+    sparse products A2 = A·A, tr(A⁴) = Σ A2∘A2, tri_e = A2∘A and 24·K4 =
+    Σ (C·A)∘C (C's rows a_u∘a_v per directed edge), the degree terms in
+    int64. Returns (counts, (6T, tr(A⁴), 24·K4))."""
+    from scipy.sparse import csr_matrix
+
+    src, dst = undirected_pairs(g)
+    rows, cols = np.r_[src, dst], np.r_[dst, src]
+    A = csr_matrix((np.ones(len(rows), np.int64), (rows, cols)),
+                   shape=(g.nv, g.nv))
+    A2 = (A @ A).tocsr()
+    closed4 = int(A2.multiply(A2).sum())
+    tri_e = A2.multiply(A).tocsr()
+    six_t = int(tri_e.sum())
+    C = A[rows].multiply(A[cols]).tocsr()
+    k24 = int((C @ A).multiply(C).sum())
+    deg = np.asarray(A.sum(1)).ravel().astype(np.int64)
+    tri_v = np.asarray(tri_e.sum(1)).ravel().astype(np.int64) // 2
+    te = np.asarray(tri_e[src, dst]).ravel().astype(np.int64)
+    t = six_t // 6
+    counts = {
+        "wedge": int((deg * (deg - 1) // 2).sum()),
+        "triangle": t,
+        "3-star": int((deg * (deg - 1) * (deg - 2) // 6).sum()),
+        "4-path": int(((deg[src] - 1) * (deg[dst] - 1)).sum()) - 3 * t,
+        "tailed_triangle": int((tri_v * (deg - 2)).sum()),
+        "square": (closed4 - 2 * len(src)
+                   - 2 * int((deg * (deg - 1)).sum())) // 8,
+        "diamond": int((te * (te - 1) // 2).sum()),
+        "4-clique": k24 // 24}
+    return counts, (six_t, closed4, k24)
+
+
+def _induced_of(ni: dict) -> dict:
+    """The induced counts of the non-induced ``ni``: back-substitution in
+    integers through the containment matrix, which is unit upper
+    triangular."""
+    order = MOTM._INDUCED_ORDER
+    out = {}
+    for i in reversed(range(len(order))):
+        out[order[i]] = ni[order[i]] - sum(
+            int(MOTM._SUPER[i, j]) * out[order[j]]
+            for j in range(i + 1, len(order)))
+    out["triangle"] = ni["triangle"]
+    out["wedge"] = ni["wedge"] - 3 * ni["triangle"]
+    return out
+
+
+def _p15b_motif(g, full) -> dict:
+    """motif_counts(g, 3 and 4) and induced_motif_counts on the card, every
+    count equal to _motif_oracle's, no kernel of the port launched (dense
+    products); at full width, the k = 4 count timed cold and warm, its
+    device ms by kernel under torch.profiler, its peak memory, its
+    triangle equal to K9's triangle_count and its wedge and 3-star to the
+    degree forms."""
+    t0 = time.perf_counter()
+    want, sums = _motif_oracle(g)
+    oracle_s = time.perf_counter() - t0
+    if sums != P15B_ORACLE_SUMS:
+        raise RuntimeError(f"[p15b] the oracle's 6T, tr(A^4), 24 K4 at "
+                           f"rmat{P15B_SCALE}: {sums}, expected "
+                           f"{P15B_ORACLE_SUMS}")
+    _zero_counts()
+    t0 = time.perf_counter()
+    got = MOTM.motif_counts(g, 4, device="cuda")
+    small_s = time.perf_counter() - t0
+    _assert_counts("[p15b] motif_counts", _counts(), {})
+    checks = ((got, want), (MOTM.motif_counts(g, 3, device="cuda"),
+                            {k: want[k] for k in ("wedge", "triangle")}),
+              (MOTM.induced_motif_counts(g, device="cuda"), _induced_of(want)))
+    for have, exp in checks:
+        diff = {k: (have.get(k), v) for k, v in exp.items()
+                if have.get(k) != v}
+        if diff or have.keys() != exp.keys():
+            raise RuntimeError(f"[p15b] motif rmat{P15B_SCALE}: (card, "
+                               f"oracle) {diff}, names {sorted(have)}")
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    counts = MOTM.motif_counts(full, 4, device="cuda")
+    cold_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - base
+    t0 = time.perf_counter()
+    again = MOTM.motif_counts(full, 4, device="cuda")
+    warm_s = time.perf_counter() - t0
+    if again != counts:
+        raise RuntimeError("[p15b] motif_counts at full width differs "
+                           "between two runs")
+    by = _device_ms_by_name(lambda: MOTM.motif_counts(full, 4, device="cuda"),
+                            1)
+    triangles = TCM.triangle_count(full, device="cuda")
+    src, dst = undirected_pairs(full)
+    deg = (np.bincount(src, minlength=full.nv)
+           + np.bincount(dst, minlength=full.nv)).astype(np.int64)
+    forms = {"triangle": int(triangles),
+             "wedge": int((deg * (deg - 1) // 2).sum()),
+             "3-star": int((deg * (deg - 1) * (deg - 2) // 6).sum())}
+    if any(counts[k] != v for k, v in forms.items()):
+        raise RuntimeError(f"[p15b] motif rmat{P15B_FULL_SCALE}: {counts} "
+                           f"against K9 and the degree forms {forms}")
+    top = sorted(by.items(), key=lambda kv: -kv[1])[:4]
+    info = {f"rmat{P15B_SCALE}": {"counts": got, "oracle_sums": list(sums),
+                                  "oracle_s": oracle_s, "k4_s": small_s},
+            f"rmat{P15B_FULL_SCALE}": {
+                "nv": full.nv, "ne": full.ne, "counts": counts,
+                "k4_cold_s": cold_s, "k4_warm_s": warm_s,
+                "peak_gib": peak / 2**30,
+                "device_ms": sum(by.values()) if by else None,
+                "top_kernels_ms": [[k[:80], v] for k, v in top]}}
+    print(f"[p15b] motif {json.dumps(info)}")
+    return info
+
+
+def _p15b_fsm(g) -> dict:
+    """fsm(min_support=1) at P15B_FSM_CPU_SCALE on the card equal to the
+    same call on the CPU; at the phase's scale timed, its K1 launches
+    counted (one NLF each for the edges and the wedges) and its edge
+    supports equal to the fsm route's edge-list check."""
+    from graphaibench_tpu_torch.analytics import _edge_supports
+
+    def patterns(pats):
+        return [(f.kind, f.labels, f.support) for f in pats]
+
+    small = _labeled(rmat(P15B_FSM_CPU_SCALE, EDGE_FACTOR, seed=0), 12)
+    on_card = patterns(FSMM.fsm(small, device="cuda"))
+    if on_card != patterns(FSMM.fsm(small, device="cpu")):
+        raise RuntimeError(f"[p15b] fsm rmat{P15B_FSM_CPU_SCALE}: the card's "
+                           "patterns differ from the CPU's")
+    gl = _labeled(g, 13)
+    _zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pats = FSMM.fsm(gl, device="cuda")
+    dt = time.perf_counter() - t0
+    launches = _counts()
+    _assert_counts("[p15b] fsm", launches, {"ell_spmm": 2})
+    edges = {f.labels: f.support for f in pats if f.kind == "edge"}
+    if edges != _edge_supports(gl, 1):
+        raise RuntimeError(f"[p15b] fsm rmat{P15B_SCALE}: edge supports "
+                           "differ from the edge-list check")
+    t0 = time.perf_counter()
+    if patterns(FSMM.fsm(gl, device="cuda")) != patterns(pats):
+        raise RuntimeError("[p15b] fsm differs between two runs")
+    info = {f"rmat{P15B_FSM_CPU_SCALE}_patterns": len(on_card),
+            "patterns": len(pats),
+            "by_kind": {k: sum(f.kind == k for f in pats)
+                        for k in ("edge", "wedge", "triangle")},
+            "first_s": dt, "warm_s": time.perf_counter() - t0,
+            "launches": {k: v for k, v in launches.items() if v}}
+    print(f"[p15b] fsm rmat{P15B_SCALE} {json.dumps(info)}")
+    return info
+
+
+def _p15b_cli() -> None:
+    """``cli analytics motif <dir> 4`` and ``analytics fsm <dir>`` side by
+    side, without --device, on a dataset with vertex labels written by
+    save_graph: each prints ``device = cuda`` and ``Correct`` and exits
+    0."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = {k: v for k, v in os.environ.items() if k != "GAB_SHARDS"}
+    cli = [sys.executable, "-m", "graphaibench_tpu_torch.cli"]
+    runs = (("motif", "4"), ("fsm",))
+    with tempfile.TemporaryDirectory() as tmp:
+        save_graph(_labeled(rmat(P15B_CLI_SCALE, EDGE_FACTOR, seed=0), 14),
+                   tmp)
+        t0 = time.perf_counter()
+        outs = _run_cli(cli, root, env, [["analytics", a[0], tmp, *a[1:]]
+                                         for a in runs])
+        dt = time.perf_counter() - t0
+    for args, (rc, out, err) in zip(runs, outs):
+        lines = out.splitlines()
+        if rc != 0 or "device = cuda" not in lines or "Correct" not in lines:
+            raise RuntimeError(f"cli analytics {' '.join(args)}: exit {rc}"
+                               f"\n{out}\n{err[-3000:]}")
+        runtime = next(l for l in lines if l.startswith("runtime"))
+        print(f"[p15b] cli analytics {' '.join(args)}: device = cuda, "
+              f"Correct, {runtime}")
+    print(f"[p15b] the {len(runs)} CLI runs side by side in {dt:.2f} s")
+
+
+def phase_p15b() -> dict:
+    """P15b's pattern solvers (the checks above) and their CLI routes.
+    Returns K1's NLF case and fsm's launches."""
+    t0 = time.perf_counter()
+    g = rmat(P15B_SCALE, EDGE_FACTOR, seed=0)
+    full = rmat(P15B_FULL_SCALE, EDGE_FACTOR, seed=0)
+    print(f"[p15b] rmat{P15B_SCALE} nv={g.nv} ne={g.ne}, "
+          f"rmat{P15B_FULL_SCALE} nv={full.nv} ne={full.ne}, generated in "
+          f"{time.perf_counter() - t0:.2f} s")
+
+    def step(name, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        print(f"[p15b] {name} took {time.perf_counter() - t:.2f} s")
+        return out
+
+    nlf = step("nlf", _p15b_nlf, g)
+    step("motif", _p15b_motif, g, full)
+    fsm = step("fsm", _p15b_fsm, g)
+    step("cli", _p15b_cli)
+    print(f"[p15b] phase took {time.perf_counter() - t0:.2f} s")
+    return {"nlf": nlf, "fsm_launches": fsm["launches"]}
+
+
 def _timed(name: str, fn, *args):
     """fn(*args), with its seconds printed."""
     t0 = time.perf_counter()
@@ -4761,6 +5066,7 @@ def main() -> None:
     dist = _timed("dist_analytics", phase_dist_analytics, ag, adg)
     remat = _timed("remat", phase_remat, g)
     p15a = _timed("p15a", phase_p15a, ag, adg)
+    p15b = _timed("p15b", phase_p15b)
 
     def remat_launches(kname):
         """A kernel's launches a step of the remat phase, without remat and
@@ -4809,6 +5115,7 @@ def main() -> None:
         "launches": launches["ell_spmm"],
         "max_abs_err": max(other_err, rect_err["ell_spmm"],
                            dist["ell_spmm"]["max_abs_err"],
+                           p15b["nlf"]["max_abs_err"],
                            *(c["max_abs_err"] for c in cases)),
         "ms": head["ms"],
         "plain_ms": head["plain_ms"],
@@ -4821,6 +5128,8 @@ def main() -> None:
                                f1_cases=dist["ell_spmm"]["cases"]),
         "remat_per_step": remat_launches("ell_spmm"),
         "cf_per_solve": p15a["cf_launches"]["ell_spmm"],
+        "nlf": p15b["nlf"],
+        "fsm_per_solve": p15b["fsm_launches"].get("ell_spmm", 0),
     }]
     for kname, line in GAT_KERNELS.items():
         res = gat_kernels[kname]

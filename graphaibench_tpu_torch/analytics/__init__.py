@@ -19,9 +19,11 @@ this host, the graph vertex-sharded over them (``_run_distributed``).
 Coloring runs on the kernel ``first_fit`` (``ops/first_fit.py``);
 collaborative filtering on ``sddmm_dot_ell`` and K1; Borůvka's spanning
 forest, k-hop sampling, random walks, DeepWalk, node2vec and kNN search in
-plain PyTorch on the device. The pattern solvers (motif, FSM; ROADMAP P15b)
-are not ported yet: asked for, ``run_benchmark`` exits with code 2 and
-names the item.
+plain PyTorch on the device. The pattern solvers: motif counting
+(``motif.py``) on dense matrix products on the device, its counts reduced
+in float64; FSM (``fsm.py``) on the NLF table, one K1 SpMM
+(``graph/labels.py``), and dense products. Louvain, link prediction, HAC
+and the Hungarian assignment are the JAX package's host numpy, copied.
 """
 
 from __future__ import annotations
@@ -34,6 +36,7 @@ import numpy as np
 
 from graphaibench_tpu_torch.analytics import verifiers  # noqa: F401
 from graphaibench_tpu_torch.analytics.ann import knn_search  # noqa: F401
+from graphaibench_tpu_torch.analytics.assignment import hungarian  # noqa: F401
 from graphaibench_tpu_torch.analytics.bc import (  # noqa: F401
     bc_single_source,
     betweenness_centrality,
@@ -44,9 +47,19 @@ from graphaibench_tpu_torch.analytics.cc import (  # noqa: F401
 )
 from graphaibench_tpu_torch.analytics.cf import cf_train  # noqa: F401
 from graphaibench_tpu_torch.analytics.coloring import color  # noqa: F401
+from graphaibench_tpu_torch.analytics.community import (  # noqa: F401
+    louvain,
+    modularity,
+)
 from graphaibench_tpu_torch.analytics.embedding import (  # noqa: F401
     deepwalk,
     node2vec,
+)
+from graphaibench_tpu_torch.analytics.fsm import fsm as run_fsm  # noqa: F401
+from graphaibench_tpu_torch.analytics.hac import (  # noqa: F401
+    cut_clusters,
+    hac,
+    hac_from_embeddings,
 )
 from graphaibench_tpu_torch.analytics.kcore import (  # noqa: F401
     k_core,
@@ -56,6 +69,15 @@ from graphaibench_tpu_torch.analytics.kcore import (  # noqa: F401
 from graphaibench_tpu_torch.analytics.khop import (  # noqa: F401
     khop_sample,
     random_walk,
+)
+from graphaibench_tpu_torch.analytics.linkpred import (  # noqa: F401
+    adamic_adar,
+    jaccard,
+    predict_links,
+)
+from graphaibench_tpu_torch.analytics.motif import (  # noqa: F401
+    induced_motif_counts,
+    motif_counts,
 )
 from graphaibench_tpu_torch.analytics.mst import boruvka_mst  # noqa: F401
 from graphaibench_tpu_torch.analytics.pr import pagerank  # noqa: F401
@@ -73,10 +95,7 @@ from graphaibench_tpu_torch.analytics.traversal import (  # noqa: F401
 )
 
 PORTED = ("tc", "bfs", "sssp", "pr", "cc", "bc", "kcore", "color", "cf",
-          "embed", "sample")
-# the JAX package's other analytics kernels, by the ROADMAP item that ports
-# them
-NOT_PORTED = dict.fromkeys(("motif", "fsm"), "P15b")
+          "motif", "fsm", "embed", "sample")
 DISTRIBUTED = ("tc", "bfs", "sssp", "pr", "cc", "bc", "kcore")
 # the pull-mode solvers, which take the ELL pull route on symmetric graphs
 PULL = ("bfs", "sssp", "pr", "cc", "bc", "kcore")
@@ -145,6 +164,25 @@ def _load_compressed(kernel: str, prefix: str, device):
 def _edge_weights(g) -> np.ndarray:
     return (np.asarray(g.elabels, dtype=np.float32)
             if g.elabels is not None else np.ones(g.ne, np.float32))
+
+
+def _edge_supports(g, min_sup: int) -> dict:
+    """The ``fsm`` route's independent check: each labeled edge's MNI
+    support straight from the edge list (no NLF machinery), as the JAX
+    route computes it."""
+    lab = np.asarray(g.vlabels, dtype=np.int64)
+    L = int(lab.max()) + 1
+    src, dst = g.coo()
+    has = np.zeros((g.nv, L), dtype=bool)
+    has[src, lab[dst]] = True
+    exp = {}
+    for la in range(L):
+        for lb in range(la, L):
+            na = int(((lab == la) & has[:, lb]).sum())
+            nb = int(((lab == lb) & has[:, la]).sum())
+            if min(na, nb) >= min_sup:
+                exp[(la, lb)] = min(na, nb)
+    return exp
 
 
 def _dist_rank(rank: int, n: int, kernel: str, row_ptr, col_idx, weights,
@@ -266,9 +304,6 @@ def run_benchmark(kernel: str, dataset_path: str, args: list[str], *,
     from graphaibench_tpu_torch.graph.transforms import is_symmetric, orientation
     from graphaibench_tpu_torch.ops.device_graph import to_device_graph
 
-    if kernel in NOT_PORTED:
-        return _refuse(f"analytics {kernel} is not ported yet (ROADMAP "
-                       f"queue 1, {NOT_PORTED[kernel]})")
     if kernel not in PORTED:
         print(f"unknown kernel {kernel!r}")
         return 2
@@ -277,7 +312,8 @@ def run_benchmark(kernel: str, dataset_path: str, args: list[str], *,
         if isinstance(g, int):
             return g
     else:
-        g = load_graph(dataset_path, with_elabels=(kernel == "cf"))
+        g = load_graph(dataset_path, with_elabels=(kernel == "cf"),
+                       with_vlabels=(kernel == "fsm"))
     print(f"|V| {g.nv} |E| {g.ne}")
     shards = os.environ.get("GAB_SHARDS", "")
     if shards and kernel in DISTRIBUTED:
@@ -374,6 +410,38 @@ def run_benchmark(kernel: str, dataset_path: str, args: list[str], *,
         dt = time.perf_counter() - t0
         print("RMSE history:", " ".join(f"{h:.4f}" for h in hist))
         ok = hist[-1] <= hist[0]
+    elif kernel == "motif":
+        k = int(args[0]) if args else 4
+        induced = len(args) > 1 and args[1] == "induced"
+        if induced and k == 3:
+            ni = motif_counts(g, 3, device=device)
+            counts = {"triangle": ni["triangle"],
+                      "wedge": ni["wedge"] - 3 * ni["triangle"]}
+        elif induced:
+            counts = induced_motif_counts(g, device=device)
+        else:
+            counts = motif_counts(g, k, device=device)
+        dt = time.perf_counter() - t0
+        for name, c in sorted(counts.items()):
+            print(f"{name} = {c}")
+        if g.ne <= 200_000:
+            ok = counts.get("triangle") == verifiers.triangle_count_serial(
+                orientation(g))
+    elif kernel == "fsm":
+        min_sup = int(args[0]) if args else 1
+        max_size = int(args[1]) if len(args) > 1 else 3
+        if g.vlabels is None:
+            print("dataset has no vertex labels")
+            return 2
+        pats = run_fsm(g, min_support=min_sup, max_size=max_size,
+                       device=device)
+        dt = time.perf_counter() - t0
+        for f in sorted(pats, key=lambda f: -f.support)[:40]:
+            print(f"{f.kind} {f.labels} support={f.support}")
+        print(f"num_frequent_patterns = {len(pats)}")
+        if g.ne <= 5_000_000:
+            ok = _edge_supports(g, min_sup) == {
+                f.labels: f.support for f in pats if f.kind == "edge"}
     elif kernel == "embed":
         algo = args[0] if args else "deepwalk"
         dim = int(args[1]) if len(args) > 1 else 64
@@ -390,7 +458,7 @@ def run_benchmark(kernel: str, dataset_path: str, args: list[str], *,
         ok = True
 
     print(f"runtime = {dt:.4f} sec")
-    if ok is None:      # a triangle count above the serial check's size
+    if ok is None:      # a count above its serial check's size
         return 0
     print("Correct" if ok else "Wrong")
     return 0 if ok else 1

@@ -32,14 +32,15 @@ directories, byte-equal), on the host.
 tc|bfs|sssp|pr|cc|bc|kcore <dataset> [source] [--device=cuda|cpu]`` runs the
 JAX CLI's ``analytics`` route for those solvers (``analytics.run_benchmark``),
 with the same default device and no fallback, and so do ``analytics
-color|cf|sample <dataset>`` and ``analytics embed <dataset>
-[deepwalk|node2vec] [dim]``; a compressed-graph prefix
+color|cf|sample <dataset>``, ``analytics embed <dataset>
+[deepwalk|node2vec] [dim]``, ``analytics motif <dataset> [3|4]
+[induced]`` and ``analytics fsm <dataset> [min_support] [max_size]`` (on
+a dataset with vertex labels); a compressed-graph prefix
 decodes on that device (``GAB_TC_STREAM=1`` counts triangles off a CGR
 stream); ``GAB_SHARDS=<n|auto>`` runs the distributed solvers
 (``parallel/dist_analytics.py``) on n ranks counted as for training, rank
 0 printing the JAX CLI's lines (``cc``, ``bc`` and ``kcore`` on a directed
-graph run single-device, as in the JAX CLI); ``motif`` and ``fsm`` exit
-with code 2 and name their ROADMAP item.
+graph run single-device, as in the JAX CLI).
 
 ``python -m graphaibench_tpu_torch.cli info <dataset>`` prints the JAX
 CLI's ``info`` lines (sizes, degrees, labels, mask ranges, a pow2 degree
@@ -82,7 +83,9 @@ def resolve_dataset(name: str) -> str:
 ANALYTICS_USAGE = ("usage: analytics tc|bfs|sssp|pr|cc|bc|kcore <dataset> "
                    "[source=0] [--device=cuda|cpu] (GAB_SHARDS=<n|auto> "
                    "runs it on n ranks); analytics color|cf|sample <dataset>; "
-                   "analytics embed <dataset> [deepwalk|node2vec] [dim=64]")
+                   "analytics embed <dataset> [deepwalk|node2vec] [dim=64]; "
+                   "analytics motif <dataset> [k=4] [induced]; "
+                   "analytics fsm <dataset> [min_support=1] [max_size=3]")
 
 
 def _refuse(msg: str) -> int:

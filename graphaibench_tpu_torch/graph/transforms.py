@@ -18,12 +18,15 @@ a mutating method of the reference graph classes but returns a fresh
   induced_subgraph    — sampler.cpp:69-95 (GraphSAINT reindexing)
   degree_histogram    — graph.cc:587
   k_core_decomposition — graph.cc:1126 (serial peeling, k-core's oracle)
-
-The reorderings of the JAX package's module come with the slice that needs
-them (ROADMAP P15).
+  relabel             — a vertex permutation applied to the graph
+  locality_order      — the permutation that makes communities contiguous
+  dense_adjacency     — the 0/1 adjacency matrix of the pattern solvers
 """
 
 from __future__ import annotations
+
+import dataclasses
+from collections import deque
 
 import numpy as np
 
@@ -192,3 +195,60 @@ def k_core_decomposition(g: CSRGraph) -> np.ndarray:
                 np.subtract.at(deg, live_nbrs, 1)
         k += 1
     return core
+
+
+def relabel(g: CSRGraph, new_of_old: np.ndarray) -> CSRGraph:
+    """Relabel vertices by the permutation ``new_of_old`` (old id ->
+    new id). Adjacency stays sorted; vertex labels travel with their
+    vertices (edge labels are dropped — edge order changes)."""
+    src, dst = g.coo()
+    g2 = from_edges(new_of_old[src], new_of_old[dst], g.nv)
+    vl = None
+    if g.vlabels is not None:
+        vl = np.empty_like(np.asarray(g.vlabels))
+        vl[new_of_old] = np.asarray(g.vlabels)
+    return dataclasses.replace(g2, vlabels=vl)
+
+
+def locality_order(g: CSRGraph, method: str = "louvain") -> np.ndarray:
+    """Vertex permutation (old id -> new id) that places connected
+    communities contiguously, so 1-D range sharding cuts fewer edges.
+    ``method``: 'louvain' (community detection,
+    ``analytics/community.py``) or 'bfs' (Cuthill-McKee-style frontier
+    order)."""
+    if method == "bfs":
+        order = []
+        seen = np.zeros(g.nv, bool)
+        for s in np.argsort(-g.degrees()):
+            if seen[s]:
+                continue
+            q = deque([int(s)])
+            seen[s] = True
+            while q:
+                v = q.popleft()
+                order.append(v)
+                for nb in g.neighbors(v):
+                    if not seen[nb]:
+                        seen[nb] = True
+                        q.append(int(nb))
+        old_of_new = np.asarray(order, dtype=np.int64)
+    else:
+        from graphaibench_tpu_torch.analytics.community import louvain
+
+        labels, _q = louvain(g)
+        old_of_new = np.argsort(labels, kind="stable")
+    new_of_old = np.empty(g.nv, dtype=np.int64)
+    new_of_old[old_of_new] = np.arange(g.nv)
+    return new_of_old
+
+
+def dense_adjacency(g: CSRGraph, dtype=np.float32) -> np.ndarray:
+    """Symmetric 0/1 adjacency with zero diagonal (for the dense
+    solvers: motif counting, labeled triangles, FSM roles). The solvers
+    build it on the device (``ops/device_graph.py::dense_adjacency``)."""
+    a = np.zeros((g.nv, g.nv), dtype=dtype)
+    src, dst = g.coo()
+    a[src, dst] = 1
+    a[dst, src] = 1
+    np.fill_diagonal(a, 0)
+    return a

@@ -291,6 +291,32 @@ def coo_device_graph(edge_src, col_idx, trans_perm, deg, *, nv: int,
     )
 
 
+def undirected_pairs(g: CSRGraph) -> tuple[np.ndarray, np.ndarray]:
+    """(src, dst) int64 of the undirected edges u < v of ``g``, each once,
+    in row-major order: ``np.nonzero(np.triu(T.dense_adjacency(g)))``
+    without the n x n matrix (``g`` symmetrized, its self-loops and
+    duplicates dropped)."""
+    s, d = g.coo()
+    lo = np.minimum(s, d).astype(np.int64)
+    hi = np.maximum(s, d).astype(np.int64)
+    keep = lo < hi
+    key = np.unique(lo[keep] * g.nv + hi[keep])
+    return key // max(g.nv, 1), key % max(g.nv, 1)
+
+
+def dense_adjacency(g: CSRGraph, *, device, pairs=None) -> torch.Tensor:
+    """``T.dense_adjacency(g)`` built on ``device``: the symmetric 0/1
+    float32 (nv, nv) adjacency with a zero diagonal, from the undirected
+    pairs (``undirected_pairs(g)`` unless given)."""
+    src, dst = undirected_pairs(g) if pairs is None else pairs
+    a = torch.zeros((g.nv, g.nv), dtype=torch.float32, device=device)
+    s = torch.from_numpy(np.asarray(src, np.int64)).to(device)
+    d = torch.from_numpy(np.asarray(dst, np.int64)).to(device)
+    a[s, d] = 1.0
+    a[d, s] = 1.0
+    return a
+
+
 def _run_lengths(sorted_keys):
     """(uniq, starts, counts) of an already-sorted key array."""
     if len(sorted_keys) == 0:

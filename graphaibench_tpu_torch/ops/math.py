@@ -2,12 +2,27 @@
 
 Counterpart of ``graphaibench_tpu/ops/math.py``: the ops whose exact
 semantics matter for parity (cross-entropy clamp, masked accuracy,
-dropout scaling, the l2norm clamp).
+dropout scaling, the l2norm clamp), and ``full_float32_matmul``, the
+GEMM precision the pattern solvers' counts need.
 """
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
+
+
+@contextlib.contextmanager
+def full_float32_matmul():
+    """Full float32 GEMMs inside (no TF32), whatever the process has set,
+    restored after: the pattern solvers hold integer counts in float32."""
+    saved = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("highest")
+    try:
+        yield
+    finally:
+        torch.set_float32_matmul_precision(saved)
 
 
 def leaky_relu(x: torch.Tensor, epsilon: float = 0.2) -> torch.Tensor:

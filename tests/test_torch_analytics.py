@@ -393,27 +393,30 @@ def test_run_benchmark_in_process(datasets, capsys):
 
 
 @pytest.mark.parametrize("case,item", [
-    ("cf", "P15a"), ("motif", "P15b"), ("sample", "P15a"), ("color", "P15a"),
-    ("shards", "P14c")])
-def test_unported_routes_exit_2_and_name_their_item(datasets, case, item):
-    """The unported solvers (motif, fsm: P15b) exit 2 naming their item.
-    ``GAB_SHARDS`` (P14c) and ``cf``, ``sample`` and ``color`` (P15a) are
-    ported since: they run, exit 0 and print ``Correct``, with no
-    refusal."""
-    env, kernel = {}, case
+    ("cf", "P15a"), ("motif", "P15b"), ("fsm", "P15b"), ("sample", "P15a"),
+    ("color", "P15a"), ("shards", "P14c")])
+def test_unported_routes_exit_2_and_name_their_item(datasets, case, item,
+                                                    tmp_path):
+    """The routes that once exited 2 naming their ROADMAP item are all
+    ported: ``GAB_SHARDS`` (P14c), ``cf``, ``sample`` and ``color`` (P15a),
+    ``motif`` and ``fsm`` (P15b, ``fsm`` on the dataset with seeded vertex
+    labels) run, exit 0 and print ``Correct``, with no refusal."""
+    env, kernel, path = {}, case, datasets["sym"]
     if case == "shards":
         env, kernel = {"GAB_SHARDS": "2"}, "bfs"
-    r = _cli("analytics", kernel, datasets["sym"], "--device=cpu", **env)
-    if item in ("P14c", "P15a"):
-        assert r.returncode == 0, r.stderr
-        lines = r.stdout.splitlines()
-        if case == "shards":
-            assert "distributed over 2 rank(s) on cpu (gloo)" in lines
-        assert "Correct" in lines and "ROADMAP" not in r.stderr
-        return
-    assert r.returncode == 2
-    assert item in r.stderr and "ROADMAP" in r.stderr
-    assert "Correct" not in r.stdout
+    if case == "fsm":
+        g = tio.load_graph(path)
+        path = str(tmp_path / "labelled")
+        tio.save_graph(tcsr.CSRGraph(
+            row_ptr=g.row_ptr, col_idx=g.col_idx,
+            vlabels=np.random.default_rng(0).integers(0, 4, g.nv).astype(
+                np.uint8)), path)
+    r = _cli("analytics", kernel, path, "--device=cpu", **env)
+    assert r.returncode == 0, r.stderr
+    lines = r.stdout.splitlines()
+    if case == "shards":
+        assert "distributed over 2 rank(s) on cpu (gloo)" in lines
+    assert "Correct" in lines and "ROADMAP" not in r.stderr, item
 
 
 def test_cli_analytics_decodes_a_streamvbyte_prefix(datasets, tmp_path):
