@@ -32,6 +32,7 @@ from graphaibench_tpu_torch.ops.fused_gat import (
 from graphaibench_tpu_torch.ops.rng import glorot_reference
 from graphaibench_tpu_torch.ops.segment import segment_softmax
 from graphaibench_tpu_torch.ops.spmm import _pick_impl, sddmm_add, spmm
+from graphaibench_tpu_torch.utils.timers import span
 
 # Full float32 GEMMs, no TF32: the reference runs its GEMMs at
 # Precision.HIGHEST, and TF32 keeps about three decimal digits.
@@ -195,7 +196,8 @@ def init_params(cfg: ModelConfig, *, device) -> GcnParams:
 
 def _maybe_dropout(x, rate, train, generator):
     if train and rate > 0.0 and generator is not None:
-        out, _ = gmath.dropout(generator, x, rate)
+        with span("gab.dropout"):
+            out, _ = gmath.dropout(generator, x, rate)
         return out
     return x
 

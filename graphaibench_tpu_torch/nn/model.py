@@ -39,6 +39,7 @@ from graphaibench_tpu_torch.ops.device_graph import (
 )
 from graphaibench_tpu_torch.ops.spmm import _pick_impl
 from graphaibench_tpu_torch.utils import timers as timers_mod
+from graphaibench_tpu_torch.utils.timers import span
 from graphaibench_tpu_torch.utils.checkpoint import (
     restore_checkpoint,
     save_checkpoint,
@@ -79,13 +80,18 @@ class GraphBundle:
     @classmethod
     def build(cls, g: CSRGraph, arch: str, *, device,
               spmm_impl: str = "auto") -> "GraphBundle":
-        prepped = prepare_graph(g, arch)
-        dg = to_device_graph(prepped, device=device)
-        edge_w = torch.from_numpy(aggregation_weights(prepped, arch)).to(device)
+        with span("gab.setup.prepare_graph"):
+            prepped = prepare_graph(g, arch)
+        with span("gab.setup.device_graph"):
+            dg = to_device_graph(prepped, device=device)
+        with span("gab.setup.edge_norms"):
+            edge_w = torch.from_numpy(
+                aggregation_weights(prepped, arch)).to(device)
         packed = None
         if (arch != "gat" and dg.has_ell_layout and prepped.nv > 4096
                 and _pick_impl(dg, spmm_impl) == "ell"):
-            packed = pack_edge_values(dg, edge_w)
+            with span("gab.setup.pack_edge_values"):
+                packed = pack_edge_values(dg, edge_w)
         return cls(host=prepped, device=dg, edge_w=edge_w, packed_w=packed)
 
 
@@ -162,22 +168,24 @@ class Model:
                                               spmm_impl=cfg.spmm_impl)
         else:
             self.training = self.full
-        self.params = init_params(cfg, device=self.device)
-        self.opt = OPTIMIZERS[cfg.optimizer](self.params.parameters(),
-                                             lr=cfg.lr)
+        with span("gab.setup.params"):
+            self.params = init_params(cfg, device=self.device)
+            self.opt = OPTIMIZERS[cfg.optimizer](self.params.parameters(),
+                                                 lr=cfg.lr)
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
 
-        self.feats = torch.from_numpy(
-            np.ascontiguousarray(data.feats, np.float32)).to(self.device)
-        lab_dtype = np.float32 if cfg.is_sigmoid else np.int64
-        self.labels = torch.from_numpy(
-            np.asarray(data.labels).astype(lab_dtype)).to(self.device)
-        self.masks = {
-            name: torch.from_numpy(np.asarray(m)).to(self.device)
-            for name, m in (("train", data.train_mask),
-                            ("val", data.val_mask),
-                            ("test", data.test_mask))
-        }
+        with span("gab.setup.inputs"):
+            self.feats = torch.from_numpy(
+                np.ascontiguousarray(data.feats, np.float32)).to(self.device)
+            lab_dtype = np.float32 if cfg.is_sigmoid else np.int64
+            self.labels = torch.from_numpy(
+                np.asarray(data.labels).astype(lab_dtype)).to(self.device)
+            self.masks = {
+                name: torch.from_numpy(np.asarray(m)).to(self.device)
+                for name, m in (("train", data.train_mask),
+                                ("val", data.val_mask),
+                                ("test", data.test_mask))
+            }
         self.ranges = {
             "train": data.train_range,
             "val": data.val_range,
@@ -196,21 +204,31 @@ class Model:
 
     def train_epoch(self) -> tuple[float, float]:
         """One full-batch step; returns (reported loss, train accuracy),
-        both from the forward pass before the update."""
-        begin, end, _ = self.ranges["train"]
-        self.opt.zero_grad()
-        logits = apply_model(self.cfg, self.params, self.training.device,
-                             self.training.edge_w_agg, self.feats, train=True,
-                             generator=self.generator, trivial_w=True)
-        loss_fn = masked_sigmoid_loss if self.cfg.is_sigmoid else masked_softmax_loss
-        lg, rep, probs = loss_fn(logits, self.labels, begin, end,
-                                 self.masks["train"])
-        lg.backward()
-        self.opt.step()
-        with torch.no_grad():
-            acc = self._accuracy(logits, probs,
-                                 self._valid("train", logits.shape[0]))
-        return float(rep.detach()), float(acc)
+        both from the forward pass before the update. Its phases are spans
+        of a profiler's trace: ``gab.forward`` (the model and the loss),
+        ``gab.backward``, ``gab.optimizer`` and ``gab.report`` (the
+        accuracy and the two reads to the host), inside ``gab.train_epoch``."""
+        with span("gab.train_epoch"):
+            begin, end, _ = self.ranges["train"]
+            self.opt.zero_grad()
+            with span("gab.forward"):
+                logits = apply_model(self.cfg, self.params,
+                                     self.training.device,
+                                     self.training.edge_w_agg, self.feats,
+                                     train=True, generator=self.generator,
+                                     trivial_w=True)
+                loss_fn = (masked_sigmoid_loss if self.cfg.is_sigmoid
+                           else masked_softmax_loss)
+                lg, rep, probs = loss_fn(logits, self.labels, begin, end,
+                                         self.masks["train"])
+            with span("gab.backward"):
+                lg.backward()
+            with span("gab.optimizer"):
+                self.opt.step()
+            with span("gab.report"), torch.no_grad():
+                acc = self._accuracy(logits, probs,
+                                     self._valid("train", logits.shape[0]))
+                return float(rep.detach()), float(acc)
 
     def train(self, num_epochs: int, *, val_interval: int = 50,
               verbose: bool = True) -> list[tuple[float, float, float]]:

@@ -33,6 +33,7 @@ from graphaibench_tpu_torch.ops.device_graph import DeviceGraph, PackedEdgeW
 from graphaibench_tpu_torch.ops.ell_edge import sddmm_dot_ell
 from graphaibench_tpu_torch.ops.ell_spmm import ell_spmm
 from graphaibench_tpu_torch.ops.segment import _row_reduce_ell
+from graphaibench_tpu_torch.utils.timers import span
 
 
 def spmm_coo(g: DeviceGraph, w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
@@ -83,7 +84,8 @@ class _Spmm(torch.autograd.Function):
         w, x = ctx.saved_tensors
         dw = dx = None
         if ctx.needs_input_grad[3]:
-            dx = _IMPLS[ctx.impl](g, w[g.trans_perm], ct.contiguous())
+            with span("gab.spmm.adjoint"):
+                dx = _IMPLS[ctx.impl](g, w[g.trans_perm], ct.contiguous())
         if ctx.needs_input_grad[2]:
             dw = sddmm_dot(g, ct, x)
         return None, None, dw, dx
@@ -106,7 +108,8 @@ class _SpmmPacked(torch.autograd.Function):
         (x,) = ctx.saved_tensors
         dw = dx = None
         if ctx.needs_input_grad[3]:
-            dx = ell_spmm(g, wp.t, ct.contiguous())
+            with span("gab.spmm.adjoint"):
+                dx = ell_spmm(g, wp.t, ct.contiguous())
         if ctx.needs_input_grad[2]:
             dw = sddmm_dot(g, ct, x)
         return None, None, dw, dx
